@@ -1,0 +1,159 @@
+"""Per-origin version bookkeeping (port of ``corrosion_tpu/ops/versions.py``).
+
+Per (node, origin slot): ``head`` (all versions ``1..head`` seen),
+``known_max`` (highest version heard of), a head-relative seen-bit window
+``seen`` of W 32-bit words, and the hash-slotted actor table
+``org_id``/``org_last``. The JAX package keeps ``seen`` as uint32; the port
+carries the same bit patterns in int32 (torch has no unsigned shifts on the
+CPU), so every shift of a window word is done logically on the word widened
+to int64 under ``& 0xFFFFFFFF``, and popcount is a bit trick.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from corrosion_tpu_torch.ops.dense import lookup_cols
+
+_M32 = 0xFFFFFFFF
+
+
+class Book(NamedTuple):
+    head: torch.Tensor  # int32 [N, O]
+    known_max: torch.Tensor  # int32 [N, O]
+    seen: torch.Tensor  # int32 [N, O, W] — uint32 bit patterns
+    org_id: torch.Tensor  # int32 [N, O] — actor tracked per slot (-1 free)
+    org_last: torch.Tensor  # int32 [N, O] — round of last fresh activity
+
+    @staticmethod
+    def create(n_nodes: int, n_origins: int, buf_slots: int, device) -> "Book":
+        words = max(1, -(-buf_slots // 32))
+
+        def z(*s):
+            return torch.zeros(s, dtype=torch.int32, device=device)
+
+        return Book(
+            head=z(n_nodes, n_origins),
+            known_max=z(n_nodes, n_origins),
+            seen=z(n_nodes, n_origins, words),
+            org_id=torch.arange(n_origins, dtype=torch.int32,
+                                device=device).expand(n_nodes, n_origins).clone(),
+            org_last=z(n_nodes, n_origins),
+        )
+
+
+def as_u32(x):
+    """int32 bit patterns -> their uint32 values, as int64."""
+    return x.to(torch.int64) & _M32
+
+
+def as_i32(u):
+    """uint32 values held in int64 -> the same bits as int32."""
+    return torch.where(u >= (1 << 31), u - (1 << 32), u).to(torch.int32)
+
+
+def popcount(u):
+    """Set bits of each uint32 value held in int64 (SWAR bit trick)."""
+    u = u - ((u >> 1) & 0x55555555)
+    u = (u & 0x33333333) + ((u >> 2) & 0x33333333)
+    u = (u + (u >> 4)) & 0x0F0F0F0F
+    return (((u * 0x01010101) & _M32) >> 24).to(torch.int32)
+
+
+def org_slot(book: Book, origin):
+    """``(slot, owned)``: each origin's hash class ``origin % O`` and whether
+    that slot tracks exactly this actor."""
+    o = book.head.shape[1]
+    slot = torch.where(origin >= 0, origin % o, 0)
+    owned = (origin >= 0) & (lookup_cols(book.org_id, slot) == origin)
+    return slot, owned
+
+
+def claim_slots_arrays(head, km, seen_flat, org_id, org_last, origin, fresh,
+                       now, keep_rounds: int, seen_words: int):
+    """Claim/evict origin slots for fresh foreign-actor messages: per slot,
+    the largest fresh origin above the occupant takes it when the slot is
+    free or idle for ``keep_rounds``; a claim resets head/known_max/window.
+    Returns ``(head, km, seen_flat, org_id, org_last)``."""
+    b, o = head.shape
+    slot = torch.where(origin >= 0, origin % o, 0)
+    cols = torch.arange(o, dtype=slot.dtype, device=slot.device)
+    cand = (fresh & (origin >= 0))[:, :, None] & (slot[:, :, None] == cols)
+    orig3 = origin[:, :, None]
+    foreign = cand & (orig3 > org_id[:, None, :])
+    new_owner = torch.where(foreign, orig3, -1).amax(dim=1)
+    evictable = (org_id < 0) | (org_last + keep_rounds < now)
+    take = foreign.any(dim=1) & evictable
+    new_id = torch.where(take, new_owner, org_id)
+    active = (cand & (orig3 == new_id[:, None, :])).any(dim=1)
+    new_last = torch.where(take | active, now, org_last)
+    reset_w = take[:, :, None].expand(b, o, seen_words).reshape(b, o * seen_words)
+    return (
+        torch.where(take, 0, head),
+        torch.where(take, 0, km),
+        torch.where(reset_w, 0, seen_flat),
+        new_id,
+        new_last,
+    )
+
+
+def _trailing_ones(seen):
+    """Trailing-one count of each (n, o) W-word little-endian bitfield."""
+    u = as_u32(seen)
+    x1 = (u + 1) & _M32
+    t_w = torch.where(u == _M32, 32, popcount(u ^ x1) - 1)
+    total = t_w[:, :, 0]
+    carry = t_w[:, :, 0] == 32
+    for j in range(1, seen.shape[2]):
+        total = total + torch.where(carry, t_w[:, :, j], 0)
+        carry = carry & (t_w[:, :, j] == 32)
+    return total.to(torch.int32)
+
+
+def _shift_right(seen, t):
+    """Logical right shift of each (n, o) W-word bitfield by ``t`` >= 0 bits
+    (over-shifts clear the field)."""
+    n, o, w = seen.shape
+    t = torch.minimum(t, torch.tensor(32 * w, dtype=t.dtype, device=t.device))
+    s_words = (t >> 5)[:, :, None]
+    s_bits = (t & 31).to(torch.int64)[:, :, None]
+    has_bits = s_bits > 0
+    u = torch.cat([as_u32(seen), torch.zeros((n, o, w + 1), dtype=torch.int64,
+                                            device=seen.device)], dim=2)
+    out = torch.zeros((n, o, w), dtype=torch.int64, device=seen.device)
+    for s in range(w + 1):
+        lo = u[:, :, s:s + w]
+        hi = u[:, :, s + 1:s + 1 + w]
+        part = (lo >> s_bits) | torch.where(
+            has_bits, (hi << (32 - s_bits)) & _M32, 0)
+        out = torch.where(s_words == s, part, out)
+    return as_i32(out)
+
+
+def advance_heads(book: Book) -> Book:
+    """Advance heads over contiguous seen runs: count the window's trailing
+    ones, bump the head by that many, shift the window down."""
+    t = _trailing_ones(book.seen)
+    head = book.head + t
+    return book._replace(
+        head=head, known_max=torch.maximum(book.known_max, head),
+        seen=_shift_right(book.seen, t),
+    )
+
+
+def raise_heads(book: Book, new_head) -> Book:
+    """Jump heads to ``new_head`` and rebase the seen windows with them."""
+    new_head = torch.maximum(book.head, new_head)
+    return book._replace(
+        head=new_head,
+        known_max=torch.maximum(book.known_max, new_head),
+        seen=_shift_right(book.seen, new_head - book.head),
+    )
+
+
+def needs_count(book: Book):
+    """Versions heard of but not seen: ``known_max - head - popcount``."""
+    buffered = popcount(as_u32(book.seen)).sum(dim=2, dtype=torch.int32)
+    return torch.clamp(book.known_max - book.head, min=0) - buffered

@@ -1,0 +1,94 @@
+"""The simulated transport (port of the card forms of
+``corrosion_tpu/sim/transport.py``).
+
+Delivery predicates over per-node "cards": every per-node scalar the round
+reads remotely (liveness, partition group, cluster id, region, plus caller
+columns such as the incarnation or the HLC) is packed into one int32
+``[N, C]`` table, and one row gather per peer-index array replaces several
+element gathers.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from corrosion_tpu_torch import random as prng
+from corrosion_tpu_torch._device import resolve_device
+from corrosion_tpu_torch.ops.dense import take_rows
+
+N_RINGS = 6  # the reference buckets RTT into 6 rings (members.rs:38)
+
+CARD_ALIVE, CARD_PART, CARD_CLUSTER, CARD_REGION = 0, 1, 2, 3
+CARD_EXTRA = 4  # first caller-defined column
+
+
+class NetModel(NamedTuple):
+    """Dynamic network conditions (same leaves as the JAX ``NetModel``)."""
+
+    partition: torch.Tensor  # int32 [N] — partition group per node
+    drop_prob: torch.Tensor  # float32 [] — per-message loss probability
+    region: torch.Tensor  # int32 [N] — geographic region id
+    cluster_id: torch.Tensor  # int32 [N] — ClusterId stamped on payloads
+
+    @staticmethod
+    def create(n_nodes: int, drop_prob: float = 0.0, n_regions: int = 1,
+               device="cuda") -> "NetModel":
+        dev = resolve_device(device)
+        return NetModel(
+            partition=torch.zeros(n_nodes, dtype=torch.int32, device=dev),
+            drop_prob=torch.tensor(drop_prob, dtype=torch.float32, device=dev),
+            region=torch.arange(n_nodes, dtype=torch.int32, device=dev)
+            % max(1, n_regions),
+            cluster_id=torch.zeros(n_nodes, dtype=torch.int32, device=dev),
+        )
+
+
+def link_card(net: NetModel, alive, extra=()):
+    """The ``[N, 4 + len(extra)]`` node card (columns ``CARD_*``)."""
+    cols = [alive.to(torch.int32), net.partition, net.cluster_id, net.region]
+    cols += [e.to(torch.int32) for e in extra]
+    return torch.stack(cols, dim=1)
+
+
+def card_at(card, idx):
+    """Card rows for an arbitrary-shape index array: ``[*idx.shape, C]``."""
+    return take_rows(card, idx)
+
+
+def _link_ok_c(a, b):
+    return (
+        (a[..., CARD_ALIVE] != 0)
+        & (b[..., CARD_ALIVE] != 0)
+        & (a[..., CARD_PART] == b[..., CARD_PART])
+        & (a[..., CARD_CLUSTER] == b[..., CARD_CLUSTER])
+    )
+
+
+def datagram_ok_c(net: NetModel, key, src_card, dst_card):
+    """Lossy datagram delivery between pre-gathered card rows
+    (broadcastable against each other)."""
+    shape = torch.broadcast_shapes(src_card.shape[:-1], dst_card.shape[:-1])
+    drop = prng.uniform(key, shape, src_card.device) < net.drop_prob
+    return _link_ok_c(src_card, dst_card) & ~drop
+
+
+def bi_ok_c(net: NetModel, key, src_card, dst_card):
+    """Sync bi-stream availability: fails on either of two loss draws."""
+    k1, k2 = prng.split(key)
+    shape = torch.broadcast_shapes(src_card.shape[:-1], dst_card.shape[:-1])
+    dev = src_card.device
+    drop = (prng.uniform(k1, shape, dev) < net.drop_prob) | (
+        prng.uniform(k2, shape, dev) < net.drop_prob
+    )
+    return _link_ok_c(src_card, dst_card) & ~drop
+
+
+def ring_of_c(net: NetModel, a_card, b_card):
+    """RTT ring between card rows: circular region distance, clipped to the
+    six reference buckets."""
+    d = (a_card[..., CARD_REGION] - b_card[..., CARD_REGION]).abs()
+    n = torch.clamp(net.region.max() + 1, min=1)
+    circ = torch.minimum(d, n - d)
+    return torch.clamp(circ, max=N_RINGS - 1).to(torch.int32)

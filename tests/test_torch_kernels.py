@@ -1,0 +1,255 @@
+"""The plain versions of the port's kernels (corrosion_tpu_torch/ops/
+megakernel.py) against the JAX package's kernels: the pallas kernels in
+interpret mode and the XLA path they are pinned equal to. Integer state is
+compared exactly (tolerance 0); the pre-drawn uniforms are shared.
+
+The CUDA kernels themselves run only on the card: ``chip_smoke.py`` holds
+each one bitwise against these plain versions there."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from corrosion_tpu.ops import megakernel as jmk
+from corrosion_tpu.sim import broadcast as jbroadcast
+from corrosion_tpu.sim import scale as jscale
+from corrosion_tpu.sim import scale_step as jstep
+from corrosion_tpu_torch import convert
+from corrosion_tpu_torch.ops import megakernel as mk
+from corrosion_tpu_torch.sim import broadcast
+from corrosion_tpu_torch.sim import scale_step
+
+
+def T(a):
+    a = np.array(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.from_numpy(a)
+
+
+def leaves_equal(want, got):
+    """Every leaf equal in value, dtype and shape (uint32 seen words
+    compared by bit pattern)."""
+    w = jax.tree.leaves(convert.as_numpy_tree(want))
+    g = jax.tree.leaves(scale_step_tree(got))
+    assert len(w) == len(g)
+    for i, (a, b) in enumerate(zip(w, g)):
+        if a.dtype == np.uint32:
+            b = b.view(np.uint32)
+        assert a.dtype == b.dtype and a.shape == b.shape, (i, a.dtype, b.dtype)
+        assert np.array_equal(a, b), i
+
+
+def scale_step_tree(x):
+    if hasattr(x, "_fields"):
+        return {k: scale_step_tree(v) for k, v in zip(x._fields, x)}
+    if isinstance(x, (tuple, list)):
+        return [scale_step_tree(v) for v in x]
+    return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+# --- K1: the SWIM back half ------------------------------------------------
+
+def swim_operands(rng, n, m):
+    """Random valid operands of swim_tables_update (after ``consts``)."""
+    i32 = np.int32
+    iarr = np.arange(n, dtype=i32)
+    self_slot = iarr % m
+    mem_id = np.where(rng.random((n, m)) < 0.2, -1, rng.integers(0, n, (n, m))).astype(i32)
+    own = rng.random(n) < 0.5
+    mem_id[iarr[own], self_slot[own]] = iarr[own]
+    mem_view = rng.integers(-1, 64, (n, m)).astype(i32)
+    old_id = np.where(rng.random((n, m)) < 0.8, mem_id, rng.integers(-1, n, (n, m))).astype(i32)
+    old_view = np.where(rng.random((n, m)) < 0.8, mem_view,
+                        rng.integers(-1, 64, (n, m))).astype(i32)
+    ch = [[], [], [], [], [], []]
+    for _ in range(4):
+        ch[0].append(np.where(rng.random((n, m)) < 0.5, mem_id,
+                              rng.integers(-1, n, (n, m))).astype(i32))
+        ch[1].append(rng.integers(-1, 64, (n, m)).astype(i32))
+        ch[2].append(rng.random((n, m)) < 0.7)
+        ch[3].append(rng.random(n) < 0.8)
+        ch[4].append(rng.integers(0, n, n).astype(i32))
+        ch[5].append(rng.integers(0, 8, n).astype(i32))
+    return (
+        mem_id, mem_view, old_id, old_view,
+        rng.integers(0, 12, (n, m)).astype(np.int16),
+        rng.integers(0, 14, (n, m)).astype(np.int16),
+        rng.random(n) < 0.9, rng.integers(0, 8, n).astype(i32), iarr, self_slot,
+        rng.integers(-1, 40, n).astype(i32), rng.integers(0, 4, n).astype(i32),
+        rng.integers(0, m, n).astype(i32), rng.integers(0, 40, n).astype(i32),
+        rng.random(n) < 0.3, *ch,
+    )
+
+
+def _jax_args(ops):
+    return tuple([jnp.asarray(x) for x in o] if isinstance(o, list) else jnp.asarray(o)
+                 for o in ops)
+
+
+def _torch_args(ops):
+    return tuple([T(x) for x in o] if isinstance(o, list) else T(o) for o in ops)
+
+
+_swim_ref = jax.jit(jscale.swim_tables_update, static_argnums=0)
+
+
+@pytest.mark.parametrize("n,m,seed", [(64, 16, 0), (128, 32, 1), (256, 64, 2),
+                                      (200, 64, 3)])
+def test_swim_plain_matches_swim_tables_update(n, m, seed):
+    ops = swim_operands(np.random.default_rng(seed), n, m)
+    consts = (m, 6, 48, 10, 0)
+    want = _swim_ref(consts, *_jax_args(ops))
+    got = mk.swim_tables_fused(consts, *_torch_args(ops))
+    # the XLA form returns mem_tx widened; the store dtype is the plane's
+    want = list(want)
+    want[3] = want[3].astype(jnp.int16)
+    for a, b in zip(want, got):
+        assert np.asarray(a).dtype == b.numpy().dtype
+        assert np.array_equal(np.asarray(a), b.numpy())
+
+
+def test_swim_plain_matches_pallas_kernel_interpret():
+    n, m = 64, 16
+    ops = swim_operands(np.random.default_rng(7), n, m)
+    consts = (m, 6, 48, 10, 0)
+    want = jmk.swim_tables_fused(consts, *_jax_args(ops), interpret=True)
+    got = mk.swim_tables_fused(consts, *_torch_args(ops))
+    for a, b in zip(want, got):
+        assert np.asarray(a).dtype == b.numpy().dtype
+        assert np.array_equal(np.asarray(a), b.numpy())
+
+
+# --- K2 / K3: ingest -------------------------------------------------------
+
+N_INGEST = 64
+# narrow store and queue widths keep the interpret-mode kernels quick; the
+# message width stays the flagship's 4 channels x pig_changes
+SMALL = dict(n_rows=4, n_cols=4, n_origins=8, bcast_queue=16)
+
+
+def random_state(seed, n=N_INGEST, **over):
+    """A JAX ScaleSimState with a random (valid) CRDT half, and the port's
+    copy of it."""
+    over = {**SMALL, **over}
+    cfg = jstep.scale_sim_config(n, **over)
+    st = jstep.ScaleSimState.create(cfg)
+    rng = np.random.default_rng(seed)
+    c, o, q = cfg.n_cells, cfg.n_origins, cfg.bcast_queue
+    i32 = np.int32
+    now = 20
+    head = rng.integers(0, 30, (n, o)).astype(i32)
+    seen = np.where(rng.random((n, o, 1)) < 0.3, rng.integers(0, 8, (n, o, 1)),
+                    rng.integers(0, 2**32, (n, o, 1))).astype(np.uint32)
+    crdt = st.crdt._replace(
+        store=tuple(jnp.asarray(rng.integers(0, hi, (n, c)).astype(i32))
+                    for hi in (8, 4, 4, 40, 2)),
+        book=st.crdt.book._replace(
+            head=jnp.asarray(head),
+            known_max=jnp.asarray(head + rng.integers(0, 10, (n, o)).astype(i32)),
+            seen=jnp.asarray(seen),
+            org_id=jnp.asarray(np.where(rng.random((n, o)) < 0.8, np.arange(o),
+                                        rng.integers(-1, 64, (n, o))).astype(i32)),
+            org_last=jnp.asarray(rng.integers(0, now, (n, o)).astype(i32)),
+        ),
+        # a writer's next version lies past its own head and window
+        next_dbv=jnp.asarray(rng.integers(70, 100, n).astype(i32)),
+        q_origin=jnp.asarray(np.where(rng.random((n, q)) < 0.5, -1,
+                                      rng.integers(0, 64, (n, q))).astype(i32)),
+        q_cell=jnp.asarray(rng.integers(0, c, (n, q)).astype(np.int16)),
+        q_dbv=jnp.asarray(rng.integers(0, 40, (n, q)).astype(i32)),
+        q_ver=jnp.asarray(rng.integers(0, 8, (n, q)).astype(i32)),
+        q_val=jnp.asarray(rng.integers(0, 4, (n, q)).astype(i32)),
+        q_site=jnp.asarray(rng.integers(0, 4, (n, q)).astype(i32)),
+        q_clp=jnp.asarray(rng.integers(0, 2, (n, q)).astype(i32)),
+        q_ts=jnp.asarray(rng.integers(0, now << 10, (n, q)).astype(i32)),
+        q_tx=jnp.asarray(rng.integers(0, 4, (n, q)).astype(np.int16)),
+        hlc=jnp.asarray(rng.integers(0, now << 10, n).astype(i32)),
+        now=jnp.int32(now),
+    )
+    st = st._replace(crdt=crdt)
+    tcfg = scale_step.scale_sim_config(n, **{k: v for k, v in over.items() if k != "fused"})
+    tst = convert.scale_state_from_numpy(tcfg, convert.as_numpy_tree(st), "cpu")
+    return cfg, st, tcfg, tst
+
+
+def random_messages(seed, n, m, now=20, n_cells=16):
+    rng = np.random.default_rng(seed)
+    i32 = np.int32
+    live = rng.random((n, m)) < 0.7
+    fields = [
+        rng.integers(-1, 64, (n, m)), rng.integers(0, 40, (n, m)),
+        rng.integers(-1, n_cells + 1, (n, m)), rng.integers(0, 8, (n, m)),
+        rng.integers(0, 4, (n, m)), rng.integers(0, 4, (n, m)),
+        rng.integers(0, 2, (n, m)),
+        rng.integers((now - 3) << 10, (now + 4) << 10, (n, m)),
+    ]
+    return live, [f.astype(i32) for f in fields]
+
+
+def test_ingest_plain_matches_pallas_kernel_interpret():
+    cfg, st, tcfg, tst = random_state(0)
+    live, msgs = random_messages(1, N_INGEST, 4 * cfg.pig_changes)
+    want_cst, want_info = jmk.ingest_changes_fused(
+        cfg, st.crdt, jnp.asarray(live), *map(jnp.asarray, msgs), interpret=True)
+    got_cst, got_info = mk.ingest_changes_fused(tcfg, tst.crdt, T(live), *map(T, msgs))
+    leaves_equal(want_cst, got_cst)
+    for k in want_info:
+        assert int(want_info[k]) == int(got_info[k]), k
+
+
+def test_local_write_emit_plain_matches_pallas_kernel_interpret():
+    cfg, st, tcfg, tst = random_state(2)
+    rng = np.random.default_rng(3)
+    n, q = N_INGEST, cfg.bcast_queue
+    wm = rng.random(n) < 0.6
+    cell = rng.integers(0, cfg.n_cells, n).astype(np.int32)
+    val = rng.integers(0, 1 << 20, n).astype(np.int32)
+    clp = rng.integers(0, 2, n).astype(np.int32)
+    rand = rng.random((n, q)).astype(np.float32)
+    carried = rng.integers(0, 5, n).astype(np.int32)
+    want_cst, want_emit = jmk.local_write_fused(
+        cfg, st.crdt, *map(jnp.asarray, (wm, cell, val, clp)),
+        rand=jnp.asarray(rand), carried=jnp.asarray(carried), interpret=True)
+    got_cst, got_emit = mk.local_write_fused(
+        tcfg, tst.crdt, *map(T, (wm, cell, val, clp)), rand=T(rand), carried=T(carried))
+    leaves_equal(want_cst, got_cst)
+    for a, b in zip(want_emit, got_emit):
+        assert np.array_equal(np.asarray(a), b.numpy())
+
+
+def test_ingest_chain_matches_xla_path():
+    """Several local writes and receive batches in a row against the JAX
+    XLA path (fused="off"), which the JAX package pins equal to the kernels."""
+    cfg, st, tcfg, tst = random_state(4, fused="off")
+    cst, tcst = st.crdt, tst.crdt
+    rng = np.random.default_rng(5)
+    n, m = N_INGEST, 4 * cfg.pig_changes
+    lw = jax.jit(lambda c, *a: jbroadcast.local_write(cfg, c, *a))
+    ing = jax.jit(lambda c, *a: jbroadcast.ingest_changes(cfg, c, *a))
+    for r in range(4):
+        cst = cst._replace(now=cst.now + 1)
+        tcst = tcst._replace(now=tcst.now + 1)
+        wm = rng.random(n) < 0.5
+        cell = rng.integers(0, cfg.n_cells, n).astype(np.int32)
+        val = rng.integers(0, 1 << 20, n).astype(np.int32)
+        clp = np.zeros(n, np.int32)
+        cst = lw(cst, *map(jnp.asarray, (wm, cell, val, clp)))
+        tcst = broadcast.local_write(tcfg, tcst, *map(T, (wm, cell, val, clp)))
+        live, msgs = random_messages(10 + r, n, m, now=21 + r)
+        jm = list(map(jnp.asarray, msgs))
+        cst, info = ing(cst, jnp.asarray(live), *jm[:7], None, None, jm[7])
+        tcst, tinfo = broadcast.ingest_changes(tcfg, tcst, T(live), *map(T, msgs))
+        leaves_equal(cst, tcst)
+        for k in info:
+            assert int(info[k]) == int(tinfo[k]), (r, k)
+
+
+def test_kernel_wrappers_count_only_cuda_launches():
+    cfg, st, tcfg, tst = random_state(6)
+    mk.reset_launches()
+    live, msgs = random_messages(7, N_INGEST, 4)
+    mk.ingest_changes_fused(tcfg, tst.crdt, T(live), *map(T, msgs))
+    assert mk.LAUNCHES == {"swim_tables": 0, "ingest": 0, "ingest_emit": 0}
