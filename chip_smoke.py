@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's scale round on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [kernels] [trajectory] [flagship] [million] [quiet]
 
-Phases (any failure raises and the script exits non-zero):
+With no argument it runs every phase and prints the result; naming phases
+runs only those and prints no result. Phases (any failure raises and the script exits non-zero):
 
 1. Build every kernel of the round from ``corrosion_tpu_torch/csrc`` (one
    ``nvcc`` per source, started together) and print ptxas' register report.
@@ -25,6 +26,21 @@ Phases (any failure raises and the script exits non-zero):
    timed batches of 8 rounds. Each kernel's launch count over the timed
    rounds must equal the number of rounds; prints each batch's rounds/s,
    their median and peak device memory.
+5. The 1M point: ``scale_sim_config(1_000_000, pig_members=16,
+   narrow_int8=True, narrow_q_int8=True)`` (bounded member piggyback, int8
+   budget and queue-counter planes) with the same workload, 2 warm-up
+   rounds, then three timed batches of 4 rounds. Each kernel must launch
+   once a round, in that configuration's forms; prints rounds/s, peak
+   device memory and the carried state's bytes.
+6. The quiet round: ``quiet="on"`` against ``quiet="off"`` on the card, on
+   a settled trace; every state leaf and shared info value must be bitwise
+   equal, and the fixpoint branch must run.
+
+Phase 2 also holds the 1M point's kernel forms at N = 1,000,000: the
+packed-entry swim kernel with int8 budgets and the ingest kernel with int8
+q_tx (timed), and, untimed, the packed form at int16 and int32 budgets and
+the aligned form with int8 budgets. Phase 3 also runs the 1M point's
+configuration at 4096 nodes.
 
 Each kernel's bound is the larger of the bytes it must move on these inputs
 over the memory rate and its integer operations over the int32 rate.
@@ -47,14 +63,19 @@ H100_BYTES_PER_S = 3.35e12  # published HBM3 rate of one H100 SXM
 # 67 TFLOP/s float32 rate (which counts an FMA as two operations).
 H100_INT32_OPS_PER_S = 67e12 / 4
 FLAGSHIP_NODES = 100_000
+MILLION_NODES = 1_000_000
+# the 1M point's settings beside scale_sim_config's defaults
+MILLION_TIERS = dict(pig_members=16, narrow_int8=True, narrow_q_int8=True)
 TRAJECTORY_NODES = 4096  # small enough for the CPU route to keep pace
 
 
-def _swim_ops(n: int, m: int) -> int:
+def _swim_ops(n: int, m: int, pig_k: int = 0) -> int:
     """Integer operations of the swim kernel, counted from its loops: four
-    channel merges of ~10 per slot, ~30 per slot for timers, budget and
-    stores, ~60 per row. An upper count: skipped channels count too."""
-    return n * (70 * m + 60)
+    channel merges of ~10 per slot (packed: ~14 per entry), ~30 per slot
+    for timers, budget and stores, ~60 per row. An upper count: skipped
+    channels count too."""
+    merges = 4 * 14 * pig_k if pig_k else 4 * 10 * m
+    return n * (merges + 30 * m + 60)
 
 
 def _ingest_ops(n: int, m: int, o: int, w: int, c: int, q: int, r: int) -> int:
@@ -131,10 +152,13 @@ def _max_abs_err(a_list, b_list) -> int:
     return worst
 
 
-def _swim_inputs(n: int, m: int, plane_dtype, seed: int, dev):
+def _swim_inputs(n: int, m: int, plane_dtype, seed: int, dev, tx_dtype=None,
+                 pig_k: int = 0):
     """Random valid operands of the swim kernel (the order of
-    ``swim_tables_update``'s arguments after ``consts``), with the timer and
-    budget planes at ``plane_dtype``."""
+    ``swim_tables_update``'s arguments after ``consts``), with the timer
+    plane at ``plane_dtype`` and the budget plane at ``tx_dtype`` (default
+    the same). With ``pig_k > 0`` the channels are packed [n, pig_k] entry
+    lists, whose entries often share a hash class within one packet."""
     import torch
 
     from corrosion_tpu_torch import random as prng
@@ -158,28 +182,36 @@ def _swim_inputs(n: int, m: int, plane_dtype, seed: int, dev):
     old_view = torch.where(coin((n, m), 0.8), mem_view, ri((n, m), -1, 64))
     chans = [[], [], [], [], [], []]
     for _ in range(4):
-        chans[0].append(torch.where(coin((n, m), 0.5), mem_id, ri((n, m), -1, n)))
-        chans[1].append(ri((n, m), -1, 64))
-        chans[2].append(coin((n, m), 0.7))
+        if pig_k:
+            nk = (n, pig_k)
+            chans[0].append(torch.where(coin(nk, 0.15), -1, ri(nk, 0, n)))
+            chans[1].append(ri(nk, -1, 64))
+            chans[2].append(torch.ones(nk, dtype=torch.bool, device=dev))
+        else:
+            chans[0].append(torch.where(coin((n, m), 0.5), mem_id, ri((n, m), -1, n)))
+            chans[1].append(ri((n, m), -1, 64))
+            chans[2].append(coin((n, m), 0.7))
         chans[3].append(coin((n,), 0.8))
         chans[4].append(ri((n,), 0, n))
         chans[5].append(ri((n,), 0, 8))
     return (
         mem_id, mem_view, old_id, old_view,
-        ri((n, m), 0, 12).to(plane_dtype), ri((n, m), 0, 14).to(plane_dtype),
+        ri((n, m), 0, 12).to(plane_dtype), ri((n, m), 0, 14).to(tx_dtype or plane_dtype),
         coin((n,), 0.9), ri((n,), 0, 8), iarr, self_slot,
         ri((n,), -1, 40), ri((n,), 0, 4), ri((n,), 0, m), ri((n,), 0, 40),
         coin((n,), 0.3), *chans,
     )
 
 
-def _swim_bytes(args, out) -> int:
+def _swim_bytes(args, out, pig_k: int = 0) -> int:
     """Bytes the swim kernel must move on these operands: every plane once,
     except what it skips by the data. A failed probe's slot and key are
     read only where the probe failed. A channel is read only on the rows
     where it is valid (its sender and sender incarnation too); there its
     view only where the id is live and sendable, its send flag only where
-    the id is live. Every output is written once."""
+    the id is live. A packed channel (``pig_k > 0``) has no send flags, and
+    its view is read where its entry's id is live. Every output is written
+    once."""
     (mem_id, mem_view, old_id, old_view, timer, tx, alive, inc, node_id,
      self_slot, sus_heard, sends, probe_slot, suspect_key, probe_failed,
      ch_id, ch_view, ch_send, ch_valid, ch_snd, ch_snd_inc) = args
@@ -193,7 +225,10 @@ def _swim_bytes(args, out) -> int:
         live = valid[:, None] & (ch_id[ch] >= 0)
         total += _nbytes((valid,))
         total += rows * (ch_snd[ch].element_size() + ch_snd_inc[ch].element_size()
-                         + m * ch_id[ch].element_size())
+                         + (pig_k or m) * ch_id[ch].element_size())
+        if pig_k:
+            total += _count(live) * ch_view[ch].element_size()
+            continue
         total += _count(live) * ch_send[ch].element_size()
         total += _count(live & ch_send[ch]) * ch_view[ch].element_size()
     return total + _nbytes(_flat(out))
@@ -211,7 +246,7 @@ INGEST_FORMS = {
 
 def _ingest_inputs(cfg, n: int, form: str, seed: int, dev):
     """Random valid operands of the ingest kernel in ``form`` at ``cfg``'s
-    widths and queue-plane dtype."""
+    widths and queue-plane dtypes."""
     import torch
 
     from corrosion_tpu_torch import random as prng
@@ -232,7 +267,8 @@ def _ingest_inputs(cfg, n: int, form: str, seed: int, dev):
     def coin(shape, p):
         return prng.uniform(next(ks), shape, dev) < p
 
-    o, c, q, qdt = cfg.n_origins, cfg.n_cells, cfg.bcast_queue, cfg.q_dtype
+    o, c, q = cfg.n_origins, cfg.n_cells, cfg.bcast_queue
+    cdt, qdt = cfg.timer_dtype, cfg.q_dtype
     w = max(1, -(-cfg.buf_slots // 32))
     now = 50
     head = ri((n, o), 0, 30)
@@ -260,7 +296,7 @@ def _ingest_inputs(cfg, n: int, form: str, seed: int, dev):
                            ri((n, o), -1, 64)),
         org_last=ri((n, o), 0, 60),
         q_origin=torch.where(coin((n, q), 0.5), -1, ri((n, q), 0, 64)),
-        q_dbv=ri((n, q), 0, 40), q_cell=ri((n, q), 0, c).to(qdt),
+        q_dbv=ri((n, q), 0, 40), q_cell=ri((n, q), 0, c).to(cdt),
         q_ver=ri((n, q), 0, 8), q_val=ri((n, q), 0, 4), q_site=ri((n, q), 0, 4),
         q_clp=ri((n, q), 0, 2), q_ts=ri((n, q), 0, now << HLC_ROUND_BITS),
         q_tx=ri((n, q), 0, 4).to(qdt),
@@ -291,64 +327,103 @@ def _hold(name, got, want) -> int:
     return err
 
 
-def phase_kernels(dev) -> dict:
-    """Each kernel against its plain version at the flagship shapes, timed;
-    then the forms the flagship does not run, untimed."""
+def _time_form(name, kernel, run, plain, nbytes, ops) -> dict:
+    """Hold one form of ``kernel`` against its plain version, then time both
+    (20 calls of the kernel, 3 of the plain version)."""
     import torch
 
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    r = dict(kernel=kernel, max_abs_err=_hold(name, got, want), ms=_cuda_ms(run, 20),
+             plain_ms=_cuda_ms(plain, 3), bytes=nbytes(got), ops=ops)
+    del got, want
+    r["bound_ms"], r["bound_by"] = _bound(r["bytes"], r["ops"])
+    print(f"[kernels] {name}: max_abs_err={r['max_abs_err']} "
+          f"kernel {r['ms']!r} ms, plain {r['plain_ms']!r} ms, "
+          f"{r['bytes']} bytes, {r['ops']} int32 ops, bound "
+          f"{r['bound_ms']!r} ms by {r['bound_by']}", flush=True)
+    return r
+
+
+def _swim_form(name, cfg, seed, dev, timed=True, **kw) -> dict:
+    """One swim kernel form at ``cfg``'s shapes: timed, or only held."""
     from corrosion_tpu_torch.ops import megakernel as mk
+
+    n, m, k = cfg.n_nodes, cfg.m_slots, kw.get("pig_k", 0)
+    consts = (m, cfg.suspicion_rounds, cfg.down_purge_rounds,
+              cfg.max_transmissions, k)
+    args = _swim_inputs(n, m, cfg.timer_dtype, seed, dev, **kw)
+
+    def run():
+        return mk.swim_tables_fused(consts, *args)
+
+    def plain():
+        return mk.swim_tables_plain(consts, *args)
+
+    if not timed:
+        return _hold(name, run(), plain())
+    return _time_form(name, "swim_tables", run, plain,
+                      lambda got: _swim_bytes(args, got, k), _swim_ops(n, m, k))
+
+
+def _ingest_form(name, cfg, form, seed, dev, timed=True):
+    """One ingest kernel form at ``cfg``'s shapes: timed, or only held."""
+    from corrosion_tpu_torch.ops import megakernel as mk
+
+    p, x = _ingest_inputs(cfg, cfg.n_nodes, form, seed, dev)
+    if not timed:
+        return _hold(name, mk.ingest(p, x), mk.ingest_plain(p, x))
+    return _time_form(
+        name, "ingest_emit" if p.pig_r else "ingest",
+        lambda: mk.ingest(p, x), lambda: mk.ingest_plain(p, x),
+        lambda got: _ingest_bytes(x, got),
+        _ingest_ops(cfg.n_nodes, x.origin.shape[1], p.n_origins, p.seen_words,
+                    p.n_cells, p.q_slots, p.pig_r))
+
+
+def phase_kernels(dev) -> dict:
+    """Each kernel form against its plain version at the shapes of the path
+    that runs it (the result's "path"), timed; then the forms no path here
+    runs, untimed."""
+    import torch
+
     from corrosion_tpu_torch.sim.scale_step import scale_sim_config
 
-    cfg = scale_sim_config(FLAGSHIP_NODES)
-    n, m = cfg.n_nodes, cfg.m_slots
-    consts = (m, cfg.suspicion_rounds, cfg.down_purge_rounds,
-              cfg.max_transmissions, 0)
-    out = {}
-
-    args = _swim_inputs(n, m, cfg.timer_dtype, 11, dev)
-    got = mk.swim_tables_fused(consts, *args)
-    want = mk.swim_tables_plain(consts, *args)
-    torch.cuda.synchronize()
-    out["swim_tables"] = dict(
-        max_abs_err=_hold("swim_tables", got, want),
-        ms=_cuda_ms(lambda: mk.swim_tables_fused(consts, *args), 20),
-        plain_ms=_cuda_ms(lambda: mk.swim_tables_plain(consts, *args), 3),
-        bytes=_swim_bytes(args, got),
-        ops=_swim_ops(n, m),
-    )
-    for name, form in (("ingest", "receive"), ("ingest_emit", "write_emit")):
-        p, x = _ingest_inputs(cfg, n, form, 21 + len(name), dev)
-        got = mk.ingest(p, x)
-        want = mk.ingest_plain(p, x)
-        torch.cuda.synchronize()
-        out[name] = dict(
-            max_abs_err=_hold(name, got, want),
-            ms=_cuda_ms(lambda: mk.ingest(p, x), 20),
-            plain_ms=_cuda_ms(lambda: mk.ingest_plain(p, x), 3),
-            bytes=_ingest_bytes(x, got),
-            ops=_ingest_ops(n, x.origin.shape[1], p.n_origins, p.seen_words,
-                            p.n_cells, p.q_slots, p.pig_r),
-        )
+    flag = scale_sim_config(FLAGSHIP_NODES)
+    big = scale_sim_config(MILLION_NODES, **MILLION_TIERS)
+    k = big.pig_members
+    out = {
+        "swim_tables": _swim_form("swim_tables", flag, 11, dev),
+        "ingest": _ingest_form("ingest", flag, "receive", 27, dev),
+        "ingest_emit": _ingest_form("ingest_emit", flag, "write_emit", 32, dev),
+        "swim_tables_packed_i8": _swim_form(
+            "swim_tables_packed_i8", big, 13, dev, tx_dtype=torch.int8, pig_k=k),
+        "ingest_q_i8": _ingest_form("ingest_q_i8", big, "receive", 41, dev),
+        "ingest_emit_q_i8": _ingest_form("ingest_emit_q_i8", big, "write_emit", 42, dev),
+    }
     for name, r in out.items():
-        r["bound_ms"], r["bound_by"] = _bound(r["bytes"], r["ops"])
-        print(f"[kernels] {name}: max_abs_err={r['max_abs_err']} "
-              f"kernel {r['ms']!r} ms, plain {r['plain_ms']!r} ms, "
-              f"{r['bytes']} bytes, {r['ops']} int32 ops, bound "
-              f"{r['bound_ms']!r} ms by {r['bound_by']}", flush=True)
+        r["path"] = "million" if name.endswith("_i8") else "flagship"
 
     wide = scale_sim_config(FLAGSHIP_NODES, narrow_dtypes=False)
-    args = _swim_inputs(n, m, wide.timer_dtype, 12, dev)
-    _hold("swim_tables wide", mk.swim_tables_fused(consts, *args),
-          mk.swim_tables_plain(consts, *args))
-    checked = ["swim_tables int32"]
-    for c, forms in ((wide, ("receive", "write", "write_emit")), (cfg, ("write",))):
+    _swim_form("swim_tables wide", wide, 12, dev, timed=False)
+    checked = [f"swim_tables aligned int32/int32 N={FLAGSHIP_NODES}"]
+    for c, forms in ((wide, ("receive", "write", "write_emit")), (flag, ("write",)),
+                     (big, ("write",))):
         for form in forms:
-            p, x = _ingest_inputs(c, n, form, 31 + len(form), dev)
-            label = f"ingest {form} {str(c.q_dtype).split('.')[-1]}"
-            _hold(label, mk.ingest(p, x), mk.ingest_plain(p, x))
+            label = (f"ingest {form} {str(c.timer_dtype)[6:]}/{str(c.q_dtype)[6:]} "
+                     f"N={c.n_nodes}")
+            _ingest_form(label, c, form, 31 + len(form), dev, timed=False)
             checked.append(label)
-    print(f"[kernels] forms off the flagship path, bitwise equal to plain at "
-          f"N={n}: {', '.join(checked)}", flush=True)
+    for narrow, kw in ((True, dict(tx_dtype=torch.int16, pig_k=k)),
+                       (False, dict(pig_k=k)), (True, dict(tx_dtype=torch.int8))):
+        c = scale_sim_config(MILLION_NODES, narrow_dtypes=narrow)
+        label = (f"swim_tables {'packed' if kw.get('pig_k') else 'aligned'} "
+                 f"{str(c.timer_dtype)[6:]}/{str(kw.get('tx_dtype', c.timer_dtype))[6:]} "
+                 f"N={MILLION_NODES}")
+        _swim_form(label, c, 14 + len(checked), dev, timed=False, **kw)
+        checked.append(label)
+    print(f"[kernels] forms no path here runs, bitwise equal to plain: "
+          f"{', '.join(checked)}", flush=True)
     return out
 
 
@@ -374,7 +449,7 @@ def _trajectory_setup(cfg, rounds: int, dev):
     return st, net, prng.key(3), inputs
 
 
-def phase_trajectory(dev) -> None:
+def phase_trajectory(dev, **tiers) -> None:
     """The kernel route on the card == the plain route on the CPU."""
     from corrosion_tpu_torch.sim.scale_step import (
         ScaleRoundInput,
@@ -382,7 +457,8 @@ def phase_trajectory(dev) -> None:
         scale_sim_config,
     )
 
-    cfg = scale_sim_config(TRAJECTORY_NODES, sync_interval=2, sync_sweep_every=2)
+    cfg = scale_sim_config(TRAJECTORY_NODES, sync_interval=2, sync_sweep_every=2,
+                           **tiers)
     rounds = 16
     runs = {d: _trajectory_setup(cfg, rounds, d) for d in ("cpu", dev)}
     carry = {d: (runs[d][0], runs[d][2]) for d in runs}
@@ -398,8 +474,9 @@ def phase_trajectory(dev) -> None:
         ierr = _max_abs_err(_flat(infos["cpu"]), [t.cpu() for t in _flat(infos[dev])])
         if err or ierr:
             raise AssertionError(f"round {r}: cuda != cpu (state {err}, info {ierr})")
-    print(f"[trajectory] N={cfg.n_nodes}: {rounds} rounds, every leaf and info "
-          f"bitwise equal cuda vs cpu ({time.perf_counter() - t0:.1f} s)", flush=True)
+    print(f"[trajectory] N={cfg.n_nodes} {tiers or 'flagship'}: {rounds} rounds, "
+          f"every leaf and info bitwise equal cuda vs cpu "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
 def phase_flagship(dev) -> dict:
@@ -435,11 +512,13 @@ def phase_flagship(dev) -> dict:
         torch.cuda.synchronize()
         rates.append(batch / (time.perf_counter() - t0))
         batch_infos.append(infos)
-    launches = dict(mk.LAUNCHES)
+    launches, forms = dict(mk.LAUNCHES), dict(mk.FORM_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     want = {"swim_tables": rounds, "ingest": rounds, "ingest_emit": rounds}
-    if launches != want:
-        raise AssertionError(f"launch counts {launches} != {want}")
+    want_forms = {("swim_tables", "aligned/16/16"): rounds, ("ingest", "16/16"): rounds,
+                  ("ingest_emit", "16/16"): rounds}
+    if launches != want or forms != want_forms:
+        raise AssertionError(f"launch counts {launches} {forms} != {want}")
     sums = {k: sum(int(i[k].sum()) for i in batch_infos) for k in batch_infos[0]}
     if sums["fresh"] <= 0 or sums["delivered"] <= 0 or sums["syncs"] <= 0:
         raise AssertionError(f"flagship run moved nothing: {sums}")
@@ -450,6 +529,104 @@ def phase_flagship(dev) -> dict:
           f"{[repr(x) for x in rates]} rounds/s, median {median!r}; peak device "
           f"memory {peak} bytes; launches {launches}; info sums {sums}", flush=True)
     return {"rounds_per_s": median, "peak_bytes": peak, "launches": launches}
+
+
+def phase_million(dev) -> dict:
+    """The 1M point (bounded member piggyback, int8 budget and queue-counter
+    planes) with the flagship's workload, through the port's entry points."""
+    import torch
+
+    from corrosion_tpu_torch.ops import megakernel as mk
+    from corrosion_tpu_torch.sim.scale_step import (
+        ScaleRoundInput,
+        flagship_workload,
+        scale_run_rounds_carry,
+        scale_sim_config,
+    )
+
+    cfg = scale_sim_config(MILLION_NODES, **MILLION_TIERS)
+    n, warm, batch, reps = cfg.n_nodes, 2, 4, 3
+    total = warm + batch * reps
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    st, net, key, inputs = flagship_workload(cfg, total, dev)
+    state_bytes = _nbytes(_flat(st))
+
+    def part(lo, hi):
+        return ScaleRoundInput(*(a[lo:hi] for a in inputs))
+
+    mk.reset_launches()
+    (st, key), warm_infos = scale_run_rounds_carry(cfg, st, net, key, part(0, warm))
+    torch.cuda.synchronize()
+    rates, batch_infos = [], [warm_infos]
+    for lo in range(warm, total, batch):
+        t0 = time.perf_counter()
+        (st, key), infos = scale_run_rounds_carry(cfg, st, net, key, part(lo, lo + batch))
+        torch.cuda.synchronize()
+        rates.append(batch / (time.perf_counter() - t0))
+        batch_infos.append(infos)
+    launches, forms = dict(mk.LAUNCHES), dict(mk.FORM_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    want = {"swim_tables": total, "ingest": total, "ingest_emit": total}
+    want_forms = {("swim_tables", "packed/16/8"): total, ("ingest", "16/8"): total,
+                  ("ingest_emit", "16/8"): total}
+    if launches != want or forms != want_forms:
+        raise AssertionError(f"1M launch counts {launches} {forms} != {want_forms}")
+    sums = {k: sum(int(i[k].sum()) for i in batch_infos) for k in batch_infos[0]}
+    sync_rounds = sum(int((i["syncs"] > 0).sum()) for i in batch_infos)
+    if sums["fresh"] <= 0 or sums["delivered"] <= 0 or sync_rounds != 1:
+        raise AssertionError(f"1M run: {sync_rounds} sync rounds, sums {sums}")
+    if (int(st.crdt.now) != total or st.swim.mem_tx.dtype != torch.int8
+            or st.crdt.q_tx.dtype != torch.int8 or _nbytes(_flat(st)) != state_bytes):
+        raise AssertionError("1M state has the wrong round, dtypes or size")
+    median = sorted(rates)[len(rates) // 2]
+    print(f"[million] N={n} {MILLION_TIERS}: {reps} batches of {batch} rounds at "
+          f"{[repr(x) for x in rates]} rounds/s, median {median!r}; peak device "
+          f"memory {peak} bytes; carried state {state_bytes} bytes "
+          f"({state_bytes / n!r} B/node); launches {forms}; info sums {sums}",
+          flush=True)
+    return {"rounds_per_s": median, "peak_bytes": peak, "launches": launches}
+
+
+def phase_quiet(dev) -> None:
+    """The quiet round on the card == the dense round on the card, on a
+    settled trace (the JAX package's quiet-test shape, with the 1M point's
+    tiers and bounded packets of 4 entries), and its fixpoint branch runs."""
+    import torch
+
+    from corrosion_tpu_torch import random as prng
+    from corrosion_tpu_torch.sim.scale_step import (
+        ScaleSimState,
+        make_write_inputs,
+        scale_run_rounds,
+        scale_sim_config,
+    )
+    from corrosion_tpu_torch.sim.transport import NetModel
+
+    n, rounds = 48, 48
+    shape = dict(m_slots=8, n_origins=4, n_rows=4, n_cols=2, sync_interval=4,
+                 **{**MILLION_TIERS, "pig_members": 4})
+    out = {}
+    for quiet in ("on", "off"):
+        cfg = scale_sim_config(n, quiet=quiet, **shape)
+        inputs = make_write_inputs(cfg, prng.key(8), rounds,
+                                   torch.zeros((rounds, n), dtype=torch.bool), dev)
+        out[quiet] = scale_run_rounds(cfg, ScaleSimState.create(cfg, dev),
+                                      NetModel.create(n, device=dev), prng.key(0),
+                                      inputs)
+    (st_q, i_q), (st_d, i_d) = out["on"], out["off"]
+    err = _max_abs_err(_flat(st_d), _flat(st_q))
+    ierr = _max_abs_err(_flat(i_d), _flat({k: i_q[k] for k in i_d}))
+    cheap = int(i_q["quiet_round"].sum())
+    if err or ierr or cheap <= 0:
+        raise AssertionError(f"quiet round: state err {err}, info err {ierr}, "
+                             f"{cheap} fixpoint rounds")
+    print(f"[quiet] N={n}: {rounds} rounds, quiet == dense bitwise on the card; "
+          f"{cheap} fixpoint rounds, {int(i_q['quiet_backstop'].sum())} backstop "
+          f"rounds", flush=True)
+
+
+PHASES = ("kernels", "trajectory", "flagship", "million", "quiet")
 
 
 def main() -> int:
@@ -475,10 +652,38 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"[ptxas] {name}: {line.strip()}", flush=True)
 
-    kern = phase_kernels(dev)
-    phase_trajectory(dev)
-    flag = phase_flagship(dev)
+    only = sys.argv[1:] or PHASES
+    if set(only) - set(PHASES):
+        raise SystemExit(f"usage: chip_smoke.py [{' '.join(PHASES)}]...")
+    t_phase = time.perf_counter()
 
+    def done(name):
+        nonlocal t_phase
+        print(f"[time] {name}: {time.perf_counter() - t_phase:.1f} s", flush=True)
+        t_phase = time.perf_counter()
+
+    if "kernels" in only:
+        kern = phase_kernels(dev)
+        done("kernels")
+    if "trajectory" in only:
+        phase_trajectory(dev)
+        phase_trajectory(dev, **MILLION_TIERS)
+        done("trajectory")
+    if "flagship" in only:
+        flag = phase_flagship(dev)
+        done("flagship")
+    if "million" in only:
+        million = phase_million(dev)
+        done("million")
+    if "quiet" in only:
+        phase_quiet(dev)
+        done("quiet")
+    if tuple(only) != PHASES:
+        print(f"chip_smoke: ran only {list(only)}; no result", flush=True)
+        return 0
+
+    # each form's launches are read from the path that runs it
+    paths = {"flagship": flag, "million": million}
     replaces = {
         "swim_tables": "corrosion_tpu/ops/megakernel.py:1063",
         "ingest": "corrosion_tpu/ops/megakernel.py:795",
@@ -491,9 +696,9 @@ def main() -> int:
     }
     record = {"kernels": [
         {
-            "name": name, "route": "cuda", "source": source[name],
-            "replaces": replaces[name],
-            "launches": flag["launches"][name],
+            "name": name, "route": "cuda", "source": source[r["kernel"]],
+            "replaces": replaces[r["kernel"]],
+            "launches": paths[r["path"]]["launches"][r["kernel"]],
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

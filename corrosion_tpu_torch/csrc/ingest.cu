@@ -12,7 +12,8 @@
 //
 // Bound on this card: bytes. Per node row the kernel reads the message planes
 // (10 x m int32), the LWW store (5 x C int32), the book (4 x O int32 + O*W
-// seen words), the queue planes (9 x Q, q_cell and q_tx at the plane dtype),
+// seen words), the queue planes (9 x Q, q_cell and q_tx at their own plane
+// dtypes),
 // the clock, and with EMIT the pre-drawn uniforms (Q float32) and the
 // delivery count; it writes the same planes plus fresh/drift (and the payload
 // with EMIT). The per-row work is a few thousand integer operations, orders
@@ -31,7 +32,9 @@
 // ties). Wrapping int32 arithmetic goes through uint32; `>>` on the signed
 // stamp stays arithmetic as in JAX. The store and queue rows are copied to
 // the outputs first and updated there, so each plane is read once and
-// written once.
+// written once. q_cell (CT) and q_tx (XT) have types of their own, widened to
+// int32 in registers and cast at the store: (int16, int8) under
+// narrow_q_int8, (int16, int16) under narrow_dtypes, else (int32, int32).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -85,7 +88,7 @@ struct IngestArgs {
   const int32_t* seen;
   const int32_t* org_id;
   const int32_t* org_last;
-  // queue [N, Q]; q_cell and q_tx at the plane dtype
+  // queue [N, Q]; q_cell and q_tx at their plane dtypes
   const int32_t* q_origin;
   const int32_t* q_dbv;
   const void* q_cell;
@@ -136,7 +139,7 @@ struct IngestArgs {
   int32_t enqueue_all;
 };
 
-template <typename QT, bool EMIT>
+template <typename CT, typename XT, bool EMIT>
 __global__ void ingest_kernel(IngestArgs a) {
   const int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (r >= a.n) return;
@@ -309,10 +312,10 @@ __global__ void ingest_kernel(IngestArgs a) {
 
   // --- re-broadcast enqueue: evict the lowest remaining budget -------------
   const int64_t qb = r * Q;
-  const QT* q_cell = static_cast<const QT*>(a.q_cell) + qb;
-  const QT* q_tx = static_cast<const QT*>(a.q_tx) + qb;
-  QT* o_q_cell = static_cast<QT*>(a.o_q_cell) + qb;
-  QT* o_q_tx = static_cast<QT*>(a.o_q_tx) + qb;
+  const CT* q_cell = static_cast<const CT*>(a.q_cell) + qb;
+  const XT* q_tx = static_cast<const XT*>(a.q_tx) + qb;
+  CT* o_q_cell = static_cast<CT*>(a.o_q_cell) + qb;
+  XT* o_q_tx = static_cast<XT*>(a.o_q_tx) + qb;
   int32_t ekey[kMaxQueue];
   for (int q = 0; q < Q; ++q) {
     const int32_t qo = a.q_origin[qb + q];
@@ -340,13 +343,13 @@ __global__ void ingest_kernel(IngestArgs a) {
     if (!enq || kmin >= kIntMax) continue;
     a.o_q_origin[qb + s] = origin[j];
     a.o_q_dbv[qb + s] = dbv[j];
-    o_q_cell[s] = static_cast<QT>(a.cell[mb + j]);
+    o_q_cell[s] = static_cast<CT>(a.cell[mb + j]);
     a.o_q_ver[qb + s] = a.ver[mb + j];
     a.o_q_val[qb + s] = a.val[mb + j];
     a.o_q_site[qb + s] = a.site[mb + j];
     a.o_q_clp[qb + s] = a.clp[mb + j];
     a.o_q_ts[qb + s] = ts[j];
-    o_q_tx[s] = static_cast<QT>(a.budget[mb + j]);
+    o_q_tx[s] = static_cast<XT>(a.budget[mb + j]);
     ekey[s] = kIntMax;
   }
 
@@ -426,19 +429,33 @@ extern "C" int ingest_limits(int* out) {
   return 0;
 }
 
-extern "C" int ingest_launch(const IngestArgs* a, int narrow, int emit, void* stream) {
+template <typename CT, typename XT>
+static void launch_form(const IngestArgs* a, int emit, dim3 grid, int threads,
+                        cudaStream_t s) {
+  if (emit) {
+    ingest_kernel<CT, XT, true><<<grid, threads, 0, s>>>(*a);
+  } else {
+    ingest_kernel<CT, XT, false><<<grid, threads, 0, s>>>(*a);
+  }
+}
+
+// cell_bytes / tx_bytes: the element sizes of the q_cell and q_tx planes;
+// the valid pairs are (2, 1), (2, 2) and (4, 4). Returns a CUDA error code,
+// or cudaErrorInvalidValue for any other pair.
+extern "C" int ingest_launch(const IngestArgs* a, int cell_bytes, int tx_bytes,
+                             int emit, void* stream) {
   if (a->n == 0) return 0;
   const int threads = 128;
   const dim3 grid((a->n + threads - 1) / threads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (narrow && emit) {
-    ingest_kernel<int16_t, true><<<grid, threads, 0, s>>>(*a);
-  } else if (narrow) {
-    ingest_kernel<int16_t, false><<<grid, threads, 0, s>>>(*a);
-  } else if (emit) {
-    ingest_kernel<int32_t, true><<<grid, threads, 0, s>>>(*a);
+  if (cell_bytes == 2 && tx_bytes == 1) {
+    launch_form<int16_t, int8_t>(a, emit, grid, threads, s);
+  } else if (cell_bytes == 2 && tx_bytes == 2) {
+    launch_form<int16_t, int16_t>(a, emit, grid, threads, s);
+  } else if (cell_bytes == 4 && tx_bytes == 4) {
+    launch_form<int32_t, int32_t>(a, emit, grid, threads, s);
   } else {
-    ingest_kernel<int32_t, false><<<grid, threads, 0, s>>>(*a);
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,26 +2,37 @@
 //
 // Replaces: corrosion_tpu/ops/megakernel.py::swim_tables_fused (_swim_kernel,
 // the pallas_call at megakernel.py:1111), whose body is
-// corrosion_tpu/sim/scale.py::swim_tables_update, aligned-row channel form
-// (pig_members == 0). Plain PyTorch version beside the wrapper:
+// corrosion_tpu/sim/scale.py::swim_tables_update, in both channel forms:
+//   PACKED = false  aligned rows (pig_members == 0): each channel is the
+//                   sender's gathered [M] id/view/sendable row;
+//   PACKED = true   bounded member piggyback (pig_members = k > 0): each
+//                   channel is a packed [k] list of (id, view) entries.
+// Plain PyTorch version beside the wrapper:
 // corrosion_tpu_torch/sim/scale.py::swim_tables_update.
 //
 // Bound on this card: bytes. Per node row it reads four int32 [M] planes
-// (front id/view, old id/view), the timer and budget planes, four channels of
-// gathered sender rows (id and view int32, sendable bool) and ~37 per-row
-// scalars, and writes id/view, timer/budget, inc and refute; a few hundred
-// integer operations per row is far below the card's integer rate, so the
-// kernel can go no faster than those bytes over 3.35 TB/s.
+// (front id/view, old id/view), the timer and budget planes, four channels
+// (aligned: id and view int32 [M] plus sendable bool [M]; packed: id and
+// view int32 [k]) and ~37 per-row scalars, and writes id/view, timer/budget,
+// inc and refute; a few hundred integer operations per row is far below the
+// card's integer rate, so the kernel can go no faster than those bytes over
+// 3.35 TB/s.
 //
 // Design: one thread per node row. The row's id/view entries live in a
 // per-thread array (local memory, L1-cached) while the merges, sender
 // assertions, timers, purge and refutation run in the same order as the JAX
 // body; every other plane is read once and every output written once. Tie
 // and overflow rules are kept: views compare as signed int32, the state is
-// the low two bits, `>>` is arithmetic as in JAX, and the timer/budget
-// planes are read and written at their stored dtype (int16 under
-// narrow_dtypes, else int32). A later PR can move to one warp per row for
-// coalesced access; this version is the simple correct one.
+// the low two bits, `>>` is arithmetic as in JAX. The timer plane (TT) and
+// the budget plane (XT) are read and written at their stored dtypes, widened
+// to int32 in registers and cast at the store: (int16, int8) under
+// narrow_int8, (int16, int16) under narrow_dtypes, else (int32, int32). The
+// packed form applies a channel's k entries one after another at their hash
+// class id % m, so an entry sees the writes of the entries before it (two
+// entries of one packet may share a class), and it skips the full-row budget
+// decrement, which its caller did for the entries it sent. One warp per row
+// with coalesced access would be faster; this version is the simple correct
+// one.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -75,16 +86,17 @@ struct SwimArgs {
   int32_t suspicion_rounds;
   int32_t down_purge_rounds;
   int32_t max_transmissions;
+  int32_t pig_k;  // packed entries per channel (PACKED only)
 };
 
-template <typename TT>
+template <typename TT, typename XT, bool PACKED>
 __global__ void swim_tables_kernel(SwimArgs a) {
   const int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (r >= a.n) return;
   const int m = a.m;
   const int64_t base = r * m;
   const TT* timer_in = static_cast<const TT*>(a.timer) + base;
-  const TT* tx_in = static_cast<const TT*>(a.tx) + base;
+  const XT* tx_in = static_cast<const XT*>(a.tx) + base;
 
   int32_t id[kMaxSlots];
   int32_t view[kMaxSlots];
@@ -99,9 +111,30 @@ __global__ void swim_tables_kernel(SwimArgs a) {
     if (ps >= 0 && ps < m) view[ps] = max(view[ps], a.suspect_key[r]);
   }
 
-  // four aligned-row packet merges
+  // four packet merges
   for (int ch = 0; ch < 4; ++ch) {
     if (!a.ch_valid[ch][r]) continue;
+    if constexpr (PACKED) {
+      const int k = a.pig_k;
+      const int32_t* cid = a.ch_id[ch] + r * k;
+      const int32_t* cview = a.ch_view[ch] + r * k;
+      for (int j = 0; j < k; ++j) {
+        const int32_t in_id = cid[j];
+        if (in_id < 0) continue;
+        const int32_t in_view = cview[j];
+        const int c = in_id % m;
+        const bool same = id[c] == in_id;
+        const bool ins = id[c] < 0;
+        const bool take = id[c] >= 0 && id[c] != in_id &&
+                          (view[c] & 3) == kDown && (in_view & 3) == kAlive;
+        if (same) view[c] = max(view[c], in_view);
+        if (ins || take) {
+          view[c] = in_view;
+          id[c] = in_id;
+        }
+      }
+      continue;
+    }
     const int32_t* cid = a.ch_id[ch] + base;
     const int32_t* cview = a.ch_view[ch] + base;
     const uint8_t* csend = a.ch_send[ch] + base;
@@ -144,8 +177,8 @@ __global__ void swim_tables_kernel(SwimArgs a) {
   // budget decrement, suspicion / down timers, purge
   for (int c = 0; c < m; ++c) {
     int32_t t = static_cast<int32_t>(tx_in[c]);
-    if (t > 0) t -= sends;
-    tx[c] = max(t, 0);
+    if (!PACKED && t > 0) t -= sends;
+    tx[c] = PACKED ? t : max(t, 0);
 
     const bool occupied = id[c] >= 0;
     const bool changed = view[c] != old_view[c] || id[c] != old_id[c];
@@ -183,10 +216,10 @@ __global__ void swim_tables_kernel(SwimArgs a) {
   }
 
   // fresh news refills the dissemination budget
-  TT* o_tx = static_cast<TT*>(a.o_tx) + base;
+  XT* o_tx = static_cast<XT*>(a.o_tx) + base;
   for (int c = 0; c < m; ++c) {
     const bool changed = view[c] != old_view[c] || id[c] != old_id[c];
-    o_tx[c] = static_cast<TT>(changed ? a.max_transmissions : tx[c]);
+    o_tx[c] = static_cast<XT>(changed ? a.max_transmissions : tx[c]);
     a.o_id[base + c] = id[c];
     a.o_view[base + c] = view[c];
   }
@@ -196,15 +229,33 @@ __global__ void swim_tables_kernel(SwimArgs a) {
 
 extern "C" int swim_tables_max_slots() { return kMaxSlots; }
 
-extern "C" int swim_tables_launch(const SwimArgs* a, int narrow, void* stream) {
+template <typename TT, typename XT>
+static void launch_form(const SwimArgs* a, int packed, dim3 grid, int threads,
+                        cudaStream_t s) {
+  if (packed) {
+    swim_tables_kernel<TT, XT, true><<<grid, threads, 0, s>>>(*a);
+  } else {
+    swim_tables_kernel<TT, XT, false><<<grid, threads, 0, s>>>(*a);
+  }
+}
+
+// timer_bytes / tx_bytes: the element sizes of the timer and budget planes;
+// the valid pairs are (2, 1), (2, 2) and (4, 4). Returns a CUDA error code,
+// or cudaErrorInvalidValue for any other pair.
+extern "C" int swim_tables_launch(const SwimArgs* a, int timer_bytes,
+                                  int tx_bytes, int packed, void* stream) {
   if (a->n == 0) return 0;
   const int threads = 128;
   const dim3 grid((a->n + threads - 1) / threads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (narrow) {
-    swim_tables_kernel<int16_t><<<grid, threads, 0, s>>>(*a);
+  if (timer_bytes == 2 && tx_bytes == 1) {
+    launch_form<int16_t, int8_t>(a, packed, grid, threads, s);
+  } else if (timer_bytes == 2 && tx_bytes == 2) {
+    launch_form<int16_t, int16_t>(a, packed, grid, threads, s);
+  } else if (timer_bytes == 4 && tx_bytes == 4) {
+    launch_form<int32_t, int32_t>(a, packed, grid, threads, s);
   } else {
-    swim_tables_kernel<int32_t><<<grid, threads, 0, s>>>(*a);
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,8 +10,8 @@
 A wrapper picks its route from the tensors it is given and nothing else:
 on CUDA tensors it launches the kernel (or raises), on CPU tensors it runs
 the plain version. There is no probe and no degrade path. Each launch adds
-one to :data:`LAUNCHES`, so a run can show that it went through the
-kernels.
+one to :data:`LAUNCHES` and to its form's count in :data:`FORM_LAUNCHES`,
+so a run can show that it went through the kernels, in which forms.
 """
 
 from __future__ import annotations
@@ -42,11 +42,21 @@ from corrosion_tpu_torch.sim.scale import swim_tables_update as swim_tables_plai
 
 #: kernel launches per wrapper, counted where the kernel is launched
 LAUNCHES = {"swim_tables": 0, "ingest": 0, "ingest_emit": 0}
+#: the same launches per (wrapper, form): the swim kernel's form is
+#: "aligned" or "packed" with its timer and budget bits, e.g.
+#: "packed/16/8"; the ingest kernel's its q_cell and q_tx bits, e.g. "16/8"
+FORM_LAUNCHES: dict = {}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    FORM_LAUNCHES.clear()
+
+
+def _count_launch(name: str, form: str) -> None:
+    LAUNCHES[name] += 1
+    FORM_LAUNCHES[(name, form)] = FORM_LAUNCHES.get((name, form), 0) + 1
 
 
 def _route(t: torch.Tensor) -> str:
@@ -91,8 +101,13 @@ class _SwimArgs(ctypes.Structure):
             "o_id", "o_view", "o_timer", "o_tx", "o_inc", "o_refute")]
         + [(f, ctypes.c_int32) for f in (
             "n", "m", "suspicion_rounds", "down_purge_rounds",
-            "max_transmissions")]
+            "max_transmissions", "pig_k")]
     )
+
+
+#: (timer dtype, budget dtype) pairs the swim kernel is instantiated for
+_SWIM_DTYPES = ((torch.int16, torch.int8), (torch.int16, torch.int16),
+                (torch.int32, torch.int32))
 
 
 def _swim_cuda(consts, mem_id, mem_view, old_id, old_view, mem_timer, mem_tx,
@@ -100,24 +115,20 @@ def _swim_cuda(consts, mem_id, mem_view, old_id, old_view, mem_timer, mem_tx,
                suspect_key, probe_failed, ch_in_id, ch_in_view, ch_in_send,
                ch_valid, ch_snd, ch_snd_inc):
     m, suspicion_rounds, down_purge_rounds, max_transmissions = consts[:4]
-    if len(consts) > 4 and consts[4]:
-        raise ValueError(
-            "the swim kernel's packed-entry form (pig_members > 0) is not "
-            "ported yet (ROADMAP Queue 2)"
-        )
+    pig_k = int(consts[4]) if len(consts) > 4 else 0
     lib = cuda_lib.library("swim_tables")
     n = mem_id.shape[0]
     dev = mem_id.device
-    if mem_timer.dtype != mem_tx.dtype or mem_timer.dtype not in (torch.int16, torch.int32):
+    if (mem_timer.dtype, mem_tx.dtype) not in _SWIM_DTYPES:
         raise ValueError(
-            f"swim kernel takes int16 or int32 timer/budget planes of one "
-            f"dtype, got {mem_timer.dtype}/{mem_tx.dtype} (the int8 tier is "
-            f"ROADMAP Queue 2 work)"
+            f"swim kernel takes timer/budget planes of dtypes "
+            f"{_SWIM_DTYPES}, got {mem_timer.dtype}/{mem_tx.dtype}"
         )
     if m > lib.swim_tables_max_slots():
         raise ValueError(f"m_slots {m} exceeds the kernel's limit")
-    i32, b8, tdt = torch.int32, torch.bool, mem_timer.dtype
+    i32, b8, tdt, xdt = torch.int32, torch.bool, mem_timer.dtype, mem_tx.dtype
     nm, nn = (n, m), (n,)
+    nch = (n, pig_k) if pig_k else nm
     keep = []
 
     def c(t, dtype, shape, name):
@@ -131,7 +142,7 @@ def _swim_cuda(consts, mem_id, mem_view, old_id, old_view, mem_timer, mem_tx,
     a.old_id = c(old_id, i32, nm, "old_id")
     a.old_view = c(old_view, i32, nm, "old_view")
     a.timer = c(mem_timer, tdt, nm, "mem_timer")
-    a.tx = c(mem_tx, tdt, nm, "mem_tx")
+    a.tx = c(mem_tx, xdt, nm, "mem_tx")
     a.alive = c(alive, b8, nn, "alive")
     a.inc = c(inc, i32, nn, "inc")
     a.node_id = c(node_id, i32, nn, "node_id")
@@ -142,16 +153,17 @@ def _swim_cuda(consts, mem_id, mem_view, old_id, old_view, mem_timer, mem_tx,
     a.suspect_key = c(suspect_key, i32, nn, "suspect_key")
     a.probe_failed = c(probe_failed, b8, nn, "probe_failed")
     for i in range(4):
-        a.ch_id[i] = c(ch_in_id[i], i32, nm, "ch_in_id")
-        a.ch_view[i] = c(ch_in_view[i], i32, nm, "ch_in_view")
-        a.ch_send[i] = c(ch_in_send[i], b8, nm, "ch_in_send")
+        a.ch_id[i] = c(ch_in_id[i], i32, nch, "ch_in_id")
+        a.ch_view[i] = c(ch_in_view[i], i32, nch, "ch_in_view")
+        # the packed form does not read the send flags
+        a.ch_send[i] = None if pig_k else c(ch_in_send[i], b8, nm, "ch_in_send")
         a.ch_valid[i] = c(ch_valid[i], b8, nn, "ch_valid")
         a.ch_snd[i] = c(ch_snd[i], i32, nn, "ch_snd")
         a.ch_snd_inc[i] = c(ch_snd_inc[i], i32, nn, "ch_snd_inc")
     o_id = torch.empty(nm, dtype=i32, device=dev)
     o_view = torch.empty(nm, dtype=i32, device=dev)
     o_timer = torch.empty(nm, dtype=tdt, device=dev)
-    o_tx = torch.empty(nm, dtype=tdt, device=dev)
+    o_tx = torch.empty(nm, dtype=xdt, device=dev)
     o_inc = torch.empty(nn, dtype=i32, device=dev)
     o_refute = torch.empty(nn, dtype=b8, device=dev)
     a.o_id, a.o_view, a.o_timer, a.o_tx = map(_ptr, (o_id, o_view, o_timer, o_tx))
@@ -160,13 +172,17 @@ def _swim_cuda(consts, mem_id, mem_view, old_id, old_view, mem_timer, mem_tx,
     a.suspicion_rounds = suspicion_rounds
     a.down_purge_rounds = down_purge_rounds
     a.max_transmissions = max_transmissions
+    a.pig_k = pig_k
     fn = lib.swim_tables_launch
-    fn.argtypes = [ctypes.POINTER(_SwimArgs), ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.POINTER(_SwimArgs), ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(ctypes.byref(a), int(tdt == torch.int16), ctypes.c_void_p(stream))
+    rc = fn(ctypes.byref(a), mem_timer.element_size(), mem_tx.element_size(),
+            int(pig_k > 0), ctypes.c_void_p(stream))
     _raise_on(rc, lib, "swim_tables_error_string")
-    LAUNCHES["swim_tables"] += 1
+    _count_launch("swim_tables", f"{'packed' if pig_k else 'aligned'}/"
+                  f"{8 * mem_timer.element_size()}/{8 * mem_tx.element_size()}")
     return o_id, o_view, o_timer, o_tx, o_inc, o_refute
 
 
@@ -216,13 +232,13 @@ class IngestInputs(NamedTuple):
     org_last: torch.Tensor
     q_origin: torch.Tensor  # int32 [N, Q]
     q_dbv: torch.Tensor
-    q_cell: torch.Tensor  # plane dtype
+    q_cell: torch.Tensor  # int16 or int32
     q_ver: torch.Tensor
     q_val: torch.Tensor
     q_site: torch.Tensor
     q_clp: torch.Tensor
     q_ts: torch.Tensor
-    q_tx: torch.Tensor  # plane dtype
+    q_tx: torch.Tensor  # int8, int16 or int32
     hlc: torch.Tensor  # int32 [N]
     now: torch.Tensor  # int32 []
     rand: Optional[torch.Tensor] = None  # float32 [N, Q] (emit)
@@ -361,6 +377,9 @@ class _IngestArgs(ctypes.Structure):
     )
 
 
+#: (q_cell dtype, q_tx dtype) pairs the ingest kernel is instantiated for
+_INGEST_DTYPES = ((torch.int16, torch.int8), (torch.int16, torch.int16),
+                  (torch.int32, torch.int32))
 _MSG_FIELDS = ("origin", "dbv", "cell", "ver", "val", "site", "clp", "ts", "budget")
 _Q_FIELDS = ("q_origin", "q_dbv", "q_cell", "q_ver", "q_val", "q_site",
              "q_clp", "q_ts", "q_tx")
@@ -379,11 +398,11 @@ def _ingest_cuda(p: IngestParams, x: IngestInputs) -> IngestOutputs:
             f"kernel's limits {list(limits)}"
         )
     dev = x.origin.device
-    qdt = x.q_tx.dtype
-    if x.q_cell.dtype != qdt or qdt not in (torch.int16, torch.int32):
+    cdt, qdt = x.q_cell.dtype, x.q_tx.dtype
+    if (cdt, qdt) not in _INGEST_DTYPES:
         raise ValueError(
-            f"ingest kernel takes int16 or int32 q_cell/q_tx of one dtype, got "
-            f"{x.q_cell.dtype}/{qdt} (the int8 q tier is ROADMAP Queue 2 work)"
+            f"ingest kernel takes q_cell/q_tx planes of dtypes "
+            f"{_INGEST_DTYPES}, got {cdt}/{qdt}"
         )
     i32 = torch.int32
     keep = []
@@ -403,7 +422,7 @@ def _ingest_cuda(p: IngestParams, x: IngestInputs) -> IngestOutputs:
         setattr(a, f, c(getattr(x, f), i32, (n, o), f))
     a.seen = c(x.seen, i32, (n, o * w), "seen")
     for f in _Q_FIELDS:
-        dt = qdt if f in ("q_cell", "q_tx") else i32
+        dt = {"q_cell": cdt, "q_tx": qdt}.get(f, i32)
         setattr(a, f, c(getattr(x, f), dt, (n, q), f))
     a.hlc = c(x.hlc, i32, (n,), "hlc")
     a.now = c(x.now.to(i32).reshape(()), i32, (), "now")
@@ -418,7 +437,7 @@ def _ingest_cuda(p: IngestParams, x: IngestInputs) -> IngestOutputs:
         store=tuple(e((n, c_cnt)) for _ in range(5)),
         head=e((n, o)), km=e((n, o)), seen=e((n, o * w)),
         org_id=e((n, o)), org_last=e((n, o)),
-        q_origin=e((n, q)), q_dbv=e((n, q)), q_cell=e((n, q), qdt),
+        q_origin=e((n, q)), q_dbv=e((n, q)), q_cell=e((n, q), cdt),
         q_ver=e((n, q)), q_val=e((n, q)), q_site=e((n, q)), q_clp=e((n, q)),
         q_ts=e((n, q)), q_tx=e((n, q), qdt),
         hlc=e((n,)), fresh=e((n, m), torch.bool), drift=e((n,)),
@@ -439,13 +458,14 @@ def _ingest_cuda(p: IngestParams, x: IngestInputs) -> IngestOutputs:
     a.keep_rounds, a.enqueue_all = p.keep_rounds, int(p.enqueue_all)
     fn = lib.ingest_launch
     fn.argtypes = [ctypes.POINTER(_IngestArgs), ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(ctypes.byref(a), int(qdt == torch.int16), int(p.pig_r > 0),
-            ctypes.c_void_p(stream))
+    rc = fn(ctypes.byref(a), x.q_cell.element_size(), x.q_tx.element_size(),
+            int(p.pig_r > 0), ctypes.c_void_p(stream))
     _raise_on(rc, lib, "ingest_error_string")
-    LAUNCHES["ingest_emit" if p.pig_r else "ingest"] += 1
+    _count_launch("ingest_emit" if p.pig_r else "ingest",
+                  f"{8 * x.q_cell.element_size()}/{8 * x.q_tx.element_size()}")
     return out
 
 

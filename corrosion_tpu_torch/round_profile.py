@@ -1,8 +1,10 @@
 """Where the flagship round's time goes on the card: ``torch.profiler`` over
 a few rounds of ``scale_sim_config(100_000)`` with bench.py's workload
-(``sim.scale_step.flagship_workload``, the one ``chip_smoke.py`` times).
+(``sim.scale_step.flagship_workload``, the one ``chip_smoke.py`` times), or
+with ``--million`` of the 1M point, ``scale_sim_config(1_000_000,
+pig_members=16, narrow_int8=True, narrow_q_int8=True)``.
 
-    python3 -m corrosion_tpu_torch.round_profile [--out DIR]
+    python3 -m corrosion_tpu_torch.round_profile [--million] [--out DIR]
 
 Prints the card's name and power limit, the round's wall time with and
 without the profiler, the device's busy share (kernel time over wall
@@ -21,6 +23,7 @@ import time
 from pathlib import Path
 
 N_NODES = 100_000
+MILLION = dict(n_nodes=1_000_000, pig_members=16, narrow_int8=True, narrow_q_int8=True)
 WARM_ROUNDS = 2
 ROUNDS = 4  # timed without the profiler, then again under it
 
@@ -45,6 +48,8 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="chiprun_out")
+    ap.add_argument("--million", action="store_true",
+                    help="profile the 1M point instead of the 100k flagship")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("round_profile: no CUDA device", file=sys.stderr)
@@ -55,7 +60,7 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
-    cfg = scale_sim_config(N_NODES)
+    cfg = scale_sim_config(**MILLION) if args.million else scale_sim_config(N_NODES)
     warm, r = WARM_ROUNDS, ROUNDS
     total = warm + 2 * r
     st, net, key, inputs = flagship_workload(cfg, total, dev)
@@ -100,8 +105,9 @@ def main(argv=None) -> int:
     print(text)
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    (out / "round_profile.txt").write_text(text + "\n")
-    prof.export_chrome_trace(str(out / "round_profile_trace.json"))
+    stem = "round_profile_1m" if args.million else "round_profile"
+    (out / f"{stem}.txt").write_text(text + "\n")
+    prof.export_chrome_trace(str(out / f"{stem}_trace.json"))
     print(json.dumps({"ms_per_round": plain_s * 1e3, "busy_ms_per_round": busy_us / r / 1e3,
                       "device_ops_per_round": launches / r,
                       "aten_calls_per_round": aten / r, "card": smi}))

@@ -4,9 +4,11 @@
 Each node tracks at most M members in a globally hash-slotted table
 (subject ``s`` lives in slot ``s % M``), so a gossip packet is the
 sender's aligned row and receiving it is a row gather plus an elementwise
-merge. The round splits into a front half (churn, probe/indirect/announce
-legs, one sender elected per receiver) and a back half (row gathers, then
-the row-local table update that the swim kernel runs).
+merge; with ``pig_members = k > 0`` a packet is instead a bounded list of
+the sender's k freshest entries, each merged at its hash class. The round
+splits into a front half (churn, probe/indirect/announce legs, one sender
+elected per receiver) and a back half (row gathers, then the row-local
+table update that the swim kernel runs).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from corrosion_tpu_torch import random as prng
 from corrosion_tpu_torch._device import resolve_device
 from corrosion_tpu_torch.ops.dense import (
     lookup_cols,
+    scatter_cols_add,
     scatter_cols_max,
     scatter_cols_set,
     select_cols,
@@ -32,7 +35,7 @@ from corrosion_tpu_torch.ops.lww import (
     STATE_SUSPECT,
     pack_inc_state,
 )
-from corrosion_tpu_torch.ops.select import sample_k, sample_one
+from corrosion_tpu_torch.ops.select import sample_k, sample_k_biased, sample_one
 from corrosion_tpu_torch.sim.config import FUSED_MODES
 from corrosion_tpu_torch.sim.transport import (
     CARD_EXTRA,
@@ -185,17 +188,20 @@ def swim_tables_update(
     probe_slot, suspect_key, probe_failed,
     ch_in_id, ch_in_view, ch_in_sendable, ch_valid, ch_snd, ch_snd_inc,
 ):
-    """The row-local back half of a SWIM round (aligned member rows): the
-    suspect mark, four packet merges, sender-alive assertions, send-budget
-    decrement, suspicion/down timers, purge, refutation, self refresh and
-    budget refill. Returns ``(mem_id, mem_view, timer, mem_tx, inc,
-    refute)``; timer and budget stay at the dtype they came in."""
+    """The row-local back half of a SWIM round: the suspect mark, four
+    packet merges, sender-alive assertions, send-budget decrement,
+    suspicion/down timers, purge, refutation, self refresh and budget
+    refill. Returns ``(mem_id, mem_view, timer, mem_tx, inc,
+    refute)``; timer and budget stay at the dtype they came in.
+
+    ``consts`` may carry a 5th element ``pig_k``: when > 0 the channels are
+    bounded packets, ``ch_in_id``/``ch_in_view`` [N, pig_k] packed entry
+    lists whose entries apply one by one at their hash class ``id % m``
+    (each lookup sees the earlier entries' writes). The caller then owns
+    the budget decrement of the entries it sent, so the full-row decrement
+    is skipped; the refill on change stays here."""
     m, suspicion_rounds, down_purge_rounds, max_transmissions = consts[:4]
-    if len(consts) > 4 and consts[4]:
-        raise ValueError(
-            "bounded member piggyback (pig_members > 0) is not ported yet "
-            "(ROADMAP Queue 2: swim kernel packed-entry form)"
-        )
+    pig_k = consts[4] if len(consts) > 4 else 0
     timer_dtype, tx_dtype = mem_timer.dtype, mem_tx.dtype
     iarr = node_id
 
@@ -207,6 +213,28 @@ def swim_tables_update(
     for in_id, in_view, in_sendable, valid in zip(
         ch_in_id, ch_in_view, ch_in_sendable, ch_valid
     ):
+        if pig_k > 0:
+            for j in range(pig_k):
+                idj, vwj = in_id[:, j], in_view[:, j]
+                okj = valid & (idj >= 0)
+                slotj = (idj % m)[:, None]
+                curid = lookup_cols(mem_id, slotj)[:, 0]
+                curvw = lookup_cols(mem_view, slotj, fill=-1)[:, 0]
+                same = okj & (curid == idj)
+                ins = okj & (curid < 0)
+                take = (
+                    okj
+                    & (curid >= 0)
+                    & (curid != idj)
+                    & ((curvw & 3) == STATE_DOWN)
+                    & ((vwj & 3) == STATE_ALIVE)
+                )
+                new_vw = torch.where(same, torch.maximum(curvw, vwj), vwj)
+                mem_view = scatter_cols_set(mem_view, slotj, new_vw[:, None],
+                                            (same | ins | take)[:, None])
+                mem_id = scatter_cols_set(mem_id, slotj, idj[:, None],
+                                          (ins | take)[:, None])
+            continue
         ok = valid[:, None] & (in_id >= 0) & in_sendable
         same = ok & (mem_id == in_id)
         ins = ok & (mem_id < 0)
@@ -232,9 +260,10 @@ def swim_tables_update(
         )
         mem_id = scatter_cols_set(mem_id, slot, snd[:, None], (valid & free1)[:, None])
 
-    mem_tx = torch.clamp(
-        torch.where(sendable, mem_tx.to(torch.int32) - sends[:, None],
-                    mem_tx.to(torch.int32)), min=0)
+    mem_tx = mem_tx.to(torch.int32)
+    if pig_k == 0:
+        mem_tx = torch.clamp(
+            torch.where(sendable, mem_tx - sends[:, None], mem_tx), min=0)
 
     alive2 = alive[:, None]
     occupied = mem_id >= 0
@@ -448,20 +477,39 @@ def _swim_back(cfg, st: ScaleSwimState, front: _SwimFront):
     sus_heard = torch.maximum(front.sus_heard, notice)
 
     sendable = st.mem_tx > 0
-    ch_in_id, ch_in_view, ch_in_send, ch_valid, ch_snd = [], [], [], [], []
-    for src, valid in front.channels:
-        ch_in_id.append(take_rows(old_id, src))
-        ch_in_view.append(take_rows(old_view, src))
-        ch_in_send.append(take_rows(sendable, src))
-        ch_valid.append(valid)
-        ch_snd.append(src)
+    pig_k = int(cfg.pig_members)
+    mem_tx_in = st.mem_tx
+    ch_snd = [src for src, _ in front.channels]
+    ch_valid = [valid for _, valid in front.channels]
+    if pig_k > 0:
+        # bounded packets: each packet carries its sender's pig_k sendable
+        # entries with the most budget left (random tiebreak), one [N, 2k]
+        # row gather per channel
+        upd_slots, upd_ok = sample_k_biased(
+            sendable & (old_id >= 0), st.mem_tx.to(torch.float32), pig_k,
+            front.k_upd)
+        upd_id = torch.where(upd_ok, select_cols(old_id, upd_slots), FREE)
+        pig_pack = torch.cat([upd_id, select_cols(old_view, upd_slots)], dim=1)
+        got = [take_rows(pig_pack, src) for src in ch_snd]
+        ch_in_id = [g[:, :pig_k].contiguous() for g in got]
+        ch_in_view = [g[:, pig_k:].contiguous() for g in got]
+        ch_in_send = [torch.ones((n, pig_k), dtype=torch.bool, device=dev)] * 4
+        # the selected entries' budget decrement, in the plane's own dtype
+        dec = scatter_cols_add(
+            torch.zeros((n, m), dtype=st.mem_tx.dtype, device=dev), upd_slots,
+            front.sends[:, None].expand(upd_slots.shape), upd_ok)
+        mem_tx_in = torch.clamp(st.mem_tx - dec, min=0)
+    else:
+        ch_in_id = [take_rows(old_id, src) for src in ch_snd]
+        ch_in_view = [take_rows(old_view, src) for src in ch_snd]
+        ch_in_send = [take_rows(sendable, src) for src in ch_snd]
 
     consts = (m, int(cfg.suspicion_rounds), int(cfg.down_purge_rounds),
-              int(cfg.max_transmissions), 0)
+              int(cfg.max_transmissions), pig_k)
     mem_id, mem_view, timer, mem_tx, inc, refute = megakernel.swim_tables_fused(
         consts,
         front.mem_id, front.mem_view, old_id, old_view, st.mem_timer,
-        st.mem_tx, front.alive, front.inc, iarr, front.self_slot,
+        mem_tx_in, front.alive, front.inc, iarr, front.self_slot,
         sus_heard, front.sends, front.probe_slot, front.suspect_key,
         front.failed,
         ch_in_id, ch_in_view, ch_in_send, ch_valid, ch_snd,

@@ -8,10 +8,14 @@ broadcast into the receiving ingest kernel, cohort anti-entropy sync every
 ``scale_run_rounds`` loops the round in Python; the sync gate reads a
 host-side mirror of the round counter, so no round waits on the device.
 
+``quiet="on"`` swaps in :func:`scale_sim_step_quiet`, which runs only the
+SWIM front on a round it proves to be a fixpoint.
+
 The port runs the single-cell piggyback configuration family
-(``tx_max_cells == 1``, ``pig_changes > 0``, ``pig_members == 0``, no wire
-budget lane, no int8 tiers, ``quiet`` not "on"); anything else raises a
-``ValueError`` naming the ROADMAP item that will port it.
+(``tx_max_cells == 1``, ``pig_changes > 0``, no wire budget lane), with
+aligned or bounded (``pig_members > 0``) member packets and either int8
+tier; anything else raises a ``ValueError`` naming the ROADMAP item that
+will port it.
 """
 
 from __future__ import annotations
@@ -43,9 +47,12 @@ from corrosion_tpu_torch.sim.broadcast import (
 from corrosion_tpu_torch.sim.config import FUSED_MODES, QUIET_MODES
 from corrosion_tpu_torch.sim.scale import (
     ScaleSwimState,
+    _swim_back,
+    _swim_front,
     scale_config,
     scale_swim_metrics,
     scale_swim_step,
+    swim_front_disturbed,
 )
 from corrosion_tpu_torch.sim.transport import NetModel, card_at, link_card, ring_of_c
 
@@ -203,14 +210,6 @@ def check_slice(cfg: ScaleSimConfig) -> None:
          "bcast_wire_budget (ROADMAP Queue 2: the ingest kernel's wire-budget lane)"),
         (cfg.pig_changes <= 0,
          "pig_changes == 0 (ROADMAP Queue 2: the non-emitting local-write form)"),
-        (cfg.pig_members > 0,
-         "pig_members > 0 (ROADMAP Queue 2: swim kernel packed-entry form)"),
-        (cfg.narrow_int8,
-         "narrow_int8 (ROADMAP Queue 2: swim kernel int8 mem_tx tier)"),
-        (cfg.narrow_q_int8,
-         "narrow_q_int8 (ROADMAP Queue 2: ingest kernel int8 q tier)"),
-        (cfg.quiet == "on",
-         "quiet='on' (ROADMAP Queue 1: scale_sim_step_quiet)"),
         (cfg.fused in ("off", "interpret"),
          f"fused={cfg.fused!r}: the port has no XLA or interpret path; the "
          f"route follows the tensors' device (ROADMAP Queue 2 item 4 is not ported)"),
@@ -414,15 +413,98 @@ def scale_sim_step(cfg: ScaleSimConfig, st: ScaleSimState, net: NetModel, key,
                       k_pig, k_sp, k_sync, inp, now + 1)
 
 
-def activity_masks(cfg: ScaleSimConfig, st: ScaleSimState) -> dict:
-    """Per-node occupancy bits: queued changesets, buffered partials,
-    outstanding version needs, running SWIM timers."""
+def _pending(st: ScaleSimState):
+    """bool [N, M]: occupied member entries in the Suspect or Down state."""
     view = st.swim.mem_view
-    pending = (
+    return (
         (st.swim.mem_id >= 0)
         & (view >= 0)
         & (((view & 3) == STATE_SUSPECT) | ((view & 3) == STATE_DOWN))
     )
+
+
+def _quiet_busy(cfg: ScaleSimConfig, st: ScaleSimState):
+    """bool [N]: alive nodes that still owe the cluster work (the carry
+    half of the quiet predicate). Stricter than :func:`activity_masks`:
+    a Suspect/Down entry counts whatever its timer, and so does any
+    sendable membership entry; dead rows never count."""
+    row_busy = (
+        _pending(st).any(dim=1)
+        | (st.swim.mem_tx > 0).any(dim=1)
+        | (st.crdt.q_origin != NO_Q).any(dim=1)
+        | (st.crdt.partials.origin != NO_SLOT).any(dim=1)
+        | (needs_count(st.crdt.book) > 0).any(dim=1)
+    )
+    return st.swim.alive & row_busy
+
+
+def _quiet_info(cfg: ScaleSimConfig, busy, quiet_ok, settled,
+                schedule_ok: bool) -> dict:
+    """The ``quiet_*`` round-info keys, shared by both branches."""
+    i32 = torch.int32
+    shards = max(1, int(cfg.quiet_shards))
+    shard_busy = busy.reshape(shards, -1).any(dim=1)
+    return {
+        "quiet_round": quiet_ok.to(i32),
+        "quiet_shards_quiet": (~shard_busy).sum().to(i32),
+        "quiet_shards_skipped": quiet_ok.to(i32) * shards,
+        "quiet_backstop": (settled & (not schedule_ok)).to(i32),
+        "quiet_nodes_active": busy.sum().to(i32),
+    }
+
+
+def scale_sim_step_quiet(cfg: ScaleSimConfig, st: ScaleSimState, net: NetModel,
+                         key, inp: ScaleRoundInput, now: Optional[int] = None):
+    """:func:`scale_sim_step` for ``quiet="on"``: run the SWIM front, then
+    take a fixpoint branch (the counter tick and staleness aging, nothing
+    else) when no alive node owes work, the round injects no event, its
+    delivered SWIM traffic would change no table, and it is neither a sync
+    nor a backstop round; else the dense round. The branch is taken on the
+    host, on one device read of the predicate per round (none on a round
+    the schedule already forces dense). Both branches give the same state
+    as the dense round, bit for bit."""
+    check_slice(cfg)
+    if now is None:
+        now = int(st.crdt.now)
+    k_swim, k_pig, k_sp, k_sync = prng.split(key, 4)
+    front = _swim_front(cfg, st.swim, net, k_swim, kill=inp.kill, revive=inp.revive)
+
+    busy = _quiet_busy(cfg, st)
+    input_quiet = ~(inp.kill.any() | inp.revive.any() | inp.write_mask.any()
+                    | inp.tx_mask.any())
+    now1 = now + 1  # the dense round gates sync after the tick
+    bs = max(1, cfg.quiet_backstop_interval or cfg.sync_interval)
+    schedule_ok = now1 % max(1, cfg.sync_interval) != 0 and now1 % bs != 0
+    settled = ~busy.any() & input_quiet & ~swim_front_disturbed(cfg, front)
+    quiet_ok = settled & schedule_ok
+
+    if schedule_ok and bool(quiet_ok):
+        crdt = st.crdt._replace(
+            now=st.crdt.now + 1,
+            last_sync=torch.clamp(st.crdt.last_sync + 1, max=LAST_SYNC_CAP),
+        )
+        st_out = _narrow_carry(cfg, ScaleSimState(st.swim, crdt))
+        zero = torch.zeros((), dtype=torch.int64, device=busy.device)
+        info = {
+            "acked": front.acked.sum(), "failed_probes": front.failed.sum(),
+            "refutes": zero, "delivered": zero, "fresh": zero,
+            "tx_completed": zero, "clock_drift_rejects": zero,
+            "queued": (st.crdt.q_origin != NO_Q).sum(),
+            "syncs": zero, "cells_pulled": zero, "versions_granted": zero,
+            "serve_rejects": zero, **activity_info(cfg, st_out),
+        }
+    else:
+        swim, swim_info = _swim_back(cfg, st.swim, front)
+        st_out, info = _post_swim(cfg, st, net, swim, swim_info,
+                                  list(front.channels), front.carried, k_pig,
+                                  k_sp, k_sync, inp, now1)
+    return st_out, {**info, **_quiet_info(cfg, busy, quiet_ok, settled, schedule_ok)}
+
+
+def activity_masks(cfg: ScaleSimConfig, st: ScaleSimState) -> dict:
+    """Per-node occupancy bits: queued changesets, buffered partials,
+    outstanding version needs, running SWIM timers."""
+    pending = _pending(st)
     return {
         "bcast": (st.crdt.q_origin != NO_Q).any(dim=1),
         "partials": (st.crdt.partials.origin != NO_SLOT).any(dim=1),
@@ -461,14 +543,16 @@ def _round_input(inputs: ScaleRoundInput, r: int) -> ScaleRoundInput:
 def scale_run_rounds_carry(cfg: ScaleSimConfig, st, net: NetModel, key, inputs):
     """Run the stacked rounds in a Python loop. Returns ``((state, key),
     infos)`` with every info key stacked over rounds; chaining carries
-    reproduces one straight run bit for bit."""
+    reproduces one straight run bit for bit. ``cfg.quiet == "on"`` runs
+    :func:`scale_sim_step_quiet`; "auto" and "off" run the dense round."""
     check_slice(cfg)
+    step = scale_sim_step_quiet if cfg.quiet == "on" else scale_sim_step
     rounds = inputs.kill.shape[0]
-    now = int(st.crdt.now)  # the one device read: the host mirror's start
+    now = int(st.crdt.now)  # the host mirror's start
     infos = []
     for r in range(rounds):
         key, sub = prng.split(key)
-        st, info = scale_sim_step(cfg, st, net, sub, _round_input(inputs, r), now=now)
+        st, info = step(cfg, st, net, sub, _round_input(inputs, r), now=now)
         now += 1
         infos.append(info)
     stacked = {k: torch.stack([i[k] for i in infos]) for k in infos[0]} if infos else {}

@@ -224,8 +224,7 @@ def test_wide_planes_equal_narrow_planes():
 
 
 @pytest.mark.parametrize("over", [
-    dict(tx_max_cells=2), dict(bcast_wire_budget=True), dict(pig_members=4),
-    dict(narrow_int8=True), dict(narrow_q_int8=True), dict(quiet="on"),
+    dict(tx_max_cells=2), dict(bcast_wire_budget=True),
     dict(fused="off"), dict(pig_changes=0),
 ])
 def test_unported_configs_raise_naming_roadmap(over):
