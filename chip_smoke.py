@@ -1,10 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's scale round on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py [kernels] [trajectory] [flagship] [million] [quiet]
+    python3 chip_smoke.py
 
-With no argument it runs every phase and prints the result; naming phases
-runs only those and prints no result. Phases (any failure raises and the script exits non-zero):
+Phases (any failure raises and the script exits non-zero):
 
 1. Build every kernel of the round from ``corrosion_tpu_torch/csrc`` (one
    ``nvcc`` per source, started together) and print ptxas' register report.
@@ -26,15 +25,16 @@ runs only those and prints no result. Phases (any failure raises and the script 
    timed batches of 8 rounds. Each kernel's launch count over the timed
    rounds must equal the number of rounds; prints each batch's rounds/s,
    their median and peak device memory.
-5. The 1M point: ``scale_sim_config(1_000_000, pig_members=16,
-   narrow_int8=True, narrow_q_int8=True)`` (bounded member piggyback, int8
-   budget and queue-counter planes) with the same workload, 2 warm-up
-   rounds, then three timed batches of 4 rounds. Each kernel must launch
-   once a round, in that configuration's forms; prints rounds/s, peak
-   device memory and the carried state's bytes.
-6. The quiet round: ``quiet="on"`` against ``quiet="off"`` on the card, on
-   a settled trace; every state leaf and shared info value must be bitwise
-   equal, and the fixpoint branch must run.
+5. The 1M point: ``sim.scale_step.million_config()`` (bounded member
+   piggyback, int8 budget and queue-counter planes) with the same workload,
+   2 warm-up rounds, then three timed batches of 4 rounds. Each kernel must
+   launch once a round, in that configuration's forms; prints rounds/s,
+   peak device memory and the carried state's bytes.
+6. The quiet round: ``quiet="on"`` on the card against ``quiet="off"`` on
+   the card and ``quiet="on"`` on the CPU, on a settled trace; every state
+   leaf and info value must be bitwise equal, the fixpoint branch must run,
+   and each kernel must launch once in every dense round of the card's
+   ``quiet="on"`` run and in no fixpoint round.
 
 Phase 2 also holds the 1M point's kernel forms at N = 1,000,000: the
 packed-entry swim kernel with int8 budgets and the ingest kernel with int8
@@ -64,8 +64,6 @@ H100_BYTES_PER_S = 3.35e12  # published HBM3 rate of one H100 SXM
 H100_INT32_OPS_PER_S = 67e12 / 4
 FLAGSHIP_NODES = 100_000
 MILLION_NODES = 1_000_000
-# the 1M point's settings beside scale_sim_config's defaults
-MILLION_TIERS = dict(pig_members=16, narrow_int8=True, narrow_q_int8=True)
 TRAJECTORY_NODES = 4096  # small enough for the CPU route to keep pace
 
 
@@ -387,10 +385,10 @@ def phase_kernels(dev) -> dict:
     runs, untimed."""
     import torch
 
-    from corrosion_tpu_torch.sim.scale_step import scale_sim_config
+    from corrosion_tpu_torch.sim.scale_step import million_config, scale_sim_config
 
     flag = scale_sim_config(FLAGSHIP_NODES)
-    big = scale_sim_config(MILLION_NODES, **MILLION_TIERS)
+    big = million_config(MILLION_NODES)
     k = big.pig_members
     out = {
         "swim_tables": _swim_form("swim_tables", flag, 11, dev),
@@ -449,16 +447,12 @@ def _trajectory_setup(cfg, rounds: int, dev):
     return st, net, prng.key(3), inputs
 
 
-def phase_trajectory(dev, **tiers) -> None:
-    """The kernel route on the card == the plain route on the CPU."""
-    from corrosion_tpu_torch.sim.scale_step import (
-        ScaleRoundInput,
-        scale_run_rounds_carry,
-        scale_sim_config,
-    )
+def phase_trajectory(dev, label, make_cfg) -> None:
+    """The kernel route on the card == the plain route on the CPU, for
+    ``make_cfg(TRAJECTORY_NODES, ...)``."""
+    from corrosion_tpu_torch.sim.scale_step import ScaleRoundInput, scale_run_rounds_carry
 
-    cfg = scale_sim_config(TRAJECTORY_NODES, sync_interval=2, sync_sweep_every=2,
-                           **tiers)
+    cfg = make_cfg(TRAJECTORY_NODES, sync_interval=2, sync_sweep_every=2)
     rounds = 16
     runs = {d: _trajectory_setup(cfg, rounds, d) for d in ("cpu", dev)}
     carry = {d: (runs[d][0], runs[d][2]) for d in runs}
@@ -474,7 +468,7 @@ def phase_trajectory(dev, **tiers) -> None:
         ierr = _max_abs_err(_flat(infos["cpu"]), [t.cpu() for t in _flat(infos[dev])])
         if err or ierr:
             raise AssertionError(f"round {r}: cuda != cpu (state {err}, info {ierr})")
-    print(f"[trajectory] N={cfg.n_nodes} {tiers or 'flagship'}: {rounds} rounds, "
+    print(f"[trajectory] N={cfg.n_nodes} {label}: {rounds} rounds, "
           f"every leaf and info bitwise equal cuda vs cpu "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
@@ -540,11 +534,11 @@ def phase_million(dev) -> dict:
     from corrosion_tpu_torch.sim.scale_step import (
         ScaleRoundInput,
         flagship_workload,
+        million_config,
         scale_run_rounds_carry,
-        scale_sim_config,
     )
 
-    cfg = scale_sim_config(MILLION_NODES, **MILLION_TIERS)
+    cfg = million_config(MILLION_NODES)
     n, warm, batch, reps = cfg.n_nodes, 2, 4, 3
     total = warm + batch * reps
     torch.cuda.synchronize()
@@ -580,7 +574,7 @@ def phase_million(dev) -> dict:
             or st.crdt.q_tx.dtype != torch.int8 or _nbytes(_flat(st)) != state_bytes):
         raise AssertionError("1M state has the wrong round, dtypes or size")
     median = sorted(rates)[len(rates) // 2]
-    print(f"[million] N={n} {MILLION_TIERS}: {reps} batches of {batch} rounds at "
+    print(f"[million] N={n} pig_members={cfg.pig_members} int8 mem_tx/q_tx: {reps} batches of {batch} rounds at "
           f"{[repr(x) for x in rates]} rounds/s, median {median!r}; peak device "
           f"memory {peak} bytes; carried state {state_bytes} bytes "
           f"({state_bytes / n!r} B/node); launches {forms}; info sums {sums}",
@@ -589,44 +583,57 @@ def phase_million(dev) -> dict:
 
 
 def phase_quiet(dev) -> None:
-    """The quiet round on the card == the dense round on the card, on a
-    settled trace (the JAX package's quiet-test shape, with the 1M point's
-    tiers and bounded packets of 4 entries), and its fixpoint branch runs."""
+    """The quiet round on the card == the dense round on the card and the
+    quiet round on the CPU, on a settled trace (the JAX package's quiet-test
+    shape, with the 1M point's tiers and bounded packets of 4 entries). Its
+    fixpoint branch runs, and launches no kernel: each kernel launches once
+    in every dense round of the card's quiet run."""
     import torch
 
     from corrosion_tpu_torch import random as prng
+    from corrosion_tpu_torch.ops import megakernel as mk
     from corrosion_tpu_torch.sim.scale_step import (
         ScaleSimState,
         make_write_inputs,
+        million_config,
         scale_run_rounds,
-        scale_sim_config,
     )
     from corrosion_tpu_torch.sim.transport import NetModel
 
     n, rounds = 48, 48
     shape = dict(m_slots=8, n_origins=4, n_rows=4, n_cols=2, sync_interval=4,
-                 **{**MILLION_TIERS, "pig_members": 4})
-    out = {}
-    for quiet in ("on", "off"):
-        cfg = scale_sim_config(n, quiet=quiet, **shape)
+                 pig_members=4)
+
+    def run(quiet, d):
+        cfg = million_config(n, quiet=quiet, **shape)
         inputs = make_write_inputs(cfg, prng.key(8), rounds,
-                                   torch.zeros((rounds, n), dtype=torch.bool), dev)
-        out[quiet] = scale_run_rounds(cfg, ScaleSimState.create(cfg, dev),
-                                      NetModel.create(n, device=dev), prng.key(0),
-                                      inputs)
-    (st_q, i_q), (st_d, i_d) = out["on"], out["off"]
+                                   torch.zeros((rounds, n), dtype=torch.bool), d)
+        return scale_run_rounds(cfg, ScaleSimState.create(cfg, d),
+                                NetModel.create(n, device=d), prng.key(0), inputs)
+
+    st_d, i_d = run("off", dev)
+    mk.reset_launches()
+    st_q, i_q = run("on", dev)
+    torch.cuda.synchronize()
+    forms = dict(mk.FORM_LAUNCHES)
+    st_c, i_c = run("on", "cpu")
+    cheap = int(i_q["quiet_round"].sum())
+    dense = rounds - cheap
+    want_forms = {("swim_tables", "packed/16/8"): dense, ("ingest", "16/8"): dense,
+                  ("ingest_emit", "16/8"): dense}
     err = _max_abs_err(_flat(st_d), _flat(st_q))
     ierr = _max_abs_err(_flat(i_d), _flat({k: i_q[k] for k in i_d}))
-    cheap = int(i_q["quiet_round"].sum())
-    if err or ierr or cheap <= 0:
-        raise AssertionError(f"quiet round: state err {err}, info err {ierr}, "
-                             f"{cheap} fixpoint rounds")
-    print(f"[quiet] N={n}: {rounds} rounds, quiet == dense bitwise on the card; "
-          f"{cheap} fixpoint rounds, {int(i_q['quiet_backstop'].sum())} backstop "
-          f"rounds", flush=True)
-
-
-PHASES = ("kernels", "trajectory", "flagship", "million", "quiet")
+    cerr = _max_abs_err(_flat(st_c), [t.cpu() for t in _flat(st_q)])
+    cierr = _max_abs_err(_flat(i_c), [t.cpu() for t in _flat(i_q)])
+    if err or ierr or cerr or cierr or cheap <= 0 or forms != want_forms:
+        raise AssertionError(
+            f"quiet round: vs dense state err {err}, info err {ierr}; vs cpu state "
+            f"err {cerr}, info err {cierr}; {cheap} fixpoint rounds; launches "
+            f"{forms} != {want_forms}")
+    print(f"[quiet] N={n}: {rounds} rounds, quiet == dense on the card and == quiet "
+          f"on the cpu, bitwise; {cheap} fixpoint rounds, "
+          f"{int(i_q['quiet_backstop'].sum())} backstop rounds; launches {forms}",
+          flush=True)
 
 
 def main() -> int:
@@ -637,6 +644,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from corrosion_tpu_torch.ops import cuda_lib
+    from corrosion_tpu_torch.sim.scale_step import million_config, scale_sim_config
 
     dev = torch.device("cuda")
     smi = subprocess.run(
@@ -652,9 +660,6 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"[ptxas] {name}: {line.strip()}", flush=True)
 
-    only = sys.argv[1:] or PHASES
-    if set(only) - set(PHASES):
-        raise SystemExit(f"usage: chip_smoke.py [{' '.join(PHASES)}]...")
     t_phase = time.perf_counter()
 
     def done(name):
@@ -662,25 +667,17 @@ def main() -> int:
         print(f"[time] {name}: {time.perf_counter() - t_phase:.1f} s", flush=True)
         t_phase = time.perf_counter()
 
-    if "kernels" in only:
-        kern = phase_kernels(dev)
-        done("kernels")
-    if "trajectory" in only:
-        phase_trajectory(dev)
-        phase_trajectory(dev, **MILLION_TIERS)
-        done("trajectory")
-    if "flagship" in only:
-        flag = phase_flagship(dev)
-        done("flagship")
-    if "million" in only:
-        million = phase_million(dev)
-        done("million")
-    if "quiet" in only:
-        phase_quiet(dev)
-        done("quiet")
-    if tuple(only) != PHASES:
-        print(f"chip_smoke: ran only {list(only)}; no result", flush=True)
-        return 0
+    kern = phase_kernels(dev)
+    done("kernels")
+    phase_trajectory(dev, "flagship", scale_sim_config)
+    phase_trajectory(dev, "1M point's tiers", million_config)
+    done("trajectory")
+    flag = phase_flagship(dev)
+    done("flagship")
+    million = phase_million(dev)
+    done("million")
+    phase_quiet(dev)
+    done("quiet")
 
     # each form's launches are read from the path that runs it
     paths = {"flagship": flag, "million": million}

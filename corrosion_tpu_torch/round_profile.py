@@ -1,8 +1,7 @@
 """Where the flagship round's time goes on the card: ``torch.profiler`` over
 a few rounds of ``scale_sim_config(100_000)`` with bench.py's workload
 (``sim.scale_step.flagship_workload``, the one ``chip_smoke.py`` times), or
-with ``--million`` of the 1M point, ``scale_sim_config(1_000_000,
-pig_members=16, narrow_int8=True, narrow_q_int8=True)``.
+with ``--million`` of the 1M point (``sim.scale_step.million_config``).
 
     python3 -m corrosion_tpu_torch.round_profile [--million] [--out DIR]
 
@@ -23,7 +22,6 @@ import time
 from pathlib import Path
 
 N_NODES = 100_000
-MILLION = dict(n_nodes=1_000_000, pig_members=16, narrow_int8=True, narrow_q_int8=True)
 WARM_ROUNDS = 2
 ROUNDS = 4  # timed without the profiler, then again under it
 
@@ -42,6 +40,7 @@ def main(argv=None) -> int:
     from corrosion_tpu_torch.sim.scale_step import (
         ScaleRoundInput,
         flagship_workload,
+        million_config,
         scale_run_rounds_carry,
         scale_sim_config,
     )
@@ -60,7 +59,7 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
-    cfg = scale_sim_config(**MILLION) if args.million else scale_sim_config(N_NODES)
+    cfg = million_config() if args.million else scale_sim_config(N_NODES)
     warm, r = WARM_ROUNDS, ROUNDS
     total = warm + 2 * r
     st, net, key, inputs = flagship_workload(cfg, total, dev)

@@ -280,6 +280,15 @@ def make_write_inputs(cfg: ScaleSimConfig, key, rounds: int, write_mask,
     )
 
 
+def million_config(n_nodes: int = 1_000_000, **overrides) -> ScaleSimConfig:
+    """The JAX package's priced 1M point: bounded member piggyback of 16
+    entries a packet, int8 ``mem_tx`` and int8 queue counters, every other
+    knob at :func:`scale_sim_config`'s default. ``n_nodes`` and
+    ``overrides`` cut it to size."""
+    tiers = dict(pig_members=16, narrow_int8=True, narrow_q_int8=True)
+    return scale_sim_config(n_nodes, **{**tiers, **overrides})
+
+
 def flagship_workload(cfg: ScaleSimConfig, rounds: int, device="cuda"):
     """bench.py's workload: the ``n_origins`` origin nodes write with
     probability 0.25 per round, 1 % datagram loss, round key 0. Returns

@@ -1,11 +1,11 @@
 """The kernel forms of the 1M-node configuration against the JAX package:
 the swim kernel's packed-entry form (``pig_members > 0``) and its int8
 budget tier (``narrow_int8``), the ingest kernel's int8 queue-counter tier
-(``narrow_q_int8``), and the whole round under each of them. Exact
-equality (tolerance 0): the plain kernel versions against the pallas
-kernels in interpret mode, and the port's ``scale_run_rounds`` on the CPU
-against the JAX package's ``scale_run_rounds_carry`` (``fused="off"``),
-every state leaf and info value after every round.
+(``narrow_q_int8``), and the whole round under each of them, alone and
+combined. Exact equality (tolerance 0): the plain kernel versions against
+the pallas kernels in interpret mode, and the port's ``scale_run_rounds``
+on the CPU against the JAX package's ``scale_run_rounds_carry``
+(``fused="off"``), every state leaf and info value after every round.
 
 The CUDA forms run only on the card: ``chip_smoke.py`` holds each one
 bitwise against these plain versions there."""
@@ -143,6 +143,8 @@ VARIANTS = {
     "pig4": dict(pig_members=4),
     "pig4-int8": dict(pig_members=4, narrow_int8=True, narrow_q_int8=True),
     "aligned-int8": dict(narrow_int8=True, narrow_q_int8=True),
+    "aligned-int8tx": dict(narrow_int8=True),
+    "aligned-int8q": dict(narrow_q_int8=True),
 }
 
 
@@ -199,9 +201,9 @@ def test_variant_every_round_bitwise_equal_to_jax(reference):
 def test_variant_planes_carry_their_tiers(reference):
     name, (cfg, st, net, key, inputs), _, infos = reference
     st, _ = scale_step.scale_run_rounds(cfg, st, net, key, inputs)
-    int8 = VARIANTS[name].get("narrow_int8", False)
-    assert st.swim.mem_tx.dtype == (torch.int8 if int8 else torch.int16)
-    assert st.crdt.q_tx.dtype == (torch.int8 if int8 else torch.int16)
+    tiers = VARIANTS[name]
+    assert st.swim.mem_tx.dtype == (torch.int8 if tiers.get("narrow_int8") else torch.int16)
+    assert st.crdt.q_tx.dtype == (torch.int8 if tiers.get("narrow_q_int8") else torch.int16)
     assert st.crdt.q_seq.dtype == st.crdt.q_tx.dtype == st.crdt.q_nseq.dtype
     assert st.crdt.q_cell.dtype == torch.int16
     # the trajectory exercises the paths: gossip moved, writes spread
