@@ -1,25 +1,29 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's scale round on one NVIDIA GPU and check it.
+"""Drive the PyTorch/CUDA port's rounds on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero):
 
-1. Build every kernel of the round from ``corrosion_tpu_torch/csrc`` (one
-   ``nvcc`` per source, started together) and print ptxas' register report.
-2. Hold each kernel against its plain PyTorch version on the card, at the
-   flagship shapes (N = 100,000) on random valid inputs drawn from the
-   port's PRNG: every output must be bitwise equal (tolerance 0). Time the
-   kernel and the plain version with CUDA events. Then hold, untimed, the
-   forms the flagship does not run but a caller can reach on the card: the
-   wide planes (``narrow_dtypes=False``: int32 timer, budget and queue
-   planes) for all three kernels, and the non-emitting local write
-   (``broadcast.local_write``) at both plane dtypes.
+1. Build every kernel from ``corrosion_tpu_torch/csrc`` (one ``nvcc`` per
+   source, started together) and print ptxas' register and stack report.
+2. Hold every kernel form against its plain PyTorch version on the card on
+   random valid inputs drawn from the port's PRNG (every output bitwise
+   equal, tolerance 0), and time both with CUDA events: the flagship forms
+   at N = 100,000; the 1M point's forms (packed-entry swim kernel with int8
+   budgets, ingest with int8 q_tx) at N = 1,000,000; the full view's forms
+   at N = 8192 (the recv_slots-wide receive batch, m = 96, on inputs where
+   many rows record more messages than the queue's 64 slots, and the
+   non-emitting local write, m = 1, both on int32 planes); and the forms no
+   path here runs (int32 planes at N = 100,000, the non-emitting local write
+   at int16/int16 and int16/int8, the swim kernel's other budget tiers at
+   N = 1,000,000).
 3. Run 16 rounds of ``scale_sim_config(4096, sync_interval=2,
    sync_sweep_every=2)`` with writes, churn and 5 % message loss once on
    the card (kernels) and once on the CPU (plain versions); every state leaf
-   and round-info value must be bitwise equal after every round. (The CPU
-   route is held bitwise to the JAX package by ``tests/test_torch_*.py``.)
+   and round-info value must be bitwise equal after every round. The same
+   for the 1M point's configuration at 4096 nodes. (The CPU route is held
+   bitwise to the JAX package by ``tests/test_torch_*.py``.)
 4. The flagship: ``scale_sim_config(100_000)`` with bench.py's workload
    (``sim.scale_step.flagship_workload``), 2 warm-up rounds, then three
    timed batches of 8 rounds. Each kernel's launch count over the timed
@@ -35,19 +39,24 @@ Phases (any failure raises and the script exits non-zero):
    leaf and info value must be bitwise equal, the fixpoint branch must run,
    and each kernel must launch once in every dense round of the card's
    ``quiet="on"`` run and in no fixpoint round.
-
-Phase 2 also holds the 1M point's kernel forms at N = 1,000,000: the
-packed-entry swim kernel with int8 budgets and the ingest kernel with int8
-q_tx (timed), and, untimed, the packed form at int16 and int32 budgets and
-the aligned form with int8 budgets. Phase 3 also runs the 1M point's
-configuration at 4096 nodes.
+7. The full view, card vs CPU: 16 rounds of ``scenario.full_mix`` (churn,
+   conflict-heavy writes, 1 % loss) at ``full_view_config(1024)``; every
+   state leaf and info value bitwise equal after every round.
+8. The full view at ``full_view_config(8192)`` (O(N^2) membership view,
+   recv_slots = 96) with the same workload: 2 warm-up rounds, then three
+   timed batches of 4 rounds. The ingest kernel must launch once a round as
+   the local write (m = 1) and once as the receive batch (m = 96), and the
+   swim kernel never; prints rounds/s, peak device memory and the carried
+   state's bytes.
 
 Each kernel's bound is the larger of the bytes it must move on these inputs
 over the memory rate and its integer operations over the int32 rate.
 
 The last lines are the card's name and power limit, the per-kernel JSON
-record, and ``{"ok": true, "device": {...}}``. The script needs one CUDA
-device and exits non-zero without printing a result when there is none.
+record (launches are counted on the path that runs each form, 0 for the
+forms no path here runs), and ``{"ok": true, "device": {...}}``. The script
+needs one CUDA device and exits non-zero without printing a result when
+there is none.
 """
 
 from __future__ import annotations
@@ -65,6 +74,8 @@ H100_INT32_OPS_PER_S = 67e12 / 4
 FLAGSHIP_NODES = 100_000
 MILLION_NODES = 1_000_000
 TRAJECTORY_NODES = 4096  # small enough for the CPU route to keep pace
+FULL_NODES = 8192  # the full view's measured point (sim.config.full_view_config)
+FULL_TRAJECTORY_NODES = 1024  # the full view, card vs CPU: float ties are common
 
 
 def _swim_ops(n: int, m: int, pig_k: int = 0) -> int:
@@ -233,13 +244,26 @@ def _swim_bytes(args, out, pig_k: int = 0) -> int:
 
 
 # The ingest kernel's forms: (messages per row from cfg, emit, enqueue_all,
-# no drift reject). "receive" is the piggyback batch, "write" the local write
-# of ``broadcast.local_write``, "write_emit" the round's local write.
+# no drift reject, the messages' origin and version ranges and live share).
+# "receive" is the scale round's piggyback batch, "receive_full" the full
+# view's mailbox of recv_slots messages (versions mostly past the seen
+# window, origins below n_origins, so that many rows record more messages
+# than the queue holds), "write" the local write of
+# ``broadcast.local_write``, "write_emit" the scale round's local write.
 INGEST_FORMS = {
-    "receive": (lambda cfg: 4 * cfg.pig_changes, False, False, False),
-    "write": (lambda cfg: 1, False, True, True),
-    "write_emit": (lambda cfg: 1, True, True, True),
+    "receive": (lambda cfg: 4 * cfg.pig_changes, False, False, False, (64, 40, 0.7)),
+    "receive_full": (lambda cfg: cfg.recv_slots, False, False, False, (16, 4000, 0.9)),
+    "write": (lambda cfg: 1, False, True, True, (64, 40, 0.7)),
+    "write_emit": (lambda cfg: 1, True, True, True, (64, 40, 0.7)),
 }
+
+
+def _plane_dtypes(cfg):
+    """(q_cell, q_tx) plane dtypes: a scale config's tiers, else int32 (the
+    full view's SimConfig has no narrow tiers)."""
+    import torch
+
+    return getattr(cfg, "timer_dtype", torch.int32), getattr(cfg, "q_dtype", torch.int32)
 
 
 def _ingest_inputs(cfg, n: int, form: str, seed: int, dev):
@@ -255,7 +279,7 @@ def _ingest_inputs(cfg, n: int, form: str, seed: int, dev):
         HLC_ROUND_BITS,
     )
 
-    msgs, emit, enqueue_all, no_drift = INGEST_FORMS[form]
+    msgs, emit, enqueue_all, no_drift, (o_hi, dbv_hi, p_live) = INGEST_FORMS[form]
     m = msgs(cfg)
     ks = iter(prng.split(prng.key(seed), 64))
 
@@ -266,7 +290,7 @@ def _ingest_inputs(cfg, n: int, form: str, seed: int, dev):
         return prng.uniform(next(ks), shape, dev) < p
 
     o, c, q = cfg.n_origins, cfg.n_cells, cfg.bcast_queue
-    cdt, qdt = cfg.timer_dtype, cfg.q_dtype
+    cdt, qdt = _plane_dtypes(cfg)
     w = max(1, -(-cfg.buf_slots // 32))
     now = 50
     head = ri((n, o), 0, 30)
@@ -281,7 +305,7 @@ def _ingest_inputs(cfg, n: int, form: str, seed: int, dev):
         keep_rounds=cfg.org_keep_rounds, enqueue_all=enqueue_all,
     )
     x = IngestInputs(
-        live=coin((n, m), 0.7), origin=ri((n, m), -1, 64), dbv=ri((n, m), 0, 40),
+        live=coin((n, m), p_live), origin=ri((n, m), -1, o_hi), dbv=ri((n, m), 0, dbv_hi),
         cell=ri((n, m), -1, c + 1), ver=ri((n, m), 0, 8), val=ri((n, m), 0, 4),
         site=ri((n, m), 0, 4), clp=ri((n, m), 0, 2),
         ts=ri((n, m), (now - 3) << HLC_ROUND_BITS, (now + 4) << HLC_ROUND_BITS),
@@ -343,8 +367,8 @@ def _time_form(name, kernel, run, plain, nbytes, ops) -> dict:
     return r
 
 
-def _swim_form(name, cfg, seed, dev, timed=True, **kw) -> dict:
-    """One swim kernel form at ``cfg``'s shapes: timed, or only held."""
+def _swim_form(name, cfg, seed, dev, **kw) -> dict:
+    """One swim kernel form at ``cfg``'s shapes, held and timed."""
     from corrosion_tpu_torch.ops import megakernel as mk
 
     n, m, k = cfg.n_nodes, cfg.m_slots, kw.get("pig_k", 0)
@@ -358,70 +382,102 @@ def _swim_form(name, cfg, seed, dev, timed=True, **kw) -> dict:
     def plain():
         return mk.swim_tables_plain(consts, *args)
 
-    if not timed:
-        return _hold(name, run(), plain())
-    return _time_form(name, "swim_tables", run, plain,
-                      lambda got: _swim_bytes(args, got, k), _swim_ops(n, m, k))
+    r = _time_form(name, "swim_tables", run, plain,
+                   lambda got: _swim_bytes(args, got, k), _swim_ops(n, m, k))
+    r["replaces"] = "corrosion_tpu/ops/megakernel.py:1063"
+    return r
 
 
-def _ingest_form(name, cfg, form, seed, dev, timed=True):
-    """One ingest kernel form at ``cfg``'s shapes: timed, or only held."""
+def _recorded_past_queue(p, x, out) -> int:
+    """Rows whose recorded messages (fresh, on a slot that tracks their
+    origin after the claim) outnumber the queue's slots."""
+    import torch
+
+    slot = (torch.clamp(x.origin, min=0) % p.n_origins).long()
+    owned = (x.origin >= 0) & (torch.gather(out.org_id, 1, slot) == x.origin)
+    return int(((out.fresh & owned).sum(dim=1) > p.q_slots).sum())
+
+
+def _ingest_form(name, cfg, form, seed, dev) -> dict:
+    """One ingest kernel form at ``cfg``'s shapes, held and timed."""
     from corrosion_tpu_torch.ops import megakernel as mk
 
     p, x = _ingest_inputs(cfg, cfg.n_nodes, form, seed, dev)
-    if not timed:
-        return _hold(name, mk.ingest(p, x), mk.ingest_plain(p, x))
-    return _time_form(
+    r = _time_form(
         name, "ingest_emit" if p.pig_r else "ingest",
         lambda: mk.ingest(p, x), lambda: mk.ingest_plain(p, x),
         lambda got: _ingest_bytes(x, got),
         _ingest_ops(cfg.n_nodes, x.origin.shape[1], p.n_origins, p.seen_words,
                     p.n_cells, p.q_slots, p.pig_r))
+    r["replaces"] = "corrosion_tpu/ops/megakernel.py:" + ("960" if form.startswith("write") else "795")
+    if form == "receive_full":
+        rows = _recorded_past_queue(p, x, mk.ingest_plain(p, x))
+        print(f"[kernels] {name}: {rows} of {cfg.n_nodes} rows recorded more "
+              f"messages than the queue's {p.q_slots} slots", flush=True)
+        if rows <= 0:
+            raise AssertionError(f"{name}: no row recorded more than Q messages")
+    return r
+
+
+def _bits(dtype) -> str:
+    return str(dtype)[len("torch.int"):]
 
 
 def phase_kernels(dev) -> dict:
-    """Each kernel form against its plain version at the shapes of the path
-    that runs it (the result's "path"), timed; then the forms no path here
-    runs, untimed."""
+    """Each kernel form against its plain version, held bitwise and timed, at
+    the shapes of the path that runs it. Each result names that path and its
+    launch-count key (``FORM_LAUNCHES``), or no path for the forms no path
+    here runs (timed at the shapes of the configuration they belong to)."""
     import torch
 
+    from corrosion_tpu_torch.sim.config import full_view_config
     from corrosion_tpu_torch.sim.scale_step import million_config, scale_sim_config
 
     flag = scale_sim_config(FLAGSHIP_NODES)
-    big = million_config(MILLION_NODES)
-    k = big.pig_members
-    out = {
-        "swim_tables": _swim_form("swim_tables", flag, 11, dev),
-        "ingest": _ingest_form("ingest", flag, "receive", 27, dev),
-        "ingest_emit": _ingest_form("ingest_emit", flag, "write_emit", 32, dev),
-        "swim_tables_packed_i8": _swim_form(
-            "swim_tables_packed_i8", big, 13, dev, tx_dtype=torch.int8, pig_k=k),
-        "ingest_q_i8": _ingest_form("ingest_q_i8", big, "receive", 41, dev),
-        "ingest_emit_q_i8": _ingest_form("ingest_emit_q_i8", big, "write_emit", 42, dev),
-    }
-    for name, r in out.items():
-        r["path"] = "million" if name.endswith("_i8") else "flagship"
-
     wide = scale_sim_config(FLAGSHIP_NODES, narrow_dtypes=False)
-    _swim_form("swim_tables wide", wide, 12, dev, timed=False)
-    checked = [f"swim_tables aligned int32/int32 N={FLAGSHIP_NODES}"]
-    for c, forms in ((wide, ("receive", "write", "write_emit")), (flag, ("write",)),
-                     (big, ("write",))):
-        for form in forms:
-            label = (f"ingest {form} {str(c.timer_dtype)[6:]}/{str(c.q_dtype)[6:]} "
-                     f"N={c.n_nodes}")
-            _ingest_form(label, c, form, 31 + len(form), dev, timed=False)
-            checked.append(label)
-    for narrow, kw in ((True, dict(tx_dtype=torch.int16, pig_k=k)),
-                       (False, dict(pig_k=k)), (True, dict(tx_dtype=torch.int8))):
-        c = scale_sim_config(MILLION_NODES, narrow_dtypes=narrow)
-        label = (f"swim_tables {'packed' if kw.get('pig_k') else 'aligned'} "
-                 f"{str(c.timer_dtype)[6:]}/{str(kw.get('tx_dtype', c.timer_dtype))[6:]} "
-                 f"N={MILLION_NODES}")
-        _swim_form(label, c, 14 + len(checked), dev, timed=False, **kw)
-        checked.append(label)
-    print(f"[kernels] forms no path here runs, bitwise equal to plain: "
-          f"{', '.join(checked)}", flush=True)
+    big = million_config(MILLION_NODES)
+    full = full_view_config(FULL_NODES)
+    k = big.pig_members
+    forms = [  # name, path, launch key, measurement
+        ("swim_tables", "flagship", ("swim_tables", "aligned/16/16"),
+         lambda n: _swim_form(n, flag, 11, dev)),
+        ("ingest", "flagship", ("ingest", "16/16"),
+         lambda n: _ingest_form(n, flag, "receive", 27, dev)),
+        ("ingest_emit", "flagship", ("ingest_emit", "16/16"),
+         lambda n: _ingest_form(n, flag, "write_emit", 32, dev)),
+        ("swim_tables_packed_i8", "million", ("swim_tables", "packed/16/8"),
+         lambda n: _swim_form(n, big, 13, dev, tx_dtype=torch.int8, pig_k=k)),
+        ("ingest_q_i8", "million", ("ingest", "16/8"),
+         lambda n: _ingest_form(n, big, "receive", 41, dev)),
+        ("ingest_emit_q_i8", "million", ("ingest_emit", "16/8"),
+         lambda n: _ingest_form(n, big, "write_emit", 42, dev)),
+        ("ingest_full", "full", ("ingest", "32/32/m96"),
+         lambda n: _ingest_form(n, full, "receive_full", 51, dev)),
+        ("ingest_write_full", "full", ("ingest", "32/32"),
+         lambda n: _ingest_form(n, full, "write", 52, dev)),
+    ]
+    for c, form, seed in ((wide, "receive", 36), (wide, "write", 37),
+                          (wide, "write_emit", 38), (flag, "write", 39),
+                          (big, "write", 40)):
+        name = (f"ingest_{form}_{_bits(c.timer_dtype)}_{_bits(c.q_dtype)}"
+                f"_n{c.n_nodes}")
+        forms.append((name, None, None,
+                      lambda n, c=c, form=form, seed=seed: _ingest_form(n, c, form, seed, dev)))
+    for c, kw, seed in ((wide, {}, 12),
+                        (scale_sim_config(MILLION_NODES),
+                         dict(tx_dtype=torch.int16, pig_k=k), 15),
+                        (scale_sim_config(MILLION_NODES, narrow_dtypes=False),
+                         dict(pig_k=k), 16),
+                        (scale_sim_config(MILLION_NODES), dict(tx_dtype=torch.int8), 17)):
+        name = (f"swim_tables_{'packed' if kw.get('pig_k') else 'aligned'}_"
+                f"{_bits(c.timer_dtype)}_{_bits(kw.get('tx_dtype', c.timer_dtype))}"
+                f"_n{c.n_nodes}")
+        forms.append((name, None, None,
+                      lambda n, c=c, kw=kw, seed=seed: _swim_form(n, c, seed, dev, **kw)))
+    out = {}
+    for name, path, key, measure in forms:
+        out[name] = measure(name)
+        out[name].update(path=path, launch_key=key)
     return out
 
 
@@ -522,7 +578,7 @@ def phase_flagship(dev) -> dict:
     print(f"[flagship] N={n}: {reps} batches of {batch} rounds at "
           f"{[repr(x) for x in rates]} rounds/s, median {median!r}; peak device "
           f"memory {peak} bytes; launches {launches}; info sums {sums}", flush=True)
-    return {"rounds_per_s": median, "peak_bytes": peak, "launches": launches}
+    return {"rounds_per_s": median, "peak_bytes": peak, "forms": forms}
 
 
 def phase_million(dev) -> dict:
@@ -579,7 +635,97 @@ def phase_million(dev) -> dict:
           f"memory {peak} bytes; carried state {state_bytes} bytes "
           f"({state_bytes / n!r} B/node); launches {forms}; info sums {sums}",
           flush=True)
-    return {"rounds_per_s": median, "peak_bytes": peak, "launches": launches}
+    return {"rounds_per_s": median, "peak_bytes": peak, "forms": forms}
+
+
+def phase_full_trajectory(dev) -> None:
+    """The full-view round on the card == on the CPU, every leaf and info
+    value after every round, at ``FULL_TRAJECTORY_NODES``, with the full
+    view's workload (``scenario.full_view_workload``: churn, conflict-heavy
+    writes, 1 % loss)."""
+    from corrosion_tpu_torch.sim.config import full_view_config
+    from corrosion_tpu_torch.sim.scenario import full_view_workload
+    from corrosion_tpu_torch.sim.step import RoundInput, run_rounds_carry
+
+    cfg = full_view_config(FULL_TRAJECTORY_NODES)
+    rounds = 16
+    runs = {d: full_view_workload(cfg, rounds, d) for d in ("cpu", dev)}
+    carry = {d: (runs[d][0], runs[d][2]) for d in runs}
+    t0 = time.perf_counter()
+    sums = {}
+    for r in range(rounds):
+        infos = {}
+        for d, (_, net, _, inputs) in runs.items():
+            one = RoundInput(*(a[r:r + 1] for a in inputs))
+            st, key = carry[d]
+            carry[d], infos[d] = run_rounds_carry(cfg, st, net, key, one)
+        a, b = _flat(carry["cpu"][0]), [t.cpu() for t in _flat(carry[dev][0])]
+        err = _max_abs_err(a, b)
+        ierr = _max_abs_err(_flat(infos["cpu"]), [t.cpu() for t in _flat(infos[dev])])
+        if err or ierr:
+            raise AssertionError(f"full view round {r}: cuda != cpu (state {err}, info {ierr})")
+        for k, v in infos["cpu"].items():
+            sums[k] = sums.get(k, 0) + int(v.sum())
+    if sums["fresh"] <= 0 or sums["syncs"] <= 0 or sums["failed_probes"] <= 0:
+        raise AssertionError(f"full view trajectory moved nothing: {sums}")
+    print(f"[full-trajectory] N={cfg.n_nodes}: {rounds} rounds of full_mix, every "
+          f"leaf and info bitwise equal cuda vs cpu ({time.perf_counter() - t0:.1f} s); "
+          f"info sums {sums}", flush=True)
+
+
+def phase_full(dev) -> dict:
+    """The full view at ``FULL_NODES`` through the port's entry points: the
+    ingest kernel launches once a round as the local write (m=1) and once as
+    the recv_slots-wide receive batch, and the swim kernel never."""
+    import torch
+
+    from corrosion_tpu_torch.ops import megakernel as mk
+    from corrosion_tpu_torch.sim.config import full_view_config
+    from corrosion_tpu_torch.sim.scenario import full_view_workload
+    from corrosion_tpu_torch.sim.step import RoundInput, crdt_metrics, run_rounds_carry
+
+    cfg = full_view_config(FULL_NODES)
+    n, warm, batch, reps = cfg.n_nodes, 2, 4, 3
+    total = warm + batch * reps
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    st, net, key, inputs = full_view_workload(cfg, total, dev)
+    state_bytes = _nbytes(_flat(st))
+
+    def part(lo, hi):
+        return RoundInput(*(a[lo:hi] for a in inputs))
+
+    mk.reset_launches()
+    (st, key), warm_infos = run_rounds_carry(cfg, st, net, key, part(0, warm))
+    torch.cuda.synchronize()
+    rates, batch_infos = [], [warm_infos]
+    for lo in range(warm, total, batch):
+        t0 = time.perf_counter()
+        (st, key), infos = run_rounds_carry(cfg, st, net, key, part(lo, lo + batch))
+        torch.cuda.synchronize()
+        rates.append(batch / (time.perf_counter() - t0))
+        batch_infos.append(infos)
+    forms = dict(mk.FORM_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    want_forms = {("ingest", "32/32"): total,
+                  ("ingest", f"32/32/m{cfg.recv_slots}"): total}
+    if forms != want_forms:
+        raise AssertionError(f"full view launch counts {forms} != {want_forms}")
+    sums = {k: sum(int(i[k].sum()) for i in batch_infos) for k in batch_infos[0]}
+    if sums["fresh"] <= 0 or sums["sent"] <= 0 or sums["syncs"] <= 0:
+        raise AssertionError(f"full view run moved nothing: {sums}")
+    if (int(st.crdt.now) != total or st.swim.view.shape != (n, n)
+            or _nbytes(_flat(st)) != state_bytes):
+        raise AssertionError("full view state has the wrong round, shape or size")
+    metrics = {k: v.item() for k, v in crdt_metrics(cfg, st).items()}
+    median = sorted(rates)[len(rates) // 2]
+    print(f"[full] N={n} recv_slots={cfg.recv_slots} Q={cfg.bcast_queue} "
+          f"fanout={cfg.bcast_fanout}: {reps} batches of {batch} rounds at "
+          f"{[repr(x) for x in rates]} rounds/s, median {median!r} (spread "
+          f"{min(rates)!r}-{max(rates)!r}); peak device memory {peak} bytes; "
+          f"carried state {state_bytes} bytes ({state_bytes / n!r} B/node); "
+          f"launches {forms}; info sums {sums}; metrics {metrics}", flush=True)
+    return {"rounds_per_s": median, "peak_bytes": peak, "forms": forms}
 
 
 def phase_quiet(dev) -> None:
@@ -678,14 +824,14 @@ def main() -> int:
     done("million")
     phase_quiet(dev)
     done("quiet")
+    phase_full_trajectory(dev)
+    done("full-trajectory")
+    full = phase_full(dev)
+    done("full")
 
-    # each form's launches are read from the path that runs it
-    paths = {"flagship": flag, "million": million}
-    replaces = {
-        "swim_tables": "corrosion_tpu/ops/megakernel.py:1063",
-        "ingest": "corrosion_tpu/ops/megakernel.py:795",
-        "ingest_emit": "corrosion_tpu/ops/megakernel.py:960",
-    }
+    # each form's launches are read from the path that runs it (0: no path
+    # here runs the form)
+    paths = {"flagship": flag, "million": million, "full": full}
     source = {
         "swim_tables": "corrosion_tpu_torch/csrc/swim_tables.cu",
         "ingest": "corrosion_tpu_torch/csrc/ingest.cu",
@@ -694,8 +840,9 @@ def main() -> int:
     record = {"kernels": [
         {
             "name": name, "route": "cuda", "source": source[r["kernel"]],
-            "replaces": replaces[r["kernel"]],
-            "launches": paths[r["path"]]["launches"][r["kernel"]],
+            "replaces": r["replaces"],
+            "launches": (paths[r["path"]]["forms"].get(r["launch_key"], 0)
+                         if r["path"] else 0),
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

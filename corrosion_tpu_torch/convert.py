@@ -20,6 +20,8 @@ from corrosion_tpu_torch.ops.versions import Book
 from corrosion_tpu_torch.sim.broadcast import CrdtState
 from corrosion_tpu_torch.sim.scale import ScaleSwimState
 from corrosion_tpu_torch.sim.scale_step import ScaleRoundInput, ScaleSimState
+from corrosion_tpu_torch.sim.step import RoundInput, SimState
+from corrosion_tpu_torch.sim.swim import SwimState
 from corrosion_tpu_torch.sim.transport import NetModel
 
 
@@ -41,22 +43,31 @@ def _build(cls, d: dict, dev, nested=None):
     })
 
 
+def _crdt(tree: dict, dev) -> CrdtState:
+    return _build(CrdtState, tree, dev, nested={
+        "store": lambda s: tuple(_t(p, dev) for p in s),
+        "book": lambda b: _build(Book, b, dev),
+        "partials": lambda p: _build(Partials, p, dev),
+    })
+
+
 def scale_state_from_numpy(cfg, tree: dict, device="cuda") -> ScaleSimState:
     """``ScaleSimState`` from ``{"swim": {...}, "crdt": {...}}`` numpy dicts."""
     dev = resolve_device(device)
-    crdt = tree["crdt"]
-    return ScaleSimState(
-        swim=_build(ScaleSwimState, tree["swim"], dev),
-        crdt=_build(CrdtState, crdt, dev, nested={
-            "store": lambda s: tuple(_t(p, dev) for p in s),
-            "book": lambda b: _build(Book, b, dev),
-            "partials": lambda p: _build(Partials, p, dev),
-        }),
-    )
+    return ScaleSimState(swim=_build(ScaleSwimState, tree["swim"], dev),
+                         crdt=_crdt(tree["crdt"], dev))
 
 
-def scale_state_to_numpy(st: ScaleSimState) -> dict:
-    """The nested numpy dict of a port state (``seen`` as uint32)."""
+def full_state_from_numpy(cfg, tree: dict, device="cuda") -> SimState:
+    """The full view's ``SimState`` from the same nested numpy dicts."""
+    dev = resolve_device(device)
+    return SimState(swim=_build(SwimState, tree["swim"], dev),
+                    crdt=_crdt(tree["crdt"], dev))
+
+
+def scale_state_to_numpy(st) -> dict:
+    """The nested numpy dict of a port state, scale or full view (``seen``
+    as uint32)."""
     def tree(nt):
         out = {}
         for f, v in zip(nt._fields, nt):
@@ -79,6 +90,13 @@ def net_from_numpy(tree: dict, device="cuda") -> NetModel:
 
 def round_input_from_numpy(tree: dict, device="cuda") -> ScaleRoundInput:
     return _build(ScaleRoundInput, tree, resolve_device(device))
+
+
+def full_round_input_from_numpy(tree: dict, device="cuda") -> RoundInput:
+    return _build(RoundInput, tree, resolve_device(device))
+
+
+full_state_to_numpy = scale_state_to_numpy
 
 
 def key_from_numpy(data) -> torch.Tensor:

@@ -1,9 +1,11 @@
 // Receiver-side changeset ingest, for Hopper (sm_90a).
 //
 // Replaces: corrosion_tpu/ops/megakernel.py::_ingest_kernel (the pallas_call
-// at megakernel.py:918), in both of its forms on the scale round:
-//   EMIT = false  ingest_changes_fused (megakernel.py:795), the piggyback
-//                 receive batch (4 channels x pig_changes messages per row);
+// at megakernel.py:918), in each of its forms:
+//   EMIT = false  ingest_changes_fused (megakernel.py:795), the scale round's
+//                 piggyback receive batch (4 channels x pig_changes messages
+//                 per row) and the full view's recv_slots-wide mailbox (m=96);
+//                 also the local write without payload (m=1);
 //   EMIT = true   local_write_fused (megakernel.py:960), the local write as a
 //                 one-message batch that also selects and packs this round's
 //                 piggyback payload from the updated queue planes.
@@ -29,7 +31,18 @@
 // (clp, ver, val, site, dbv) unless the incumbent wins the four keys); the
 // evict-min-q_tx enqueue (lowest column on ties); and with EMIT the budget
 // mask (first column on ties) and the top pig_r uniforms (first index on
-// ties). Wrapping int32 arithmetic goes through uint32; `>>` on the signed
+// ties). Received batches wider than the queue (m > Q) place their r-th
+// recorded message in the r-th slot by ascending evict key and drop ranks
+// >= Q, as alloc_slots_evict does: each taken slot is marked kIntMax and the
+// loop stops placing once the smallest key left is kIntMax.
+//
+// The message capacity MAXM sizes the per-thread message arrays and is a
+// template parameter: 32 for the scale round's batches (their stack stays at
+// its size), 128 for the full view's recv_slots, non-emitting only. The
+// launcher picks the narrowest instantiation that holds m; the in-batch
+// dedupe and the batch-winner search are O(m^2) per row.
+//
+// Wrapping int32 arithmetic goes through uint32; `>>` on the signed
 // stamp stays arithmetic as in JAX. The store and queue rows are copied to
 // the outputs first and updated there, so each plane is read once and
 // written once. q_cell (CT) and q_tx (XT) have types of their own, widened to
@@ -41,7 +54,8 @@
 
 namespace {
 
-constexpr int kMaxMsgs = 32;
+constexpr int kMaxMsgs = 32;  // scale batches, and every emitting form
+constexpr int kMaxMsgsWide = 128;  // the full view's recv_slots mailboxes
 constexpr int kMaxOrigins = 32;
 constexpr int kMaxWords = 4;
 constexpr int kMaxQueue = 64;
@@ -139,7 +153,7 @@ struct IngestArgs {
   int32_t enqueue_all;
 };
 
-template <typename CT, typename XT, bool EMIT>
+template <typename CT, typename XT, bool EMIT, int MAXM>
 __global__ void ingest_kernel(IngestArgs a) {
   const int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (r >= a.n) return;
@@ -147,8 +161,8 @@ __global__ void ingest_kernel(IngestArgs a) {
   const int32_t now = *a.now;
 
   // --- messages --------------------------------------------------------
-  bool live[kMaxMsgs], fresh[kMaxMsgs], rec[kMaxMsgs];
-  int32_t origin[kMaxMsgs], dbv[kMaxMsgs], ts[kMaxMsgs], slot[kMaxMsgs];
+  bool live[MAXM], fresh[MAXM], rec[MAXM];
+  int32_t origin[MAXM], dbv[MAXM], ts[MAXM], slot[MAXM];
   const int64_t mb = r * m;
   for (int j = 0; j < m; ++j) {
     live[j] = a.live[mb + j] != 0;
@@ -420,12 +434,16 @@ __global__ void ingest_kernel(IngestArgs a) {
   }
 }
 
+// out: the widest batch (m) of any form, origins, seen words, queue slots,
+// payload entries, and the widest batch of the narrow (and every emitting)
+// instantiation.
 extern "C" int ingest_limits(int* out) {
-  out[0] = kMaxMsgs;
+  out[0] = kMaxMsgsWide;
   out[1] = kMaxOrigins;
   out[2] = kMaxWords;
   out[3] = kMaxQueue;
   out[4] = kMaxPig;
+  out[5] = kMaxMsgs;
   return 0;
 }
 
@@ -433,17 +451,23 @@ template <typename CT, typename XT>
 static void launch_form(const IngestArgs* a, int emit, dim3 grid, int threads,
                         cudaStream_t s) {
   if (emit) {
-    ingest_kernel<CT, XT, true><<<grid, threads, 0, s>>>(*a);
+    ingest_kernel<CT, XT, true, kMaxMsgs><<<grid, threads, 0, s>>>(*a);
+  } else if (a->m <= kMaxMsgs) {
+    ingest_kernel<CT, XT, false, kMaxMsgs><<<grid, threads, 0, s>>>(*a);
   } else {
-    ingest_kernel<CT, XT, false><<<grid, threads, 0, s>>>(*a);
+    ingest_kernel<CT, XT, false, kMaxMsgsWide><<<grid, threads, 0, s>>>(*a);
   }
 }
 
 // cell_bytes / tx_bytes: the element sizes of the q_cell and q_tx planes;
 // the valid pairs are (2, 1), (2, 2) and (4, 4). Returns a CUDA error code,
-// or cudaErrorInvalidValue for any other pair.
+// or cudaErrorInvalidValue for any other pair or for a batch wider than the
+// form's instantiation holds.
 extern "C" int ingest_launch(const IngestArgs* a, int cell_bytes, int tx_bytes,
                              int emit, void* stream) {
+  if (a->m < 0 || a->m > (emit ? kMaxMsgs : kMaxMsgsWide)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (a->n == 0) return 0;
   const int threads = 128;
   const dim3 grid((a->n + threads - 1) / threads);

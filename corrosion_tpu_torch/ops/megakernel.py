@@ -1,11 +1,13 @@
-"""The scale round's two kernels, their wrappers and their plain versions
+"""The port's two kernels, their wrappers and their plain versions
 (port of ``corrosion_tpu/ops/megakernel.py``).
 
 - ``swim_tables_fused``: the row-local SWIM back half
   (``csrc/swim_tables.cu``; plain version ``sim/scale.swim_tables_update``).
-- ``ingest_changes_fused`` / ``local_write_fused``: receiver ingest, and
-  the local write that also emits the round's piggyback payload
-  (``csrc/ingest.cu``; plain version :func:`ingest_plain`).
+- ``ingest_changes_fused`` / ``local_write_fused``: receiver ingest (the
+  scale round's piggyback batches and the full view's ``recv_slots``-wide
+  mailboxes), and the local write, which on the scale round also emits the
+  round's piggyback payload (``csrc/ingest.cu``; plain version
+  :func:`ingest_plain`).
 
 A wrapper picks its route from the tensors it is given and nothing else:
 on CUDA tensors it launches the kernel (or raises), on CPU tensors it runs
@@ -44,7 +46,9 @@ from corrosion_tpu_torch.sim.scale import swim_tables_update as swim_tables_plai
 LAUNCHES = {"swim_tables": 0, "ingest": 0, "ingest_emit": 0}
 #: the same launches per (wrapper, form): the swim kernel's form is
 #: "aligned" or "packed" with its timer and budget bits, e.g.
-#: "packed/16/8"; the ingest kernel's its q_cell and q_tx bits, e.g. "16/8"
+#: "packed/16/8"; the ingest kernel's its q_cell and q_tx bits, e.g. "16/8",
+#: and the batch width where it takes the wide instantiation, e.g.
+#: "32/32/m96"
 FORM_LAUNCHES: dict = {}
 
 
@@ -387,11 +391,14 @@ _Q_FIELDS = ("q_origin", "q_dbv", "q_cell", "q_ver", "q_val", "q_site",
 
 def _ingest_cuda(p: IngestParams, x: IngestInputs) -> IngestOutputs:
     lib = cuda_lib.library("ingest")
-    limits = (ctypes.c_int * 5)()
+    limits = (ctypes.c_int * 6)()
     lib.ingest_limits(limits)
     n, m = x.origin.shape
     c_cnt, o, w, q = p.n_cells, p.n_origins, p.seen_words, p.q_slots
-    if (m > limits[0] or o > limits[1] or w > limits[2] or q > limits[3]
+    # limits: widest m, O, W, Q, R, and the widest m of the narrow (and
+    # every emitting) instantiation
+    max_m = limits[5] if p.pig_r else limits[0]
+    if (m > max_m or o > limits[1] or w > limits[2] or q > limits[3]
             or p.pig_r > limits[4]):
         raise ValueError(
             f"ingest widths m={m} O={o} W={w} Q={q} R={p.pig_r} exceed the "
@@ -464,8 +471,10 @@ def _ingest_cuda(p: IngestParams, x: IngestInputs) -> IngestOutputs:
     rc = fn(ctypes.byref(a), x.q_cell.element_size(), x.q_tx.element_size(),
             int(p.pig_r > 0), ctypes.c_void_p(stream))
     _raise_on(rc, lib, "ingest_error_string")
-    _count_launch("ingest_emit" if p.pig_r else "ingest",
-                  f"{8 * x.q_cell.element_size()}/{8 * x.q_tx.element_size()}")
+    form = f"{8 * x.q_cell.element_size()}/{8 * x.q_tx.element_size()}"
+    if m > limits[5]:
+        form += f"/m{m}"  # the wide instantiation (the full view's mailboxes)
+    _count_launch("ingest_emit" if p.pig_r else "ingest", form)
     return out
 
 

@@ -1,13 +1,16 @@
 """Where the flagship round's time goes on the card: ``torch.profiler`` over
 a few rounds of ``scale_sim_config(100_000)`` with bench.py's workload
 (``sim.scale_step.flagship_workload``, the one ``chip_smoke.py`` times), or
-with ``--million`` of the 1M point (``sim.scale_step.million_config``).
+with ``--million`` of the 1M point (``sim.scale_step.million_config``), or
+with ``--full`` of the full view at ``sim.config.full_view_config()``
+(N = 8192) with its workload (``sim.scenario.full_view_workload``).
 
-    python3 -m corrosion_tpu_torch.round_profile [--million] [--out DIR]
+    python3 -m corrosion_tpu_torch.round_profile [--million | --full] [--out DIR]
 
 Prints the card's name and power limit, the round's wall time with and
 without the profiler, the device's busy share (kernel time over wall
-time), kernel launches and host-side aten calls per round, and the kernels
+time), kernel launches and host-side aten calls per round, the device time
+of the int64 elementwise kernels (the threefry PRNG's draws), and the kernels
 that take the most device time; writes that table and a Chrome trace under
 ``--out`` (default ``chiprun_out/``). Needs one CUDA device.
 """
@@ -16,6 +19,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -37,6 +41,9 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from corrosion_tpu_torch.ops import cuda_lib
+    from corrosion_tpu_torch.sim import step
+    from corrosion_tpu_torch.sim.config import full_view_config
+    from corrosion_tpu_torch.sim.scenario import full_view_workload
     from corrosion_tpu_torch.sim.scale_step import (
         ScaleRoundInput,
         flagship_workload,
@@ -47,8 +54,11 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="chiprun_out")
-    ap.add_argument("--million", action="store_true",
-                    help="profile the 1M point instead of the 100k flagship")
+    which = ap.add_mutually_exclusive_group()
+    which.add_argument("--million", action="store_true",
+                       help="profile the 1M point instead of the 100k flagship")
+    which.add_argument("--full", action="store_true",
+                       help="profile the full view at N=8192 instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("round_profile: no CUDA device", file=sys.stderr)
@@ -59,18 +69,24 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
-    cfg = million_config() if args.million else scale_sim_config(N_NODES)
     warm, r = WARM_ROUNDS, ROUNDS
     total = warm + 2 * r
-    st, net, key, inputs = flagship_workload(cfg, total, dev)
+    if args.full:
+        cfg = full_view_config()
+        st, net, key, inputs = full_view_workload(cfg, total, dev)
+        run, round_input = step.run_rounds_carry, step.RoundInput
+    else:
+        cfg = million_config() if args.million else scale_sim_config(N_NODES)
+        st, net, key, inputs = flagship_workload(cfg, total, dev)
+        run, round_input = scale_run_rounds_carry, ScaleRoundInput
 
     def part(lo, hi):
-        return ScaleRoundInput(*(a[lo:hi] for a in inputs))
+        return round_input(*(a[lo:hi] for a in inputs))
 
     def timed(carry, lo, hi):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        carry, _ = scale_run_rounds_carry(cfg, carry[0], net, carry[1], part(lo, hi))
+        carry, _ = run(cfg, carry[0], net, carry[1], part(lo, hi))
         torch.cuda.synchronize()
         return carry, (time.perf_counter() - t0) / (hi - lo)
 
@@ -87,6 +103,8 @@ def main(argv=None) -> int:
     busy_us = sum(_device_us(e) for e in kernels)
     launches = sum(e.count for e in kernels)
     aten = sum(1 for e in prof.events() if e.cpu_parent is None and e.name.startswith("aten::"))
+    int64_us = sum(_device_us(e) for e in kernels
+                   if "elementwise_kernel" in e.key and re.search(r"Functor\w*<long", e.key))
     lines = [
         smi,
         f"N={cfg.n_nodes} rounds={r}: {plain_s * 1e3:.3f} ms/round unprofiled, "
@@ -96,6 +114,9 @@ def main(argv=None) -> int:
         f"{busy_us / 1e6 / (prof_s * r):.3f} of profiled wall; "
         f"{launches / r:.1f} device kernels and copies/round; "
         f"{aten / r:.1f} top-level aten calls/round",
+        f"int64 elementwise kernels (the threefry draws and int64 index math) "
+        f"{int64_us / r / 1e3:.3f} ms/round = {int64_us / max(busy_us, 1e-9):.3f} "
+        f"of device busy time",
         "top kernels by device time (ms/round, launches/round):",
     ]
     for e in kernels[:25]:
@@ -104,7 +125,8 @@ def main(argv=None) -> int:
     print(text)
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    stem = "round_profile_1m" if args.million else "round_profile"
+    stem = ("round_profile_1m" if args.million
+            else "round_profile_full" if args.full else "round_profile")
     (out / f"{stem}.txt").write_text(text + "\n")
     prof.export_chrome_trace(str(out / f"{stem}_trace.json"))
     print(json.dumps({"ms_per_round": plain_s * 1e3, "busy_ms_per_round": busy_us / r / 1e3,

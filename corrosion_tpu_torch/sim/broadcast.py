@@ -1,11 +1,12 @@
-"""CRDT state, hybrid logical clock and the single-cell write/ingest entry
-points (port of the parts of ``corrosion_tpu/sim/broadcast.py`` the scale
-round runs).
+"""CRDT state, hybrid logical clock, the single-cell write/ingest entry
+points and the full view's broadcast flush (port of
+``corrosion_tpu/sim/broadcast.py``).
 
 Every node carries an LWW store, version bookkeeping (``Book``) and a
-fixed-width queue of changesets awaiting re-broadcast. On this path a
-local write and a receiver batch both go through the ingest kernel
-(``ops/megakernel.py``).
+fixed-width queue of changesets awaiting re-broadcast. A local write and a
+receiver batch both go through the ingest kernel (``ops/megakernel.py``):
+the scale round's piggyback batches and the full view's ``recv_slots``-wide
+mailboxes alike.
 """
 
 from __future__ import annotations
@@ -16,7 +17,9 @@ import torch
 
 from corrosion_tpu_torch._device import resolve_device
 from corrosion_tpu_torch.ops.partials import Partials
+from corrosion_tpu_torch.ops.slots import budget_mask, mailbox_pack
 from corrosion_tpu_torch.ops.versions import Book
+from corrosion_tpu_torch.sim.transport import NetModel, uni_ok
 
 NO_Q = -1
 LAST_SYNC_CAP = 4095  # staleness saturates (never-synced == very stale)
@@ -72,8 +75,9 @@ class CrdtState(NamedTuple):
     def create(cfg, device="cuda") -> "CrdtState":
         dev = resolve_device(device)
         n, q, c = cfg.n_nodes, cfg.bcast_queue, cfg.n_cells
-        ndt = torch.int16 if cfg.narrow_dtypes else torch.int32
-        qdt = torch.int8 if cfg.narrow_q_int8 else ndt
+        # the full view's SimConfig has no narrow tiers: int32 planes
+        ndt = torch.int16 if getattr(cfg, "narrow_dtypes", False) else torch.int32
+        qdt = torch.int8 if getattr(cfg, "narrow_q_int8", False) else ndt
 
         def z(*s, dtype=torch.int32):
             return torch.zeros(s, dtype=dtype, device=dev)
@@ -123,13 +127,64 @@ def local_write(cfg, cst: CrdtState, write_mask, cell, val, clp=None):
 
 
 def ingest_changes(cfg, cst: CrdtState, live, m_origin, m_dbv, m_cell, m_ver,
-                   m_val, m_site, m_clp, m_ts):
+                   m_val, m_site, m_clp, m_seq=None, m_nseq=None, m_ts=None):
     """Receiver ingest of single-cell changes through the ingest kernel:
     dedupe via the Book, apply fresh cells, re-enqueue recorded ones.
-    Returns ``(cst, info)``."""
+    ``m_seq``/``m_nseq`` (the chunking stamps) are ignored: every version
+    is one cell at ``tx_max_cells == 1``. Returns ``(cst, info)``."""
     from corrosion_tpu_torch.ops import megakernel
 
     _single_cell(cfg)
+    if m_ts is None:
+        m_ts = torch.zeros_like(m_origin)
     return megakernel.ingest_changes_fused(
         cfg, cst, live, m_origin, m_dbv, m_cell, m_ver, m_val, m_site, m_clp, m_ts
     )
+
+
+def bcast_step(cfg, cst: CrdtState, targets, t_ok, alive, net: NetModel, key):
+    """One broadcast flush + ingest round of the full view: every node fires
+    its sendable queue slots at its ``bcast_fanout`` targets over the lossy
+    uni channel, the sender x slot x target messages are packed into
+    ``recv_slots``-wide mailboxes per receiver, the senders' budgets burn
+    once per flush, and the receivers ingest their mailboxes. Returns
+    ``(cst, info)``."""
+    n, q, f = cfg.n_nodes, cfg.bcast_queue, cfg.bcast_fanout
+    if tuple(targets.shape) != (n, f):
+        raise ValueError(
+            f"targets shape {tuple(targets.shape)} != ({n}, {f}) "
+            f"(n_nodes, bcast_fanout)"
+        )
+    dev = targets.device
+
+    # sendable slots: queued with budget left, then the per-round send budget
+    live_slot = (cst.q_origin != NO_Q) & (cst.q_tx > 0)
+    allowed = max(1, cfg.bcast_budget_bytes // (CHANGE_WIRE_BYTES * max(1, f)))
+    live_slot = budget_mask(live_slot, cst.q_tx, allowed)
+
+    # messages: sender x slot x target
+    src = torch.arange(n, dtype=torch.int32, device=dev)[:, None, None].expand(n, q, f)
+    dst = targets[:, None, :].expand(n, q, f)
+    m_ok = live_slot[:, :, None] & t_ok[:, None, :] & uni_ok(net, key, alive, src, dst)
+
+    def flat(a):
+        return a[:, :, None].expand(n, q, f).reshape(-1)
+
+    live, packed = mailbox_pack(
+        dst.reshape(-1), m_ok.reshape(-1), n_rows=n, capacity=cfg.recv_slots,
+        fields=tuple(flat(a) for a in (
+            cst.q_origin, cst.q_dbv, cst.q_cell, cst.q_ver, cst.q_val,
+            cst.q_site, cst.q_clp, cst.q_seq, cst.q_nseq, cst.q_ts)),
+    )
+
+    # sender-side budget decrement on the attempt, in the plane dtype; free
+    # exhausted slots
+    attempted = (live_slot & t_ok.any(dim=1)[:, None]).to(cst.q_tx.dtype)
+    q_tx = torch.where(live_slot, cst.q_tx - attempted, cst.q_tx)
+    exhausted = (cst.q_origin != NO_Q) & (q_tx <= 0)
+    cst = cst._replace(
+        q_tx=torch.clamp(q_tx, min=0),
+        q_origin=torch.where(exhausted, NO_Q, cst.q_origin),
+    )
+    cst, info = ingest_changes(cfg, cst, live, *packed)
+    return cst, {**info, "sent": m_ok.sum()}

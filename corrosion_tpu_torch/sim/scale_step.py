@@ -329,7 +329,8 @@ def piggyback_bcast_step(cfg, cst: CrdtState, channels, carried, emitted):
     exhausted = (cst.q_origin != NO_Q) & (q_tx <= 0)
     cst = cst._replace(q_tx=q_tx, q_origin=torch.where(exhausted, NO_Q, cst.q_origin))
     return ingest_changes(
-        cfg, cst, live, m_origin, m_dbv, m_cell, m_ver, m_val, m_site, m_clp, m_ts
+        cfg, cst, live, m_origin, m_dbv, m_cell, m_ver, m_val, m_site, m_clp,
+        m_ts=m_ts,
     )
 
 

@@ -1,11 +1,11 @@
-"""The simulated transport (port of the card forms of
-``corrosion_tpu/sim/transport.py``).
+"""The simulated transport (port of ``corrosion_tpu/sim/transport.py``).
 
-Delivery predicates over per-node "cards": every per-node scalar the round
-reads remotely (liveness, partition group, cluster id, region, plus caller
-columns such as the incarnation or the HLC) is packed into one int32
-``[N, C]`` table, and one row gather per peer-index array replaces several
-element gathers.
+The scale round's delivery predicates work over per-node "cards": every
+per-node scalar the round reads remotely (liveness, partition group,
+cluster id, region, plus caller columns such as the incarnation or the HLC)
+is packed into one int32 ``[N, C]`` table, and one row gather per
+peer-index array replaces several element gathers. The full-view round
+uses the node-id forms at the end of this module.
 """
 
 from __future__ import annotations
@@ -92,3 +92,56 @@ def ring_of_c(net: NetModel, a_card, b_card):
     n = torch.clamp(net.region.max() + 1, min=1)
     circ = torch.minimum(d, n - d)
     return torch.clamp(circ, max=N_RINGS - 1).to(torch.int32)
+
+
+# --- node-id predicates of the full-view round ---------------------------
+# The full view gathers each per-node field by node id (the JAX package's
+# non-card forms); every draw is made with the same key and shape as there.
+
+
+def _at(t, idx):
+    return t[idx.long()]
+
+
+def ring_of(net: NetModel, src, dst):
+    """RTT ring between node ids (int32 tensors of one shape)."""
+    d = (_at(net.region, src) - _at(net.region, dst)).abs()
+    n = torch.clamp(net.region.max() + 1, min=1)
+    circ = torch.minimum(d, n - d)
+    return torch.clamp(circ, max=N_RINGS - 1).to(torch.int32)
+
+
+def same_region(net: NetModel):
+    """[N, N] ring-0 adjacency (full-view rounds only)."""
+    return net.region[:, None] == net.region[None, :]
+
+
+def _link_ok(net: NetModel, alive, src, dst):
+    """Both endpoints up, same partition group, same cluster id."""
+    return (
+        _at(alive, src)
+        & _at(alive, dst)
+        & (_at(net.partition, src) == _at(net.partition, dst))
+        & (_at(net.cluster_id, src) == _at(net.cluster_id, dst))
+    )
+
+
+def datagram_ok(net: NetModel, key, alive, src, dst):
+    """Lossy datagram delivery between node ids (``src``/``dst`` of one
+    shape; one uniform draw of that shape)."""
+    drop = prng.uniform(key, src.shape, src.device) < net.drop_prob
+    return _link_ok(net, alive, src, dst) & ~drop
+
+
+# changeset broadcast uni streams share datagram loss semantics
+uni_ok = datagram_ok
+
+
+def bi_ok(net: NetModel, key, alive, src, dst):
+    """Sync bi-stream availability: fails on either of two loss draws."""
+    k1, k2 = prng.split(key)
+    dev = src.device
+    drop = (prng.uniform(k1, src.shape, dev) < net.drop_prob) | (
+        prng.uniform(k2, src.shape, dev) < net.drop_prob
+    )
+    return _link_ok(net, alive, src, dst) & ~drop

@@ -14,11 +14,14 @@ from corrosion_tpu.ops import partials as jpartials
 from corrosion_tpu.ops import versions as jversions
 from corrosion_tpu.sim import broadcast as jbroadcast
 from corrosion_tpu.sim import scale as jscale
+from corrosion_tpu.sim import config as jconfig
 from corrosion_tpu.sim import scale_step as jstep
+from corrosion_tpu.sim import step as jfull
+from corrosion_tpu.sim import swim as jswim
 from corrosion_tpu.sim import transport as jtransport
 from corrosion_tpu_torch import convert
 from corrosion_tpu_torch.ops import partials, versions
-from corrosion_tpu_torch.sim import broadcast, scale, scale_step, transport
+from corrosion_tpu_torch.sim import broadcast, config, scale, scale_step, step, swim, transport
 
 
 def _randomized(st, seed):
@@ -78,6 +81,9 @@ def test_container_leaf_order():
         (transport.NetModel, jtransport.NetModel),
         (scale_step.ScaleSimState, jstep.ScaleSimState),
         (scale_step.ScaleRoundInput, jstep.ScaleRoundInput),
+        (swim.SwimState, jswim.SwimState),
+        (step.SimState, jfull.SimState),
+        (step.RoundInput, jfull.RoundInput),
     ]
     for ours, theirs in pairs:
         assert ours._fields == theirs._fields, ours.__name__
@@ -97,3 +103,31 @@ def test_net_inputs_and_key_round_trip():
     key = jr.fold_in(jr.key(77), 5)
     tkey = convert.key_from_numpy(jr.key_data(key))
     assert np.array_equal(np.asarray(jr.key_data(key)).astype(np.int64), tkey.numpy())
+
+
+def test_full_state_round_trip_and_created_state():
+    """The full view's state (int32 [N, N] view, timer, budget and last-sync
+    planes): random leaves survive the trip, and a fresh port state equals a
+    fresh JAX state leaf for leaf."""
+    jcfg = jconfig.wan_config(40, tx_max_cells=1)
+    tcfg = config.wan_config(40, tx_max_cells=1)
+    st = _randomized(jfull.SimState.create(jcfg), 3)
+    tree = convert.as_numpy_tree(st)
+    back = convert.full_state_to_numpy(convert.full_state_from_numpy(tcfg, tree, "cpu"))
+    fresh = convert.full_state_to_numpy(step.SimState.create(tcfg, device="cpu"))
+    want_fresh = jax.tree.leaves(convert.as_numpy_tree(jfull.SimState.create(jcfg)))
+    for want, got in ((jax.tree.leaves(tree), jax.tree.leaves(back)),
+                      (want_fresh, jax.tree.leaves(fresh))):
+        assert len(want) == len(got) == len(jax.tree.leaves(st))
+        for a, b in zip(want, got):
+            assert a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b)
+    assert back["crdt"]["last_sync"].shape == (40, 40)
+
+
+def test_full_round_input_round_trip():
+    cfg = jconfig.wan_config(40, tx_max_cells=1)
+    inp = _randomized(jax.tree.map(lambda a: jnp.broadcast_to(a, (3,) + a.shape),
+                                   jfull.RoundInput.quiet(cfg)), 4)
+    tinp = convert.full_round_input_from_numpy(convert.as_numpy_tree(inp), "cpu")
+    for a, b in zip(inp, tinp, strict=True):
+        assert np.asarray(a).dtype == b.numpy().dtype and np.array_equal(np.asarray(a), b.numpy())

@@ -241,7 +241,8 @@ def test_ingest_chain_matches_xla_path():
         live, msgs = random_messages(10 + r, n, m, now=21 + r)
         jm = list(map(jnp.asarray, msgs))
         cst, info = ing(cst, jnp.asarray(live), *jm[:7], None, None, jm[7])
-        tcst, tinfo = broadcast.ingest_changes(tcfg, tcst, T(live), *map(T, msgs))
+        tm = list(map(T, msgs))
+        tcst, tinfo = broadcast.ingest_changes(tcfg, tcst, T(live), *tm[:7], None, None, tm[7])
         leaves_equal(cst, tcst)
         for k in info:
             assert int(info[k]) == int(tinfo[k]), (r, k)
