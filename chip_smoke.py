@@ -50,7 +50,9 @@ Phases (any failure raises and the script exits non-zero):
    state's bytes.
 
 Each kernel's bound is the larger of the bytes it must move on these inputs
-over the memory rate and its integer operations over the int32 rate.
+over the memory rate and the integer operations its function needs on them
+(counted from what it computes, not from the kernel's loops) over the int32
+rate.
 
 The last lines are the card's name and power limit, the per-kernel JSON
 record (launches are counted on the path that runs each form, 0 for the
@@ -78,26 +80,49 @@ FULL_NODES = 8192  # the full view's measured point (sim.config.full_view_config
 FULL_TRAJECTORY_NODES = 1024  # the full view, card vs CPU: float ties are common
 
 
-def _swim_ops(n: int, m: int, pig_k: int = 0) -> int:
-    """Integer operations of the swim kernel, counted from its loops: four
-    channel merges of ~10 per slot (packed: ~14 per entry), ~30 per slot
-    for timers, budget and stores, ~60 per row. An upper count: skipped
-    channels count too."""
-    merges = 4 * 14 * pig_k if pig_k else 4 * 10 * m
-    return n * (merges + 30 * m + 60)
+def _swim_ops(args, pig_k: int = 0) -> int:
+    """Integer operations the swim function needs on these operands: a
+    channel merge (~10 per slot, packed: ~14 per entry) only on the rows
+    where that channel is valid, ~30 per slot for timers, budget and
+    stores, ~60 per row."""
+    mem_id, ch_valid = args[0], args[18]
+    n, m = mem_id.shape
+    merge = 14 * pig_k if pig_k else 10 * m
+    return sum(_count(v) for v in ch_valid) * merge + n * (30 * m + 60)
 
 
-def _ingest_ops(n: int, m: int, o: int, w: int, c: int, q: int, r: int) -> int:
-    """Integer operations of the ingest kernel, counted from its loops (an
-    upper count: every message is taken as live and fresh)."""
-    per_row = (
-        12 * m + 20 * m + 2 * m * (m - 1)  # HLC fold, seen check, dedupe
-        + o * (12 * m + 12) + 12 * m + o * (14 * w + 6)  # claim, record, head
-        + 5 * c + m * (12 * m + 15)  # LWW apply
-        + 10 * q + m * (3 * q + 12)  # enqueue
-        + (4 * q + 3 * q * q + r * (3 * q + 15) if r else 0)  # payload
-    )
-    return n * per_row
+def _ingest_ops(p, x, out) -> int:
+    """Integer operations the ingest function needs on these operands,
+    counted from what it computes, not from the kernel's loops. Per live
+    message: the HLC fold (3), the seen check (10), the known-max update
+    (2), and a first-occurrence dedupe that sorts the row's live (origin,
+    version) keys (2 per compare). Per fresh message: the slot claim (3)
+    and the seen-bit record (8); per fresh message on a valid cell one step
+    of a running per-cell LWW winner over five keys (12), and 2 per cell to
+    seed and write back the winners. The enqueue: 2 per queue slot to build
+    the evict keys, the E smallest of them (2 per compare, Q per pick, or a
+    sort of Q·⌈log2 Q⌉ compares if that is fewer), 3 per enqueued message.
+    Per origin the claim's take or evict (8 + W) and the head advance (8
+    per seen word, + 4). The emitting form adds the payload choice: a sort
+    of the queue by budget, the R largest draws, 4 per slot, 15 per entry."""
+    import torch
+
+    def sort_cmp(k):  # compares to sort k keys, per row
+        return k * torch.ceil(torch.log2(torch.clamp(k.to(torch.float64), min=1)))
+
+    n, c, q, r = x.live.shape[0], p.n_cells, p.q_slots, p.pig_r
+    live = x.live.sum(dim=1)
+    fresh = out.fresh
+    applied = fresh & (x.cell >= 0) & (x.cell < c)
+    enq = torch.clamp((fresh if p.enqueue_all else fresh & _owned(p, x, out)).sum(dim=1), max=q)
+    log_q = int(sort_cmp(torch.tensor(q))) // q
+    ops = (15 * int(live.sum()) + 2 * int(sort_cmp(live).sum()) + 11 * _count(fresh)
+           + 12 * _count(applied) + n * 2 * c
+           + n * 2 * q + 2 * q * int(torch.clamp(enq, max=log_q).sum()) + 3 * int(enq.sum())
+           + n * p.n_origins * (12 + 9 * p.seen_words))
+    if r:
+        ops += n * (2 * q * log_q + 2 * q * min(r, log_q) + 4 * q + 15 * r)
+    return ops
 
 
 def _bound(nbytes: int, ops: int) -> tuple:
@@ -258,14 +283,6 @@ INGEST_FORMS = {
 }
 
 
-def _plane_dtypes(cfg):
-    """(q_cell, q_tx) plane dtypes: a scale config's tiers, else int32 (the
-    full view's SimConfig has no narrow tiers)."""
-    import torch
-
-    return getattr(cfg, "timer_dtype", torch.int32), getattr(cfg, "q_dtype", torch.int32)
-
-
 def _ingest_inputs(cfg, n: int, form: str, seed: int, dev):
     """Random valid operands of the ingest kernel in ``form`` at ``cfg``'s
     widths and queue-plane dtypes."""
@@ -277,6 +294,7 @@ def _ingest_inputs(cfg, n: int, form: str, seed: int, dev):
         CHANGE_WIRE_BYTES,
         HLC_MAX_DRIFT_ROUNDS,
         HLC_ROUND_BITS,
+        plane_dtypes,
     )
 
     msgs, emit, enqueue_all, no_drift, (o_hi, dbv_hi, p_live) = INGEST_FORMS[form]
@@ -290,7 +308,7 @@ def _ingest_inputs(cfg, n: int, form: str, seed: int, dev):
         return prng.uniform(next(ks), shape, dev) < p
 
     o, c, q = cfg.n_origins, cfg.n_cells, cfg.bcast_queue
-    cdt, qdt = _plane_dtypes(cfg)
+    cdt, qdt = plane_dtypes(cfg)
     w = max(1, -(-cfg.buf_slots // 32))
     now = 50
     head = ri((n, o), 0, 30)
@@ -357,7 +375,7 @@ def _time_form(name, kernel, run, plain, nbytes, ops) -> dict:
     got, want = run(), plain()
     torch.cuda.synchronize()
     r = dict(kernel=kernel, max_abs_err=_hold(name, got, want), ms=_cuda_ms(run, 20),
-             plain_ms=_cuda_ms(plain, 3), bytes=nbytes(got), ops=ops)
+             plain_ms=_cuda_ms(plain, 3), bytes=nbytes(got), ops=ops(got))
     del got, want
     r["bound_ms"], r["bound_by"] = _bound(r["bytes"], r["ops"])
     print(f"[kernels] {name}: max_abs_err={r['max_abs_err']} "
@@ -383,19 +401,23 @@ def _swim_form(name, cfg, seed, dev, **kw) -> dict:
         return mk.swim_tables_plain(consts, *args)
 
     r = _time_form(name, "swim_tables", run, plain,
-                   lambda got: _swim_bytes(args, got, k), _swim_ops(n, m, k))
+                   lambda got: _swim_bytes(args, got, k), lambda got: _swim_ops(args, k))
     r["replaces"] = "corrosion_tpu/ops/megakernel.py:1063"
     return r
 
 
-def _recorded_past_queue(p, x, out) -> int:
-    """Rows whose recorded messages (fresh, on a slot that tracks their
-    origin after the claim) outnumber the queue's slots."""
+def _owned(p, x, out):
+    """Messages on a book slot that tracks their origin after the claim."""
     import torch
 
     slot = (torch.clamp(x.origin, min=0) % p.n_origins).long()
-    owned = (x.origin >= 0) & (torch.gather(out.org_id, 1, slot) == x.origin)
-    return int(((out.fresh & owned).sum(dim=1) > p.q_slots).sum())
+    return (x.origin >= 0) & (torch.gather(out.org_id, 1, slot) == x.origin)
+
+
+def _recorded_past_queue(p, x, out) -> int:
+    """Rows whose recorded messages (fresh and owned) outnumber the queue's
+    slots."""
+    return int(((out.fresh & _owned(p, x, out)).sum(dim=1) > p.q_slots).sum())
 
 
 def _ingest_form(name, cfg, form, seed, dev) -> dict:
@@ -406,9 +428,7 @@ def _ingest_form(name, cfg, form, seed, dev) -> dict:
     r = _time_form(
         name, "ingest_emit" if p.pig_r else "ingest",
         lambda: mk.ingest(p, x), lambda: mk.ingest_plain(p, x),
-        lambda got: _ingest_bytes(x, got),
-        _ingest_ops(cfg.n_nodes, x.origin.shape[1], p.n_origins, p.seen_words,
-                    p.n_cells, p.q_slots, p.pig_r))
+        lambda got: _ingest_bytes(x, got), lambda got: _ingest_ops(p, x, got))
     r["replaces"] = "corrosion_tpu/ops/megakernel.py:" + ("960" if form.startswith("write") else "795")
     if form == "receive_full":
         rows = _recorded_past_queue(p, x, mk.ingest_plain(p, x))

@@ -19,8 +19,8 @@ from corrosion_tpu_torch.ops.partials import Partials
 from corrosion_tpu_torch.ops.versions import Book
 from corrosion_tpu_torch.sim.broadcast import CrdtState
 from corrosion_tpu_torch.sim.scale import ScaleSwimState
-from corrosion_tpu_torch.sim.scale_step import ScaleRoundInput, ScaleSimState
-from corrosion_tpu_torch.sim.step import RoundInput, SimState
+from corrosion_tpu_torch.sim.scale_step import ScaleSimState
+from corrosion_tpu_torch.sim.step import SimState
 from corrosion_tpu_torch.sim.swim import SwimState
 from corrosion_tpu_torch.sim.transport import NetModel
 
@@ -65,9 +65,9 @@ def full_state_from_numpy(cfg, tree: dict, device="cuda") -> SimState:
                     crdt=_crdt(tree["crdt"], dev))
 
 
-def scale_state_to_numpy(st) -> dict:
-    """The nested numpy dict of a port state, scale or full view (``seen``
-    as uint32)."""
+def state_to_numpy(st) -> dict:
+    """The nested numpy dict of a port state, ``ScaleSimState`` or the full
+    view's ``SimState`` (``seen`` as uint32)."""
     def tree(nt):
         out = {}
         for f, v in zip(nt._fields, nt):
@@ -88,15 +88,10 @@ def net_from_numpy(tree: dict, device="cuda") -> NetModel:
     return _build(NetModel, tree, resolve_device(device))
 
 
-def round_input_from_numpy(tree: dict, device="cuda") -> ScaleRoundInput:
-    return _build(ScaleRoundInput, tree, resolve_device(device))
-
-
-def full_round_input_from_numpy(tree: dict, device="cuda") -> RoundInput:
-    return _build(RoundInput, tree, resolve_device(device))
-
-
-full_state_to_numpy = scale_state_to_numpy
+def round_input_from_numpy(cls, tree: dict, device="cuda"):
+    """A ``cls`` (``ScaleRoundInput`` or the full view's ``RoundInput``) from
+    its numpy dict."""
+    return _build(cls, tree, resolve_device(device))
 
 
 def key_from_numpy(data) -> torch.Tensor:

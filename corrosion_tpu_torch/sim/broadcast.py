@@ -47,6 +47,15 @@ def hlc_fold(hlc, now, m_ts, live):
     return torch.maximum(hlc, folded), ok, (live & ~ok).sum()
 
 
+def plane_dtypes(cfg) -> tuple:
+    """(``q_cell``/``last_sync``, ``q_tx``/``q_seq``/``q_nseq``) plane dtypes
+    of ``cfg``: int16 under ``narrow_dtypes``, int8 for the second under
+    ``narrow_q_int8``, else int32 (the full view's ``SimConfig`` has neither
+    field)."""
+    ndt = torch.int16 if getattr(cfg, "narrow_dtypes", False) else torch.int32
+    return ndt, torch.int8 if getattr(cfg, "narrow_q_int8", False) else ndt
+
+
 class CrdtState(NamedTuple):
     """LWW store + bookkeeping + broadcast queues for all N nodes (same leaf
     order and dtypes as the JAX ``CrdtState``)."""
@@ -75,9 +84,7 @@ class CrdtState(NamedTuple):
     def create(cfg, device="cuda") -> "CrdtState":
         dev = resolve_device(device)
         n, q, c = cfg.n_nodes, cfg.bcast_queue, cfg.n_cells
-        # the full view's SimConfig has no narrow tiers: int32 planes
-        ndt = torch.int16 if getattr(cfg, "narrow_dtypes", False) else torch.int32
-        qdt = torch.int8 if getattr(cfg, "narrow_q_int8", False) else ndt
+        ndt, qdt = plane_dtypes(cfg)
 
         def z(*s, dtype=torch.int32):
             return torch.zeros(s, dtype=dtype, device=dev)

@@ -48,7 +48,7 @@ def test_state_round_trip(narrow):
     tree = convert.as_numpy_tree(st)
     tst = convert.scale_state_from_numpy(scale_step.scale_sim_config(48, narrow_dtypes=narrow),
                                          tree, "cpu")
-    back = convert.scale_state_to_numpy(tst)
+    back = convert.state_to_numpy(tst)
     want, got = jax.tree.leaves(tree), jax.tree.leaves(back)
     assert len(want) == len(got) == len(jax.tree.leaves(st))
     for a, b in zip(want, got):
@@ -67,7 +67,7 @@ def test_created_state_equals_jax_created_state(narrow):
     want = jax.tree.leaves(convert.as_numpy_tree(jstep.ScaleSimState.create(jcfg)))
     tst = scale_step.ScaleSimState.create(
         scale_step.scale_sim_config(48, narrow_dtypes=narrow), "cpu")
-    got = jax.tree.leaves(convert.scale_state_to_numpy(tst))
+    got = jax.tree.leaves(convert.state_to_numpy(tst))
     for a, b in zip(want, got, strict=True):
         assert a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b)
 
@@ -97,7 +97,7 @@ def test_net_inputs_and_key_round_trip():
     cfg = jstep.scale_sim_config(48)
     inp = _randomized(jstep.make_write_inputs(cfg, jr.key(1), 3,
                                               jnp.ones((3, 48), bool)), 2)
-    tinp = convert.round_input_from_numpy(convert.as_numpy_tree(inp), "cpu")
+    tinp = convert.round_input_from_numpy(scale_step.ScaleRoundInput, convert.as_numpy_tree(inp), "cpu")
     for a, b in zip(inp, tinp):
         assert np.array_equal(np.asarray(a), b.numpy())
     key = jr.fold_in(jr.key(77), 5)
@@ -113,8 +113,8 @@ def test_full_state_round_trip_and_created_state():
     tcfg = config.wan_config(40, tx_max_cells=1)
     st = _randomized(jfull.SimState.create(jcfg), 3)
     tree = convert.as_numpy_tree(st)
-    back = convert.full_state_to_numpy(convert.full_state_from_numpy(tcfg, tree, "cpu"))
-    fresh = convert.full_state_to_numpy(step.SimState.create(tcfg, device="cpu"))
+    back = convert.state_to_numpy(convert.full_state_from_numpy(tcfg, tree, "cpu"))
+    fresh = convert.state_to_numpy(step.SimState.create(tcfg, device="cpu"))
     want_fresh = jax.tree.leaves(convert.as_numpy_tree(jfull.SimState.create(jcfg)))
     for want, got in ((jax.tree.leaves(tree), jax.tree.leaves(back)),
                       (want_fresh, jax.tree.leaves(fresh))):
@@ -128,6 +128,23 @@ def test_full_round_input_round_trip():
     cfg = jconfig.wan_config(40, tx_max_cells=1)
     inp = _randomized(jax.tree.map(lambda a: jnp.broadcast_to(a, (3,) + a.shape),
                                    jfull.RoundInput.quiet(cfg)), 4)
-    tinp = convert.full_round_input_from_numpy(convert.as_numpy_tree(inp), "cpu")
+    tinp = convert.round_input_from_numpy(step.RoundInput, convert.as_numpy_tree(inp), "cpu")
     for a, b in zip(inp, tinp, strict=True):
         assert np.asarray(a).dtype == b.numpy().dtype and np.array_equal(np.asarray(a), b.numpy())
+
+
+@pytest.mark.parametrize("tiers", [dict(narrow_dtypes=False), dict(), dict(narrow_q_int8=True),
+                                   "full"])
+def test_plane_dtypes_follow_the_config(tiers):
+    """``broadcast.plane_dtypes`` is the one rule for the queue planes' types:
+    a scale config's timer and queue-counter tiers, int32 for the full view
+    (whose ``SimConfig`` has no tier fields), and ``CrdtState.create`` uses it."""
+    if tiers == "full":
+        cfg, want = config.wan_config(40, tx_max_cells=1), (torch.int32, torch.int32)
+    else:
+        cfg = scale_step.scale_sim_config(48, **tiers)
+        want = (cfg.timer_dtype, cfg.q_dtype)
+    assert broadcast.plane_dtypes(cfg) == want
+    cst = broadcast.CrdtState.create(cfg, "cpu")
+    assert (cst.q_cell.dtype, cst.last_sync.dtype) == (want[0], want[0])
+    assert (cst.q_tx.dtype, cst.q_seq.dtype, cst.q_nseq.dtype) == (want[1],) * 3

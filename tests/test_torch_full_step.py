@@ -54,7 +54,7 @@ def _nets():
 
 
 def _leaves(st):
-    return jax.tree.leaves(convert.full_state_to_numpy(st))
+    return jax.tree.leaves(convert.state_to_numpy(st))
 
 
 def _assert_leaves_equal(want, got, where):
@@ -95,7 +95,7 @@ def _port_start(start):
     st = convert.full_state_from_numpy(tcfg(), start["state"], "cpu")
     nets = [convert.net_from_numpy(n, "cpu") for n in start["nets"]]
     key = convert.key_from_numpy(start["key"])
-    inputs = convert.full_round_input_from_numpy(start["inputs"], "cpu")
+    inputs = convert.round_input_from_numpy(step.RoundInput, start["inputs"], "cpu")
     return st, nets, key, inputs
 
 
@@ -163,7 +163,7 @@ def test_sweep_rounds_match_jax():
     want, winfo = jax.jit(lambda s, i: jstep.run_rounds(cfg, s, net, jr.key(7), i))(st, inputs)
     tst = convert.full_state_from_numpy(tcfg(**over), convert.as_numpy_tree(st), "cpu")
     tnet = convert.net_from_numpy(convert.as_numpy_tree(net), "cpu")
-    tin = convert.full_round_input_from_numpy(convert.as_numpy_tree(inputs), "cpu")
+    tin = convert.round_input_from_numpy(step.RoundInput, convert.as_numpy_tree(inputs), "cpu")
     carry = (tst, convert.key_from_numpy(jr.key_data(jr.key(7))))
     infos = []
     for lo, hi in ((0, 3), (3, 8)):
@@ -388,7 +388,7 @@ def test_ingest_plain_at_recv_slots_matches_jax():
 
 def _crdt_leaves(cfg, cst):
     swim_half = step.SimState.create(cfg, device="cpu").swim
-    tree = convert.full_state_to_numpy(step.SimState(swim_half, cst))
+    tree = convert.state_to_numpy(step.SimState(swim_half, cst))
     return jax.tree.leaves(tree["crdt"])
 
 

@@ -61,8 +61,8 @@ def _port(inputs, quiet):
     net = scale_step.NetModel.create(N, device="cpu")
     key = convert.key_from_numpy(np.asarray(jr.key_data(jr.key(0))))
     st, infos = scale_step.scale_run_rounds(
-        cfg, st, net, key, convert.round_input_from_numpy(inputs, "cpu"))
-    return jax.tree.leaves(convert.scale_state_to_numpy(st)), {
+        cfg, st, net, key, convert.round_input_from_numpy(scale_step.ScaleRoundInput, inputs, "cpu"))
+    return jax.tree.leaves(convert.state_to_numpy(st)), {
         k: v.numpy() for k, v in infos.items()}
 
 
@@ -128,8 +128,8 @@ def test_quiet_round_with_the_1m_tiers_equals_jax_and_dense():
             tcfg, scale_step.ScaleSimState.create(tcfg, "cpu"),
             scale_step.NetModel.create(N, device="cpu"),
             convert.key_from_numpy(np.asarray(jr.key_data(jr.key(0)))),
-            convert.round_input_from_numpy(convert.as_numpy_tree(inputs), "cpu"))
-        got[quiet] = (jax.tree.leaves(convert.scale_state_to_numpy(tst)), tinfos)
+            convert.round_input_from_numpy(scale_step.ScaleRoundInput, convert.as_numpy_tree(inputs), "cpu"))
+        got[quiet] = (jax.tree.leaves(convert.state_to_numpy(tst)), tinfos)
     _leaves_equal(jax.tree.leaves(convert.as_numpy_tree(st)), got["on"][0], "jax")
     _leaves_equal(got["off"][0], got["on"][0], "dense")
     assert any(a.dtype == np.int8 for a in got["on"][0])
@@ -143,7 +143,7 @@ def test_quiet_auto_runs_the_dense_round(jax_quiet):
     cfg = scale_step.scale_sim_config(N, quiet="auto", **SHAPE)
     st = scale_step.ScaleSimState.create(cfg, "cpu")
     net = scale_step.NetModel.create(N, device="cpu")
-    one = convert.round_input_from_numpy(inputs, "cpu")
+    one = convert.round_input_from_numpy(scale_step.ScaleRoundInput, inputs, "cpu")
     one = scale_step.ScaleRoundInput(*(a[:2] for a in one))
     key = convert.key_from_numpy(np.asarray(jr.key_data(jr.key(0))))
     _, infos = scale_step.scale_run_rounds(cfg, st, net, key, one)

@@ -64,12 +64,12 @@ def _port_start(start):
     st = convert.scale_state_from_numpy(cfg, start["state"], "cpu")
     net = convert.net_from_numpy(start["net"], "cpu")
     key = convert.key_from_numpy(start["key"])
-    inputs = convert.round_input_from_numpy(start["inputs"], "cpu")
+    inputs = convert.round_input_from_numpy(scale_step.ScaleRoundInput, start["inputs"], "cpu")
     return cfg, st, net, key, inputs
 
 
 def _port_leaves(st):
-    return jax.tree.leaves(convert.scale_state_to_numpy(st))
+    return jax.tree.leaves(convert.state_to_numpy(st))
 
 
 def _assert_leaves_equal(want, got, where):

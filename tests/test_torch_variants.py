@@ -174,7 +174,7 @@ def reference(request):
         convert.scale_state_from_numpy(tcfg, convert.as_numpy_tree(st), "cpu"),
         convert.net_from_numpy(convert.as_numpy_tree(net), "cpu"),
         convert.key_from_numpy(np.asarray(jr.key_data(key))),
-        convert.round_input_from_numpy(convert.as_numpy_tree(inputs), "cpu"),
+        convert.round_input_from_numpy(scale_step.ScaleRoundInput, convert.as_numpy_tree(inputs), "cpu"),
     )
     run = jax.jit(lambda s, k, i: jstep.scale_run_rounds_carry(cfg, s, net, k, i))
     states, infos = [], []
@@ -190,7 +190,7 @@ def test_variant_every_round_bitwise_equal_to_jax(reference):
     for r in range(ROUNDS):
         one = scale_step.ScaleRoundInput(*(a[r:r + 1] for a in inputs))
         (st, key), info = scale_step.scale_run_rounds_carry(cfg, st, net, key, one)
-        got = jax.tree.leaves(convert.scale_state_to_numpy(st))
+        got = jax.tree.leaves(convert.state_to_numpy(st))
         assert len(got) == len(states[r]), name
         for i, (a, b) in enumerate(zip(states[r], got)):
             assert a.dtype == b.dtype and a.shape == b.shape, (name, r, i, a.dtype, b.dtype)
