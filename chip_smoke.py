@@ -148,6 +148,25 @@ def _cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _device_ms(fn, iters: int, kernel: str) -> float:
+    """Device time of ``kernel`` (part of a kernel's name) per call of ``fn``,
+    from ``torch.profiler``: the kernel alone, without the wrapper's host
+    time, which CUDA events over back-to-back calls include when the kernel
+    is shorter than it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(float(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0)))
+             for e in prof.key_averages() if kernel in e.key)
+    return us / iters / 1e3
+
+
 def _nbytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
@@ -283,9 +302,15 @@ INGEST_FORMS = {
 }
 
 
-def _ingest_inputs(cfg, n: int, form: str, seed: int, dev):
+def _ingest_inputs(cfg, n: int, form: str, seed: int, dev, ties: bool = False):
     """Random valid operands of the ingest kernel in ``form`` at ``cfg``'s
-    widths and queue-plane dtypes."""
+    widths and queue-plane dtypes. With ``ties``, the inputs where a
+    lane-parallel rank can part from the sequential loops: queue counters
+    and budgets from {1, 2}, uniforms on a grid of quarters (equal float32
+    draws), each row's messages on two cells with equal (clp, ver, val,
+    site) and store cells that tie them, repeated (origin, dbv) pairs and
+    repeated versions across origins in a row, live and dead, and a payload
+    budget of a few slots."""
     import torch
 
     from corrosion_tpu_torch import random as prng
@@ -345,7 +370,47 @@ def _ingest_inputs(cfg, n: int, form: str, seed: int, dev):
         rand=prng.uniform(next(ks), (n, q), dev) if emit else None,
         carried=ri((n,), 0, 5) if emit else None,
     )
+    if ties:
+        # a budget that lets 1 to 3 live slots through the payload mask
+        p = p._replace(budget_bytes=3 * CHANGE_WIRE_BYTES)
+        x = _tie_heavy(x, c, ri, coin)
     return p, x
+
+
+def _tie_heavy(x, c: int, ri, coin):
+    """``x`` with the tie-heavy distributions of ``_ingest_inputs``."""
+    import torch
+
+    n, m = x.origin.shape
+    q = x.q_origin.shape[1]
+    dev = x.origin.device
+    idx = torch.arange(m, device=dev).expand(n, m)
+    # an earlier message of the row, up to 8 back
+    back = torch.clamp(idx - ri((n, m), 1, 9).long(), min=0)
+    rep = coin((n, m), 0.3) & (idx > 0)
+    origin = torch.where(rep, x.origin.gather(1, back), x.origin)
+    dbv = torch.where(rep, x.dbv.gather(1, back), x.dbv)
+    # the same version from another origin: a full five-key LWW tie
+    back2 = torch.clamp(idx - ri((n, m), 1, 9).long(), min=0)
+    dbv = torch.where(coin((n, m), 0.2) & (idx > 0), dbv.gather(1, back2), dbv)
+    cell_a = ri((n, 1), 0, c)
+    cell_b = (cell_a + ri((n, 1), 1, c)) % c
+    cell = torch.where(coin((n, m), 0.5), cell_a, cell_b)
+    cell = torch.where(coin((n, m), 0.05), -1, cell)
+    keys = (5, 1, 2, 1)  # ver, val, site, clp of every message
+
+    def const(t, v):
+        return torch.full_like(t, v)
+
+    store = list(x.store)
+    for i, v in zip((0, 1, 2, 4), keys):
+        store[i] = torch.where(coin(store[i].shape, 0.5), const(store[i], v), store[i])
+    rand = None if x.rand is None else torch.floor(x.rand * 4) / 4
+    return x._replace(
+        origin=origin, dbv=dbv, cell=cell, ver=const(x.ver, keys[0]),
+        val=const(x.val, keys[1]), site=const(x.site, keys[2]),
+        clp=const(x.clp, keys[3]), budget=ri((n, m), 1, 3),
+        store=tuple(store), q_tx=ri((n, q), 1, 3).to(x.q_tx.dtype), rand=rand)
 
 
 def _ingest_bytes(x, out) -> int:
@@ -375,12 +440,13 @@ def _time_form(name, kernel, run, plain, nbytes, ops) -> dict:
     got, want = run(), plain()
     torch.cuda.synchronize()
     r = dict(kernel=kernel, max_abs_err=_hold(name, got, want), ms=_cuda_ms(run, 20),
+             device_ms=_device_ms(run, 20, f"{kernel.removesuffix('_emit')}_kernel"),
              plain_ms=_cuda_ms(plain, 3), bytes=nbytes(got), ops=ops(got))
     del got, want
     r["bound_ms"], r["bound_by"] = _bound(r["bytes"], r["ops"])
     print(f"[kernels] {name}: max_abs_err={r['max_abs_err']} "
-          f"kernel {r['ms']!r} ms, plain {r['plain_ms']!r} ms, "
-          f"{r['bytes']} bytes, {r['ops']} int32 ops, bound "
+          f"kernel {r['ms']!r} ms (device {r['device_ms']!r} ms), plain "
+          f"{r['plain_ms']!r} ms, {r['bytes']} bytes, {r['ops']} int32 ops, bound "
           f"{r['bound_ms']!r} ms by {r['bound_by']}", flush=True)
     return r
 
@@ -431,12 +497,36 @@ def _ingest_form(name, cfg, form, seed, dev) -> dict:
         lambda got: _ingest_bytes(x, got), lambda got: _ingest_ops(p, x, got))
     r["replaces"] = "corrosion_tpu/ops/megakernel.py:" + ("960" if form.startswith("write") else "795")
     if form == "receive_full":
-        rows = _recorded_past_queue(p, x, mk.ingest_plain(p, x))
-        print(f"[kernels] {name}: {rows} of {cfg.n_nodes} rows recorded more "
-              f"messages than the queue's {p.q_slots} slots", flush=True)
-        if rows <= 0:
-            raise AssertionError(f"{name}: no row recorded more than Q messages")
+        _require_past_queue(name, p, x, mk.ingest_plain(p, x))
+    _hold_ties(name, cfg, form, seed, dev)
     return r
+
+
+def _require_past_queue(name, p, x, out) -> None:
+    rows = _recorded_past_queue(p, x, out)
+    print(f"[kernels] {name}: {rows} of {x.origin.shape[0]} rows recorded more "
+          f"messages than the queue's {p.q_slots} slots", flush=True)
+    if rows <= 0:
+        raise AssertionError(f"{name}: no row recorded more than Q messages")
+
+
+def _hold_ties(name, cfg, form, seed, dev) -> None:
+    """The form on tie-heavy inputs (``_ingest_inputs(ties=True)``), its own
+    seed, N three past the configuration's so that the last block of rows
+    is partial: held bitwise against the plain version, untimed."""
+    import torch
+
+    from corrosion_tpu_torch.ops import megakernel as mk
+
+    n = cfg.n_nodes + 3
+    p, x = _ingest_inputs(cfg, n, form, seed + 1000, dev, ties=True)
+    got, want = mk.ingest(p, x), mk.ingest_plain(p, x)
+    torch.cuda.synchronize()
+    _hold(f"{name} (tie-heavy)", got, want)
+    if form == "receive_full":
+        _require_past_queue(f"{name} (tie-heavy)", p, x, want)
+    print(f"[kernels] {name}: tie-heavy inputs at N={n} bitwise equal "
+          f"({_count(want.fresh)} fresh messages)", flush=True)
 
 
 def _bits(dtype) -> str:
@@ -823,7 +913,7 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name in cuda_lib.SOURCES:
         for line in cuda_lib.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Function properties" in line:
                 print(f"[ptxas] {name}: {line.strip()}", flush=True)
 
     t_phase = time.perf_counter()

@@ -15,51 +15,115 @@
 // Bound on this card: bytes. Per node row the kernel reads the message planes
 // (10 x m int32), the LWW store (5 x C int32), the book (4 x O int32 + O*W
 // seen words), the queue planes (9 x Q, q_cell and q_tx at their own plane
-// dtypes),
-// the clock, and with EMIT the pre-drawn uniforms (Q float32) and the
-// delivery count; it writes the same planes plus fresh/drift (and the payload
-// with EMIT). The per-row work is a few thousand integer operations, orders
-// of magnitude below the card's integer rate, so those bytes over 3.35 TB/s
-// are the least time it could take.
+// dtypes), the clock, and with EMIT the pre-drawn uniforms (Q float32) and
+// the delivery count; it writes the same planes plus fresh/drift (and the
+// payload with EMIT). The per-row work is a few thousand integer operations,
+// far below the card's integer rate, so those bytes over 3.35 TB/s are the
+// least time it could take.
 //
-// Design: one thread per node row, running the pallas body's steps in order
-// with the row's messages, book and queue keys in per-thread arrays: HLC fold
-// with the drift reject; seen check and in-batch dedupe; slot claim/evict;
-// seen-bit OR, known_max and head advance (trailing ones, then a window shift
-// with explicit branches for shift counts of 0 and 32 or more, which C leaves
-// undefined); the LWW apply (each cell takes its batch winner under
-// (clp, ver, val, site, dbv) unless the incumbent wins the four keys); the
-// evict-min-q_tx enqueue (lowest column on ties); and with EMIT the budget
-// mask (first column on ties) and the top pig_r uniforms (first index on
-// ties). Received batches wider than the queue (m > Q) place their r-th
-// recorded message in the r-th slot by ascending evict key and drop ranks
-// >= Q, as alloc_slots_evict does: each taken slot is marked kIntMax and the
-// loop stops placing once the smallest key left is kIntMax.
+// Design: one warp per node row, kRowsPerBlock rows (warps) a block. Every
+// global access of a warp is one contiguous span of its row, so it is
+// coalesced. Lanes hold
+//   - the row's messages: message lane + 32k in chunk k < KM (KM = 1 for
+//     m <= 32, 4 for the full view's m = 96), as registers and, for the
+//     per-message flags (live, fresh, recorded, enqueued), as warp ballots;
+//   - its origins: lane c < O holds book slot c (head, known_max, org_id,
+//     org_last and its W seen words);
+//   - its queue slots: slot lane + 32h, h < QH (1 for Q <= 32, else 2), all
+//     nine planes in registers;
+//   - its cells: cell lane + 32h; the LWW store row is copied to shared
+//     memory with cp.async while the messages are checked, updated there by
+//     the batch winners and written out from there.
+// A lane reads another lane's element with __shfl_sync. Shared memory holds,
+// per warp, the staged store row, the claim's per-slot candidate, the
+// record step's seen words and known_max (set with shared atomicOr/atomicMax,
+// which are order-free), and the message index of each enqueue rank: 2,304
+// bytes a warp. No array is indexed by data in registers: every register
+// array is indexed by an unrolled loop counter, so nothing goes to the stack.
 //
-// The message capacity MAXM sizes the per-thread message arrays and is a
-// template parameter: 32 for the scale round's batches (their stack stays at
-// its size), 128 for the full view's recv_slots, non-emitting only. The
-// launcher picks the narrowest instantiation that holds m; the in-batch
-// dedupe and the batch-winner search are O(m^2) per row.
+// The pallas body's sequential steps, made lane-parallel, with its tie rules:
+//   - HLC fold: a warp max of (ok ? ts : 0) over the batch (not clamped at 0
+//     when every message is ok), the drift count a ballot popcount; the
+//     m > 0 guard and the arithmetic >> on the signed stamp are kept.
+//   - Dedupe: a message is a duplicate when an earlier live message has the
+//     same (origin, dbv). Within a chunk, __match_any_sync on the 64-bit key
+//     masked to live lanes below this one; across chunks, each live message
+//     of an earlier chunk is broadcast once and compared (O(m) each).
+//   - Claim: each fresh candidate origin above its slot's owner goes into a
+//     shared atomicMax per slot; lane c takes it when the slot is evictable
+//     (owner < 0 || org_last + keep_rounds < now, wrapping add). org_last =
+//     now on a take or when the slot is active (a recorded message on it,
+//     an OR-reduced bitmask). Seen bits are set with shared atomicOr; known
+//     max takes live && owned; the head advance keeps the explicit branches
+//     for shift counts of 0 and of 32 or more, which C leaves undefined.
+//   - LWW: a fresh message on a valid cell is its cell's batch winner under
+//     (clp, ver, val, site, dbv), the lower index winning a full tie; each
+//     lane checks its own messages against the row's fresh ones, broadcast
+//     one at a time (O(m) each). At most one winner per cell, so winners
+//     update the staged store without a race, unless the incumbent wins the
+//     four keys (it also wins an exact tie).
+//   - Enqueue: the pallas body places messages in order, each into the slot
+//     of least (evict key, column), where a kNoQ slot's key is INT32_MIN,
+//     marks the taken slot INT32_MAX, and stops placing once the least key
+//     left is INT32_MAX. Here the enqueued messages (fresh under
+//     enqueue_all, else recorded) are ranked by order, an exclusive
+//     ballot-popcount prefix carried across chunks; the slots are ranked by
+//     their initial (key, column), ascending; and the message of rank r goes
+//     to the slot of rank r if r < Q and that slot's initial key is below
+//     INT32_MAX, else it is dropped. Equivalence: by induction the first r
+//     placed messages took the slots of ranks 0..r-1, now INT32_MAX; every
+//     slot left keeps its initial key, and the slot of rank r is the least
+//     of them by (key, column), so it is the argmin (lowest column on ties)
+//     whenever its key is below INT32_MAX, which beats every taken slot;
+//     when its key is INT32_MAX, or r >= Q, the least key left is INT32_MAX
+//     and the loop places nothing more. This holds for m > Q too (the full
+//     view's m = 96 into Q = 64). Only the ranks below E = min(enqueued, Q)
+//     are needed, so the slot of rank r is found by the (r+1)-th round of a
+//     warp argmin (__reduce_min_sync of the key, then the lowest column
+//     holding it by ballot), which marks its slot taken: E rounds of a few
+//     instructions, not a rank count of O(Q) per slot. Each slot of rank
+//     r < E gathers its message's fields by shuffle.
+//   - EMIT: keep = the first `allowed` live slots (q_origin != kNoQ and
+//     tx > 0) ranked by (q_tx descending, column ascending): all live slots
+//     when they are no more than `allowed` (the usual case), else an O(Q)
+//     rank count per slot. The R picks are the first R slots ranked by
+//     (keep ? rand : -1.0 descending, index ascending): R rounds of a warp
+//     argmax of the draw as an order-preserving int32 (-0.0 mapped to +0.0,
+//     which compare equal as floats), the first index among equal draws, a
+//     taken slot dropped below every other (a pick past Q is slot 0, as the
+//     pallas body's argmax over all-taken slots gives); sel_ok is value >= 0.
+//     The payload is [N, 11 R], field-major in each row, with q_seq = 0 and
+//     q_nseq = 1.
 //
-// Wrapping int32 arithmetic goes through uint32; `>>` on the signed
-// stamp stays arithmetic as in JAX. The store and queue rows are copied to
-// the outputs first and updated there, so each plane is read once and
-// written once. q_cell (CT) and q_tx (XT) have types of their own, widened to
-// int32 in registers and cast at the store: (int16, int8) under
-// narrow_q_int8, (int16, int16) under narrow_dtypes, else (int32, int32).
+// Wrapping int32 arithmetic goes through uint32. q_cell (CT) and q_tx (XT)
+// have types of their own, widened to int32 in registers and cast at the
+// store: (int16, int8) under narrow_q_int8, (int16, int16) under
+// narrow_dtypes, else (int32, int32). ptxas' registers and stack for each
+// instantiation are printed by chip_smoke.py's build phase and recorded in
+// PERF.md.
 
 #include <cstdint>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace {
 
+#ifndef INGEST_ROWS_PER_BLOCK
+#define INGEST_ROWS_PER_BLOCK 4  // warps (node rows) a block
+#endif
+#ifndef INGEST_STAGE_NARROW
+#define INGEST_STAGE_NARROW 0  // 1: the block's narrow planes through shared memory
+#endif
+constexpr int kRowsPerBlock = INGEST_ROWS_PER_BLOCK;
 constexpr int kMaxMsgs = 32;  // scale batches, and every emitting form
 constexpr int kMaxMsgsWide = 128;  // the full view's recv_slots mailboxes
 constexpr int kMaxOrigins = 32;
 constexpr int kMaxWords = 4;
 constexpr int kMaxQueue = 64;
 constexpr int kMaxPig = 16;
+constexpr int kMaxCells = 64;
+constexpr int kCH = kMaxCells / 32;  // cells a lane
+constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int32_t kNoQ = -1;
 constexpr int32_t kIntMin = INT32_MIN;
 constexpr int32_t kIntMax = INT32_MAX;
@@ -72,13 +136,109 @@ __device__ __forceinline__ int32_t wrap_sub(int32_t a, int32_t b) {
   return static_cast<int32_t>(static_cast<uint32_t>(a) - static_cast<uint32_t>(b));
 }
 
-// does key tuple a win (>=) against b, lexicographically
-__device__ __forceinline__ bool lex_wins4(const int32_t* a, const int32_t* b) {
-  for (int k = 0; k < 4; ++k) {
-    if (a[k] != b[k]) return a[k] > b[k];
-  }
-  return true;
+// lexicographic compare of (a0..a4) against (b0..b4): 1, 0 or -1
+__device__ __forceinline__ int lex_cmp5(int32_t a0, int32_t a1, int32_t a2, int32_t a3,
+                                        int32_t a4, int32_t b0, int32_t b1, int32_t b2,
+                                        int32_t b3, int32_t b4) {
+  if (a0 != b0) return a0 > b0 ? 1 : -1;
+  if (a1 != b1) return a1 > b1 ? 1 : -1;
+  if (a2 != b2) return a2 > b2 ? 1 : -1;
+  if (a3 != b3) return a3 > b3 ? 1 : -1;
+  if (a4 != b4) return a4 > b4 ? 1 : -1;
+  return 0;
 }
+
+// element k of a register array, k a runtime index: an unrolled select, so
+// the array stays in registers (0 past n)
+template <int N, typename T>
+__device__ __forceinline__ T pick(const T (&v)[N], int k, int n) {
+  T out = 0;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if (i == k && i < n) out = v[i];
+  }
+  return out;
+}
+
+// lane `src`'s element of chunk `chunk` of a per-lane register array
+template <int N>
+__device__ __forceinline__ int32_t shfl_chunk(const int32_t (&v)[N], int src, int chunk,
+                                              int n_chunks) {
+  int32_t out = 0;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    if (k < n_chunks) {
+      const int32_t x = __shfl_sync(kFull, v[k], src);
+      if (k == chunk) out = x;
+    }
+  }
+  return out;
+}
+
+__device__ __forceinline__ bool bit(unsigned mask, int lane) { return (mask >> lane) & 1u; }
+
+// the lowest column (lane + 32h) holding `key` among the lanes' QH slots,
+// or -1
+template <int QH>
+__device__ __forceinline__ int warp_lowest_column(const int32_t (&k)[QH], int32_t key) {
+  int col = -1;
+#pragma unroll
+  for (int h = QH - 1; h >= 0; --h) {
+    const unsigned b = __ballot_sync(kFull, k[h] == key);
+    if (b) col = 32 * h + __ffs(b) - 1;
+  }
+  return col;
+}
+
+// the column of the least key (lowest column on ties), or -1 when that key
+// is `stop`
+template <int QH>
+__device__ __forceinline__ int warp_arg_least(const int32_t (&k)[QH], int32_t stop) {
+  int32_t least = k[0];
+#pragma unroll
+  for (int h = 1; h < QH; ++h) least = min(least, k[h]);
+  least = __reduce_min_sync(kFull, least);
+  return least == stop ? -1 : warp_lowest_column<QH>(k, least);
+}
+
+// the column of the greatest key (lowest column on ties); the key in `most`
+template <int QH>
+__device__ __forceinline__ int warp_arg_most(const int32_t (&k)[QH], int32_t& most) {
+  int32_t m = k[0];
+#pragma unroll
+  for (int h = 1; h < QH; ++h) m = max(m, k[h]);
+  most = __reduce_max_sync(kFull, m);
+  return warp_lowest_column<QH>(k, most);
+}
+
+// float32 to int32 with the same order (no NaN); -0.0 maps with +0.0
+__device__ __forceinline__ int32_t float_order(float f) {
+  const int32_t i = __float_as_int(f == 0.0f ? 0.0f : f);
+  return i >= 0 ? i : i ^ 0x7FFFFFFF;
+}
+
+#if INGEST_STAGE_NARROW
+// `len` bytes from `src` (4-byte aligned) to `dst` by the block's threads, a
+// word each, the tail byte by byte
+__device__ __forceinline__ void stage_bytes(uint8_t* dst, const uint8_t* src, int len) {
+  for (int w = threadIdx.x; 4 * w < len; w += blockDim.x) {
+    if (4 * w + 4 <= len) {
+      reinterpret_cast<uint32_t*>(dst)[w] = reinterpret_cast<const uint32_t*>(src)[w];
+    } else {
+      for (int b = 4 * w; b < len; ++b) dst[b] = src[b];
+    }
+  }
+}
+#endif
+
+// One warp's slice of the block's shared memory.
+struct WarpSmem {
+  int32_t store[5][kMaxCells];  // the LWW store row: ver, val, site, dbv, clp
+  int32_t cand[kMaxOrigins];  // claim: largest fresh candidate origin a slot
+  int32_t km[kMaxOrigins];
+  uint32_t seen[kMaxOrigins * kMaxWords];
+  int32_t msg_of_rank[kMaxQueue];  // enqueue: message index of each rank
+};
 
 }  // namespace
 
@@ -153,290 +313,521 @@ struct IngestArgs {
   int32_t enqueue_all;
 };
 
-template <typename CT, typename XT, bool EMIT, int MAXM>
-__global__ void ingest_kernel(IngestArgs a) {
-  const int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (r >= a.n) return;
+template <typename CT, typename XT, bool EMIT, int KM, int QH>
+__global__ void __launch_bounds__(32 * kRowsPerBlock) ingest_kernel(const IngestArgs a) {
+  __shared__ WarpSmem smem[kRowsPerBlock];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + warp;
+#if INGEST_STAGE_NARROW
+  // the block's rows of the planes narrower than 4 bytes a lane (live,
+  // q_cell, q_tx), read a word a thread; their offsets are 4-byte aligned
+  static_assert(kRowsPerBlock % 4 == 0, "staging needs 4-byte aligned row groups");
+  __shared__ __align__(16) uint8_t s_live[kRowsPerBlock * kMaxMsgsWide];
+  __shared__ __align__(16) uint8_t s_qc[kRowsPerBlock * kMaxQueue * sizeof(CT)];
+  __shared__ __align__(16) uint8_t s_qx[kRowsPerBlock * kMaxQueue * sizeof(XT)];
+  {
+    const int64_t r0 = static_cast<int64_t>(blockIdx.x) * kRowsPerBlock;
+    const int64_t left = a.n - r0;
+    const int rows = left < kRowsPerBlock ? static_cast<int>(left) : kRowsPerBlock;
+    const int qcb = a.q_slots * static_cast<int>(sizeof(CT));
+    const int qxb = a.q_slots * static_cast<int>(sizeof(XT));
+    stage_bytes(s_live, a.live + r0 * a.m, rows * a.m);
+    stage_bytes(s_qc, static_cast<const uint8_t*>(a.q_cell) + r0 * qcb, rows * qcb);
+    stage_bytes(s_qx, static_cast<const uint8_t*>(a.q_tx) + r0 * qxb, rows * qxb);
+    __syncthreads();
+  }
+#endif
+  if (r >= a.n) return;  // the whole warp: rows past n are masked
+  WarpSmem& sm = smem[warp];
   const int m = a.m, O = a.n_origins, W = a.seen_words, C = a.n_cells, Q = a.q_slots;
+  const int kn = (m + 31) >> 5;  // chunks in use
+  const unsigned below = (1u << lane) - 1u;  // lanes below this one
   const int32_t now = *a.now;
 
-  // --- messages --------------------------------------------------------
-  bool live[MAXM], fresh[MAXM], rec[MAXM];
-  int32_t origin[MAXM], dbv[MAXM], ts[MAXM], slot[MAXM];
+  // --- stage the store row in shared memory (waited for at the LWW step) --
+  const int64_t cb = r * C;
+#pragma unroll
+  for (int h = 0; h < kCH; ++h) {
+    const int c = lane + 32 * h;
+    if (c < C) {
+#pragma unroll
+      for (int s = 0; s < 5; ++s) __pipeline_memcpy_async(&sm.store[s][c], a.store[s] + cb + c, 4);
+    }
+  }
+  __pipeline_commit();
+
+  // --- loads: messages, book, queue -----------------------------------------
   const int64_t mb = r * m;
-  for (int j = 0; j < m; ++j) {
-    live[j] = a.live[mb + j] != 0;
-    origin[j] = a.origin[mb + j];
-    dbv[j] = a.dbv[mb + j];
-    ts[j] = a.ts[mb + j];
+#if INGEST_STAGE_NARROW
+  const uint8_t* live_row = s_live + warp * m;
+#else
+  const uint8_t* live_row = a.live + mb;
+#endif
+  int32_t origin[KM], dbv[KM], ts[KM];
+  unsigned live_b[KM];
+#pragma unroll
+  for (int k = 0; k < KM; ++k) {
+    const int j = lane + 32 * k;
+    const bool in = j < m;
+    origin[k] = in ? a.origin[mb + j] : -1;
+    dbv[k] = in ? a.dbv[mb + j] : 0;
+    ts[k] = in ? a.ts[mb + j] : 0;
+    live_b[k] = __ballot_sync(kFull, in && live_row[j] != 0);
+  }
+  const bool has_o = lane < O;
+  const int64_t ob = r * O;
+  int32_t head = has_o ? a.head[ob + lane] : 0;
+  int32_t km = has_o ? a.km[ob + lane] : 0;
+  int32_t org_id = has_o ? a.org_id[ob + lane] : -1;
+  int32_t org_last = has_o ? a.org_last[ob + lane] : 0;
+  uint32_t sw[kMaxWords];
+  const int64_t sb = r * O * W + lane * W;
+#pragma unroll
+  for (int w = 0; w < kMaxWords; ++w) {
+    sw[w] = (has_o && w < W) ? static_cast<uint32_t>(a.seen[sb + w]) : 0u;
+  }
+  const int64_t qb = r * Q;
+#if INGEST_STAGE_NARROW
+  const CT* q_cell = reinterpret_cast<const CT*>(s_qc) + warp * Q;
+  const XT* q_tx = reinterpret_cast<const XT*>(s_qx) + warp * Q;
+#else
+  const CT* q_cell = static_cast<const CT*>(a.q_cell) + qb;
+  const XT* q_tx = static_cast<const XT*>(a.q_tx) + qb;
+#endif
+  int32_t qo[QH], qd[QH], qc[QH], qv[QH], qval[QH], qs[QH], qcl[QH], qt[QH], qx[QH];
+#pragma unroll
+  for (int h = 0; h < QH; ++h) {
+    const int q = lane + 32 * h;
+    const bool in = q < Q;
+    qo[h] = in ? a.q_origin[qb + q] : kNoQ;
+    qd[h] = in ? a.q_dbv[qb + q] : 0;
+    qc[h] = in ? static_cast<int32_t>(q_cell[q]) : 0;
+    qv[h] = in ? a.q_ver[qb + q] : 0;
+    qval[h] = in ? a.q_val[qb + q] : 0;
+    qs[h] = in ? a.q_site[qb + q] : 0;
+    qcl[h] = in ? a.q_clp[qb + q] : 0;
+    qt[h] = in ? a.q_ts[qb + q] : 0;
+    qx[h] = in ? static_cast<int32_t>(q_tx[q]) : 0;
+  }
+  float rand[QH];
+  int32_t carried = 1;
+  if constexpr (EMIT) {
+#pragma unroll
+    for (int h = 0; h < QH; ++h) {
+      const int q = lane + 32 * h;
+      rand[h] = q < Q ? a.rand[qb + q] : 0.0f;
+    }
+    carried = max(a.carried[r], 1);
   }
 
   // --- HLC fold with max-drift rejection --------------------------------
-  int32_t folded = 0;
-  int32_t drift = 0;
   const int32_t horizon = wrap_add(now, a.hlc_max_drift);
-  for (int j = 0; j < m; ++j) {
-    const bool ok = live[j] && (ts[j] >> a.hlc_round_bits) <= horizon;
-    const int32_t v = ok ? ts[j] : 0;
-    folded = j == 0 ? v : max(folded, v);
-    if (live[j] && !ok) ++drift;
-    live[j] = ok;
+  int32_t folded = kIntMin;
+  int drift = 0;
+#pragma unroll
+  for (int k = 0; k < KM; ++k) {
+    const bool lv = bit(live_b[k], lane);
+    const bool ok = lv && (ts[k] >> a.hlc_round_bits) <= horizon;
+    if (lane + 32 * k < m) folded = max(folded, ok ? ts[k] : 0);
+    drift += __popc(__ballot_sync(kFull, lv && !ok));
+    live_b[k] = __ballot_sync(kFull, ok);
   }
-  const int32_t hlc_in = a.hlc[r];
-  a.o_hlc[r] = m > 0 ? max(hlc_in, folded) : hlc_in;
-  a.o_drift[r] = drift;
-
-  // --- book ----------------------------------------------------------------
-  int32_t head[kMaxOrigins], km[kMaxOrigins], org_id[kMaxOrigins], org_last[kMaxOrigins];
-  uint32_t seen[kMaxOrigins * kMaxWords];
-  const int64_t ob = r * O;
-  for (int o = 0; o < O; ++o) {
-    head[o] = a.head[ob + o];
-    km[o] = a.km[ob + o];
-    org_id[o] = a.org_id[ob + o];
-    org_last[o] = a.org_last[ob + o];
+  folded = __reduce_max_sync(kFull, folded);
+  if (lane == 0) {
+    const int32_t hlc_in = a.hlc[r];
+    a.o_hlc[r] = m > 0 ? max(hlc_in, folded) : hlc_in;
+    a.o_drift[r] = drift;
   }
-  const int ow = O * W;
-  for (int k = 0; k < ow; ++k) seen[k] = static_cast<uint32_t>(a.seen[r * ow + k]);
 
   // --- seen check + in-batch dedupe ---------------------------------------
-  for (int j = 0; j < m; ++j) {
-    slot[j] = origin[j] >= 0 ? origin[j] % O : 0;
-    const bool owned_pre = origin[j] >= 0 && org_id[slot[j]] == origin[j];
-    const int32_t h = head[slot[j]];
-    const int32_t off = wrap_sub(wrap_sub(dbv[j], h), 1);
-    const bool in_win = off >= 0 && off < 32 * W;
-    const int widx = slot[j] * W + (off >= 0 ? (off >> 5) : 0);
-    const uint32_t word = widx < ow ? seen[widx] : 0u;
-    const int bit = (off < 0 ? 0 : off) & 31;
-    const bool hit = ((word >> bit) & 1u) == 1u;
-    const bool seen_b = live[j] && owned_pre && (dbv[j] <= h || (in_win && hit));
-    bool dup = false;
-    for (int k = 0; k < j; ++k) {
-      dup = dup || (live[k] && origin[k] == origin[j] && dbv[k] == dbv[j]);
+  unsigned fresh_b[KM];
+  bool dup[KM];
+#pragma unroll
+  for (int k = 0; k < KM; ++k) {
+    const unsigned long long key =
+        (static_cast<unsigned long long>(static_cast<uint32_t>(origin[k])) << 32) |
+        static_cast<uint32_t>(dbv[k]);
+    dup[k] = (__match_any_sync(kFull, key) & live_b[k] & below) != 0u;
+  }
+#pragma unroll
+  for (int ks = 0; ks + 1 < KM; ++ks) {
+    unsigned bits = live_b[ks];
+    while (bits) {  // each live message of chunk ks against the later chunks
+      const int t = __ffs(bits) - 1;
+      bits &= bits - 1u;
+      const int32_t ot = __shfl_sync(kFull, origin[ks], t);
+      const int32_t dt = __shfl_sync(kFull, dbv[ks], t);
+#pragma unroll
+      for (int kd = ks + 1; kd < KM; ++kd) {
+        dup[kd] = dup[kd] || (ot == origin[kd] && dt == dbv[kd]);
+      }
     }
-    fresh[j] = live[j] && !seen_b && !dup;
+  }
+#pragma unroll
+  for (int k = 0; k < KM; ++k) {
+    const int32_t o_j = origin[k];
+    const int sl = o_j >= 0 ? o_j % O : 0;
+    const int32_t owner = __shfl_sync(kFull, org_id, sl);
+    const int32_t h = __shfl_sync(kFull, head, sl);
+    const int32_t off = wrap_sub(wrap_sub(dbv[k], h), 1);
+    const bool in_win = off >= 0 && off < 32 * W;
+    const int wi = in_win ? (off >> 5) : 0;
+    uint32_t word = 0u;
+#pragma unroll
+    for (int w = 0; w < kMaxWords; ++w) {
+      if (w < W) {
+        const uint32_t x = __shfl_sync(kFull, sw[w], sl);
+        if (w == wi) word = x;
+      }
+    }
+    const bool hit = ((word >> (off & 31)) & 1u) == 1u;
+    const bool lv = bit(live_b[k], lane);
+    const bool owned_pre = o_j >= 0 && owner == o_j;
+    const bool seen_b = lv && owned_pre && (dbv[k] <= h || (in_win && hit));
+    fresh_b[k] = __ballot_sync(kFull, lv && !seen_b && !dup[k]);
+  }
+
+  // --- the fresh messages' remaining fields (read now, used from the LWW on)
+  int32_t cell[KM], ver[KM], val[KM], site[KM], clp[KM], bud[KM];
+#pragma unroll
+  for (int k = 0; k < KM; ++k) {
+    const int64_t j = mb + lane + 32 * k;
+    const bool fr = bit(fresh_b[k], lane);
+    cell[k] = fr ? a.cell[j] : -1;
+    ver[k] = fr ? a.ver[j] : 0;
+    val[k] = fr ? a.val[j] : 0;
+    site[k] = fr ? a.site[j] : 0;
+    clp[k] = fr ? a.clp[j] : 0;
+    bud[k] = fr ? a.budget[j] : 0;
   }
 
   // --- slot claim/evict (monotone in the actor id) -------------------------
-  for (int c = 0; c < O; ++c) {
-    const int32_t owner = org_id[c];
-    bool any_f = false;
-    int32_t new_owner = -1;
-    for (int j = 0; j < m; ++j) {
-      const bool cand = fresh[j] && slot[j] == c && origin[j] >= 0;
-      if (cand && origin[j] > owner) {
-        any_f = true;
-        new_owner = max(new_owner, origin[j]);
-      }
-    }
-    const bool evictable = owner < 0 || wrap_add(org_last[c], a.keep_rounds) < now;
-    const bool take = any_f && evictable;
-    const int32_t nid = take ? new_owner : owner;
-    bool active = false;
-    for (int j = 0; j < m; ++j) {
-      active = active || (fresh[j] && slot[j] == c && origin[j] >= 0 && origin[j] == nid);
-    }
-    org_id[c] = nid;
-    if (take || active) org_last[c] = now;
+  if (has_o) sm.cand[lane] = -1;
+  __syncwarp();
+#pragma unroll
+  for (int k = 0; k < KM; ++k) {
+    const int32_t o_j = origin[k];
+    const int sl = o_j >= 0 ? o_j % O : 0;
+    const int32_t owner = __shfl_sync(kFull, org_id, sl);
+    if (bit(fresh_b[k], lane) && o_j >= 0 && o_j > owner) atomicMax(&sm.cand[sl], o_j);
+  }
+  __syncwarp();
+  bool take = false;
+  if (has_o) {
+    const int32_t cand = sm.cand[lane];
+    const bool evictable = org_id < 0 || wrap_add(org_last, a.keep_rounds) < now;
+    take = cand >= 0 && evictable;  // a candidate's origin is >= 0
+    if (take) org_id = cand;
+  }
+  // recorded messages: fresh and owned after the claim; a slot is active
+  // when one of them lies on it
+  unsigned rec_b[KM], owned_b[KM];
+  unsigned active = 0u;
+#pragma unroll
+  for (int k = 0; k < KM; ++k) {
+    const int32_t o_j = origin[k];
+    const int sl = o_j >= 0 ? o_j % O : 0;
+    const int32_t owner = __shfl_sync(kFull, org_id, sl);  // every lane shuffles
+    const bool owned = o_j >= 0 && owner == o_j;
+    const bool rec = bit(fresh_b[k], lane) && owned;
+    owned_b[k] = __ballot_sync(kFull, owned);
+    rec_b[k] = __ballot_sync(kFull, rec);
+    active |= rec ? (1u << sl) : 0u;
+  }
+  active = __reduce_or_sync(kFull, active);
+  if (has_o) {
+    if (take || bit(active, lane)) org_last = now;
     if (take) {
-      head[c] = 0;
-      km[c] = 0;
-      for (int w = 0; w < W; ++w) seen[c * W + w] = 0u;
+      head = 0;
+      km = 0;
+#pragma unroll
+      for (int w = 0; w < kMaxWords; ++w) sw[w] = 0u;
+    }
+    sm.km[lane] = km;
+#pragma unroll
+    for (int w = 0; w < kMaxWords; ++w) {
+      if (w < W) sm.seen[lane * W + w] = sw[w];
     }
   }
+  __syncwarp();
 
   // --- record: seen-bit OR, known_max --------------------------------------
-  for (int j = 0; j < m; ++j) {
-    const bool owned = origin[j] >= 0 && org_id[slot[j]] == origin[j];
-    rec[j] = fresh[j] && owned;
-    const int32_t off = wrap_sub(wrap_sub(dbv[j], head[slot[j]]), 1);
+#pragma unroll
+  for (int k = 0; k < KM; ++k) {
+    const int32_t o_j = origin[k];
+    const int sl = o_j >= 0 ? o_j % O : 0;
+    const int32_t h = __shfl_sync(kFull, head, sl);
+    const int32_t off = wrap_sub(wrap_sub(dbv[k], h), 1);
     const bool in_win = off >= 0 && off < 32 * W;
-    if (rec[j] && in_win) seen[slot[j] * W + (off >> 5)] |= 1u << (off & 31);
-    if (live[j] && owned) km[slot[j]] = max(km[slot[j]], dbv[j]);
+    if (bit(rec_b[k], lane) && in_win) atomicOr(&sm.seen[sl * W + (off >> 5)], 1u << (off & 31));
+    if (bit(live_b[k], lane) && bit(owned_b[k], lane)) atomicMax(&sm.km[sl], dbv[k]);
   }
+  __syncwarp();
 
   // --- head advance: trailing ones, then shift the window down ------------
-  for (int o = 0; o < O; ++o) {
-    uint32_t* win = seen + o * W;
+  if (has_o) {
+    km = sm.km[lane];
+#pragma unroll
+    for (int w = 0; w < kMaxWords; ++w) {
+      if (w < W) sw[w] = sm.seen[lane * W + w];
+    }
     int32_t total = 0;
     bool carry = true;
-    for (int w = 0; w < W; ++w) {
-      const uint32_t x = win[w];
-      const int32_t t = x == 0xFFFFFFFFu ? 32 : __popc(x ^ (x + 1u)) - 1;
-      if (carry) total += t;
-      carry = carry && t == 32;
+#pragma unroll
+    for (int w = 0; w < kMaxWords; ++w) {
+      if (w < W) {
+        const uint32_t x = sw[w];
+        const int32_t t = x == 0xFFFFFFFFu ? 32 : __popc(x ^ (x + 1u)) - 1;
+        if (carry) total += t;
+        carry = carry && t == 32;
+      }
     }
-    head[o] = wrap_add(head[o], total);
+    head = wrap_add(head, total);
     const int s_words = total >> 5;
     const int s_bits = total & 31;
     uint32_t shifted[kMaxWords];
-    for (int w = 0; w < W; ++w) {
-      const int lo_i = w + s_words;
-      const int hi_i = lo_i + 1;
-      const uint32_t lo = lo_i < W ? win[lo_i] : 0u;
-      const uint32_t hi = hi_i < W ? win[hi_i] : 0u;
+#pragma unroll
+    for (int w = 0; w < kMaxWords; ++w) {
+      const uint32_t lo = pick(sw, w + s_words, W);
+      const uint32_t hi = pick(sw, w + s_words + 1, W);
       shifted[w] = s_bits > 0 ? (lo >> s_bits) | (hi << (32 - s_bits)) : lo;
     }
-    for (int w = 0; w < W; ++w) win[w] = shifted[w];
-    km[o] = max(km[o], head[o]);
+    km = max(km, head);
+    a.o_head[ob + lane] = head;
+    a.o_km[ob + lane] = km;
+    a.o_org_id[ob + lane] = org_id;
+    a.o_org_last[ob + lane] = org_last;
+#pragma unroll
+    for (int w = 0; w < kMaxWords; ++w) {
+      if (w < W) a.o_seen[sb + w] = static_cast<int32_t>(shifted[w]);
+    }
   }
-  for (int o = 0; o < O; ++o) {
-    a.o_head[ob + o] = head[o];
-    a.o_km[ob + o] = km[o];
-    a.o_org_id[ob + o] = org_id[o];
-    a.o_org_last[ob + o] = org_last[o];
+#pragma unroll
+  for (int k = 0; k < KM; ++k) {
+    const int j = lane + 32 * k;
+    if (j < m) a.o_fresh[mb + j] = bit(fresh_b[k], lane) ? 1 : 0;
   }
-  for (int k = 0; k < ow; ++k) a.o_seen[r * ow + k] = static_cast<int32_t>(seen[k]);
-  for (int j = 0; j < m; ++j) a.o_fresh[mb + j] = fresh[j] ? 1 : 0;
 
   // --- LWW apply of fresh cells --------------------------------------------
-  const int64_t cb = r * C;
-  for (int s = 0; s < 5; ++s) {
-    for (int c = 0; c < C; ++c) a.o_store[s][cb + c] = a.store[s][cb + c];
+  unsigned cand_b[KM];
+  bool best[KM];
+#pragma unroll
+  for (int k = 0; k < KM; ++k) {
+    best[k] = bit(fresh_b[k], lane) && cell[k] >= 0 && cell[k] < C;
+    cand_b[k] = __ballot_sync(kFull, best[k]);
   }
-  for (int j = 0; j < m; ++j) {
-    const int32_t cj = a.cell[mb + j];
-    if (!fresh[j] || cj < 0 || cj >= C) continue;
-    // message j applies when it is its cell's batch winner under
-    // (clp, ver, val, site, dbv), the first of identical winners
-    const int32_t kj[5] = {a.clp[mb + j], a.ver[mb + j], a.val[mb + j],
-                           a.site[mb + j], dbv[j]};
-    bool best = true;
-    for (int k = 0; k < m && best; ++k) {
-      if (k == j || !fresh[k] || a.cell[mb + k] != cj) continue;
-      const int32_t kk[5] = {a.clp[mb + k], a.ver[mb + k], a.val[mb + k],
-                             a.site[mb + k], dbv[k]};
-      int cmp = 0;
-      for (int t = 0; t < 5 && cmp == 0; ++t) {
-        cmp = kk[t] > kj[t] ? 1 : (kk[t] < kj[t] ? -1 : 0);
+#pragma unroll
+  for (int ks = 0; ks < KM; ++ks) {
+    unsigned bits = cand_b[ks];
+    while (bits) {  // each candidate against every lane's own candidates
+      const int t = __ffs(bits) - 1;
+      bits &= bits - 1u;
+      const int32_t ct = __shfl_sync(kFull, cell[ks], t);
+      const int32_t t0 = __shfl_sync(kFull, clp[ks], t);
+      const int32_t t1 = __shfl_sync(kFull, ver[ks], t);
+      const int32_t t2 = __shfl_sync(kFull, val[ks], t);
+      const int32_t t3 = __shfl_sync(kFull, site[ks], t);
+      const int32_t t4 = __shfl_sync(kFull, dbv[ks], t);
+      const int tj = t + 32 * ks;
+#pragma unroll
+      for (int kd = 0; kd < KM; ++kd) {
+        const int j = lane + 32 * kd;
+        if (best[kd] && ct == cell[kd] && tj != j) {
+          const int cmp = lex_cmp5(t0, t1, t2, t3, t4, clp[kd], ver[kd], val[kd], site[kd], dbv[kd]);
+          if (cmp > 0 || (cmp == 0 && tj < j)) best[kd] = false;
+        }
       }
-      if (cmp > 0 || (cmp == 0 && k < j)) best = false;
     }
-    if (!best) continue;
-    const int32_t inc[4] = {a.o_store[4][cb + cj], a.o_store[0][cb + cj],
-                            a.o_store[1][cb + cj], a.o_store[2][cb + cj]};
-    if (lex_wins4(inc, kj)) continue;
-    a.o_store[0][cb + cj] = kj[1];
-    a.o_store[1][cb + cj] = kj[2];
-    a.o_store[2][cb + cj] = kj[3];
-    a.o_store[3][cb + cj] = kj[4];
-    a.o_store[4][cb + cj] = kj[0];
+  }
+  __pipeline_wait_prior(0);
+  __syncwarp();
+#pragma unroll
+  for (int k = 0; k < KM; ++k) {
+    if (best[k]) {
+      const int c = cell[k];
+      // the incumbent (clp, ver, val, site) wins ties
+      const int cmp = lex_cmp5(sm.store[4][c], sm.store[0][c], sm.store[1][c], sm.store[2][c], 0,
+                               clp[k], ver[k], val[k], site[k], 0);
+      if (cmp < 0) {
+        sm.store[0][c] = ver[k];
+        sm.store[1][c] = val[k];
+        sm.store[2][c] = site[k];
+        sm.store[3][c] = dbv[k];
+        sm.store[4][c] = clp[k];
+      }
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int h = 0; h < kCH; ++h) {
+    const int c = lane + 32 * h;
+    if (c < C) {
+#pragma unroll
+      for (int s = 0; s < 5; ++s) a.o_store[s][cb + c] = sm.store[s][c];
+    }
   }
 
-  // --- re-broadcast enqueue: evict the lowest remaining budget -------------
-  const int64_t qb = r * Q;
-  const CT* q_cell = static_cast<const CT*>(a.q_cell) + qb;
-  const XT* q_tx = static_cast<const XT*>(a.q_tx) + qb;
-  CT* o_q_cell = static_cast<CT*>(a.o_q_cell) + qb;
-  XT* o_q_tx = static_cast<XT*>(a.o_q_tx) + qb;
-  int32_t ekey[kMaxQueue];
-  for (int q = 0; q < Q; ++q) {
-    const int32_t qo = a.q_origin[qb + q];
-    a.o_q_origin[qb + q] = qo;
-    a.o_q_dbv[qb + q] = a.q_dbv[qb + q];
-    o_q_cell[q] = q_cell[q];
-    a.o_q_ver[qb + q] = a.q_ver[qb + q];
-    a.o_q_val[qb + q] = a.q_val[qb + q];
-    a.o_q_site[qb + q] = a.q_site[qb + q];
-    a.o_q_clp[qb + q] = a.q_clp[qb + q];
-    a.o_q_ts[qb + q] = a.q_ts[qb + q];
-    o_q_tx[q] = q_tx[q];
-    ekey[q] = qo == kNoQ ? kIntMin : static_cast<int32_t>(q_tx[q]);
+  // --- re-broadcast enqueue: the r-th message into the r-th least slot -----
+  int n_enq = 0;
+#pragma unroll
+  for (int k = 0; k < KM; ++k) {
+    const unsigned eb = a.enqueue_all ? fresh_b[k] : rec_b[k];
+    const int rk = n_enq + __popc(eb & below);
+    if (bit(eb, lane) && rk < Q) sm.msg_of_rank[rk] = lane + 32 * k;
+    n_enq += __popc(eb);
   }
-  for (int j = 0; j < m; ++j) {
-    int32_t kmin = ekey[0];
-    int s = 0;
-    for (int q = 1; q < Q; ++q) {
-      if (ekey[q] < kmin) {
-        kmin = ekey[q];
-        s = q;
+  // the slot of rank r, r < min(E, Q): r + 1 rounds of a warp argmin of the
+  // evict key (the lowest column among equal keys), each taking its slot
+  int32_t ekey[QH];
+  int my_rank[QH];
+#pragma unroll
+  for (int h = 0; h < QH; ++h) {
+    const int q = lane + 32 * h;
+    ekey[h] = q < Q ? (qo[h] == kNoQ ? kIntMin : qx[h]) : kIntMax;
+    my_rank[h] = -1;
+  }
+  const int n_place = min(n_enq, Q);
+  for (int rr = 0; rr < n_place; ++rr) {
+    const int slot = warp_arg_least<QH>(ekey, kIntMax);
+    if (slot < 0) break;  // the least key left is INT32_MAX: nothing more placed
+#pragma unroll
+    for (int h = 0; h < QH; ++h) {
+      if (lane + 32 * h == slot) {
+        ekey[h] = kIntMax;
+        my_rank[h] = rr;
       }
     }
-    const bool enq = a.enqueue_all ? fresh[j] : rec[j];
-    if (!enq || kmin >= kIntMax) continue;
-    a.o_q_origin[qb + s] = origin[j];
-    a.o_q_dbv[qb + s] = dbv[j];
-    o_q_cell[s] = static_cast<CT>(a.cell[mb + j]);
-    a.o_q_ver[qb + s] = a.ver[mb + j];
-    a.o_q_val[qb + s] = a.val[mb + j];
-    a.o_q_site[qb + s] = a.site[mb + j];
-    a.o_q_clp[qb + s] = a.clp[mb + j];
-    a.o_q_ts[qb + s] = ts[j];
-    o_q_tx[s] = static_cast<XT>(a.budget[mb + j]);
-    ekey[s] = kIntMax;
+  }
+  __syncwarp();
+  CT* o_q_cell = static_cast<CT*>(a.o_q_cell) + qb;
+  XT* o_q_tx = static_cast<XT*>(a.o_q_tx) + qb;
+#pragma unroll
+  for (int h = 0; h < QH; ++h) {
+    const int q = lane + 32 * h;
+    const bool placed = my_rank[h] >= 0;
+    const int j = placed ? sm.msg_of_rank[my_rank[h]] : 0;
+    const int src = j & 31, ch = j >> 5;
+    const int32_t f_origin = shfl_chunk(origin, src, ch, kn);
+    const int32_t f_dbv = shfl_chunk(dbv, src, ch, kn);
+    const int32_t f_cell = shfl_chunk(cell, src, ch, kn);
+    const int32_t f_ver = shfl_chunk(ver, src, ch, kn);
+    const int32_t f_val = shfl_chunk(val, src, ch, kn);
+    const int32_t f_site = shfl_chunk(site, src, ch, kn);
+    const int32_t f_clp = shfl_chunk(clp, src, ch, kn);
+    const int32_t f_ts = shfl_chunk(ts, src, ch, kn);
+    const int32_t f_bud = shfl_chunk(bud, src, ch, kn);
+    if (placed) {
+      qo[h] = f_origin;
+      qd[h] = f_dbv;
+      qc[h] = static_cast<int32_t>(static_cast<CT>(f_cell));
+      qv[h] = f_ver;
+      qval[h] = f_val;
+      qs[h] = f_site;
+      qcl[h] = f_clp;
+      qt[h] = f_ts;
+      qx[h] = static_cast<int32_t>(static_cast<XT>(f_bud));
+    }
+    if (q < Q) {
+      a.o_q_origin[qb + q] = qo[h];
+      a.o_q_dbv[qb + q] = qd[h];
+      o_q_cell[q] = static_cast<CT>(qc[h]);
+      a.o_q_ver[qb + q] = qv[h];
+      a.o_q_val[qb + q] = qval[h];
+      a.o_q_site[qb + q] = qs[h];
+      a.o_q_clp[qb + q] = qcl[h];
+      a.o_q_ts[qb + q] = qt[h];
+      o_q_tx[q] = static_cast<XT>(qx[h]);
+    }
   }
 
   if constexpr (EMIT) {
     // --- piggyback payload selection from the updated queue ---------------
     const int R = a.pig_r;
-    const int32_t carried = max(a.carried[r], 1);
     const int32_t allowed = max(a.budget_bytes / (a.wire_bytes * carried), 1);
-    int32_t bkey[kMaxQueue];
-    bool keep[kMaxQueue];
-    for (int q = 0; q < Q; ++q) {
-      const int32_t t = static_cast<int32_t>(o_q_tx[q]);
-      const bool live_slot = a.o_q_origin[qb + q] != kNoQ && t > 0;
-      bkey[q] = live_slot ? t : kIntMin;
-      keep[q] = false;
+    // keep: the first `allowed` live slots by (q_tx descending, column
+    // ascending); all of them when they are no more than `allowed`
+    bool keep[QH];
+    int n_live = 0;
+#pragma unroll
+    for (int h = 0; h < QH; ++h) {
+      keep[h] = lane + 32 * h < Q && qo[h] != kNoQ && qx[h] > 0;
+      n_live += __popc(__ballot_sync(kFull, keep[h]));
     }
-    int32_t cnt = 0;
-    for (int it = 0; it < Q; ++it) {
-      int32_t kmax = bkey[0];
-      int s = 0;
-      for (int q = 1; q < Q; ++q) {
-        if (bkey[q] > kmax) {
-          kmax = bkey[q];
-          s = q;
+    if (n_live > allowed) {
+      int brank[QH] = {};
+#pragma unroll
+      for (int hs = 0; hs < QH; ++hs) {
+#pragma unroll 8
+        for (int t = 0; t < 32; ++t) {
+          const bool lt = __shfl_sync(kFull, static_cast<int>(keep[hs]), t) != 0;
+          const int32_t bt = __shfl_sync(kFull, qx[hs], t);
+          const int idx = t + 32 * hs;
+#pragma unroll
+          for (int h = 0; h < QH; ++h) {
+            const int q = lane + 32 * h;
+            brank[h] += (lt && (bt > qx[h] || (bt == qx[h] && idx < q))) ? 1 : 0;
+          }
         }
       }
-      const bool sel = kmax > kIntMin && cnt < allowed;
-      if (sel) {
-        keep[s] = true;
-        ++cnt;
-      }
-      bkey[s] = kIntMin;
+#pragma unroll
+      for (int h = 0; h < QH; ++h) keep[h] = keep[h] && brank[h] < allowed;
     }
-    float rk[kMaxQueue];
-    for (int q = 0; q < Q; ++q) rk[q] = keep[q] ? a.rand[qb + q] : -1.0f;
-    int sel_slot[kMaxPig];
-    bool sel_ok[kMaxPig];
-    for (int i = 0; i < R; ++i) {
-      float rmax = rk[0];
-      int s = 0;
-      for (int q = 1; q < Q; ++q) {
-        if (rk[q] > rmax) {
-          rmax = rk[q];
-          s = q;
-        }
-      }
-      sel_slot[i] = s;
-      sel_ok[i] = rmax >= 0.0f;
-      rk[s] = -2.0f;
+    // the R picks: R rounds of a warp argmax of (keep ? rand : -1.0), as
+    // order-preserving int32 (+0.0 for -0.0, which compares equal), the
+    // first index among equal draws; a taken slot drops below every other
+    int32_t pkey[QH];
+#pragma unroll
+    for (int h = 0; h < QH; ++h) {
+      const float v = keep[h] ? rand[h] : -1.0f;
+      pkey[h] = lane + 32 * h < Q ? float_order(v) : kIntMin;
     }
-    int32_t* pay = a.o_payload + r * 11 * R;
+    int my_pick = 0;
+    int32_t my_ok = 0;
     for (int i = 0; i < R; ++i) {
-      const int s = sel_slot[i];
-      pay[0 * R + i] = a.o_q_origin[qb + s];
-      pay[1 * R + i] = a.o_q_dbv[qb + s];
-      pay[2 * R + i] = static_cast<int32_t>(o_q_cell[s]);
-      pay[3 * R + i] = a.o_q_ver[qb + s];
-      pay[4 * R + i] = a.o_q_val[qb + s];
-      pay[5 * R + i] = a.o_q_site[qb + s];
-      pay[6 * R + i] = a.o_q_clp[qb + s];
-      pay[7 * R + i] = 0;  // q_seq: single-cell versions
-      pay[8 * R + i] = 1;  // q_nseq
-      pay[9 * R + i] = a.o_q_ts[qb + s];
-      pay[10 * R + i] = sel_ok[i] ? 1 : 0;
-      a.o_sel[r * R + i] = s;
-      a.o_selok[r * R + i] = sel_ok[i] ? 1 : 0;
+      int32_t best_key = kIntMin;
+      const int slot = warp_arg_most<QH>(pkey, best_key);
+#pragma unroll
+      for (int h = 0; h < QH; ++h) {
+        if (lane + 32 * h == slot) pkey[h] = kIntMin;
+      }
+      if (lane == i) {
+        my_pick = slot;
+        my_ok = best_key >= 0 ? 1 : 0;  // the draw is >= 0.0
+      }
+    }
+    // lane i < R packs pick i
+    const int src = my_pick & 31, hs = my_pick >> 5;
+    const int32_t p_origin = shfl_chunk(qo, src, hs, QH);
+    const int32_t p_dbv = shfl_chunk(qd, src, hs, QH);
+    const int32_t p_cell = shfl_chunk(qc, src, hs, QH);
+    const int32_t p_ver = shfl_chunk(qv, src, hs, QH);
+    const int32_t p_val = shfl_chunk(qval, src, hs, QH);
+    const int32_t p_site = shfl_chunk(qs, src, hs, QH);
+    const int32_t p_clp = shfl_chunk(qcl, src, hs, QH);
+    const int32_t p_ts = shfl_chunk(qt, src, hs, QH);
+    if (lane < R) {
+      int32_t* pay = a.o_payload + r * 11 * R;
+      pay[0 * R + lane] = p_origin;
+      pay[1 * R + lane] = p_dbv;
+      pay[2 * R + lane] = p_cell;
+      pay[3 * R + lane] = p_ver;
+      pay[4 * R + lane] = p_val;
+      pay[5 * R + lane] = p_site;
+      pay[6 * R + lane] = p_clp;
+      pay[7 * R + lane] = 0;  // q_seq: single-cell versions
+      pay[8 * R + lane] = 1;  // q_nseq
+      pay[9 * R + lane] = p_ts;
+      pay[10 * R + lane] = my_ok;
+      a.o_sel[r * R + lane] = my_pick;
+      a.o_selok[r * R + lane] = static_cast<uint8_t>(my_ok);
     }
   }
 }
 
 // out: the widest batch (m) of any form, origins, seen words, queue slots,
-// payload entries, and the widest batch of the narrow (and every emitting)
-// instantiation.
+// payload entries, the widest batch of the narrow (and every emitting)
+// instantiation, and cells.
 extern "C" int ingest_limits(int* out) {
   out[0] = kMaxMsgsWide;
   out[1] = kMaxOrigins;
@@ -444,33 +835,46 @@ extern "C" int ingest_limits(int* out) {
   out[3] = kMaxQueue;
   out[4] = kMaxPig;
   out[5] = kMaxMsgs;
+  out[6] = kMaxCells;
   return 0;
+}
+
+// the queue's slots a lane (QH) are a template parameter, so that a queue of
+// 32 slots carries no second half
+template <typename CT, typename XT, bool EMIT, int KM>
+static void launch_queue(const IngestArgs* a, dim3 grid, int threads, cudaStream_t s) {
+  if (a->q_slots <= 32) {
+    ingest_kernel<CT, XT, EMIT, KM, 1><<<grid, threads, 0, s>>>(*a);
+  } else {
+    ingest_kernel<CT, XT, EMIT, KM, kMaxQueue / 32><<<grid, threads, 0, s>>>(*a);
+  }
 }
 
 template <typename CT, typename XT>
 static void launch_form(const IngestArgs* a, int emit, dim3 grid, int threads,
                         cudaStream_t s) {
   if (emit) {
-    ingest_kernel<CT, XT, true, kMaxMsgs><<<grid, threads, 0, s>>>(*a);
+    launch_queue<CT, XT, true, kMaxMsgs / 32>(a, grid, threads, s);
   } else if (a->m <= kMaxMsgs) {
-    ingest_kernel<CT, XT, false, kMaxMsgs><<<grid, threads, 0, s>>>(*a);
+    launch_queue<CT, XT, false, kMaxMsgs / 32>(a, grid, threads, s);
   } else {
-    ingest_kernel<CT, XT, false, kMaxMsgsWide><<<grid, threads, 0, s>>>(*a);
+    launch_queue<CT, XT, false, kMaxMsgsWide / 32>(a, grid, threads, s);
   }
 }
 
 // cell_bytes / tx_bytes: the element sizes of the q_cell and q_tx planes;
 // the valid pairs are (2, 1), (2, 2) and (4, 4). Returns a CUDA error code,
-// or cudaErrorInvalidValue for any other pair or for a batch wider than the
-// form's instantiation holds.
+// or cudaErrorInvalidValue for any other pair or for widths past the limits.
 extern "C" int ingest_launch(const IngestArgs* a, int cell_bytes, int tx_bytes,
                              int emit, void* stream) {
-  if (a->m < 0 || a->m > (emit ? kMaxMsgs : kMaxMsgsWide)) {
+  if (a->m < 0 || a->m > (emit ? kMaxMsgs : kMaxMsgsWide) || a->n_origins < 1 ||
+      a->n_origins > kMaxOrigins || a->seen_words > kMaxWords || a->q_slots > kMaxQueue ||
+      a->n_cells > kMaxCells || a->pig_r > kMaxPig) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (a->n == 0) return 0;
-  const int threads = 128;
-  const dim3 grid((a->n + threads - 1) / threads);
+  const int threads = 32 * kRowsPerBlock;
+  const dim3 grid((a->n + kRowsPerBlock - 1) / kRowsPerBlock);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cell_bytes == 2 && tx_bytes == 1) {
     launch_form<int16_t, int8_t>(a, emit, grid, threads, s);

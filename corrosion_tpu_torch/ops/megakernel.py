@@ -391,18 +391,18 @@ _Q_FIELDS = ("q_origin", "q_dbv", "q_cell", "q_ver", "q_val", "q_site",
 
 def _ingest_cuda(p: IngestParams, x: IngestInputs) -> IngestOutputs:
     lib = cuda_lib.library("ingest")
-    limits = (ctypes.c_int * 6)()
+    limits = (ctypes.c_int * 7)()
     lib.ingest_limits(limits)
     n, m = x.origin.shape
     c_cnt, o, w, q = p.n_cells, p.n_origins, p.seen_words, p.q_slots
-    # limits: widest m, O, W, Q, R, and the widest m of the narrow (and
-    # every emitting) instantiation
+    # limits: widest m, O, W, Q, R, the widest m of the narrow (and every
+    # emitting) instantiation, C
     max_m = limits[5] if p.pig_r else limits[0]
     if (m > max_m or o > limits[1] or w > limits[2] or q > limits[3]
-            or p.pig_r > limits[4]):
+            or p.pig_r > limits[4] or c_cnt > limits[6]):
         raise ValueError(
-            f"ingest widths m={m} O={o} W={w} Q={q} R={p.pig_r} exceed the "
-            f"kernel's limits {list(limits)}"
+            f"ingest widths m={m} O={o} W={w} Q={q} R={p.pig_r} C={c_cnt} "
+            f"exceed the kernel's limits {list(limits)}"
         )
     dev = x.origin.device
     cdt, qdt = x.q_cell.dtype, x.q_tx.dtype

@@ -130,9 +130,15 @@ N_INGEST = 64
 SMALL = dict(n_rows=4, n_cols=4, n_origins=8, bcast_queue=16)
 
 
-def random_state(seed, n=N_INGEST, **over):
+# every tie-heavy message's (ver, val, site, clp); half the store cells
+# hold the same keys, so the incumbent ties them
+TIE_KEYS = (5, 1, 2, 1)
+
+
+def random_state(seed, n=N_INGEST, ties=False, **over):
     """A JAX ScaleSimState with a random (valid) CRDT half, and the port's
-    copy of it."""
+    copy of it. With ``ties``: queue counters from {1, 2}, and store cells
+    that tie the tie-heavy messages' keys."""
     over = {**SMALL, **over}
     cfg = jstep.scale_sim_config(n, **over)
     st = jstep.ScaleSimState.create(cfg)
@@ -143,9 +149,14 @@ def random_state(seed, n=N_INGEST, **over):
     head = rng.integers(0, 30, (n, o)).astype(i32)
     seen = np.where(rng.random((n, o, 1)) < 0.3, rng.integers(0, 8, (n, o, 1)),
                     rng.integers(0, 2**32, (n, o, 1))).astype(np.uint32)
+    store = [rng.integers(0, hi, (n, c)).astype(i32) for hi in (8, 4, 4, 40, 2)]
+    q_tx = rng.integers(0, 4, (n, q))
+    if ties:
+        for i, v in zip((0, 1, 2, 4), TIE_KEYS):
+            store[i] = np.where(rng.random((n, c)) < 0.5, v, store[i]).astype(i32)
+        q_tx = rng.integers(1, 3, (n, q))
     crdt = st.crdt._replace(
-        store=tuple(jnp.asarray(rng.integers(0, hi, (n, c)).astype(i32))
-                    for hi in (8, 4, 4, 40, 2)),
+        store=tuple(jnp.asarray(x) for x in store),
         book=st.crdt.book._replace(
             head=jnp.asarray(head),
             known_max=jnp.asarray(head + rng.integers(0, 10, (n, o)).astype(i32)),
@@ -165,7 +176,7 @@ def random_state(seed, n=N_INGEST, **over):
         q_site=jnp.asarray(rng.integers(0, 4, (n, q)).astype(i32)),
         q_clp=jnp.asarray(rng.integers(0, 2, (n, q)).astype(i32)),
         q_ts=jnp.asarray(rng.integers(0, now << 10, (n, q)).astype(i32)),
-        q_tx=jnp.asarray(rng.integers(0, 4, (n, q)).astype(np.int16)),
+        q_tx=jnp.asarray(q_tx.astype(np.int16)),
         hlc=jnp.asarray(rng.integers(0, now << 10, n).astype(i32)),
         now=jnp.int32(now),
     )
@@ -189,9 +200,42 @@ def random_messages(seed, n, m, now=20, n_cells=16):
     return live, [f.astype(i32) for f in fields]
 
 
-def test_ingest_plain_matches_pallas_kernel_interpret():
-    cfg, st, tcfg, tst = random_state(0)
-    live, msgs = random_messages(1, N_INGEST, 4 * cfg.pig_changes)
+def two_cells(rng, n, m, n_cells):
+    """Each row's messages on two cells (and a few on none)."""
+    a = rng.integers(0, n_cells, (n, 1))
+    b = (a + rng.integers(1, n_cells, (n, 1))) % n_cells
+    cell = np.where(rng.random((n, m)) < 0.5, a, b)
+    return np.where(rng.random((n, m)) < 0.05, -1, cell).astype(np.int32)
+
+
+def tie_messages(seed, n, m, now=20, n_cells=16):
+    """Messages where a lane-parallel rank can part from a sequential loop:
+    two cells a row with equal (ver, val, site, clp), repeated (origin, dbv)
+    pairs and versions repeated across origins in a row, live and dead."""
+    rng = np.random.default_rng(seed)
+    i32 = np.int32
+    live = rng.random((n, m)) < 0.6
+    origin = rng.integers(-1, 12, (n, m))
+    dbv = rng.integers(0, 40, (n, m))
+    idx = np.arange(m)
+    back = np.maximum(idx - rng.integers(1, 9, (n, m)), 0)
+    rep = (rng.random((n, m)) < 0.3) & (idx > 0)
+    origin = np.where(rep, np.take_along_axis(origin, back, 1), origin)
+    dbv = np.where(rep, np.take_along_axis(dbv, back, 1), dbv)
+    back = np.maximum(idx - rng.integers(1, 9, (n, m)), 0)
+    dbv = np.where((rng.random((n, m)) < 0.2) & (idx > 0),
+                   np.take_along_axis(dbv, back, 1), dbv)
+    ver, val, site, clp = (np.full((n, m), v) for v in TIE_KEYS)
+    fields = [origin, dbv, two_cells(rng, n, m, n_cells), ver, val, site, clp,
+              rng.integers((now - 3) << 10, (now + 4) << 10, (n, m))]
+    return live, [f.astype(i32) for f in fields]
+
+
+@pytest.mark.parametrize("ties", [False, True], ids=["random", "tie_heavy"])
+def test_ingest_plain_matches_pallas_kernel_interpret(ties):
+    cfg, st, tcfg, tst = random_state(0, ties=ties)
+    make = tie_messages if ties else random_messages
+    live, msgs = make(1, N_INGEST, 4 * cfg.pig_changes)
     want_cst, want_info = jmk.ingest_changes_fused(
         cfg, st.crdt, jnp.asarray(live), *map(jnp.asarray, msgs), interpret=True)
     got_cst, got_info = mk.ingest_changes_fused(tcfg, tst.crdt, T(live), *map(T, msgs))
@@ -200,8 +244,13 @@ def test_ingest_plain_matches_pallas_kernel_interpret():
         assert int(want_info[k]) == int(got_info[k]), k
 
 
-def test_local_write_emit_plain_matches_pallas_kernel_interpret():
-    cfg, st, tcfg, tst = random_state(2)
+@pytest.mark.parametrize("ties", [False, True], ids=["random", "tie_heavy"])
+def test_local_write_emit_plain_matches_pallas_kernel_interpret(ties):
+    """With ``ties``: queue counters from {1, 2}, uniforms on a grid of
+    quarters (equal float32 draws), writes on two cells with the tie keys,
+    and a payload budget of three changes, so that the budget mask ranks."""
+    budget = {"bcast_budget_bytes": 3 * broadcast.CHANGE_WIRE_BYTES} if ties else {}
+    cfg, st, tcfg, tst = random_state(2, ties=ties, **budget)
     rng = np.random.default_rng(3)
     n, q = N_INGEST, cfg.bcast_queue
     wm = rng.random(n) < 0.6
@@ -209,6 +258,11 @@ def test_local_write_emit_plain_matches_pallas_kernel_interpret():
     val = rng.integers(0, 1 << 20, n).astype(np.int32)
     clp = rng.integers(0, 2, n).astype(np.int32)
     rand = rng.random((n, q)).astype(np.float32)
+    if ties:
+        cell = two_cells(rng, 1, n, cfg.n_cells)[0].clip(min=0)
+        val = np.full(n, TIE_KEYS[1], np.int32)
+        clp = np.full(n, TIE_KEYS[3], np.int32)
+        rand = np.floor(rand * 4) / 4
     carried = rng.integers(0, 5, n).astype(np.int32)
     want_cst, want_emit = jmk.local_write_fused(
         cfg, st.crdt, *map(jnp.asarray, (wm, cell, val, clp)),
