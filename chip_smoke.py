@@ -156,14 +156,15 @@ def _device_ms(fn, iters: int, kernel: str) -> float:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from corrosion_tpu_torch.round_profile import _device_us
+
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(float(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0)))
-             for e in prof.key_averages() if kernel in e.key)
+    us = sum(_device_us(e) for e in prof.key_averages() if kernel in e.key)
     return us / iters / 1e3
 
 

@@ -98,9 +98,21 @@
 // Wrapping int32 arithmetic goes through uint32. q_cell (CT) and q_tx (XT)
 // have types of their own, widened to int32 in registers and cast at the
 // store: (int16, int8) under narrow_q_int8, (int16, int16) under
-// narrow_dtypes, else (int32, int32). ptxas' registers and stack for each
-// instantiation are printed by chip_smoke.py's build phase and recorded in
-// PERF.md.
+// narrow_dtypes, else (int32, int32).
+//
+// Instantiations: 3 type pairs x {EMIT with m <= 32, non-emitting m <= 32,
+// non-emitting m <= 128} x QH {1, 2} = 18. ptxas (-Xptxas -v, printed by
+// chip_smoke.py's build phase) reports 0 bytes of stack frame and 0 bytes of
+// spill for all 18, 9,216 bytes of shared memory a block (4 rows), and
+// registers: m <= 32 non-emitting 56 (Q <= 32) / 70 (Q = 64), emitting
+// 61-62 / 72, m <= 128 109 / 113-122. Rows a block, from ingest_sweep.py:
+// 2 and 4 within 1 %, 8 and 16 4-14 % slower on the 1M point's forms.
+// Times on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit (kernel device
+// time from torch.profiler; chip_smoke.py, random inputs): the 1M point's
+// receive 2.11 ms and emitting write 2.02 ms against bounds of 1.68 and
+// 1.66 ms by bytes; the flagship's (N = 100,000) 0.22 and 0.21 ms against
+// 0.17; the full view's m = 96 receive at N = 8192 0.152 ms against 0.027,
+// held back by its O(m) broadcast loops at 2,048 blocks, a few waves deep.
 
 #include <cstdint>
 #include <cuda_pipeline.h>
@@ -110,9 +122,6 @@ namespace {
 
 #ifndef INGEST_ROWS_PER_BLOCK
 #define INGEST_ROWS_PER_BLOCK 4  // warps (node rows) a block
-#endif
-#ifndef INGEST_STAGE_NARROW
-#define INGEST_STAGE_NARROW 0  // 1: the block's narrow planes through shared memory
 #endif
 constexpr int kRowsPerBlock = INGEST_ROWS_PER_BLOCK;
 constexpr int kMaxMsgs = 32;  // scale batches, and every emitting form
@@ -217,20 +226,6 @@ __device__ __forceinline__ int32_t float_order(float f) {
   return i >= 0 ? i : i ^ 0x7FFFFFFF;
 }
 
-#if INGEST_STAGE_NARROW
-// `len` bytes from `src` (4-byte aligned) to `dst` by the block's threads, a
-// word each, the tail byte by byte
-__device__ __forceinline__ void stage_bytes(uint8_t* dst, const uint8_t* src, int len) {
-  for (int w = threadIdx.x; 4 * w < len; w += blockDim.x) {
-    if (4 * w + 4 <= len) {
-      reinterpret_cast<uint32_t*>(dst)[w] = reinterpret_cast<const uint32_t*>(src)[w];
-    } else {
-      for (int b = 4 * w; b < len; ++b) dst[b] = src[b];
-    }
-  }
-}
-#endif
-
 // One warp's slice of the block's shared memory.
 struct WarpSmem {
   int32_t store[5][kMaxCells];  // the LWW store row: ver, val, site, dbv, clp
@@ -319,25 +314,6 @@ __global__ void __launch_bounds__(32 * kRowsPerBlock) ingest_kernel(const Ingest
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int64_t r = static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + warp;
-#if INGEST_STAGE_NARROW
-  // the block's rows of the planes narrower than 4 bytes a lane (live,
-  // q_cell, q_tx), read a word a thread; their offsets are 4-byte aligned
-  static_assert(kRowsPerBlock % 4 == 0, "staging needs 4-byte aligned row groups");
-  __shared__ __align__(16) uint8_t s_live[kRowsPerBlock * kMaxMsgsWide];
-  __shared__ __align__(16) uint8_t s_qc[kRowsPerBlock * kMaxQueue * sizeof(CT)];
-  __shared__ __align__(16) uint8_t s_qx[kRowsPerBlock * kMaxQueue * sizeof(XT)];
-  {
-    const int64_t r0 = static_cast<int64_t>(blockIdx.x) * kRowsPerBlock;
-    const int64_t left = a.n - r0;
-    const int rows = left < kRowsPerBlock ? static_cast<int>(left) : kRowsPerBlock;
-    const int qcb = a.q_slots * static_cast<int>(sizeof(CT));
-    const int qxb = a.q_slots * static_cast<int>(sizeof(XT));
-    stage_bytes(s_live, a.live + r0 * a.m, rows * a.m);
-    stage_bytes(s_qc, static_cast<const uint8_t*>(a.q_cell) + r0 * qcb, rows * qcb);
-    stage_bytes(s_qx, static_cast<const uint8_t*>(a.q_tx) + r0 * qxb, rows * qxb);
-    __syncthreads();
-  }
-#endif
   if (r >= a.n) return;  // the whole warp: rows past n are masked
   WarpSmem& sm = smem[warp];
   const int m = a.m, O = a.n_origins, W = a.seen_words, C = a.n_cells, Q = a.q_slots;
@@ -359,11 +335,6 @@ __global__ void __launch_bounds__(32 * kRowsPerBlock) ingest_kernel(const Ingest
 
   // --- loads: messages, book, queue -----------------------------------------
   const int64_t mb = r * m;
-#if INGEST_STAGE_NARROW
-  const uint8_t* live_row = s_live + warp * m;
-#else
-  const uint8_t* live_row = a.live + mb;
-#endif
   int32_t origin[KM], dbv[KM], ts[KM];
   unsigned live_b[KM];
 #pragma unroll
@@ -373,7 +344,7 @@ __global__ void __launch_bounds__(32 * kRowsPerBlock) ingest_kernel(const Ingest
     origin[k] = in ? a.origin[mb + j] : -1;
     dbv[k] = in ? a.dbv[mb + j] : 0;
     ts[k] = in ? a.ts[mb + j] : 0;
-    live_b[k] = __ballot_sync(kFull, in && live_row[j] != 0);
+    live_b[k] = __ballot_sync(kFull, in && a.live[mb + j] != 0);
   }
   const bool has_o = lane < O;
   const int64_t ob = r * O;
@@ -388,13 +359,8 @@ __global__ void __launch_bounds__(32 * kRowsPerBlock) ingest_kernel(const Ingest
     sw[w] = (has_o && w < W) ? static_cast<uint32_t>(a.seen[sb + w]) : 0u;
   }
   const int64_t qb = r * Q;
-#if INGEST_STAGE_NARROW
-  const CT* q_cell = reinterpret_cast<const CT*>(s_qc) + warp * Q;
-  const XT* q_tx = reinterpret_cast<const XT*>(s_qx) + warp * Q;
-#else
   const CT* q_cell = static_cast<const CT*>(a.q_cell) + qb;
   const XT* q_tx = static_cast<const XT*>(a.q_tx) + qb;
-#endif
   int32_t qo[QH], qd[QH], qc[QH], qv[QH], qval[QH], qs[QH], qcl[QH], qt[QH], qx[QH];
 #pragma unroll
   for (int h = 0; h < QH; ++h) {

@@ -100,7 +100,7 @@ def library(name: str, defines=()) -> ctypes.CDLL:
     return _loaded[key]
 
 
-def build_log(name: str) -> str:
+def build_log(name: str, defines=()) -> str:
     """nvcc's output (``-Xptxas -v``: registers, spills) for a built library."""
-    log = library_path(name).with_suffix(".log")
+    log = library_path(name, defines).with_suffix(".log")
     return log.read_text() if log.exists() else ""

@@ -1,11 +1,8 @@
 #!/usr/bin/env python3
 """Time variants of the ingest kernel (``corrosion_tpu_torch/csrc/ingest.cu``)
-on one NVIDIA GPU: node rows (warps) a block (``INGEST_ROWS_PER_BLOCK``),
-and the block's narrow planes (live, q_cell, q_tx) staged through shared
-memory (``INGEST_STAGE_NARROW=1``) or read by each warp.
+on one NVIDIA GPU: node rows (warps) a block, ``INGEST_ROWS_PER_BLOCK``.
 
-    python3 ingest_sweep.py [--rows 2 4 8] [--staged-rows 4 8]
-                            [--out chiprun_out/ingest_sweep.json]
+    python3 ingest_sweep.py [--rows 2 4 8] [--out chiprun_out/ingest_sweep.json]
 
 Builds each variant with ``nvcc`` (all at once), then for every form that a
 path runs (``chip_smoke.py``'s inputs: the flagship's receive and emitting
@@ -39,8 +36,6 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, nargs="+", default=[2, 4, 8])
-    ap.add_argument("--staged-rows", type=int, nargs="*", default=[4, 8],
-                    help="rows a block (multiples of 4) of the staged variants")
     ap.add_argument("--out", default="chiprun_out/ingest_sweep.json")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -51,15 +46,11 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     defines = {f"rows={rows}": (f"INGEST_ROWS_PER_BLOCK={rows}",) for rows in args.rows}
-    defines.update({f"rows={rows} staged": (f"INGEST_ROWS_PER_BLOCK={rows}",
-                                            "INGEST_STAGE_NARROW=1")
-                    for rows in args.staged_rows})
     with ThreadPoolExecutor(len(defines)) as pool:
         list(pool.map(lambda d: cuda_lib.build_all(("ingest",), d), defines.values()))
     libs = {v: cuda_lib.library("ingest", d) for v, d in defines.items()}
     for v, d in defines.items():
-        log = cuda_lib.library_path("ingest", d).with_suffix(".log").read_text()
-        for line in log.splitlines():
+        for line in cuda_lib.build_log("ingest", d).splitlines():
             if "registers" in line or "spill" in line or "Function properties" in line:
                 print(f"[ptxas] {v}: {line.strip()}", flush=True)
 

@@ -27,7 +27,6 @@
 #define __forceinline__ inline
 #define __launch_bounds__(x)
 #define __shared__ static
-#define __align__(n) __attribute__((aligned(n)))
 
 struct dim3 {
   unsigned x, y, z;
@@ -45,9 +44,8 @@ struct HostWarp {
   uint64_t slot[32];
   int line[32];
 };
-inline thread_local dim3 threadIdx, blockIdx, blockDim;
+inline thread_local dim3 threadIdx, blockIdx;
 inline thread_local HostWarp* host_warp;
-inline thread_local std::barrier<>* host_block;
 inline thread_local int host_lane;
 inline thread_local int host_line;
 inline std::mutex host_atomic_mu;
@@ -125,7 +123,6 @@ inline void host_syncwarp(unsigned = 0xFFFFFFFFu) {
   host_post(0);
   host_done();
 }
-inline void __syncthreads() { host_block->arrive_and_wait(); }
 #define __shfl_sync(...) (host_at(__LINE__), host_shfl(__VA_ARGS__))
 #define __ballot_sync(...) (host_at(__LINE__), host_ballot(__VA_ARGS__))
 #define __match_any_sync(...) (host_at(__LINE__), host_match_any(__VA_ARGS__))
@@ -160,7 +157,6 @@ template <class K, class A>
 inline void host_launch(K kernel, dim3 grid, int threads, const A& args) {
   for (unsigned b = 0; b < grid.x; ++b) {
     std::vector<HostWarp> warps(threads / 32);
-    std::barrier<> block(threads);
     std::mutex mu;
     std::condition_variable cv;
     bool finished = false;
@@ -176,9 +172,7 @@ inline void host_launch(K kernel, dim3 grid, int threads, const A& args) {
       th.emplace_back([&, t] {
         blockIdx = dim3(b);
         threadIdx = dim3(t);
-        blockDim = dim3(threads);
         host_warp = &warps[t / 32];
-        host_block = &block;
         host_lane = t % 32;
         kernel(args);
       });

@@ -4,7 +4,9 @@ interpret mode and the XLA path they are pinned equal to. Integer state is
 compared exactly (tolerance 0); the pre-drawn uniforms are shared.
 
 The CUDA kernels themselves run only on the card: ``chip_smoke.py`` holds
-each one bitwise against these plain versions there."""
+each one bitwise against these plain versions there (the ingest kernel's
+source also runs on the CPU under a host stand-in runtime,
+``tests/test_torch_ingest_host.py``)."""
 
 import jax
 import jax.numpy as jnp
