@@ -1,7 +1,7 @@
 // A host stand-in for the parts of the CUDA runtime that the port's kernels
 // use, so that a kernel's lane logic runs on the CPU in the tests
-// (tests/test_torch_ingest_host.py). Each block runs after the one before;
-// its threads run at once as std::threads, and a warp's collectives
+// (tests/test_torch_ingest_host.py). Each warp runs after the one before,
+// its 32 lanes at once as std::threads, and its collectives
 // (__shfl_sync, __ballot_sync, __match_any_sync, __reduce_*_sync,
 // __syncwarp) meet at a barrier of its 32 lanes. A collective that the lanes
 // of a warp reach from different source lines (a divergent collective,
@@ -152,37 +152,41 @@ inline unsigned atomicOr(unsigned* p, unsigned v) {
 }
 
 // the launch: `kernel<<<grid, threads, 0, stream>>>(args)` is rewritten to
-// `host_launch(kernel, grid, threads, args)` before the source is compiled
+// `host_launch(kernel, grid, threads, args)` before the source is compiled.
+// Warps run one after another (no __syncthreads here), so 32 threads at a
+// time; a watchdog aborts a warp that has not finished within a minute.
 template <class K, class A>
 inline void host_launch(K kernel, dim3 grid, int threads, const A& args) {
   for (unsigned b = 0; b < grid.x; ++b) {
-    std::vector<HostWarp> warps(threads / 32);
-    std::mutex mu;
-    std::condition_variable cv;
-    bool finished = false;
-    std::thread watchdog([&] {
-      std::unique_lock<std::mutex> lock(mu);
-      if (!cv.wait_for(lock, std::chrono::seconds(60), [&] { return finished; })) {
-        std::fprintf(stderr, "block %u still running after a minute (a lane left a warp?)\n", b);
-        std::abort();
-      }
-    });
-    std::vector<std::thread> th;
-    for (int t = 0; t < threads; ++t) {
-      th.emplace_back([&, t] {
-        blockIdx = dim3(b);
-        threadIdx = dim3(t);
-        host_warp = &warps[t / 32];
-        host_lane = t % 32;
-        kernel(args);
+    for (int w = 0; w < threads / 32; ++w) {
+      HostWarp warp;
+      std::mutex mu;
+      std::condition_variable cv;
+      bool finished = false;
+      std::thread watchdog([&] {
+        std::unique_lock<std::mutex> lock(mu);
+        if (!cv.wait_for(lock, std::chrono::seconds(60), [&] { return finished; })) {
+          std::fprintf(stderr, "block %u warp %d still running after a minute\n", b, w);
+          std::abort();
+        }
       });
+      std::vector<std::thread> lanes;
+      for (int l = 0; l < 32; ++l) {
+        lanes.emplace_back([&, l] {
+          blockIdx = dim3(b);
+          threadIdx = dim3(32 * w + l);
+          host_warp = &warp;
+          host_lane = l;
+          kernel(args);
+        });
+      }
+      for (auto& x : lanes) x.join();
+      {
+        std::lock_guard<std::mutex> lock(mu);
+        finished = true;
+      }
+      cv.notify_one();
+      watchdog.join();
     }
-    for (auto& x : th) x.join();
-    {
-      std::lock_guard<std::mutex> lock(mu);
-      finished = true;
-    }
-    cv.notify_one();
-    watchdog.join();
   }
 }
