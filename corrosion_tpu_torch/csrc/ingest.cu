@@ -105,8 +105,7 @@
 // chip_smoke.py's build phase) reports 0 bytes of stack frame and 0 bytes of
 // spill for all 18, 9,216 bytes of shared memory a block (4 rows), and
 // registers: m <= 32 non-emitting 56 (Q <= 32) / 70 (Q = 64), emitting
-// 61-62 / 72, m <= 128 109 / 113-122. Rows a block, from ingest_sweep.py:
-// 2 and 4 within 1 %, 8 and 16 4-14 % slower on the 1M point's forms.
+// 61-62 / 72, m <= 128 109 / 113-122.
 // Times on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit (kernel device
 // time from torch.profiler; chip_smoke.py, random inputs): the 1M point's
 // receive 2.11 ms and emitting write 2.02 ms against bounds of 1.68 and
@@ -120,10 +119,9 @@
 
 namespace {
 
-#ifndef INGEST_ROWS_PER_BLOCK
-#define INGEST_ROWS_PER_BLOCK 4  // warps (node rows) a block
-#endif
-constexpr int kRowsPerBlock = INGEST_ROWS_PER_BLOCK;
+// warps (node rows) a block: 2 and 4 measured within 1 %, 8 and 16 4-14 %
+// slower on the 1M point's forms (PERF.md, Findings)
+constexpr int kRowsPerBlock = 4;
 constexpr int kMaxMsgs = 32;  // scale batches, and every emitting form
 constexpr int kMaxMsgsWide = 128;  // the full view's recv_slots mailboxes
 constexpr int kMaxOrigins = 32;

@@ -6,8 +6,6 @@ source and the flags, and loaded with ``ctypes``. The build happens at
 first use (or up front through :func:`build_all`, which starts one
 ``nvcc`` per source at once) and raises with the compiler's output when it
 fails. Nothing is imported or compiled when this module is imported.
-``defines`` (``("NAME=VALUE", ...)``, passed as ``-D``) build a variant of
-a source beside the default one, for a sweep of its compile-time knobs.
 """
 
 from __future__ import annotations
@@ -42,22 +40,18 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (looked on PATH and in $CUDA_HOME/bin)")
 
 
-def _flags(defines=()) -> tuple:
-    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
-
-
-def library_path(name: str, defines=()) -> Path:
+def library_path(name: str) -> Path:
     src = (SRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(_flags(defines)).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
-def _start(name: str, defines=()):
-    out = library_path(name, defines)
+def _start(name: str):
+    out = library_path(name)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc_path(), *_flags(defines), "-o", tmp, str(SRC_DIR / f"{name}.cu")]
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(SRC_DIR / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
     return out, tmp, cmd, proc
@@ -74,10 +68,10 @@ def _finish(out: Path, tmp: str, cmd, proc) -> None:
     os.replace(tmp, out)
 
 
-def build_all(names=SOURCES, defines=()) -> dict:
+def build_all(names=SOURCES) -> dict:
     """Build every missing library, one ``nvcc`` per source, all started
     together. Returns ``{name: path}``."""
-    jobs = [_start(n, defines) for n in names if not library_path(n, defines).exists()]
+    jobs = [_start(n) for n in names if not library_path(n).exists()]
     try:
         for job in jobs:
             _finish(*job)
@@ -88,19 +82,18 @@ def build_all(names=SOURCES, defines=()) -> dict:
                 proc.wait()
             if os.path.exists(tmp):
                 os.unlink(tmp)
-    return {n: library_path(n, defines) for n in names}
+    return {n: library_path(n) for n in names}
 
 
-def library(name: str, defines=()) -> ctypes.CDLL:
+def library(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built on first use."""
-    key = (name, tuple(defines))
-    if key not in _loaded:
-        path = build_all((name,), defines)[name]
-        _loaded[key] = ctypes.CDLL(str(path))
-    return _loaded[key]
+    if name not in _loaded:
+        path = build_all((name,))[name]
+        _loaded[name] = ctypes.CDLL(str(path))
+    return _loaded[name]
 
 
-def build_log(name: str, defines=()) -> str:
+def build_log(name: str) -> str:
     """nvcc's output (``-Xptxas -v``: registers, spills) for a built library."""
-    log = library_path(name, defines).with_suffix(".log")
+    log = library_path(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""

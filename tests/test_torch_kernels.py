@@ -152,36 +152,39 @@ def random_state(seed, n=N_INGEST, ties=False, **over):
     seen = np.where(rng.random((n, o, 1)) < 0.3, rng.integers(0, 8, (n, o, 1)),
                     rng.integers(0, 2**32, (n, o, 1))).astype(np.uint32)
     store = [rng.integers(0, hi, (n, c)).astype(i32) for hi in (8, 4, 4, 40, 2)]
-    q_tx = rng.integers(0, 4, (n, q))
-    if ties:
-        for i, v in zip((0, 1, 2, 4), TIE_KEYS):
-            store[i] = np.where(rng.random((n, c)) < 0.5, v, store[i]).astype(i32)
-        q_tx = rng.integers(1, 3, (n, q))
-    crdt = st.crdt._replace(
-        store=tuple(jnp.asarray(x) for x in store),
-        book=st.crdt.book._replace(
-            head=jnp.asarray(head),
-            known_max=jnp.asarray(head + rng.integers(0, 10, (n, o)).astype(i32)),
-            seen=jnp.asarray(seen),
-            org_id=jnp.asarray(np.where(rng.random((n, o)) < 0.8, np.arange(o),
-                                        rng.integers(-1, 64, (n, o))).astype(i32)),
-            org_last=jnp.asarray(rng.integers(0, now, (n, o)).astype(i32)),
-        ),
-        # a writer's next version lies past its own head and window
-        next_dbv=jnp.asarray(rng.integers(70, 100, n).astype(i32)),
-        q_origin=jnp.asarray(np.where(rng.random((n, q)) < 0.5, -1,
-                                      rng.integers(0, 64, (n, q))).astype(i32)),
-        q_cell=jnp.asarray(rng.integers(0, c, (n, q)).astype(np.int16)),
-        q_dbv=jnp.asarray(rng.integers(0, 40, (n, q)).astype(i32)),
-        q_ver=jnp.asarray(rng.integers(0, 8, (n, q)).astype(i32)),
-        q_val=jnp.asarray(rng.integers(0, 4, (n, q)).astype(i32)),
-        q_site=jnp.asarray(rng.integers(0, 4, (n, q)).astype(i32)),
-        q_clp=jnp.asarray(rng.integers(0, 2, (n, q)).astype(i32)),
-        q_ts=jnp.asarray(rng.integers(0, now << 10, (n, q)).astype(i32)),
-        q_tx=jnp.asarray(q_tx.astype(np.int16)),
-        hlc=jnp.asarray(rng.integers(0, now << 10, n).astype(i32)),
-        now=jnp.int32(now),
+    book = st.crdt.book._replace(
+        head=jnp.asarray(head),
+        known_max=jnp.asarray(head + rng.integers(0, 10, (n, o)).astype(i32)),
+        seen=jnp.asarray(seen),
+        org_id=jnp.asarray(np.where(rng.random((n, o)) < 0.8, np.arange(o),
+                                    rng.integers(-1, 64, (n, o))).astype(i32)),
+        org_last=jnp.asarray(rng.integers(0, now, (n, o)).astype(i32)),
     )
+    # a writer's next version lies past its own head and window
+    next_dbv = rng.integers(70, 100, n).astype(i32)
+    queue = dict(
+        q_origin=np.where(rng.random((n, q)) < 0.5, -1,
+                          rng.integers(0, 64, (n, q))).astype(i32),
+        q_cell=rng.integers(0, c, (n, q)).astype(np.int16),
+        q_dbv=rng.integers(0, 40, (n, q)).astype(i32),
+        q_ver=rng.integers(0, 8, (n, q)).astype(i32),
+        q_val=rng.integers(0, 4, (n, q)).astype(i32),
+        q_site=rng.integers(0, 4, (n, q)).astype(i32),
+        q_clp=rng.integers(0, 2, (n, q)).astype(i32),
+        q_ts=rng.integers(0, now << 10, (n, q)).astype(i32),
+        q_tx=rng.integers(0, 4, (n, q)).astype(np.int16),
+    )
+    hlc = rng.integers(0, now << 10, n).astype(i32)
+    if ties:
+        # drawn after the random case's draws, so that case's inputs stay
+        tie_rng = np.random.default_rng(seed + 1)
+        for i, v in zip((0, 1, 2, 4), TIE_KEYS):
+            store[i] = np.where(tie_rng.random((n, c)) < 0.5, v, store[i]).astype(i32)
+        queue["q_tx"] = tie_rng.integers(1, 3, (n, q)).astype(np.int16)
+    crdt = st.crdt._replace(
+        store=tuple(jnp.asarray(x) for x in store), book=book,
+        next_dbv=jnp.asarray(next_dbv), hlc=jnp.asarray(hlc), now=jnp.int32(now),
+        **{k: jnp.asarray(v) for k, v in queue.items()})
     st = st._replace(crdt=crdt)
     tcfg = scale_step.scale_sim_config(n, **{k: v for k, v in over.items() if k != "fused"})
     tst = convert.scale_state_from_numpy(tcfg, convert.as_numpy_tree(st), "cpu")

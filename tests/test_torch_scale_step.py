@@ -265,8 +265,7 @@ def test_import_pulls_in_no_jax():
 
 
 def test_port_sources_import_no_jax():
-    files = sorted((ROOT / "corrosion_tpu_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "ingest_sweep.py"]
+    files = sorted((ROOT / "corrosion_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             names = []
