@@ -207,12 +207,14 @@ def _max_abs_err(a_list, b_list) -> int:
 
 
 def _swim_inputs(n: int, m: int, plane_dtype, seed: int, dev, tx_dtype=None,
-                 pig_k: int = 0):
+                 pig_k: int = 0, ties: bool = False):
     """Random valid operands of the swim kernel (the order of
     ``swim_tables_update``'s arguments after ``consts``), with the timer
     plane at ``plane_dtype`` and the budget plane at ``tx_dtype`` (default
     the same). With ``pig_k > 0`` the channels are packed [n, pig_k] entry
-    lists, whose entries often share a hash class within one packet."""
+    lists, whose entries often share a hash class within one packet. With
+    ``ties``, the inputs where a lane-parallel merge can part from the
+    sequential one (``_swim_tie_heavy``)."""
     import torch
 
     from corrosion_tpu_torch import random as prng
@@ -248,13 +250,108 @@ def _swim_inputs(n: int, m: int, plane_dtype, seed: int, dev, tx_dtype=None,
         chans[3].append(coin((n,), 0.8))
         chans[4].append(ri((n,), 0, n))
         chans[5].append(ri((n,), 0, 8))
-    return (
+    args = (
         mem_id, mem_view, old_id, old_view,
         ri((n, m), 0, 12).to(plane_dtype), ri((n, m), 0, 14).to(tx_dtype or plane_dtype),
         coin((n,), 0.9), ri((n,), 0, 8), iarr, self_slot,
         ri((n,), -1, 40), ri((n,), 0, 4), ri((n,), 0, m), ri((n,), 0, 40),
         coin((n,), 0.3), *chans,
     )
+    return _swim_tie_heavy(args, pig_k, seed) if ties else args
+
+
+def _swim_tie_heavy(args, pig_k: int, seed: int):
+    """``args`` with tie-heavy distributions: each row has a crowded hash
+    class whose slot holds one of three ids of that class, and its packets
+    (``pig_k > 0``) carry many live entries of those ids, the same id again
+    with other views; views are small keys, often DOWN in the table and
+    ALIVE in the packets (takes, then merges on the new id), sometimes -1,
+    with equal keys common; senders sit on the self slot, on the crowded
+    class or are the node itself; the failed probe's slot is often the self
+    slot; timers and budgets are 0, 1 or 2 (timers expire, budgets run
+    out), and the heard suspicion ties the incarnation's keys."""
+    import torch
+
+    from corrosion_tpu_torch import random as prng
+
+    (mem_id, mem_view, old_id, old_view, timer, tx, alive, inc, node_id,
+     self_slot, sus_heard, sends, probe_slot, suspect_key, probe_failed,
+     ch_id, ch_view, ch_send, ch_valid, ch_snd, ch_snd_inc) = args
+    n, m = mem_id.shape
+    dev = mem_id.device
+    ks = iter(prng.split(prng.fold_in(prng.key(seed), 1), 128))
+
+    def ri(shape, lo, hi):
+        return prng.randint(next(ks), shape, lo, hi, dev)
+
+    def coin(shape, p):
+        return prng.uniform(next(ks), shape, dev) < p
+
+    crowd = ri((n, 1), 0, m)
+
+    def in_crowd(shape):
+        return crowd + m * ri(shape, 0, 3)
+
+    def key(shape, common):
+        state = torch.where(coin(shape, 0.5), common, ri(shape, 0, 4))
+        return torch.where(coin(shape, 0.1), -1, ri(shape, 0, 3) * 4 + state)
+
+    nm = (n, m)
+    cols = torch.arange(m, dtype=torch.int32, device=dev)
+    mem_id = torch.where(cols[None, :] == crowd, in_crowd(nm), mem_id)
+    mem_view = key(nm, 2)
+    old_id = torch.where(coin(nm, 0.7), mem_id, old_id)
+    old_view = torch.where(coin(nm, 0.7), mem_view, key(nm, 1))
+    inc = ri((n,), 0, 3)
+    ids, views = [], []
+    for ch in range(4):
+        if pig_k:
+            nk = (n, pig_k)
+            ids.append(torch.where(coin(nk, 0.6), in_crowd(nk),
+                                   torch.where(coin(nk, 0.3), -1, ch_id[ch])))
+            views.append(key(nk, 0))
+        else:
+            # the table's id, another id, or the id an earlier channel took
+            other = torch.where(coin(nm, 0.5), mem_id + m, ch_id[ch])
+            got = torch.where(coin(nm, 0.4), mem_id, other)
+            ids.append(torch.where(coin(nm, 0.3), ids[-1], got) if ids else got)
+            views.append(key(nm, 0))
+    snd = [torch.where(coin((n,), 0.3), node_id,
+                       torch.where(coin((n,), 0.5), self_slot + m * ri((n,), 0, 3),
+                                   in_crowd((n, 1))[:, 0]))
+           for _ in range(4)]
+    return (
+        mem_id, mem_view, old_id, old_view,
+        ri(nm, 0, 3).to(timer.dtype), ri(nm, 0, 3).to(tx.dtype),
+        alive, inc, node_id, self_slot,
+        torch.where(coin((n,), 0.6), inc * 4 + ri((n,), 0, 3), -1), ri((n,), 0, 3),
+        torch.where(coin((n,), 0.5), self_slot, crowd[:, 0]), ri((n,), 0, 3) * 4 + 1,
+        coin((n,), 0.6), ids, views, ch_send, ch_valid, snd,
+        [ri((n,), 0, 3) for _ in range(4)],
+    )
+
+
+def _swim_collisions(args, pig_k: int) -> int:
+    """Rows with a same-class collision: two live entries of valid packets
+    in one hash class (``pig_k > 0``), or, on aligned rows, two row-addressed
+    steps (a valid sender's slot, the failed probe's slot, the self slot)
+    on one column."""
+    import torch
+
+    (mem_id, _, _, _, _, _, _, _, _, self_slot, _, _, probe_slot, _, probe_failed,
+     ch_id, _, _, ch_valid, ch_snd, _) = args
+    m = mem_id.shape[1]
+    if pig_k:
+        slots = [torch.where(v[:, None] & (i >= 0), i % m, -1) for i, v in zip(ch_id, ch_valid)]
+    else:
+        slots = [torch.where(v, s % m, -1)[:, None] for s, v in zip(ch_snd, ch_valid)]
+        slots += [torch.where(probe_failed, probe_slot, -1)[:, None], self_slot[:, None]]
+    slots = torch.cat(slots, dim=1)
+    # an inactive step gets a distinct negative slot of its own
+    idx = torch.arange(slots.shape[1], dtype=slots.dtype, device=slots.device)
+    slots = torch.where(slots >= 0, slots, -1 - idx)
+    s = torch.sort(slots, dim=1).values
+    return int((s[:, 1:] == s[:, :-1]).any(dim=1).sum())
 
 
 def _swim_bytes(args, out, pig_k: int = 0) -> int:
@@ -470,7 +567,30 @@ def _swim_form(name, cfg, seed, dev, **kw) -> dict:
     r = _time_form(name, "swim_tables", run, plain,
                    lambda got: _swim_bytes(args, got, k), lambda got: _swim_ops(args, k))
     r["replaces"] = "corrosion_tpu/ops/megakernel.py:1063"
+    _hold_swim_ties(name, cfg, seed, dev, **kw)
     return r
+
+
+def _hold_swim_ties(name, cfg, seed, dev, **kw) -> None:
+    """The swim form on tie-heavy inputs (``_swim_inputs(ties=True)``), its
+    own seed, N three past the configuration's so that the last block of
+    rows is partial: held bitwise against the plain version, untimed; at
+    least one row must have a same-class collision."""
+    import torch
+
+    from corrosion_tpu_torch.ops import megakernel as mk
+
+    n, m, k = cfg.n_nodes + 3, cfg.m_slots, kw.get("pig_k", 0)
+    consts = (m, cfg.suspicion_rounds, cfg.down_purge_rounds, cfg.max_transmissions, k)
+    args = _swim_inputs(n, m, cfg.timer_dtype, seed + 1000, dev, ties=True, **kw)
+    got, want = mk.swim_tables_fused(consts, *args), mk.swim_tables_plain(consts, *args)
+    torch.cuda.synchronize()
+    _hold(f"{name} (tie-heavy)", got, want)
+    rows = _swim_collisions(args, k)
+    print(f"[kernels] {name}: tie-heavy inputs at N={n} bitwise equal "
+          f"({rows} rows with a same-class collision)", flush=True)
+    if rows <= 0:
+        raise AssertionError(f"{name}: no row with a same-class collision")
 
 
 def _owned(p, x, out):
@@ -893,6 +1013,57 @@ def phase_quiet(dev) -> None:
           flush=True)
 
 
+_PTX_TYPES = {"a": "int8", "s": "int16", "i": "int32"}
+
+
+def _ptxas_functions(log: str) -> dict:
+    """ptxas' report (``-Xptxas -v``) per kernel: {mangled name: (stack
+    frame, spill stores, spill loads, its register line)}."""
+    import re
+
+    out, name, frame = {}, None, None
+    for line in log.splitlines():
+        got = re.search(r"Function properties for (\S+)", line)
+        if got:
+            name, frame = got.group(1), None
+            continue
+        got = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                        r"(\d+) bytes spill loads", line)
+        if got and name:
+            frame = tuple(int(x) for x in got.groups())
+            continue
+        if "Used" in line and "registers" in line and name and frame:
+            out[name] = (*frame, line.split(":", 1)[-1].strip())
+            name = None
+    return out
+
+
+def _check_swim_ptxas(log: str) -> None:
+    """Print ptxas' report for every swim kernel instantiation (the six
+    timer/budget x form pairs, each at 1, 2 and 4 columns a lane) by name;
+    each must have no stack frame and no spills."""
+    import re
+
+    seen = set()
+    for mangled, (frame, st, ld, regs) in sorted(_ptxas_functions(log).items()):
+        got = re.search(r"swim_tables_kernelI([asi])([asi])Lb([01])ELi(\d+)E", mangled)
+        if not got:
+            continue
+        tt, xt, packed, spl = got.groups()
+        form = (_PTX_TYPES[tt], _PTX_TYPES[xt], "packed" if packed == "1" else "aligned")
+        name = f"swim_tables_kernel<{', '.join(form)}, SPL={spl}>"
+        print(f"[ptxas] {name}: {frame} bytes stack frame, {st} bytes spill stores, "
+              f"{ld} bytes spill loads; {regs}", flush=True)
+        if frame or st or ld:
+            raise AssertionError(f"{name}: stack frame or spills in ptxas' report")
+        seen.add((form, spl))
+    want = {((t, x, f), spl) for t, x in (("int16", "int8"), ("int16", "int16"),
+                                           ("int32", "int32"))
+            for f in ("aligned", "packed") for spl in ("1", "2", "4")}
+    if seen != want:
+        raise AssertionError(f"swim ptxas report lacks {sorted(want - seen)}")
+
+
 def main() -> int:
     import torch
 
@@ -912,10 +1083,10 @@ def main() -> int:
     cuda_lib.build_all()
     print(f"[build] {len(cuda_lib.SOURCES)} kernels built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    for name in cuda_lib.SOURCES:
-        for line in cuda_lib.build_log(name).splitlines():
-            if "registers" in line or "spill" in line or "Function properties" in line:
-                print(f"[ptxas] {name}: {line.strip()}", flush=True)
+    for line in cuda_lib.build_log("ingest").splitlines():
+        if "registers" in line or "spill" in line or "Function properties" in line:
+            print(f"[ptxas] ingest: {line.strip()}", flush=True)
+    _check_swim_ptxas(cuda_lib.build_log("swim_tables"))
 
     t_phase = time.perf_counter()
 

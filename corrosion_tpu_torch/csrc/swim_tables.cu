@@ -18,21 +18,60 @@
 // card's integer rate, so the kernel can go no faster than those bytes over
 // 3.35 TB/s.
 //
-// Design: one thread per node row. The row's id/view entries live in a
-// per-thread array (local memory, L1-cached) while the merges, sender
-// assertions, timers, purge and refutation run in the same order as the JAX
-// body; every other plane is read once and every output written once. Tie
-// and overflow rules are kept: views compare as signed int32, the state is
-// the low two bits, `>>` is arithmetic as in JAX. The timer plane (TT) and
-// the budget plane (XT) are read and written at their stored dtypes, widened
-// to int32 in registers and cast at the store: (int16, int8) under
-// narrow_int8, (int16, int16) under narrow_dtypes, else (int32, int32). The
-// packed form applies a channel's k entries one after another at their hash
-// class id % m, so an entry sees the writes of the entries before it (two
-// entries of one packet may share a class), and it skips the full-row budget
-// decrement, which its caller did for the entries it sent. One warp per row
-// with coalesced access would be faster; this version is the simple correct
-// one.
+// Design: one warp per node row, kRowsPerBlock rows (warps) a block. Lane l
+// holds the SPL consecutive columns l*SPL .. l*SPL+SPL-1 of its row (SPL = 1,
+// 2 or 4 for m <= 32, 64, 128; columns at or above m are masked), so each
+// plane row is one warp-wide access at every dtype: one vector load or store
+// a lane where the chunk is whole and aligned, else one access a column. The
+// row's id, view, old id/view, timer and budget stay in registers, in arrays
+// indexed only by unrolled loop counters (nothing goes to the stack). A
+// channel is read only on the rows where it is valid; an aligned channel's
+// id and send flags are read together, its view only by the lanes that hold
+// a live, sendable id. The phases, in the JAX body's order:
+//   - column-local, in registers, no traffic between lanes: the aligned
+//     form's four channel merges, the budget decrement, the suspicion/down
+//     timers and purge, the refill and the stores;
+//   - row-addressed steps on the lane that holds the column: the suspect
+//     mark at probe_slot (0 <= ps < m only) and the four sender assertions
+//     at ((snd % m) + m) % m in channel order, each local to that lane; the
+//     refutation reads id/view at self_slot from its lane with one
+//     __shfl_sync a column that every lane executes (self_slot is the same
+//     for the whole warp), and that lane writes the self refresh. Each step
+//     writes every column of a lane through a select, never under a branch
+//     on the column: the compiler turns a branch on `column == slot` into
+//     an indexed access, which moves the row's arrays to the stack;
+//   - the packed form's merges (below), on the row's id/view staged in
+//     per-warp shared memory (2 x kMaxSlots int32) for this phase only.
+//
+// The packed merge: the JAX body applies the entries one after another at
+// their hash class c = id % m, channels 0..3 and entries 0..k-1 in order;
+// an entry reads (id[c], view[c]) and may write both. Here the entries of
+// the valid channels, in that order, go through the warp 32 at a time
+// (position p -> lane p % 32 of pass p / 32). Within a pass each live
+// entry's rank is the number of live entries of its class on lower lanes
+// (__match_any_sync on the class, masked to live lower lanes), and rounds
+// t = 0, 1, ... apply the entries of rank t, with __syncwarp between rounds.
+// Equivalence: entries of different classes touch different slots, so they
+// commute. The entries of one class apply in rank order, which is their
+// order in the sequence, and none of another class writes their slot, so
+// each sees exactly the (id, view) that the sequential loop would show it.
+// Passes run in sequence order. Within a round the applying entries have
+// distinct classes, so no two lanes write one slot.
+//
+// Tie and overflow rules are kept: views compare as signed int32, the state
+// is the low two bits (also of negative views in `take`, -1 & 3 == 3) while
+// is_suspect / is_down require view >= 0, pack_inc_state wraps as uint32,
+// `>>` is arithmetic as in JAX. The aligned form's sendable flags of the
+// budget are taken as read, before the merges; the packed form has no
+// decrement and no clamp (its caller did the decrement for the entries it
+// sent). The timer plane (TT) and the budget plane (XT) are read and written
+// at their stored dtypes, widened to int32 in registers and cast at the
+// store: (int16, int8) under narrow_int8, (int16, int16) under
+// narrow_dtypes, else (int32, int32).
+//
+// Instantiations: 3 type pairs x {aligned, packed} x SPL {1, 2, 4} = 18;
+// chip_smoke.py prints ptxas' report (-Xptxas -v) for each and requires 0
+// bytes of stack frame and spill in all of them.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -40,6 +79,12 @@
 namespace {
 
 constexpr int kMaxSlots = 128;
+// warps (node rows) a block, as the ingest kernel measured best
+constexpr int kRowsPerBlock = 4;
+// passes of packed entries read before the merges (64 entries: the 1M
+// point's four packets of 16); later passes read their entries in turn
+constexpr int kPrePasses = 2;
+constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int kAlive = 0;
 constexpr int kSuspect = 1;
 constexpr int kDown = 2;
@@ -49,6 +94,92 @@ constexpr int kFree = -1;
 __device__ __forceinline__ int32_t pack_inc_state(int32_t inc, int32_t state) {
   return static_cast<int32_t>(static_cast<uint32_t>(inc) * 4u +
                               static_cast<uint32_t>(state));
+}
+
+// an aligned word of B bytes, for one vector access a lane
+template <int B>
+struct Word;
+template <>
+struct Word<1> { using T = uint8_t; };
+template <>
+struct Word<2> { using T = uint16_t; };
+template <>
+struct Word<4> { using T = uint32_t; };
+template <>
+struct Word<8> { using T = uint2; };
+template <>
+struct Word<16> { using T = uint4; };
+
+template <typename T, int SPL>
+union Chunk {
+  typename Word<sizeof(T) * SPL>::T w;
+  T v[SPL];
+};
+
+template <typename T, int SPL>
+__device__ __forceinline__ bool whole_chunk(const T* p, int c0, int m) {
+  return c0 + SPL <= m && reinterpret_cast<uintptr_t>(p + c0) % (sizeof(T) * SPL) == 0;
+}
+
+// a lane's columns c0 .. c0+SPL-1 of a plane row, widened to int32; `fill`
+// at or above m
+template <int SPL, typename T>
+__device__ __forceinline__ void load_cols(const T* row, int c0, int m, int32_t (&out)[SPL],
+                                          int32_t fill) {
+  if (whole_chunk<T, SPL>(row, c0, m)) {
+    using W = typename Word<sizeof(T) * SPL>::T;
+    Chunk<T, SPL> ch;
+    ch.w = *reinterpret_cast<const W*>(row + c0);
+#pragma unroll
+    for (int i = 0; i < SPL; ++i) out[i] = static_cast<int32_t>(ch.v[i]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < SPL; ++i) out[i] = c0 + i < m ? static_cast<int32_t>(row[c0 + i]) : fill;
+  }
+}
+
+// the columns of a lane back to a plane row, cast to T
+template <int SPL, typename T>
+__device__ __forceinline__ void store_cols(T* row, int c0, int m, const int32_t (&v)[SPL]) {
+  if (whole_chunk<T, SPL>(row, c0, m)) {
+    using W = typename Word<sizeof(T) * SPL>::T;
+    Chunk<T, SPL> ch;
+#pragma unroll
+    for (int i = 0; i < SPL; ++i) ch.v[i] = static_cast<T>(v[i]);
+    *reinterpret_cast<W*>(row + c0) = ch.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < SPL; ++i) {
+      if (c0 + i < m) row[c0 + i] = static_cast<T>(v[i]);
+    }
+  }
+}
+
+// the merge of one incoming (id, view) into a table entry
+__device__ __forceinline__ void merge_entry(int32_t& id, int32_t& view, int32_t in_id,
+                                            int32_t in_view) {
+  if (id == in_id) {
+    view = max(view, in_view);
+  } else if (id < 0 || ((view & 3) == kDown && (in_view & 3) == kAlive)) {
+    view = in_view;  // insert into a free slot, or take a DOWN incumbent's
+    id = in_id;
+  }
+}
+
+// one pass of up to 32 packed entries (lane order is apply order) into the
+// row staged in shared memory: the entries of rank t apply in round t
+__device__ __forceinline__ void merge_pass(int32_t* sid, int32_t* sview, int32_t in_id,
+                                           int32_t in_view, int m, unsigned below) {
+  const bool live = in_id >= 0;
+  const int cls = live ? in_id % m : -1;
+  const unsigned live_b = __ballot_sync(kFull, live);
+  const unsigned peers = __match_any_sync(kFull, cls) & live_b & below;
+  const int rank = live ? __popc(peers) : -1;
+  const int top = __reduce_max_sync(kFull, rank);
+  for (int t = 0; t <= top; ++t) {
+    if (rank == t) merge_entry(sid[cls], sview[cls], in_id, in_view);
+    __syncwarp();
+  }
 }
 
 }  // namespace
@@ -89,164 +220,271 @@ struct SwimArgs {
   int32_t pig_k;  // packed entries per channel (PACKED only)
 };
 
-template <typename TT, typename XT, bool PACKED>
-__global__ void swim_tables_kernel(SwimArgs a) {
-  const int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (r >= a.n) return;
+namespace {
+
+// the packed entry at position `pos` of the valid channels' entries, in
+// apply order (channel by channel, entry by entry): its id or its view
+template <bool VIEW>
+__device__ __forceinline__ int32_t entry_at(const SwimArgs& a, const bool (&valid)[4],
+                                            int64_t r, int k, int pos) {
+  const int vi = pos / k;
+  const int64_t e = r * k + (pos - vi * k);
+  const int32_t* p = nullptr;
+  int seen = 0;
+#pragma unroll
+  for (int ch = 0; ch < 4; ++ch) {  // the vi-th valid channel
+    if (valid[ch]) {
+      if (seen == vi) p = VIEW ? a.ch_view[ch] : a.ch_id[ch];
+      ++seen;
+    }
+  }
+  return p[e];
+}
+
+}  // namespace
+
+template <typename TT, typename XT, bool PACKED, int SPL>
+__global__ void __launch_bounds__(32 * kRowsPerBlock) swim_tables_kernel(const SwimArgs a) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + warp;
+  if (r >= a.n) return;  // the whole warp: rows past n are masked
   const int m = a.m;
+  const int c0 = lane * SPL;
   const int64_t base = r * m;
-  const TT* timer_in = static_cast<const TT*>(a.timer) + base;
-  const XT* tx_in = static_cast<const XT*>(a.tx) + base;
 
-  int32_t id[kMaxSlots];
-  int32_t view[kMaxSlots];
-  for (int c = 0; c < m; ++c) {
-    id[c] = a.mem_id[base + c];
-    view[c] = a.mem_view[base + c];
-  }
-
-  // failed probe: suspect mark, scatter-max at probe_slot
-  if (a.probe_failed[r]) {
-    const int32_t ps = a.probe_slot[r];
-    if (ps >= 0 && ps < m) view[ps] = max(view[ps], a.suspect_key[r]);
-  }
-
-  // four packet merges
-  for (int ch = 0; ch < 4; ++ch) {
-    if (!a.ch_valid[ch][r]) continue;
-    if constexpr (PACKED) {
-      const int k = a.pig_k;
-      const int32_t* cid = a.ch_id[ch] + r * k;
-      const int32_t* cview = a.ch_view[ch] + r * k;
-      for (int j = 0; j < k; ++j) {
-        const int32_t in_id = cid[j];
-        if (in_id < 0) continue;
-        const int32_t in_view = cview[j];
-        const int c = in_id % m;
-        const bool same = id[c] == in_id;
-        const bool ins = id[c] < 0;
-        const bool take = id[c] >= 0 && id[c] != in_id &&
-                          (view[c] & 3) == kDown && (in_view & 3) == kAlive;
-        if (same) view[c] = max(view[c], in_view);
-        if (ins || take) {
-          view[c] = in_view;
-          id[c] = in_id;
-        }
-      }
-      continue;
-    }
-    const int32_t* cid = a.ch_id[ch] + base;
-    const int32_t* cview = a.ch_view[ch] + base;
-    const uint8_t* csend = a.ch_send[ch] + base;
-    for (int c = 0; c < m; ++c) {
-      const int32_t in_id = cid[c];
-      if (in_id < 0 || !csend[c]) continue;
-      const int32_t in_view = cview[c];
-      const bool same = id[c] == in_id;
-      const bool ins = id[c] < 0;
-      const bool take = id[c] >= 0 && id[c] != in_id &&
-                        (view[c] & 3) == kDown && (in_view & 3) == kAlive;
-      if (same) view[c] = max(view[c], in_view);
-      if (ins || take) {
-        view[c] = in_view;
-        id[c] = in_id;
-      }
-    }
-  }
-
-  // sender-alive assertions at snd % m
-  for (int ch = 0; ch < 4; ++ch) {
-    const int32_t snd = a.ch_snd[ch][r];
-    const bool valid = a.ch_valid[ch][r] != 0;
-    const int32_t s_key = pack_inc_state(a.ch_snd_inc[ch][r], kAlive);
-    const int slot = ((snd % m) + m) % m;
-    const int32_t cur = id[slot];
-    const bool same1 = cur == snd;
-    const bool free1 = cur < 0;
-    if (valid && (same1 || free1)) view[slot] = max(view[slot], s_key);
-    if (valid && free1) id[slot] = snd;
-  }
-
+  // --- loads: the row's planes, the per-row scalars, the channels ----------
+  int32_t id[SPL], view[SPL], old_id[SPL], old_view[SPL], timer[SPL], tx[SPL];
+  load_cols(a.mem_id + base, c0, m, id, kFree);
+  load_cols(a.mem_view + base, c0, m, view, kFree);
+  load_cols(a.old_id + base, c0, m, old_id, kFree);
+  load_cols(a.old_view + base, c0, m, old_view, kFree);
+  load_cols(static_cast<const TT*>(a.timer) + base, c0, m, timer, 0);
+  load_cols(static_cast<const XT*>(a.tx) + base, c0, m, tx, 0);
   const bool alive = a.alive[r] != 0;
+  const bool failed = a.probe_failed[r] != 0;
+  const int32_t ps = failed ? a.probe_slot[r] : -1;
+  const int32_t sus_key = failed ? a.suspect_key[r] : 0;
   const int32_t sends = a.sends[r];
-  const int32_t* old_id = a.old_id + base;
-  const int32_t* old_view = a.old_view + base;
-  TT* o_timer = static_cast<TT*>(a.o_timer) + base;
-  int32_t tx[kMaxSlots];
-
-  // budget decrement, suspicion / down timers, purge
-  for (int c = 0; c < m; ++c) {
-    int32_t t = static_cast<int32_t>(tx_in[c]);
-    if (!PACKED && t > 0) t -= sends;
-    tx[c] = PACKED ? t : max(t, 0);
-
-    const bool occupied = id[c] >= 0;
-    const bool changed = view[c] != old_view[c] || id[c] != old_id[c];
-    const bool is_suspect = occupied && view[c] >= 0 && (view[c] & 3) == kSuspect;
-    const bool newly = changed && is_suspect;
-    int32_t timer = newly ? a.suspicion_rounds : static_cast<int32_t>(timer_in[c]);
-    if (is_suspect && !newly && alive) timer -= 1;
-    const bool expired = is_suspect && timer <= 0 && alive;
-    if (expired) view[c] = pack_inc_state(view[c] >> 2, kDown);
-    const bool is_down = occupied && view[c] >= 0 && (view[c] & 3) == kDown;
-    const bool newly_down = expired || (changed && is_down);
-    if (is_down && newly_down) timer = a.down_purge_rounds;
-    if (is_down && !newly_down && alive) timer -= 1;
-    if (is_down && timer <= 0 && alive) {
-      id[c] = kFree;
-      view[c] = kFree;
-    }
-    o_timer[c] = static_cast<TT>(timer);
-  }
-
-  // refutation and self refresh
   const int32_t node = a.node_id[r];
   const int32_t ss = a.self_slot[r];
-  const bool ss_in = ss >= 0 && ss < m;
-  const int32_t id_at_self = ss_in ? id[ss] : 0;
-  const int32_t view_at_self = ss_in ? view[ss] : -1;
-  const int32_t self_gossip = id_at_self == node ? view_at_self : -1;
-  const int32_t heard = max(a.sus_heard[r], self_gossip);
+  const int32_t sus_heard = a.sus_heard[r];
   int32_t inc = a.inc[r];
-  const bool refute = alive && heard >= pack_inc_state(inc, kSuspect);
-  if (refute) inc = (heard >> 2) + 1;
-  if (alive && ss_in) {
-    view[ss] = pack_inc_state(inc, kAlive);
-    id[ss] = node;
+  bool valid[4];
+  int32_t snd[4], snd_inc[4];
+#pragma unroll
+  for (int ch = 0; ch < 4; ++ch) {
+    valid[ch] = a.ch_valid[ch][r] != 0;
+    snd[ch] = valid[ch] ? a.ch_snd[ch][r] : 0;
+    snd_inc[ch] = valid[ch] ? a.ch_snd_inc[ch][r] : 0;
+  }
+  // aligned channels: ids and send flags now, views where live and sendable
+  int32_t cid[4][SPL], cview[4][SPL];
+  unsigned cgo[4];  // bit i: column c0 + i merges from this channel
+  if constexpr (!PACKED) {
+#pragma unroll
+    for (int ch = 0; ch < 4; ++ch) {
+      int32_t send[SPL];
+      cgo[ch] = 0u;
+      if (valid[ch]) {
+        load_cols(a.ch_id[ch] + base, c0, m, cid[ch], kFree);
+        load_cols(a.ch_send[ch] + base, c0, m, send, 0);
+#pragma unroll
+        for (int i = 0; i < SPL; ++i) {
+          if (cid[ch][i] >= 0 && send[i] != 0) cgo[ch] |= 1u << i;
+        }
+      }
+    }
+#pragma unroll
+    for (int ch = 0; ch < 4; ++ch) {
+      if (cgo[ch]) load_cols(a.ch_view[ch] + base, c0, m, cview[ch], 0);
+    }
   }
 
-  // fresh news refills the dissemination budget
-  XT* o_tx = static_cast<XT*>(a.o_tx) + base;
-  for (int c = 0; c < m; ++c) {
-    const bool changed = view[c] != old_view[c] || id[c] != old_id[c];
-    o_tx[c] = static_cast<XT>(changed ? a.max_transmissions : tx[c]);
-    a.o_id[base + c] = id[c];
-    a.o_view[base + c] = view[c];
+  // --- failed probe: suspect mark, scatter-max at probe_slot ---------------
+  // (a select on every column, see the header; a column at or above m is
+  // never stored)
+#pragma unroll
+  for (int i = 0; i < SPL; ++i) view[i] = c0 + i == ps ? max(view[i], sus_key) : view[i];
+
+  // --- four packet merges ---------------------------------------------------
+  if constexpr (PACKED) {
+    const int k = a.pig_k;
+    int n_valid = 0;
+#pragma unroll
+    for (int ch = 0; ch < 4; ++ch) n_valid += valid[ch] ? 1 : 0;
+    const int total = n_valid * k;  // positions of the valid channels' entries
+    // the first kPrePasses passes' entries, read before the merges: ids,
+    // then the views of the live ones
+    int32_t e_id[kPrePasses], e_view[kPrePasses];
+#pragma unroll
+    for (int q = 0; q < kPrePasses; ++q) {
+      const int pos = 32 * q + lane;
+      e_id[q] = pos < total ? entry_at<false>(a, valid, r, k, pos) : -1;
+    }
+#pragma unroll
+    for (int q = 0; q < kPrePasses; ++q) {
+      e_view[q] = e_id[q] >= 0 ? entry_at<true>(a, valid, r, k, 32 * q + lane) : 0;
+    }
+    __shared__ int32_t s_id[kRowsPerBlock][kMaxSlots];
+    __shared__ int32_t s_view[kRowsPerBlock][kMaxSlots];
+    int32_t* sid = s_id[warp];
+    int32_t* sview = s_view[warp];
+#pragma unroll
+    for (int i = 0; i < SPL; ++i) {
+      if (c0 + i < m) {
+        sid[c0 + i] = id[i];
+        sview[c0 + i] = view[i];
+      }
+    }
+    __syncwarp();
+    const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+    for (int q = 0; q < kPrePasses; ++q) {
+      if (32 * q < total) merge_pass(sid, sview, e_id[q], e_view[q], m, below);
+    }
+    for (int p0 = 32 * kPrePasses; p0 < total; p0 += 32) {
+      const int pos = p0 + lane;
+      const int32_t in_id = pos < total ? entry_at<false>(a, valid, r, k, pos) : -1;
+      const int32_t in_view = in_id >= 0 ? entry_at<true>(a, valid, r, k, pos) : 0;
+      merge_pass(sid, sview, in_id, in_view, m, below);
+    }
+#pragma unroll
+    for (int i = 0; i < SPL; ++i) {
+      if (c0 + i < m) {
+        id[i] = sid[c0 + i];
+        view[i] = sview[c0 + i];
+      }
+    }
+  } else {
+#pragma unroll
+    for (int ch = 0; ch < 4; ++ch) {
+#pragma unroll
+      for (int i = 0; i < SPL; ++i) {
+        if ((cgo[ch] >> i) & 1u) merge_entry(id[i], view[i], cid[ch][i], cview[ch][i]);
+      }
+    }
   }
-  a.o_inc[r] = inc;
-  a.o_refute[r] = refute ? 1 : 0;
+
+  // --- sender-alive assertions at snd % m, on the lane holding the slot ----
+#pragma unroll
+  for (int ch = 0; ch < 4; ++ch) {
+    const int slot = ((snd[ch] % m) + m) % m;
+    const int32_t s_key = pack_inc_state(snd_inc[ch], kAlive);
+#pragma unroll
+    for (int i = 0; i < SPL; ++i) {
+      const bool at = valid[ch] && c0 + i == slot;
+      const bool free1 = id[i] < 0;
+      view[i] = at && (free1 || id[i] == snd[ch]) ? max(view[i], s_key) : view[i];
+      id[i] = at && free1 ? snd[ch] : id[i];
+    }
+  }
+
+  // --- budget decrement, suspicion / down timers, purge --------------------
+#pragma unroll
+  for (int i = 0; i < SPL; ++i) {
+    int32_t t = tx[i];
+    if (!PACKED && t > 0) t -= sends;  // sendable: the budget as read
+    tx[i] = PACKED ? t : max(t, 0);
+
+    const bool occupied = id[i] >= 0;
+    const bool changed = view[i] != old_view[i] || id[i] != old_id[i];
+    const bool is_suspect = occupied && view[i] >= 0 && (view[i] & 3) == kSuspect;
+    const bool newly = changed && is_suspect;
+    int32_t tm = newly ? a.suspicion_rounds : timer[i];
+    if (is_suspect && !newly && alive) tm -= 1;
+    const bool expired = is_suspect && tm <= 0 && alive;
+    if (expired) view[i] = pack_inc_state(view[i] >> 2, kDown);
+    const bool is_down = occupied && view[i] >= 0 && (view[i] & 3) == kDown;
+    const bool newly_down = expired || (changed && is_down);
+    if (is_down && newly_down) tm = a.down_purge_rounds;
+    if (is_down && !newly_down && alive) tm -= 1;
+    if (is_down && tm <= 0 && alive) {
+      id[i] = kFree;
+      view[i] = kFree;
+    }
+    timer[i] = tm;
+  }
+
+  // --- refutation and self refresh -----------------------------------------
+  const bool ss_in = ss >= 0 && ss < m;
+  int32_t id_at_self = 0, view_at_self = -1;
+  if (ss_in) {  // the same for the whole warp: every lane shuffles
+#pragma unroll
+    for (int i = 0; i < SPL; ++i) {
+      const int32_t x_id = __shfl_sync(kFull, id[i], ss / SPL);
+      const int32_t x_view = __shfl_sync(kFull, view[i], ss / SPL);
+      if (i == ss % SPL) {
+        id_at_self = x_id;
+        view_at_self = x_view;
+      }
+    }
+  }
+  const int32_t self_gossip = id_at_self == node ? view_at_self : -1;
+  const int32_t heard = max(sus_heard, self_gossip);
+  const bool refute = alive && heard >= pack_inc_state(inc, kSuspect);
+  if (refute) inc = (heard >> 2) + 1;
+  const int32_t self_key = pack_inc_state(inc, kAlive);
+#pragma unroll
+  for (int i = 0; i < SPL; ++i) {
+    const bool own = alive && c0 + i == ss;
+    view[i] = own ? self_key : view[i];
+    id[i] = own ? node : id[i];
+  }
+
+  // --- fresh news refills the dissemination budget; stores -----------------
+#pragma unroll
+  for (int i = 0; i < SPL; ++i) {
+    const bool changed = view[i] != old_view[i] || id[i] != old_id[i];
+    if (changed) tx[i] = a.max_transmissions;
+  }
+  store_cols(a.o_id + base, c0, m, id);
+  store_cols(a.o_view + base, c0, m, view);
+  store_cols(static_cast<TT*>(a.o_timer) + base, c0, m, timer);
+  store_cols(static_cast<XT*>(a.o_tx) + base, c0, m, tx);
+  if (lane == 0) {
+    a.o_inc[r] = inc;
+    a.o_refute[r] = refute ? 1 : 0;
+  }
 }
 
 extern "C" int swim_tables_max_slots() { return kMaxSlots; }
+
+// the columns a lane (SPL) are a template parameter, so that a narrow row
+// carries no unused registers
+template <typename TT, typename XT, bool PACKED>
+static void launch_cols(const SwimArgs* a, dim3 grid, int threads, cudaStream_t s) {
+  if (a->m <= 32) {
+    swim_tables_kernel<TT, XT, PACKED, 1><<<grid, threads, 0, s>>>(*a);
+  } else if (a->m <= 64) {
+    swim_tables_kernel<TT, XT, PACKED, 2><<<grid, threads, 0, s>>>(*a);
+  } else {
+    swim_tables_kernel<TT, XT, PACKED, 4><<<grid, threads, 0, s>>>(*a);
+  }
+}
 
 template <typename TT, typename XT>
 static void launch_form(const SwimArgs* a, int packed, dim3 grid, int threads,
                         cudaStream_t s) {
   if (packed) {
-    swim_tables_kernel<TT, XT, true><<<grid, threads, 0, s>>>(*a);
+    launch_cols<TT, XT, true>(a, grid, threads, s);
   } else {
-    swim_tables_kernel<TT, XT, false><<<grid, threads, 0, s>>>(*a);
+    launch_cols<TT, XT, false>(a, grid, threads, s);
   }
 }
 
 // timer_bytes / tx_bytes: the element sizes of the timer and budget planes;
 // the valid pairs are (2, 1), (2, 2) and (4, 4). Returns a CUDA error code,
-// or cudaErrorInvalidValue for any other pair.
+// or cudaErrorInvalidValue for any other pair, for m outside 1..kMaxSlots
+// or for a packed form without entries.
 extern "C" int swim_tables_launch(const SwimArgs* a, int timer_bytes,
                                   int tx_bytes, int packed, void* stream) {
+  if (a->m < 1 || a->m > kMaxSlots || (packed && a->pig_k < 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (a->n == 0) return 0;
-  const int threads = 128;
-  const dim3 grid((a->n + threads - 1) / threads);
+  const int threads = 32 * kRowsPerBlock;
+  const dim3 grid((a->n + kRowsPerBlock - 1) / kRowsPerBlock);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (timer_bytes == 2 && tx_bytes == 1) {
     launch_form<int16_t, int8_t>(a, packed, grid, threads, s);

@@ -1,6 +1,7 @@
 // A host stand-in for the parts of the CUDA runtime that the port's kernels
 // use, so that a kernel's lane logic runs on the CPU in the tests
-// (tests/test_torch_ingest_host.py). Each warp runs after the one before,
+// (tests/test_torch_ingest_host.py, tests/test_torch_swim_host.py; built by
+// host_build.py here). Each warp runs after the one before,
 // its 32 lanes at once as std::threads, and its collectives
 // (__shfl_sync, __ballot_sync, __match_any_sync, __reduce_*_sync,
 // __syncwarp) meet at a barrier of its 32 lanes. A collective that the lanes
@@ -31,6 +32,12 @@
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+struct alignas(8) uint2 {
+  unsigned x, y;
+};
+struct alignas(16) uint4 {
+  unsigned x, y, z, w;
 };
 typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };

@@ -11,23 +11,15 @@ per-warp shared memory) and that no collective diverges; it says nothing
 of the card's speed, and only ``chip_smoke.py`` runs the kernel on the card.
 """
 
-import ctypes
-import re
-import shutil
-import subprocess
-import types
-from pathlib import Path
-
 import pytest
 import torch
 
 import chip_smoke
-from corrosion_tpu_torch.ops import cuda_lib
 from corrosion_tpu_torch.ops import megakernel as mk
 from corrosion_tpu_torch.sim.config import full_view_config
 from corrosion_tpu_torch.sim.scale_step import million_config, scale_sim_config
+from cuda_host import host_build
 
-HOST_INCLUDE = Path(__file__).resolve().parent / "cuda_host"
 N_ROWS = 61
 
 CONFIGS = {
@@ -46,28 +38,13 @@ FORMS = [("flagship", "receive"), ("flagship", "write_emit"), ("flagship", "writ
 @pytest.fixture(scope="module")
 def host_ingest(tmp_path_factory):
     """The ingest library built for the host, loaded with ctypes."""
-    cxx = shutil.which("g++")
-    if cxx is None:
-        pytest.skip("no host C++ compiler (g++) to build the kernel source with")
-    src = (cuda_lib.SRC_DIR / "ingest.cu").read_text()
-    src, n = re.subn(r"(\w+<[^;]*?>)<<<(\w+), (\w+), 0, \w+>>>\((.*?)\);",
-                     r"host_launch(\1, \2, \3, \4);", src)
-    assert n > 0, "no kernel launch found to rewrite"
-    out = tmp_path_factory.mktemp("ingest_host")
-    (out / "ingest_host.cpp").write_text(src)
-    subprocess.run(
-        [cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-Wno-unknown-pragmas",
-         "-I", str(HOST_INCLUDE), "-o", str(out / "ingest_host.so"), str(out / "ingest_host.cpp")],
-        check=True, capture_output=True)
-    return ctypes.CDLL(str(out / "ingest_host.so"))
+    return host_build.build("ingest", tmp_path_factory.mktemp("ingest_host"))
 
 
 @pytest.mark.parametrize("ties", [False, True], ids=["random", "tie_heavy"])
 @pytest.mark.parametrize("config,form", FORMS, ids=[f"{c}-{f}" for c, f in FORMS])
 def test_ingest_source_on_host_matches_plain(host_ingest, monkeypatch, config, form, ties):
-    monkeypatch.setattr(cuda_lib, "library", lambda name: host_ingest)
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+    host_build.route_launches(monkeypatch, host_ingest)
     cfg = CONFIGS[config]()
     p, x = chip_smoke._ingest_inputs(cfg, N_ROWS, form, 3 + 7 * ties, "cpu", ties=ties)
     got, want = mk._ingest_cuda(p, x), mk.ingest_plain(p, x)
