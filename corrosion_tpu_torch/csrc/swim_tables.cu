@@ -81,9 +81,6 @@ namespace {
 constexpr int kMaxSlots = 128;
 // warps (node rows) a block, as the ingest kernel measured best
 constexpr int kRowsPerBlock = 4;
-// passes of packed entries read before the merges (64 entries: the 1M
-// point's four packets of 16); later passes read their entries in turn
-constexpr int kPrePasses = 2;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int kAlive = 0;
 constexpr int kSuspect = 1;
@@ -96,63 +93,34 @@ __device__ __forceinline__ int32_t pack_inc_state(int32_t inc, int32_t state) {
                               static_cast<uint32_t>(state));
 }
 
-// an aligned word of B bytes, for one vector access a lane
-template <int B>
-struct Word;
-template <>
-struct Word<1> { using T = uint8_t; };
-template <>
-struct Word<2> { using T = uint16_t; };
-template <>
-struct Word<4> { using T = uint32_t; };
-template <>
-struct Word<8> { using T = uint2; };
-template <>
-struct Word<16> { using T = uint4; };
-
-template <typename T, int SPL>
-union Chunk {
-  typename Word<sizeof(T) * SPL>::T w;
-  T v[SPL];
-};
-
-template <typename T, int SPL>
-__device__ __forceinline__ bool whole_chunk(const T* p, int c0, int m) {
-  return c0 + SPL <= m && reinterpret_cast<uintptr_t>(p + c0) % (sizeof(T) * SPL) == 0;
-}
-
-// a lane's columns c0 .. c0+SPL-1 of a plane row, widened to int32; `fill`
-// at or above m
+// a lane's columns lane + 32 i (i < SPL) of a plane row, widened to int32;
+// `fill` at or above m
 template <int SPL, typename T>
-__device__ __forceinline__ void load_cols(const T* row, int c0, int m, int32_t (&out)[SPL],
+__device__ __forceinline__ void load_cols(const T* row, int lane, int m, int32_t (&out)[SPL],
                                           int32_t fill) {
-  if (whole_chunk<T, SPL>(row, c0, m)) {
-    using W = typename Word<sizeof(T) * SPL>::T;
-    Chunk<T, SPL> ch;
-    ch.w = *reinterpret_cast<const W*>(row + c0);
 #pragma unroll
-    for (int i = 0; i < SPL; ++i) out[i] = static_cast<int32_t>(ch.v[i]);
-  } else {
-#pragma unroll
-    for (int i = 0; i < SPL; ++i) out[i] = c0 + i < m ? static_cast<int32_t>(row[c0 + i]) : fill;
+  for (int i = 0; i < SPL; ++i) {
+    const int c = lane + 32 * i;
+    out[i] = c < m ? static_cast<int32_t>(row[c]) : fill;
   }
 }
 
 // the columns of a lane back to a plane row, cast to T
 template <int SPL, typename T>
-__device__ __forceinline__ void store_cols(T* row, int c0, int m, const int32_t (&v)[SPL]) {
-  if (whole_chunk<T, SPL>(row, c0, m)) {
-    using W = typename Word<sizeof(T) * SPL>::T;
-    Chunk<T, SPL> ch;
+__device__ __forceinline__ void store_cols(T* row, int lane, int m, const int32_t (&v)[SPL]) {
 #pragma unroll
-    for (int i = 0; i < SPL; ++i) ch.v[i] = static_cast<T>(v[i]);
-    *reinterpret_cast<W*>(row + c0) = ch.w;
-  } else {
-#pragma unroll
-    for (int i = 0; i < SPL; ++i) {
-      if (c0 + i < m) row[c0 + i] = static_cast<T>(v[i]);
-    }
+  for (int i = 0; i < SPL; ++i) {
+    const int c = lane + 32 * i;
+    if (c < m) row[c] = static_cast<T>(v[i]);
   }
+}
+
+// x mod m in [0, m), as Python's %: a mask when m is a power of two
+// (`mask` = m - 1, else -1), which two's complement makes exact for x < 0
+__device__ __forceinline__ int floor_mod(int32_t x, int m, int mask) {
+  if (mask >= 0) return x & mask;
+  const int s = x % m;
+  return s < 0 ? s + m : s;
 }
 
 // the merge of one incoming (id, view) into a table entry
@@ -169,9 +137,9 @@ __device__ __forceinline__ void merge_entry(int32_t& id, int32_t& view, int32_t 
 // one pass of up to 32 packed entries (lane order is apply order) into the
 // row staged in shared memory: the entries of rank t apply in round t
 __device__ __forceinline__ void merge_pass(int32_t* sid, int32_t* sview, int32_t in_id,
-                                           int32_t in_view, int m, unsigned below) {
+                                           int32_t in_view, int m, int mask, unsigned below) {
   const bool live = in_id >= 0;
-  const int cls = live ? in_id % m : -1;
+  const int cls = live ? floor_mod(in_id, m, mask) : -1;
   const unsigned live_b = __ballot_sync(kFull, live);
   const unsigned peers = __match_any_sync(kFull, cls) & live_b & below;
   const int rank = live ? __popc(peers) : -1;
@@ -222,23 +190,28 @@ struct SwimArgs {
 
 namespace {
 
-// the packed entry at position `pos` of the valid channels' entries, in
-// apply order (channel by channel, entry by entry): its id or its view
-template <bool VIEW>
-__device__ __forceinline__ int32_t entry_at(const SwimArgs& a, const bool (&valid)[4],
+// the packed entry at position `pos` < 4k of the valid channels' entries,
+// in apply order (channel by channel, entry by entry): the offset of its id
+// and view in their channel's planes, and that channel's planes
+struct EntryAt {
+  const int32_t* id;
+  const int32_t* view;
+};
+
+__device__ __forceinline__ EntryAt entry_at(const SwimArgs& a, const bool (&valid)[4],
                                             int64_t r, int k, int pos) {
-  const int vi = pos / k;
+  const int vi = (pos >= k) + (pos >= 2 * k) + (pos >= 3 * k);  // the vi-th valid channel
   const int64_t e = r * k + (pos - vi * k);
-  const int32_t* p = nullptr;
+  EntryAt out{a.ch_id[0], a.ch_view[0]};
   int seen = 0;
 #pragma unroll
-  for (int ch = 0; ch < 4; ++ch) {  // the vi-th valid channel
+  for (int ch = 0; ch < 4; ++ch) {
     if (valid[ch]) {
-      if (seen == vi) p = VIEW ? a.ch_view[ch] : a.ch_id[ch];
+      if (seen == vi) out = EntryAt{a.ch_id[ch], a.ch_view[ch]};
       ++seen;
     }
   }
-  return p[e];
+  return EntryAt{out.id + e, out.view + e};
 }
 
 }  // namespace
@@ -250,17 +223,17 @@ __global__ void __launch_bounds__(32 * kRowsPerBlock) swim_tables_kernel(const S
   const int64_t r = static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + warp;
   if (r >= a.n) return;  // the whole warp: rows past n are masked
   const int m = a.m;
-  const int c0 = lane * SPL;
+  const int mask = (m & (m - 1)) == 0 ? m - 1 : -1;
   const int64_t base = r * m;
 
   // --- loads: the row's planes, the per-row scalars, the channels ----------
   int32_t id[SPL], view[SPL], old_id[SPL], old_view[SPL], timer[SPL], tx[SPL];
-  load_cols(a.mem_id + base, c0, m, id, kFree);
-  load_cols(a.mem_view + base, c0, m, view, kFree);
-  load_cols(a.old_id + base, c0, m, old_id, kFree);
-  load_cols(a.old_view + base, c0, m, old_view, kFree);
-  load_cols(static_cast<const TT*>(a.timer) + base, c0, m, timer, 0);
-  load_cols(static_cast<const XT*>(a.tx) + base, c0, m, tx, 0);
+  load_cols(a.mem_id + base, lane, m, id, kFree);
+  load_cols(a.mem_view + base, lane, m, view, kFree);
+  load_cols(a.old_id + base, lane, m, old_id, kFree);
+  load_cols(a.old_view + base, lane, m, old_view, kFree);
+  load_cols(static_cast<const TT*>(a.timer) + base, lane, m, timer, 0);
+  load_cols(static_cast<const XT*>(a.tx) + base, lane, m, tx, 0);
   const bool alive = a.alive[r] != 0;
   const bool failed = a.probe_failed[r] != 0;
   const int32_t ps = failed ? a.probe_slot[r] : -1;
@@ -280,24 +253,21 @@ __global__ void __launch_bounds__(32 * kRowsPerBlock) swim_tables_kernel(const S
   }
   // aligned channels: ids and send flags now, views where live and sendable
   int32_t cid[4][SPL], cview[4][SPL];
-  unsigned cgo[4];  // bit i: column c0 + i merges from this channel
   if constexpr (!PACKED) {
 #pragma unroll
     for (int ch = 0; ch < 4; ++ch) {
       int32_t send[SPL];
-      cgo[ch] = 0u;
-      if (valid[ch]) {
-        load_cols(a.ch_id[ch] + base, c0, m, cid[ch], kFree);
-        load_cols(a.ch_send[ch] + base, c0, m, send, 0);
+      load_cols(a.ch_id[ch] + base, lane, valid[ch] ? m : 0, cid[ch], kFree);
+      load_cols(a.ch_send[ch] + base, lane, valid[ch] ? m : 0, send, 0);
 #pragma unroll
-        for (int i = 0; i < SPL; ++i) {
-          if (cid[ch][i] >= 0 && send[i] != 0) cgo[ch] |= 1u << i;
-        }
-      }
+      for (int i = 0; i < SPL; ++i) cid[ch][i] = send[i] != 0 ? cid[ch][i] : kFree;
     }
 #pragma unroll
     for (int ch = 0; ch < 4; ++ch) {
-      if (cgo[ch]) load_cols(a.ch_view[ch] + base, c0, m, cview[ch], 0);
+#pragma unroll
+      for (int i = 0; i < SPL; ++i) {
+        cview[ch][i] = cid[ch][i] >= 0 ? a.ch_view[ch][base + lane + 32 * i] : 0;
+      }
     }
   }
 
@@ -305,55 +275,47 @@ __global__ void __launch_bounds__(32 * kRowsPerBlock) swim_tables_kernel(const S
   // (a select on every column, see the header; a column at or above m is
   // never stored)
 #pragma unroll
-  for (int i = 0; i < SPL; ++i) view[i] = c0 + i == ps ? max(view[i], sus_key) : view[i];
+  for (int i = 0; i < SPL; ++i) {
+    view[i] = lane + 32 * i == ps ? max(view[i], sus_key) : view[i];
+  }
 
   // --- four packet merges ---------------------------------------------------
   if constexpr (PACKED) {
-    const int k = a.pig_k;
-    int n_valid = 0;
-#pragma unroll
-    for (int ch = 0; ch < 4; ++ch) n_valid += valid[ch] ? 1 : 0;
-    const int total = n_valid * k;  // positions of the valid channels' entries
-    // the first kPrePasses passes' entries, read before the merges: ids,
-    // then the views of the live ones
-    int32_t e_id[kPrePasses], e_view[kPrePasses];
-#pragma unroll
-    for (int q = 0; q < kPrePasses; ++q) {
-      const int pos = 32 * q + lane;
-      e_id[q] = pos < total ? entry_at<false>(a, valid, r, k, pos) : -1;
-    }
-#pragma unroll
-    for (int q = 0; q < kPrePasses; ++q) {
-      e_view[q] = e_id[q] >= 0 ? entry_at<true>(a, valid, r, k, 32 * q + lane) : 0;
-    }
     __shared__ int32_t s_id[kRowsPerBlock][kMaxSlots];
     __shared__ int32_t s_view[kRowsPerBlock][kMaxSlots];
     int32_t* sid = s_id[warp];
     int32_t* sview = s_view[warp];
 #pragma unroll
     for (int i = 0; i < SPL; ++i) {
-      if (c0 + i < m) {
-        sid[c0 + i] = id[i];
-        sview[c0 + i] = view[i];
+      const int c = lane + 32 * i;
+      if (c < m) {
+        sid[c] = id[i];
+        sview[c] = view[i];
       }
     }
     __syncwarp();
-    const unsigned below = (1u << lane) - 1u;
+    const int k = a.pig_k;
+    int n_valid = 0;
 #pragma unroll
-    for (int q = 0; q < kPrePasses; ++q) {
-      if (32 * q < total) merge_pass(sid, sview, e_id[q], e_view[q], m, below);
-    }
-    for (int p0 = 32 * kPrePasses; p0 < total; p0 += 32) {
+    for (int ch = 0; ch < 4; ++ch) n_valid += valid[ch] ? 1 : 0;
+    const int total = n_valid * k;  // positions of the valid channels' entries
+    const unsigned below = (1u << lane) - 1u;
+    for (int p0 = 0; p0 < total; p0 += 32) {
       const int pos = p0 + lane;
-      const int32_t in_id = pos < total ? entry_at<false>(a, valid, r, k, pos) : -1;
-      const int32_t in_view = in_id >= 0 ? entry_at<true>(a, valid, r, k, pos) : 0;
-      merge_pass(sid, sview, in_id, in_view, m, below);
+      int32_t in_id = kFree, in_view = 0;
+      if (pos < total) {
+        const EntryAt e = entry_at(a, valid, r, k, pos);
+        in_id = *e.id;
+        if (in_id >= 0) in_view = *e.view;
+      }
+      merge_pass(sid, sview, in_id, in_view, m, mask, below);
     }
 #pragma unroll
     for (int i = 0; i < SPL; ++i) {
-      if (c0 + i < m) {
-        id[i] = sid[c0 + i];
-        view[i] = sview[c0 + i];
+      const int c = lane + 32 * i;
+      if (c < m) {
+        id[i] = sid[c];
+        view[i] = sview[c];
       }
     }
   } else {
@@ -361,7 +323,7 @@ __global__ void __launch_bounds__(32 * kRowsPerBlock) swim_tables_kernel(const S
     for (int ch = 0; ch < 4; ++ch) {
 #pragma unroll
       for (int i = 0; i < SPL; ++i) {
-        if ((cgo[ch] >> i) & 1u) merge_entry(id[i], view[i], cid[ch][i], cview[ch][i]);
+        if (cid[ch][i] >= 0) merge_entry(id[i], view[i], cid[ch][i], cview[ch][i]);
       }
     }
   }
@@ -369,11 +331,11 @@ __global__ void __launch_bounds__(32 * kRowsPerBlock) swim_tables_kernel(const S
   // --- sender-alive assertions at snd % m, on the lane holding the slot ----
 #pragma unroll
   for (int ch = 0; ch < 4; ++ch) {
-    const int slot = ((snd[ch] % m) + m) % m;
+    const int slot = valid[ch] ? floor_mod(snd[ch], m, mask) : -1;
     const int32_t s_key = pack_inc_state(snd_inc[ch], kAlive);
 #pragma unroll
     for (int i = 0; i < SPL; ++i) {
-      const bool at = valid[ch] && c0 + i == slot;
+      const bool at = lane + 32 * i == slot;
       const bool free1 = id[i] < 0;
       view[i] = at && (free1 || id[i] == snd[ch]) ? max(view[i], s_key) : view[i];
       id[i] = at && free1 ? snd[ch] : id[i];
@@ -412,9 +374,9 @@ __global__ void __launch_bounds__(32 * kRowsPerBlock) swim_tables_kernel(const S
   if (ss_in) {  // the same for the whole warp: every lane shuffles
 #pragma unroll
     for (int i = 0; i < SPL; ++i) {
-      const int32_t x_id = __shfl_sync(kFull, id[i], ss / SPL);
-      const int32_t x_view = __shfl_sync(kFull, view[i], ss / SPL);
-      if (i == ss % SPL) {
+      const int32_t x_id = __shfl_sync(kFull, id[i], ss & 31);
+      const int32_t x_view = __shfl_sync(kFull, view[i], ss & 31);
+      if (i == ss >> 5) {
         id_at_self = x_id;
         view_at_self = x_view;
       }
@@ -427,7 +389,7 @@ __global__ void __launch_bounds__(32 * kRowsPerBlock) swim_tables_kernel(const S
   const int32_t self_key = pack_inc_state(inc, kAlive);
 #pragma unroll
   for (int i = 0; i < SPL; ++i) {
-    const bool own = alive && c0 + i == ss;
+    const bool own = alive && lane + 32 * i == ss;
     view[i] = own ? self_key : view[i];
     id[i] = own ? node : id[i];
   }
@@ -438,10 +400,10 @@ __global__ void __launch_bounds__(32 * kRowsPerBlock) swim_tables_kernel(const S
     const bool changed = view[i] != old_view[i] || id[i] != old_id[i];
     if (changed) tx[i] = a.max_transmissions;
   }
-  store_cols(a.o_id + base, c0, m, id);
-  store_cols(a.o_view + base, c0, m, view);
-  store_cols(static_cast<TT*>(a.o_timer) + base, c0, m, timer);
-  store_cols(static_cast<XT*>(a.o_tx) + base, c0, m, tx);
+  store_cols(a.o_id + base, lane, m, id);
+  store_cols(a.o_view + base, lane, m, view);
+  store_cols(static_cast<TT*>(a.o_timer) + base, lane, m, timer);
+  store_cols(static_cast<XT*>(a.o_tx) + base, lane, m, tx);
   if (lane == 0) {
     a.o_inc[r] = inc;
     a.o_refute[r] = refute ? 1 : 0;

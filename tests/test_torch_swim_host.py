@@ -4,8 +4,9 @@ runtime in tests/cuda_host/ (a warp's lanes as threads, its collectives at
 a barrier), launched through the wrapper's own argument packing, and held
 bitwise against the plain version, ``swim_tables_plain``, in every timer /
 budget dtype pair of both channel forms at the configurations' m = 64 and
-k = 16, and at m = 16, 32 and 128 (masked lanes, 1 and 4 columns a lane,
-packets wider than a warp), on the random and the tie-heavy inputs that
+k = 16, at m = 16, 32 and 128 (masked lanes, 1 and 4 columns a lane,
+packets wider than a warp) and at m = 20, 48 and 96 (the general modulo
+of a width that is not a power of two), on the random and the tie-heavy inputs that
 ``chip_smoke.py`` holds the card to (fewer rows: N = 61, a partial last
 block of rows).
 
@@ -26,11 +27,13 @@ from cuda_host import host_build
 N_ROWS = 61
 I8, I16, I32 = torch.int8, torch.int16, torch.int32
 # (m, pig_k, timer dtype, budget dtype): every dtype pair of both forms at
-# the configurations' widths, then the narrower and wider tables
+# the configurations' widths, then narrower and wider tables, and widths
+# that are not a power of two (the kernel's general modulo)
 FORMS = [(64, 0, I16, I8), (64, 0, I16, I16), (64, 0, I32, I32),
          (64, 16, I16, I8), (64, 16, I16, I16), (64, 16, I32, I32),
          (16, 0, I32, I32), (16, 16, I16, I8), (32, 0, I16, I16), (32, 8, I32, I32),
-         (128, 0, I16, I8), (128, 40, I16, I16), (128, 128, I16, I8)]
+         (128, 0, I16, I8), (128, 40, I16, I16), (128, 128, I16, I8),
+         (20, 0, I16, I16), (48, 12, I32, I32), (96, 24, I16, I8)]
 
 
 @pytest.fixture(scope="module")
