@@ -243,14 +243,23 @@ __global__ void __launch_bounds__(32 * kRowsPerBlock) swim_tables_kernel(const S
   const int32_t ss = a.self_slot[r];
   const int32_t sus_heard = a.sus_heard[r];
   int32_t inc = a.inc[r];
-  bool valid[4];
-  int32_t snd[4], snd_inc[4];
+  // the channels' per-row scalars, channel ch on lane ch
+  const uint8_t* p_valid = a.ch_valid[0];
+  const int32_t* p_snd = a.ch_snd[0];
+  const int32_t* p_snd_inc = a.ch_snd_inc[0];
 #pragma unroll
-  for (int ch = 0; ch < 4; ++ch) {
-    valid[ch] = a.ch_valid[ch][r] != 0;
-    snd[ch] = valid[ch] ? a.ch_snd[ch][r] : 0;
-    snd_inc[ch] = valid[ch] ? a.ch_snd_inc[ch][r] : 0;
+  for (int ch = 1; ch < 4; ++ch) {
+    p_valid = lane == ch ? a.ch_valid[ch] : p_valid;
+    p_snd = lane == ch ? a.ch_snd[ch] : p_snd;
+    p_snd_inc = lane == ch ? a.ch_snd_inc[ch] : p_snd_inc;
   }
+  const bool my_valid = lane < 4 && p_valid[r] != 0;
+  const int32_t my_snd = my_valid ? p_snd[r] : 0;
+  const int32_t my_snd_inc = my_valid ? p_snd_inc[r] : 0;
+  const unsigned vmask = __ballot_sync(kFull, my_valid);
+  bool valid[4];
+#pragma unroll
+  for (int ch = 0; ch < 4; ++ch) valid[ch] = (vmask >> ch) & 1u;
   // aligned channels: ids and send flags now, views where live and sendable
   int32_t cid[4][SPL], cview[4][SPL];
   if constexpr (!PACKED) {
@@ -331,14 +340,15 @@ __global__ void __launch_bounds__(32 * kRowsPerBlock) swim_tables_kernel(const S
   // --- sender-alive assertions at snd % m, on the lane holding the slot ----
 #pragma unroll
   for (int ch = 0; ch < 4; ++ch) {
-    const int slot = valid[ch] ? floor_mod(snd[ch], m, mask) : -1;
-    const int32_t s_key = pack_inc_state(snd_inc[ch], kAlive);
+    const int32_t snd = __shfl_sync(kFull, my_snd, ch);
+    const int32_t s_key = pack_inc_state(__shfl_sync(kFull, my_snd_inc, ch), kAlive);
+    const int slot = valid[ch] ? floor_mod(snd, m, mask) : -1;
 #pragma unroll
     for (int i = 0; i < SPL; ++i) {
       const bool at = lane + 32 * i == slot;
       const bool free1 = id[i] < 0;
-      view[i] = at && (free1 || id[i] == snd[ch]) ? max(view[i], s_key) : view[i];
-      id[i] = at && free1 ? snd[ch] : id[i];
+      view[i] = at && (free1 || id[i] == snd) ? max(view[i], s_key) : view[i];
+      id[i] = at && free1 ? snd : id[i];
     }
   }
 
