@@ -19,15 +19,21 @@
 // 3.35 TB/s.
 //
 // Design: one warp per node row, kRowsPerBlock rows (warps) a block. Lane l
-// holds the SPL consecutive columns l*SPL .. l*SPL+SPL-1 of its row (SPL = 1,
-// 2 or 4 for m <= 32, 64, 128; columns at or above m are masked), so each
-// plane row is one warp-wide access at every dtype: one vector load or store
-// a lane where the chunk is whole and aligned, else one access a column. The
-// row's id, view, old id/view, timer and budget stay in registers, in arrays
-// indexed only by unrolled loop counters (nothing goes to the stack). A
+// holds the columns l + 32 i, i < SPL (SPL = 1, 2 or 4 for m <= 32, 64,
+// 128; columns at or above m are masked), so each access of a warp is one
+// contiguous span of a plane row at every dtype (128 bytes of an int32
+// plane, 32 of an int8 one), with no alignment test. (An earlier form held
+// consecutive columns a lane, read as one vector where aligned; the test on
+// every access made it longer in instructions, and it measured slower:
+// PERF.md, Findings.) The row's id, view, old id/view, timer and budget stay in registers, in
+// arrays indexed only by unrolled loop counters (nothing goes to the
+// stack). The channels' per-row valid flag, sender and sender incarnation
+// are read by lanes 0..3, one channel a lane, and handed out by shuffle. A
 // channel is read only on the rows where it is valid; an aligned channel's
-// id and send flags are read together, its view only by the lanes that hold
-// a live, sendable id. The phases, in the JAX body's order:
+// id and send flags are read together, its view only where the id is live
+// and sendable. x mod m is a mask when m is a power of two (the configured
+// 64), else the `%` of C with the sign fixed. The phases, in the JAX body's
+// order:
 //   - column-local, in registers, no traffic between lanes: the aligned
 //     form's four channel merges, the budget decrement, the suspicion/down
 //     timers and purge, the refill and the stores;
@@ -79,8 +85,11 @@
 namespace {
 
 constexpr int kMaxSlots = 128;
-// warps (node rows) a block, as the ingest kernel measured best
-constexpr int kRowsPerBlock = 4;
+// warps (node rows) a block: 2 measured 2-6 % faster than 4 and 8 (PERF.md)
+constexpr int kRowsPerBlock = 2;
+// passes of packed entries read before the first merge: 64 entries, the 1M
+// point's four packets of 16
+constexpr int kEarlyPasses = 2;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int kAlive = 0;
 constexpr int kSuspect = 1;
@@ -309,7 +318,23 @@ __global__ void __launch_bounds__(32 * kRowsPerBlock) swim_tables_kernel(const S
     for (int ch = 0; ch < 4; ++ch) n_valid += valid[ch] ? 1 : 0;
     const int total = n_valid * k;  // positions of the valid channels' entries
     const unsigned below = (1u << lane) - 1u;
-    for (int p0 = 0; p0 < total; p0 += 32) {
+    // the first kEarlyPasses passes' entries are read together, before any
+    // merge: their ids, then the views of the live ones
+    int32_t e_id[kEarlyPasses], e_view[kEarlyPasses];
+#pragma unroll
+    for (int q = 0; q < kEarlyPasses; ++q) {
+      const int pos = 32 * q + lane;
+      e_id[q] = pos < total ? *entry_at(a, valid, r, k, pos).id : kFree;
+    }
+#pragma unroll
+    for (int q = 0; q < kEarlyPasses; ++q) {
+      e_view[q] = e_id[q] >= 0 ? *entry_at(a, valid, r, k, 32 * q + lane).view : 0;
+    }
+#pragma unroll
+    for (int q = 0; q < kEarlyPasses; ++q) {
+      if (32 * q < total) merge_pass(sid, sview, e_id[q], e_view[q], m, mask, below);
+    }
+    for (int p0 = 32 * kEarlyPasses; p0 < total; p0 += 32) {
       const int pos = p0 + lane;
       int32_t in_id = kFree, in_view = 0;
       if (pos < total) {

@@ -10,8 +10,9 @@ with ``--full`` of the full view at ``sim.config.full_view_config()``
 Prints the card's name and power limit, the round's wall time with and
 without the profiler, the device's busy share (kernel time over wall
 time), kernel launches and host-side aten calls per round, the device time
-of the int64 elementwise kernels (the threefry PRNG's draws), and the kernels
-that take the most device time; writes that table and a Chrome trace under
+of the int64 elementwise kernels (the threefry PRNG's draws), that of each
+of the port's own CUDA kernels (``csrc/``), and the kernels that take the
+most device time; writes that table and a Chrome trace under
 ``--out`` (default ``chiprun_out/``). Needs one CUDA device.
 """
 
@@ -105,6 +106,8 @@ def main(argv=None) -> int:
     aten = sum(1 for e in prof.events() if e.cpu_parent is None and e.name.startswith("aten::"))
     int64_us = sum(_device_us(e) for e in kernels
                    if "elementwise_kernel" in e.key and re.search(r"Functor\w*<long", e.key))
+    hand = [e for e in kernels if re.match(r"void (swim_tables|ingest)_kernel<", e.key)]
+    hand_us = sum(_device_us(e) for e in hand)
     lines = [
         smi,
         f"N={cfg.n_nodes} rounds={r}: {plain_s * 1e3:.3f} ms/round unprofiled, "
@@ -117,6 +120,9 @@ def main(argv=None) -> int:
         f"int64 elementwise kernels (the threefry draws and int64 index math) "
         f"{int64_us / r / 1e3:.3f} ms/round = {int64_us / max(busy_us, 1e-9):.3f} "
         f"of device busy time",
+        f"hand kernels (csrc/) {hand_us / r / 1e3:.4f} ms/round: "
+        + "; ".join(f"{e.key.split('(')[0].removeprefix('void ')} "
+                    f"{_device_us(e) / r / 1e3:.4f} ms x {e.count / r:.1f}" for e in hand),
         "top kernels by device time (ms/round, launches/round):",
     ]
     for e in kernels[:25]:

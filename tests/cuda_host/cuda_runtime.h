@@ -33,12 +33,6 @@ struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
-struct alignas(8) uint2 {
-  unsigned x, y;
-};
-struct alignas(16) uint4 {
-  unsigned x, y, z, w;
-};
 typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
