@@ -87,9 +87,6 @@ namespace {
 constexpr int kMaxSlots = 128;
 // warps (node rows) a block: 2 measured 2-6 % faster than 4 and 8 (PERF.md)
 constexpr int kRowsPerBlock = 2;
-// passes of packed entries read before the first merge: 64 entries, the 1M
-// point's four packets of 16
-constexpr int kEarlyPasses = 2;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int kAlive = 0;
 constexpr int kSuspect = 1;
@@ -318,8 +315,11 @@ __global__ void __launch_bounds__(32 * kRowsPerBlock) swim_tables_kernel(const S
     for (int ch = 0; ch < 4; ++ch) n_valid += valid[ch] ? 1 : 0;
     const int total = n_valid * k;  // positions of the valid channels' entries
     const unsigned below = (1u << lane) - 1u;
-    // the first kEarlyPasses passes' entries are read together, before any
-    // merge: their ids, then the views of the live ones
+    // the first passes' entries are read together, before any merge: their
+    // ids, then the views of the live ones. Two passes (64 entries: the 1M
+    // point's four packets of 16) where a lane holds at most two columns;
+    // one where it holds four, which leaves ptxas too few registers for two
+    constexpr int kEarlyPasses = SPL < 4 ? 2 : 1;
     int32_t e_id[kEarlyPasses], e_view[kEarlyPasses];
 #pragma unroll
     for (int q = 0; q < kEarlyPasses; ++q) {
