@@ -6,10 +6,15 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. Build every kernel from ``corrosion_tpu_torch/csrc`` (one ``nvcc`` per
-   source, started together) and print ptxas' register and stack report.
+   source, started together) and print ptxas' register and stack report;
+   each of the swim kernel's 18 instantiations is named, and any stack
+   frame or spill in one of them fails the run.
 2. Hold every kernel form against its plain PyTorch version on the card on
-   random valid inputs drawn from the port's PRNG (every output bitwise
-   equal, tolerance 0), and time both with CUDA events: the flagship forms
+   random valid inputs drawn from the port's PRNG, and again, untimed, on
+   tie-heavy inputs at N three past the configuration's (``_ingest_inputs``
+   and ``_swim_inputs`` with ``ties=True``; the swim inputs must give rows
+   where two row-addressed steps meet in one hash class), every output
+   bitwise equal, tolerance 0; time both with CUDA events: the flagship forms
    at N = 100,000; the 1M point's forms (packed-entry swim kernel with int8
    budgets, ingest with int8 q_tx) at N = 1,000,000; the full view's forms
    at N = 8192 (the recv_slots-wide receive batch, m = 96, on inputs where
@@ -1044,7 +1049,7 @@ def _check_swim_ptxas(log: str) -> None:
     each must have no stack frame and no spills."""
     import re
 
-    seen = set()
+    seen, bad = set(), []
     for mangled, (frame, st, ld, regs) in sorted(_ptxas_functions(log).items()):
         got = re.search(r"swim_tables_kernelI([asi])([asi])Lb([01])ELi(\d+)E", mangled)
         if not got:
@@ -1055,11 +1060,13 @@ def _check_swim_ptxas(log: str) -> None:
         print(f"[ptxas] {name}: {frame} bytes stack frame, {st} bytes spill stores, "
               f"{ld} bytes spill loads; {regs}", flush=True)
         if frame or st or ld:
-            raise AssertionError(f"{name}: stack frame or spills in ptxas' report")
+            bad.append(name)
         seen.add((form, spl))
     want = {((t, x, f), spl) for t, x in (("int16", "int8"), ("int16", "int16"),
                                            ("int32", "int32"))
             for f in ("aligned", "packed") for spl in ("1", "2", "4")}
+    if bad:
+        raise AssertionError(f"stack frame or spills in ptxas' report: {bad}")
     if seen != want:
         raise AssertionError(f"swim ptxas report lacks {sorted(want - seen)}")
 

@@ -85,8 +85,9 @@
 namespace {
 
 constexpr int kMaxSlots = 128;
-// warps (node rows) a block: 2 measured 2-6 % faster than 4 and 8 (PERF.md)
-constexpr int kRowsPerBlock = 2;
+// warps (node rows) a block: 2 and 4 measured within 5 % of each other, 4
+// the faster on five of the six forms, 8 slower (PERF.md, Findings)
+constexpr int kRowsPerBlock = 4;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int kAlive = 0;
 constexpr int kSuspect = 1;
@@ -197,8 +198,8 @@ struct SwimArgs {
 namespace {
 
 // the packed entry at position `pos` < 4k of the valid channels' entries,
-// in apply order (channel by channel, entry by entry): the offset of its id
-// and view in their channel's planes, and that channel's planes
+// in apply order (channel by channel, entry by entry): where its id and its
+// view lie
 struct EntryAt {
   const int32_t* id;
   const int32_t* view;
@@ -334,14 +335,10 @@ __global__ void __launch_bounds__(32 * kRowsPerBlock) swim_tables_kernel(const S
     for (int q = 0; q < kEarlyPasses; ++q) {
       if (32 * q < total) merge_pass(sid, sview, e_id[q], e_view[q], m, mask, below);
     }
-    for (int p0 = 32 * kEarlyPasses; p0 < total; p0 += 32) {
+    for (int p0 = 32 * kEarlyPasses; p0 < total; p0 += 32) {  // the passes after those
       const int pos = p0 + lane;
-      int32_t in_id = kFree, in_view = 0;
-      if (pos < total) {
-        const EntryAt e = entry_at(a, valid, r, k, pos);
-        in_id = *e.id;
-        if (in_id >= 0) in_view = *e.view;
-      }
+      const int32_t in_id = pos < total ? *entry_at(a, valid, r, k, pos).id : kFree;
+      const int32_t in_view = in_id >= 0 ? *entry_at(a, valid, r, k, pos).view : 0;
       merge_pass(sid, sview, in_id, in_view, m, mask, below);
     }
 #pragma unroll
