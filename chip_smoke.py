@@ -272,9 +272,10 @@ def _swim_tie_heavy(args, pig_k: int, seed: int):
     with other views; views are small keys, often DOWN in the table and
     ALIVE in the packets (takes, then merges on the new id), sometimes -1,
     with equal keys common; senders sit on the self slot, on the crowded
-    class or are the node itself; the failed probe's slot is often the self
-    slot; timers and budgets are 0, 1 or 2 (timers expire, budgets run
-    out), and the heard suspicion ties the incarnation's keys."""
+    class, are the node itself or are negative; the failed probe's slot is
+    often the self slot; timers and budgets are 0, 1 or 2 (timers expire,
+    budgets run out), and the heard suspicion ties the incarnation's
+    keys."""
     import torch
 
     from corrosion_tpu_torch import random as prng
@@ -325,6 +326,8 @@ def _swim_tie_heavy(args, pig_k: int, seed: int):
                        torch.where(coin((n,), 0.5), self_slot + m * ri((n,), 0, 3),
                                    in_crowd((n, 1))[:, 0]))
            for _ in range(4)]
+    # a negative sender takes its slot by floor modulo, as Python's %
+    snd = [torch.where(coin((n,), 0.1), -1 - ri((n,), 0, 2 * m), x) for x in snd]
     return (
         mem_id, mem_view, old_id, old_view,
         ri(nm, 0, 3).to(timer.dtype), ri(nm, 0, 3).to(tx.dtype),
