@@ -19,7 +19,8 @@ Phases (any failure raises and the script exits non-zero):
    budgets, ingest with int8 q_tx) at N = 1,000,000; the full view's forms
    at N = 8192 (the recv_slots-wide receive batch, m = 96, on inputs where
    many rows record more messages than the queue's 64 slots, and the
-   non-emitting local write, m = 1, both on int32 planes); and the forms no
+   non-emitting local write, m = 1, both on int32 planes); the empty receive
+   batch (m = 0) of ``pig_changes=0`` at N = 100,000; and the forms no
    path here runs (int32 planes at N = 100,000, the non-emitting local write
    at int16/int16 and int16/int8, the swim kernel's other budget tiers at
    N = 1,000,000).
@@ -53,6 +54,29 @@ Phases (any failure raises and the script exits non-zero):
    the local write (m = 1) and once as the receive batch (m = 96), and the
    swim kernel never; prints rounds/s, peak device memory and the carried
    state's bytes.
+9. tx-trajectory: phase 3's trajectory for the configurations whose CRDT
+   half takes the plain route or the empty batch: multi-cell transactions
+   (``tx_max_cells=4``), the wire-budget lane (``bcast_wire_budget``), and
+   ``pig_changes=0``. Card and CPU bitwise equal after every round; the
+   swim kernel launches once a round in all three; the ingest kernel never
+   in the first two, and at ``pig_changes=0`` once a round as the
+   non-emitting local write and once as the empty receive batch (m = 0).
+10. full-tx-trajectory: phase 7 at ``wan_config(1024, n_origins=16)``
+    (``tx_max_cells=8``, the agent's full-view default) with one seeded
+    transaction of 1..8 cells per writing origin and round; card and CPU
+    bitwise equal after every round, transactions completed, no kernel
+    launched (the configuration takes the plain route).
+11. tx, wirebudget: ``scale_sim_config(100_000, n_origins=16,
+    tx_max_cells=4)`` and ``scale_sim_config(100_000, n_origins=16,
+    bcast_wire_budget=True)`` with the flagship's workload (routed through
+    ``make_write_inputs``' transaction branch for the first): 2 warm-up
+    rounds, then ten timed batches of 2 rounds; median and quartiles of
+    rounds/s, peak device memory; the swim kernel launches once a round,
+    the ingest kernel never.
+12. full-tx: ``wan_config(8192, n_origins=16)`` under ``full_mix`` with
+    phase 10's transactions: 2 warm-up rounds, then ten timed batches of 1
+    round; median and quartiles of rounds/s, peak device memory; no kernel
+    launches.
 
 Each kernel's bound is the larger of the bytes it must move on these inputs
 over the memory rate and the integer operations its function needs on them
@@ -694,6 +718,9 @@ def phase_kernels(dev) -> dict:
          lambda n: _ingest_form(n, full, "receive_full", 51, dev)),
         ("ingest_write_full", "full", ("ingest", "32/32"),
          lambda n: _ingest_form(n, full, "write", 52, dev)),
+        ("ingest_empty", "pig0", ("ingest", "16/16/m0"),
+         lambda n: _ingest_form(n, scale_sim_config(FLAGSHIP_NODES, pig_changes=0),
+                                "receive", 53, dev)),
     ]
     for c, form, seed in ((wide, "receive", 36), (wide, "write", 37),
                           (wide, "write_emit", 38), (flag, "write", 39),
@@ -742,16 +769,20 @@ def _trajectory_setup(cfg, rounds: int, dev):
     return st, net, prng.key(3), inputs
 
 
-def phase_trajectory(dev, label, make_cfg) -> None:
-    """The kernel route on the card == the plain route on the CPU, for
-    ``make_cfg(TRAJECTORY_NODES, ...)``."""
+def phase_trajectory(dev, label, make_cfg, rounds: int = 16, tag: str = "trajectory"):
+    """The card == the CPU, for ``make_cfg(TRAJECTORY_NODES, ...)``: the
+    kernel route on the card against the plain versions on the CPU (and the
+    plain route on both where the config takes it). Returns the card's
+    launch counts per form, and the info sums."""
+    from corrosion_tpu_torch.ops import megakernel as mk
     from corrosion_tpu_torch.sim.scale_step import ScaleRoundInput, scale_run_rounds_carry
 
     cfg = make_cfg(TRAJECTORY_NODES, sync_interval=2, sync_sweep_every=2)
-    rounds = 16
     runs = {d: _trajectory_setup(cfg, rounds, d) for d in ("cpu", dev)}
     carry = {d: (runs[d][0], runs[d][2]) for d in runs}
     t0 = time.perf_counter()
+    mk.reset_launches()
+    sums = {}
     for r in range(rounds):
         infos = {}
         for d, (_, net, _, inputs) in runs.items():
@@ -762,10 +793,49 @@ def phase_trajectory(dev, label, make_cfg) -> None:
         err = _max_abs_err(a, b)
         ierr = _max_abs_err(_flat(infos["cpu"]), [t.cpu() for t in _flat(infos[dev])])
         if err or ierr:
-            raise AssertionError(f"round {r}: cuda != cpu (state {err}, info {ierr})")
-    print(f"[trajectory] N={cfg.n_nodes} {label}: {rounds} rounds, "
+            raise AssertionError(f"{label} round {r}: cuda != cpu (state {err}, info {ierr})")
+        for k, v in infos["cpu"].items():
+            sums[k] = sums.get(k, 0) + int(v.sum())
+    forms = dict(mk.FORM_LAUNCHES)
+    print(f"[{tag}] N={cfg.n_nodes} {label}: {rounds} rounds, "
           f"every leaf and info bitwise equal cuda vs cpu "
-          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+          f"({time.perf_counter() - t0:.1f} s); card launches {forms}", flush=True)
+    return forms, sums
+
+
+#: the tx-trajectory configurations: (label, overrides)
+TX_TRAJECTORIES = (("tx4", dict(tx_max_cells=4)),
+                   ("wirebudget", dict(bcast_wire_budget=True)),
+                   ("pig0", dict(pig_changes=0)))
+
+
+def phase_tx_trajectory(dev) -> dict:
+    """Phase 3's trajectory for multi-cell transactions, the wire-budget
+    lane and ``pig_changes=0``, with the launches their routes imply."""
+    from corrosion_tpu_torch.sim.broadcast import plane_dtypes
+    from corrosion_tpu_torch.sim.scale_step import scale_sim_config
+
+    out = {}
+    for label, over in TX_TRAJECTORIES:
+        rounds = 16
+        forms, sums = phase_trajectory(
+            dev, label, lambda n, **kw: scale_sim_config(n, **kw, **over),
+            rounds, "tx-trajectory")
+        cfg = scale_sim_config(TRAJECTORY_NODES, **over)
+        swim = sum(v for (k, _), v in forms.items() if k == "swim_tables")
+        ingest = {f: v for (k, f), v in forms.items() if k != "swim_tables"}
+        cdt, qdt = plane_dtypes(cfg)
+        q = f"{_bits(cdt)}/{_bits(qdt)}"
+        want = ({q: rounds, f"{q}/m0": rounds} if label == "pig0" else {})
+        if swim != rounds or ingest != want:
+            raise AssertionError(f"{label}: swim launches {swim} != {rounds} or ingest "
+                                 f"launches {ingest} != {want}")
+        if label == "tx4" and sums["tx_completed"] <= 0:
+            raise AssertionError(f"{label}: no transaction completed ({sums})")
+        if label != "pig0" and sums["fresh"] <= 0:
+            raise AssertionError(f"{label}: nothing fresh ({sums})")
+        out[label] = {"forms": forms}
+    return out
 
 
 def phase_flagship(dev) -> dict:
@@ -845,15 +915,9 @@ def phase_million(dev) -> dict:
         return ScaleRoundInput(*(a[lo:hi] for a in inputs))
 
     mk.reset_launches()
-    (st, key), warm_infos = scale_run_rounds_carry(cfg, st, net, key, part(0, warm))
-    torch.cuda.synchronize()
-    rates, batch_infos = [], [warm_infos]
-    for lo in range(warm, total, batch):
-        t0 = time.perf_counter()
-        (st, key), infos = scale_run_rounds_carry(cfg, st, net, key, part(lo, lo + batch))
-        torch.cuda.synchronize()
-        rates.append(batch / (time.perf_counter() - t0))
-        batch_infos.append(infos)
+    st, rates, batch_infos = _timed_batches(
+        lambda s, k, i: scale_run_rounds_carry(cfg, s, net, k, i), st, key, part,
+        warm, batch, reps)
     launches, forms = dict(mk.LAUNCHES), dict(mk.FORM_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     want = {"swim_tables": total, "ingest": total, "ingest_emit": total}
@@ -912,6 +976,179 @@ def phase_full_trajectory(dev) -> None:
           f"info sums {sums}", flush=True)
 
 
+def _with_transactions(cfg, inputs, dev):
+    """``inputs`` with one transaction a round for each writing origin: each
+    origin writes with probability 1/2, ``tx_len`` uniform in 1..K, cells
+    (with replacement) and values uniform, all drawn from key 13."""
+    import torch
+
+    from corrosion_tpu_torch import random as prng
+
+    rounds, n = inputs.kill.shape
+    k = cfg.tx_max_cells
+    k_w, k_len, k_cell, k_val = prng.split(prng.key(13), 4)
+    writer = torch.arange(n, device=dev) < cfg.n_origins
+    return inputs._replace(
+        tx_mask=(prng.uniform(k_w, (rounds, n), dev) < 0.5) & writer,
+        tx_len=prng.randint(k_len, (rounds, n), 1, k + 1, dev),
+        tx_cell=prng.randint(k_cell, (rounds, n, k), 0, cfg.n_cells, dev),
+        tx_val=prng.randint(k_val, (rounds, n, k), 0, 1 << 20, dev),
+    )
+
+
+def _tx_workload(cfg, rounds: int, dev):
+    """The full view's workload with :func:`_with_transactions`."""
+    from corrosion_tpu_torch.sim.scenario import full_view_workload
+
+    st, net, key, inputs = full_view_workload(cfg, rounds, dev)
+    return st, net, key, _with_transactions(cfg, inputs, dev)
+
+
+def phase_full_tx_trajectory(dev) -> None:
+    """The full view at ``tx_max_cells=8`` on the card == on the CPU, every
+    leaf and info value after every round, with seeded transactions; the
+    plain route launches no kernel."""
+    from corrosion_tpu_torch.ops import megakernel as mk
+    from corrosion_tpu_torch.sim.config import wan_config
+    from corrosion_tpu_torch.sim.step import RoundInput, run_rounds_carry
+
+    cfg = wan_config(FULL_TRAJECTORY_NODES, n_origins=16)
+    rounds = 16
+    runs = {d: _tx_workload(cfg, rounds, d) for d in ("cpu", dev)}
+    carry = {d: (runs[d][0], runs[d][2]) for d in runs}
+    t0 = time.perf_counter()
+    mk.reset_launches()
+    sums = {}
+    for r in range(rounds):
+        infos = {}
+        for d, (_, net, _, inputs) in runs.items():
+            one = RoundInput(*(a[r:r + 1] for a in inputs))
+            st, key = carry[d]
+            carry[d], infos[d] = run_rounds_carry(cfg, st, net, key, one)
+        err = _max_abs_err(_flat(carry["cpu"][0]), [t.cpu() for t in _flat(carry[dev][0])])
+        ierr = _max_abs_err(_flat(infos["cpu"]), [t.cpu() for t in _flat(infos[dev])])
+        if err or ierr:
+            raise AssertionError(f"full view tx round {r}: cuda != cpu (state {err}, "
+                                 f"info {ierr})")
+        for k, v in infos["cpu"].items():
+            sums[k] = sums.get(k, 0) + int(v.sum())
+    forms = dict(mk.FORM_LAUNCHES)
+    if sums["tx_completed"] <= 0 or sums["fresh"] <= 0 or sums["syncs"] <= 0 or forms:
+        raise AssertionError(f"full view tx trajectory: sums {sums}, launches {forms}")
+    print(f"[full-tx-trajectory] N={cfg.n_nodes} tx_max_cells={cfg.tx_max_cells} "
+          f"partial_slots={cfg.partial_slots}: {rounds} rounds, every leaf and info "
+          f"bitwise equal cuda vs cpu ({time.perf_counter() - t0:.1f} s); no kernel "
+          f"launched; info sums {sums}", flush=True)
+
+
+def _timed_batches(run, st, key, part, warm: int, batch: int, reps: int):
+    """Run ``warm`` rounds, then ``reps`` timed batches of ``batch`` rounds;
+    returns ``(st, rates, infos of every batch)``."""
+    import torch
+
+    (st, key), warm_infos = run(st, key, part(0, warm))
+    torch.cuda.synchronize()
+    rates, infos = [], [warm_infos]
+    for lo in range(warm, warm + batch * reps, batch):
+        t0 = time.perf_counter()
+        (st, key), got = run(st, key, part(lo, lo + batch))
+        torch.cuda.synchronize()
+        rates.append(batch / (time.perf_counter() - t0))
+        infos.append(got)
+    return st, rates, infos
+
+
+def _spread(rates) -> tuple:
+    """(median, first quartile, third quartile) of the batch rates."""
+    import statistics
+
+    q1, med, q3 = statistics.quantiles(rates, n=4, method="inclusive")
+    return med, q1, q3
+
+
+def phase_scale_point(dev, name: str, **over) -> dict:
+    """``scale_sim_config(FLAGSHIP_NODES, n_origins=16, **over)`` with the
+    flagship's workload: ten timed batches of 2 rounds after 2 warm-up
+    rounds; the swim kernel once a round, the ingest kernel never."""
+    import torch
+
+    from corrosion_tpu_torch.ops import megakernel as mk
+    from corrosion_tpu_torch.sim.scale_step import (
+        ScaleRoundInput,
+        flagship_workload,
+        scale_run_rounds_carry,
+        scale_sim_config,
+    )
+
+    cfg = scale_sim_config(FLAGSHIP_NODES, n_origins=16, **over)
+    n, warm, batch, reps = cfg.n_nodes, 2, 2, 10
+    total = warm + batch * reps
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    st, net, key, inputs = flagship_workload(cfg, total, dev)
+    mk.reset_launches()
+    st, rates, infos = _timed_batches(
+        lambda s, k, i: scale_run_rounds_carry(cfg, s, net, k, i), st, key,
+        lambda lo, hi: ScaleRoundInput(*(a[lo:hi] for a in inputs)), warm, batch, reps)
+    launches, forms = dict(mk.LAUNCHES), dict(mk.FORM_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    want = {"swim_tables": total, "ingest": 0, "ingest_emit": 0}
+    if launches != want:
+        raise AssertionError(f"{name} launch counts {launches} != {want}")
+    sums = {k: sum(int(i[k].sum()) for i in infos) for k in infos[0]}
+    if sums["fresh"] <= 0 or sums["delivered"] <= 0 or sums["syncs"] <= 0:
+        raise AssertionError(f"{name} run moved nothing: {sums}")
+    if cfg.tx_max_cells > 1 and sums["tx_completed"] <= 0:
+        raise AssertionError(f"{name}: no transaction completed: {sums}")
+    if int(st.crdt.now) != total or st.crdt.partials.cell.shape[2] != cfg.tx_max_cells:
+        raise AssertionError(f"{name} state has the wrong round or partial buffer")
+    med, q1, q3 = _spread(rates)
+    print(f"[{name}] N={n} {over}: {reps} batches of {batch} rounds at "
+          f"{[repr(x) for x in rates]} rounds/s, median {med!r} (quartiles {q1!r}-{q3!r}); "
+          f"peak device memory {peak} bytes; launches {forms}; info sums {sums}",
+          flush=True)
+    return {"rounds_per_s": med, "peak_bytes": peak, "forms": forms}
+
+
+def phase_full_tx(dev) -> dict:
+    """The full view at ``wan_config(FULL_NODES, n_origins=16)``
+    (``tx_max_cells=8``) with seeded transactions: ten timed batches of one
+    round after 2 warm-up rounds; no kernel launches."""
+    import torch
+
+    from corrosion_tpu_torch.ops import megakernel as mk
+    from corrosion_tpu_torch.sim.config import wan_config
+    from corrosion_tpu_torch.sim.step import RoundInput, crdt_metrics, run_rounds_carry
+
+    cfg = wan_config(FULL_NODES, n_origins=16)
+    n, warm, batch, reps = cfg.n_nodes, 2, 1, 10
+    total = warm + batch * reps
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    st, net, key, inputs = _tx_workload(cfg, total, dev)
+    state_bytes = _nbytes(_flat(st))
+    mk.reset_launches()
+    st, rates, infos = _timed_batches(
+        lambda s, k, i: run_rounds_carry(cfg, s, net, k, i), st, key,
+        lambda lo, hi: RoundInput(*(a[lo:hi] for a in inputs)), warm, batch, reps)
+    forms = dict(mk.FORM_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    sums = {k: sum(int(i[k].sum()) for i in infos) for k in infos[0]}
+    if forms or sums["tx_completed"] <= 0 or sums["fresh"] <= 0 or sums["syncs"] <= 0:
+        raise AssertionError(f"full view tx run: launches {forms}, sums {sums}")
+    if int(st.crdt.now) != total or _nbytes(_flat(st)) != state_bytes:
+        raise AssertionError("full view tx state has the wrong round or size")
+    metrics = {k: v.item() for k, v in crdt_metrics(cfg, st).items()}
+    med, q1, q3 = _spread(rates)
+    print(f"[full-tx] N={n} tx_max_cells={cfg.tx_max_cells} partial_slots="
+          f"{cfg.partial_slots} recv_slots={cfg.recv_slots}: {reps} batches of {batch} "
+          f"round at {[repr(x) for x in rates]} rounds/s, median {med!r} (quartiles "
+          f"{q1!r}-{q3!r}); peak device memory {peak} bytes; carried state "
+          f"{state_bytes} bytes; launches {forms}; info sums {sums}; metrics {metrics}",
+          flush=True)
+    return {"rounds_per_s": med, "peak_bytes": peak, "forms": forms}
+
+
 def phase_full(dev) -> dict:
     """The full view at ``FULL_NODES`` through the port's entry points: the
     ingest kernel launches once a round as the local write (m=1) and once as
@@ -935,15 +1172,9 @@ def phase_full(dev) -> dict:
         return RoundInput(*(a[lo:hi] for a in inputs))
 
     mk.reset_launches()
-    (st, key), warm_infos = run_rounds_carry(cfg, st, net, key, part(0, warm))
-    torch.cuda.synchronize()
-    rates, batch_infos = [], [warm_infos]
-    for lo in range(warm, total, batch):
-        t0 = time.perf_counter()
-        (st, key), infos = run_rounds_carry(cfg, st, net, key, part(lo, lo + batch))
-        torch.cuda.synchronize()
-        rates.append(batch / (time.perf_counter() - t0))
-        batch_infos.append(infos)
+    st, rates, batch_infos = _timed_batches(
+        lambda s, k, i: run_rounds_carry(cfg, s, net, k, i), st, key, part,
+        warm, batch, reps)
     forms = dict(mk.FORM_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     want_forms = {("ingest", "32/32"): total,
@@ -1120,10 +1351,20 @@ def main() -> int:
     done("full-trajectory")
     full = phase_full(dev)
     done("full")
+    tx_paths = phase_tx_trajectory(dev)
+    done("tx-trajectory")
+    phase_full_tx_trajectory(dev)
+    done("full-tx-trajectory")
+    phase_scale_point(dev, "tx", tx_max_cells=4)
+    done("tx")
+    phase_scale_point(dev, "wirebudget", bcast_wire_budget=True)
+    done("wirebudget")
+    phase_full_tx(dev)
+    done("full-tx")
 
     # each form's launches are read from the path that runs it (0: no path
     # here runs the form)
-    paths = {"flagship": flag, "million": million, "full": full}
+    paths = {"flagship": flag, "million": million, "full": full, "pig0": tx_paths["pig0"]}
     source = {
         "swim_tables": "corrosion_tpu_torch/csrc/swim_tables.cu",
         "ingest": "corrosion_tpu_torch/csrc/ingest.cu",

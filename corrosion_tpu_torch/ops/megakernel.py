@@ -48,7 +48,7 @@ LAUNCHES = {"swim_tables": 0, "ingest": 0, "ingest_emit": 0}
 #: "aligned" or "packed" with its timer and budget bits, e.g.
 #: "packed/16/8"; the ingest kernel's its q_cell and q_tx bits, e.g. "16/8",
 #: and the batch width where it takes the wide instantiation, e.g.
-#: "32/32/m96"
+#: "32/32/m96", or where the batch is empty, e.g. "16/16/m0"
 FORM_LAUNCHES: dict = {}
 
 
@@ -275,6 +275,14 @@ class IngestOutputs(NamedTuple):
 
 def ingest_plain(p: IngestParams, x: IngestInputs) -> IngestOutputs:
     """The ingest kernel's function written on whole tensors."""
+    if x.origin.shape[1] == 0:
+        # an empty batch (the scale round at pig_changes == 0) is one
+        # message that is not live: the reductions over the batch then have
+        # an element, and the outputs are the empty batch's
+        out = ingest_plain(p, x._replace(**{
+            f: getattr(x, f).new_zeros((x.origin.shape[0], 1))
+            for f in ("live",) + _MSG_FIELDS}))
+        return out._replace(fresh=out.fresh[:, :0])
     o, w = p.n_origins, p.seen_words
     m = x.origin.shape[1]
     dev = x.origin.device
@@ -472,8 +480,10 @@ def _ingest_cuda(p: IngestParams, x: IngestInputs) -> IngestOutputs:
             int(p.pig_r > 0), ctypes.c_void_p(stream))
     _raise_on(rc, lib, "ingest_error_string")
     form = f"{8 * x.q_cell.element_size()}/{8 * x.q_tx.element_size()}"
-    if m > limits[5]:
-        form += f"/m{m}"  # the wide instantiation (the full view's mailboxes)
+    if m > limits[5] or m == 0:
+        # the wide instantiation (the full view's mailboxes), or the empty
+        # batch (the scale round at pig_changes == 0)
+        form += f"/m{m}"
     _count_launch("ingest_emit" if p.pig_r else "ingest", form)
     return out
 
@@ -550,12 +560,12 @@ def local_write_fused(cfg, cst, write_mask, cell, val, clp=None, *, rand=None,
     (origin = site = self, dbv = next_dbv, ver = cell's clock + 1, full
     budget, no drift reject, enqueued even when its slot is contended).
     With ``rand``/``carried`` it returns ``(cst, emitted)``, else ``cst``."""
-    from corrosion_tpu_torch.sim.broadcast import hlc_tick
+    from corrosion_tpu_torch.sim.broadcast import _writers, hlc_tick
 
     n = cfg.n_nodes
     dev = write_mask.device
     iarr = torch.arange(n, dtype=torch.int32, device=dev)
-    w = write_mask if cfg.any_writer else write_mask & (iarr < cfg.n_origins)
+    w = _writers(cfg, write_mask)
     if clp is None:
         clp = torch.zeros(n, dtype=torch.int32, device=dev)
     dbv = cst.next_dbv

@@ -6,7 +6,10 @@ Per (node, origin slot): ``head`` (all versions ``1..head`` seen),
 ``org_id``/``org_last``. The JAX package keeps ``seen`` as uint32; the port
 carries the same bit patterns in int32 (torch has no unsigned shifts on the
 CPU), so every shift of a window word is done logically on the word widened
-to int64 under ``& 0xFFFFFFFF``, and popcount is a bit trick.
+to int64 under ``& 0xFFFFFFFF``, and popcount is a bit trick. The
+receive-side bookkeeping (``seen_versions``, ``record_versions``,
+``bump_known_max``) is what the plain ingest route runs; the ingest kernel
+has its own copy of the same steps.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ from typing import NamedTuple
 
 import torch
 
-from corrosion_tpu_torch.ops.dense import lookup_cols
+from corrosion_tpu_torch.ops.dense import lookup_cols, scatter_cols_max, scatter_cols_or
 
 _M32 = 0xFFFFFFFF
 
@@ -97,6 +100,77 @@ def claim_slots_arrays(head, km, seen_flat, org_id, org_last, origin, fresh,
         new_id,
         new_last,
     )
+
+
+def claim_slots(book: Book, origin, fresh, now, keep_rounds: int) -> Book:
+    """Book-level wrapper of :func:`claim_slots_arrays`."""
+    n, o, w = book.seen.shape
+    head, km, seen_flat, org_id, org_last = claim_slots_arrays(
+        book.head, book.known_max, book.seen.reshape(n, o * w), book.org_id,
+        book.org_last, origin, fresh, now, keep_rounds, w,
+    )
+    return Book(head, km, seen_flat.reshape(n, o, w), org_id, org_last)
+
+
+def _window_offsets(book: Book, slot, ver):
+    """Per-message window coordinates: ``(head at the slot, bit offset,
+    flat word index into seen.reshape(N, O*W), in-window mask)``."""
+    w = book.seen.shape[2]
+    h = lookup_cols(book.head, slot)
+    off = ver - h - 1
+    in_win = (off >= 0) & (off < 32 * w)
+    word_idx = slot * w + torch.where(off >= 0, off >> 5, 0)
+    return h, off, word_idx, in_win
+
+
+def seen_versions(book: Book, origin, ver, valid):
+    """bool [N, M]: the origin's slot tracks it and the version is at or
+    below the head or set in the window. Untracked origins are never seen.
+    The window word's bit is read after an arithmetic shift of the int32
+    pattern, which leaves the low bit as the logical shift would."""
+    n, o, w = book.seen.shape
+    slot, owned = org_slot(book, origin)
+    h, off, word_idx, in_win = _window_offsets(book, slot, ver)
+    word = lookup_cols(book.seen.reshape(n, o * w), word_idx, fill=0)
+    hit = ((word >> (torch.clamp(off, min=0) & 31)) & 1) == 1
+    return valid & owned & ((ver <= h) | (in_win & hit))
+
+
+def record_versions(book: Book, origin, ver, valid, now=None, keep_rounds: int = 16):
+    """Record a per-node batch of (origin, version) pairs [N, M]: returns
+    ``(book, fresh, rec)``. ``fresh`` marks messages not seen before and not
+    repeated earlier in the batch; fresh ones from untracked actors first
+    claim their slot (skipped when ``now`` is None); ``rec`` (fresh and
+    owned after the claim) set their window bit when in the window, every
+    owned valid message raises ``known_max``, then heads advance."""
+    n, o, w = book.seen.shape
+    m = origin.shape[1]
+    seen = seen_versions(book, origin, ver, valid)
+    same = ((origin[:, :, None] == origin[:, None, :])
+            & (ver[:, :, None] == ver[:, None, :]) & valid[:, None, :])
+    earlier = torch.ones((m, m), dtype=torch.bool, device=origin.device).tril(-1)
+    fresh = valid & ~seen & ~(same & earlier).any(dim=2)
+
+    if now is not None:
+        book = claim_slots(book, origin, fresh, now, keep_rounds)
+    slot, owned = org_slot(book, origin)
+    rec = fresh & owned
+    _, off, word_idx, in_win = _window_offsets(book, slot, ver)
+    bit = (torch.clamp(off, min=0) & 31).to(torch.int64)
+    flat = scatter_cols_or(book.seen.reshape(n, o * w), word_idx,
+                           as_i32(torch.ones_like(bit) << bit), rec & in_win)
+    known_max = scatter_cols_max(book.known_max, slot, ver, valid & owned)
+    book = book._replace(known_max=known_max, seen=flat.reshape(n, o, w))
+    return advance_heads(book), fresh, rec
+
+
+def bump_known_max(book: Book, origin, ver, valid) -> Book:
+    """Raise ``known_max`` for heard-of (origin, version) pairs without
+    recording them as seen (a fragment of a chunked version); only tracked
+    actors book."""
+    slot, owned = org_slot(book, origin)
+    return book._replace(
+        known_max=scatter_cols_max(book.known_max, slot, ver, valid & owned))
 
 
 def _trailing_ones(seen):

@@ -1,12 +1,14 @@
-"""CRDT state, hybrid logical clock, the single-cell write/ingest entry
-points and the full view's broadcast flush (port of
-``corrosion_tpu/sim/broadcast.py``).
+"""CRDT state, hybrid logical clock, the write and ingest entry points and
+the full view's broadcast flush (port of ``corrosion_tpu/sim/broadcast.py``).
 
-Every node carries an LWW store, version bookkeeping (``Book``) and a
-fixed-width queue of changesets awaiting re-broadcast. A local write and a
-receiver batch both go through the ingest kernel (``ops/megakernel.py``):
-the scale round's piggyback batches and the full view's ``recv_slots``-wide
-mailboxes alike.
+Every node carries an LWW store, version bookkeeping (``Book``), a buffer
+of incomplete multi-cell versions (``Partials``) and a fixed-width queue of
+changesets awaiting re-broadcast. The route is the config's, as in the JAX
+package (:func:`kernel_ingest`): single-cell configurations without the
+wire-budget lane write and ingest through the ingest kernel
+(``ops/megakernel.py``); multi-cell transactions (``tx_max_cells > 1``) and
+the wire-budget lane run the plain PyTorch bodies here, on whatever device
+the tensors are on.
 """
 
 from __future__ import annotations
@@ -16,9 +18,26 @@ from typing import NamedTuple, Tuple
 import torch
 
 from corrosion_tpu_torch._device import resolve_device
-from corrosion_tpu_torch.ops.partials import Partials
-from corrosion_tpu_torch.ops.slots import budget_mask, mailbox_pack
-from corrosion_tpu_torch.ops.versions import Book
+from corrosion_tpu_torch.ops.dense import apply_changes, lookup_cols
+from corrosion_tpu_torch.ops.partials import (
+    Partials,
+    complete_mask,
+    free_slots,
+    ingest_partials,
+)
+from corrosion_tpu_torch.ops.slots import (
+    alloc_slots_evict,
+    budget_mask,
+    mailbox_pack,
+    scatter_rows,
+)
+from corrosion_tpu_torch.ops.versions import (
+    Book,
+    bump_known_max,
+    org_slot,
+    record_versions,
+    seen_versions,
+)
 from corrosion_tpu_torch.sim.transport import NetModel, uni_ok
 
 NO_Q = -1
@@ -116,37 +135,208 @@ class CrdtState(NamedTuple):
         )
 
 
-def _single_cell(cfg) -> None:
-    if cfg.tx_max_cells > 1:
-        raise ValueError(
-            "multi-cell transactions (tx_max_cells > 1) are not ported yet "
-            "(ROADMAP Queue 1: multi-cell transactions with ops/partials.py ingest)"
-        )
+def kernel_ingest(cfg) -> bool:
+    """Does ``cfg`` route its ingest through the ingest kernel? As in the JAX
+    package: single-cell versions (``tx_max_cells <= 1``) without the
+    wire-budget lane. Every other configuration runs the plain body below,
+    on CUDA tensors too."""
+    return cfg.tx_max_cells <= 1 and not getattr(cfg, "bcast_wire_budget", False)
+
+
+def _enqueue(cst: CrdtState, want, origin, dbv, cell, ver, val, site, clp,
+             seq, nseq, ts, tx):
+    """Place per-node batches of changes into queue slots; on overflow the
+    most-sent queued changeset (lowest remaining budget) is evicted."""
+    slot, placed = alloc_slots_evict(cst.q_origin == NO_Q, cst.q_tx, want)
+
+    def put(plane, v):
+        return scatter_rows(plane, slot, placed, v)
+
+    return cst._replace(
+        q_origin=put(cst.q_origin, origin), q_dbv=put(cst.q_dbv, dbv),
+        q_cell=put(cst.q_cell, cell), q_ver=put(cst.q_ver, ver),
+        q_val=put(cst.q_val, val), q_site=put(cst.q_site, site),
+        q_clp=put(cst.q_clp, clp), q_seq=put(cst.q_seq, seq),
+        q_nseq=put(cst.q_nseq, nseq), q_ts=put(cst.q_ts, ts),
+        q_tx=put(cst.q_tx, tx),
+    )
+
+
+def _writers(cfg, mask):
+    """The nodes whose writes commit: any node under ``any_writer``, else
+    the first ``n_origins``."""
+    if getattr(cfg, "any_writer", False):
+        return mask
+    return mask & (torch.arange(cfg.n_nodes, device=mask.device) < cfg.n_origins)
 
 
 def local_write(cfg, cst: CrdtState, write_mask, cell, val, clp=None):
-    """Commit one-cell write transactions at the writer nodes, through the
-    ingest kernel (apply locally, record, queue for broadcast)."""
-    from corrosion_tpu_torch.ops import megakernel
+    """Commit one-cell write transactions at the writer nodes: assign the
+    db_version, bump the cell's clock, apply locally, record, queue for
+    broadcast. Through the ingest kernel where :func:`kernel_ingest`, else
+    the plain body."""
+    if kernel_ingest(cfg):
+        from corrosion_tpu_torch.ops import megakernel
 
-    _single_cell(cfg)
-    return megakernel.local_write_fused(cfg, cst, write_mask, cell, val, clp)
+        return megakernel.local_write_fused(cfg, cst, write_mask, cell, val, clp)
+    n = cfg.n_nodes
+    dev = write_mask.device
+    iarr = torch.arange(n, dtype=torch.int32, device=dev)
+    w = _writers(cfg, write_mask)
+    if clp is None:
+        clp = torch.zeros(n, dtype=torch.int32, device=dev)
+    dbv = cst.next_dbv
+    ver = lookup_cols(cst.store[0], cell[:, None])[:, 0] + 1
+    ts, hlc = hlc_tick(cst.hlc, cst.now, w)
+    col = lambda v: v[:, None]  # noqa: E731
+    store = apply_changes(cst.store, col(cell), col(ver), col(val), col(iarr),
+                          col(dbv), col(clp), col(w))
+    book, _, _ = record_versions(cst.book, col(iarr), col(dbv), col(w),
+                                 now=cst.now, keep_rounds=cfg.org_keep_rounds)
+    cst = cst._replace(store=store, book=book, hlc=hlc,
+                       next_dbv=torch.where(w, dbv + 1, cst.next_dbv))
+    ones = torch.ones((n, 1), dtype=torch.int32, device=dev)
+    return _enqueue(cst, col(w), col(iarr), col(dbv), col(cell), col(ver),
+                    col(val), col(iarr), col(clp), ones - 1, ones, col(ts),
+                    ones * cfg.bcast_max_transmissions)
+
+
+def local_write_tx(cfg, cst: CrdtState, tx_mask, tx_cell, tx_val, tx_clp, tx_len):
+    """Commit multi-cell write transactions: ``tx_cell``/``tx_val``/``tx_clp``
+    int32 [N, K] (K <= ``tx_max_cells``), ``tx_len`` [N] real lanes. The
+    cells share one db_version and one HLC stamp, carry seq 0..len-1, apply
+    atomically to the writer's store (the batch's LWW max where a cell
+    repeats) and queue one chunk each."""
+    n, k = cfg.n_nodes, tx_cell.shape[1]
+    if k > max(1, cfg.tx_max_cells):
+        raise ValueError(
+            f"tx_cell has {k} lanes > tx_max_cells {max(1, cfg.tx_max_cells)}")
+    dev = tx_mask.device
+    i32 = torch.int32
+    w = _writers(cfg, tx_mask)
+    lane = torch.arange(k, dtype=i32, device=dev)[None, :].expand(n, k)
+    lane_ok = w[:, None] & (lane < tx_len[:, None])
+    dbv = cst.next_dbv
+    ver = lookup_cols(cst.store[0], tx_cell) + 1
+    site = torch.arange(n, dtype=i32, device=dev)[:, None].expand(n, k)
+    ts, hlc = hlc_tick(cst.hlc, cst.now, w)
+    wide = lambda v: v[:, None].expand(n, k)  # noqa: E731
+    store = apply_changes(cst.store, tx_cell, ver, tx_val, site, wide(dbv),
+                          tx_clp, lane_ok)
+    book, _, _ = record_versions(cst.book, site[:, :1], dbv[:, None], w[:, None],
+                                 now=cst.now, keep_rounds=cfg.org_keep_rounds)
+    cst = cst._replace(store=store, book=book, hlc=hlc,
+                       next_dbv=torch.where(w, dbv + 1, cst.next_dbv))
+    return _enqueue(cst, lane_ok, site, wide(dbv), tx_cell, ver, tx_val, site,
+                    tx_clp, lane, wide(tx_len), wide(ts),
+                    torch.full((n, k), cfg.bcast_max_transmissions, dtype=i32,
+                               device=dev))
+
+
+def _dead_column(live, fields):
+    """An empty batch (M = 0) as one message that is not live: the
+    reductions over the message axis then have an element, and the result
+    is the empty batch's."""
+    if live.shape[1]:
+        return live, fields
+    return (torch.zeros((live.shape[0], 1), dtype=torch.bool, device=live.device),
+            [f.new_zeros((f.shape[0], 1)) for f in fields])
 
 
 def ingest_changes(cfg, cst: CrdtState, live, m_origin, m_dbv, m_cell, m_ver,
-                   m_val, m_site, m_clp, m_seq=None, m_nseq=None, m_ts=None):
-    """Receiver ingest of single-cell changes through the ingest kernel:
-    dedupe via the Book, apply fresh cells, re-enqueue recorded ones.
-    ``m_seq``/``m_nseq`` (the chunking stamps) are ignored: every version
-    is one cell at ``tx_max_cells == 1``. Returns ``(cst, info)``."""
-    from corrosion_tpu_torch.ops import megakernel
-
-    _single_cell(cfg)
+                   m_val, m_site, m_clp, m_seq=None, m_nseq=None, m_ts=None,
+                   m_tx=None):
+    """Receiver ingest of per-row message batches [N, M]: fold the HLC
+    stamps (dropping those too far ahead), dedupe via the Book, apply fresh
+    single-cell versions, buffer the cells of chunked versions
+    (``nseq > 1``) and apply each version whole once its seq range is
+    complete, re-enqueue recorded changes (and fresh fragments of owned
+    actors) for re-broadcast. Under ``bcast_wire_budget`` with the wire lane
+    ``m_tx``, unowned fresh messages re-enqueue at the incoming budget minus
+    one. Through the ingest kernel where :func:`kernel_ingest` (the chunking
+    stamps are then all single-cell), else the plain body. Returns
+    ``(cst, info)``."""
+    if m_seq is None:
+        m_seq = torch.zeros_like(m_origin)
+    if m_nseq is None:
+        m_nseq = torch.ones_like(m_origin)
     if m_ts is None:
         m_ts = torch.zeros_like(m_origin)
-    return megakernel.ingest_changes_fused(
-        cfg, cst, live, m_origin, m_dbv, m_cell, m_ver, m_val, m_site, m_clp, m_ts
-    )
+    if kernel_ingest(cfg):
+        from corrosion_tpu_torch.ops import megakernel
+
+        return megakernel.ingest_changes_fused(
+            cfg, cst, live, m_origin, m_dbv, m_cell, m_ver, m_val, m_site,
+            m_clp, m_ts)
+    wire = m_tx is not None and getattr(cfg, "bcast_wire_budget", False)
+    fields = [m_origin, m_dbv, m_cell, m_ver, m_val, m_site, m_clp, m_seq,
+              m_nseq, m_ts] + ([m_tx] if wire else [])
+    live, fields = _dead_column(live, fields)
+    (m_origin, m_dbv, m_cell, m_ver, m_val, m_site, m_clp, m_seq, m_nseq,
+     m_ts) = fields[:10]
+    n = cfg.n_nodes
+    keep = cfg.org_keep_rounds
+    re_max = max(1, cfg.bcast_max_transmissions - 1)
+    rebudget = torch.full_like(m_origin, re_max)
+
+    hlc, live, drift_rejects = hlc_fold(cst.hlc, cst.now, m_ts, live)
+    cst = cst._replace(hlc=hlc)
+
+    # complete (single-cell) versions: record and apply on arrival
+    book, fresh1, rec1 = record_versions(cst.book, m_origin, m_dbv,
+                                         live & (m_nseq <= 1), now=cst.now,
+                                         keep_rounds=keep)
+    store = apply_changes(cst.store, m_cell, m_ver, m_val, m_site, m_dbv, m_clp, fresh1)
+    cst = cst._replace(store=store, book=book)
+    fresh, enq, wire_extra = fresh1, rec1, None
+    if wire:
+        # unowned fresh messages follow the incoming budget down
+        wire_next = torch.clamp(fields[10] - 1, 0, re_max)
+        wire_extra = fresh1 & ~org_slot(book, m_origin)[1] & (wire_next > 0)
+        enq = rec1 | wire_extra
+        rebudget = torch.where(wire_extra, wire_next, rebudget)
+    completed = torch.zeros((), dtype=torch.int64, device=live.device)
+    if cfg.tx_max_cells > 1:
+        # chunked versions: buffer, complete, then apply each one whole
+        multi = live & (m_nseq > 1)
+        seen = seen_versions(cst.book, m_origin, m_dbv, multi)
+        book = bump_known_max(cst.book, m_origin, m_dbv, multi)
+        par, fresh_m = ingest_partials(cst.partials, multi & ~seen, m_origin,
+                                       m_dbv, m_seq, m_nseq, m_cell, m_ver,
+                                       m_val, m_site, m_clp)
+        full = complete_mask(par)
+        p, k = par.cell.shape[1], par.cell.shape[2]
+        lane = torch.arange(k, dtype=torch.int32, device=live.device)
+        lane_ok = full[:, :, None] & (lane < par.nseq[:, :, None])
+
+        def flat(a):
+            return a.reshape(n, p * k)
+
+        store = apply_changes(
+            cst.store, flat(par.cell), flat(par.ver), flat(par.val),
+            flat(par.site), flat(par.dbv[:, :, None].expand(n, p, k)),
+            flat(par.clp), flat(lane_ok))
+        book, _, _ = record_versions(book, par.origin, par.dbv, full,
+                                     now=cst.now, keep_rounds=keep)
+        cst = cst._replace(store=store, book=book, partials=free_slots(par, full))
+        fresh = fresh1 | fresh_m
+        # a fragment re-broadcasts only where its actor's slot is owned: an
+        # unowned one re-buffers fresh on every arrival
+        enq = rec1 | (fresh_m & org_slot(book, m_origin)[1])
+        if wire_extra is not None:
+            enq = enq | wire_extra
+        completed = full.sum()
+
+    cst = _enqueue(cst, enq, m_origin, m_dbv, m_cell, m_ver, m_val, m_site,
+                   m_clp, m_seq, m_nseq, m_ts, rebudget)
+    info = {
+        "delivered": live.sum(),
+        "fresh": fresh.sum(),
+        "tx_completed": completed,
+        "clock_drift_rejects": drift_rejects,
+        "queued": (cst.q_origin != NO_Q).sum(),
+    }
+    return cst, info
 
 
 def bcast_step(cfg, cst: CrdtState, targets, t_ok, alive, net: NetModel, key):

@@ -2,8 +2,8 @@
 
 ``SimConfig`` and ``wan_config`` are copied field for field, so the same
 arguments give the same shapes and protocol constants as the JAX package
-(a CPU test pins the two equal). ``check_full_slice`` names what the
-port's full-view round does not run yet.
+(a CPU test pins the two equal). ``check_full_slice`` refuses the
+execution knobs the port does not have.
 """
 
 from __future__ import annotations
@@ -109,15 +109,10 @@ def full_view_config(n_nodes: int = 8192, **overrides) -> SimConfig:
 
 
 def check_full_slice(cfg: SimConfig) -> None:
-    """Raise for the full-view configurations the port does not run yet."""
-    for bad, why in (
-        (cfg.tx_max_cells > 1,
-         f"tx_max_cells={cfg.tx_max_cells}: multi-cell transactions are not "
-         f"ported yet (ROADMAP Queue 1 item 11); use tx_max_cells=1"),
-        (cfg.fused in ("off", "interpret"),
-         f"fused={cfg.fused!r}: the port has no XLA or interpret path; the "
-         f"kernels run on CUDA tensors and their plain versions on CPU "
-         f"tensors (ROADMAP, rules of the port)"),
-    ):
-        if bad:
-            raise ValueError(why)
+    """Raise for the execution knobs the port does not have: ``fused="off"``
+    and ``"interpret"``."""
+    if cfg.fused in ("off", "interpret"):
+        raise ValueError(
+            f"fused={cfg.fused!r}: the port has no XLA or interpret path; the "
+            f"route follows the config and the tensors' device (ROADMAP, "
+            f"rules of the port)")

@@ -5,17 +5,20 @@ One round: SWIM front, SWIM back (swim kernel), the local write that also
 emits the piggyback payload (emitting ingest kernel), the piggyback
 broadcast into the receiving ingest kernel, cohort anti-entropy sync every
 ``sync_interval`` rounds (with the sweep lane), then the carry re-narrows.
+The route of the CRDT half is the config's, as in the JAX package: at
+``pig_changes == 0`` the local write is the non-emitting kernel and the
+piggyback selection is plain (the receiving kernel then takes an empty
+batch); multi-cell transactions (``tx_max_cells > 1``) and the wire-budget
+lane (``bcast_wire_budget``) run the plain write, selection and ingest,
+with the partial-changeset buffer, on the card as on the CPU.
 ``scale_run_rounds`` loops the round in Python; the sync gate reads a
 host-side mirror of the round counter, so no round waits on the device.
 
 ``quiet="on"`` swaps in :func:`scale_sim_step_quiet`, which runs only the
 SWIM front on a round it proves to be a fixpoint.
 
-The port runs the single-cell piggyback configuration family
-(``tx_max_cells == 1``, ``pig_changes > 0``, no wire budget lane), with
-aligned or bounded (``pig_members > 0``) member packets and either int8
-tier; anything else raises a ``ValueError`` naming the ROADMAP item that
-will port it.
+Only ``fused="off"``/``"interpret"`` are refused (:func:`check_slice`): the
+port has no XLA or interpret path.
 """
 
 from __future__ import annotations
@@ -37,12 +40,17 @@ from corrosion_tpu_torch.ops.dense import (
 from corrosion_tpu_torch.ops.lww import STATE_ALIVE, STATE_DOWN, STATE_SUSPECT
 from corrosion_tpu_torch.ops.partials import NO_SLOT
 from corrosion_tpu_torch.ops.select import sample_k
+from corrosion_tpu_torch.ops.slots import budget_mask
 from corrosion_tpu_torch.ops.versions import needs_count
 from corrosion_tpu_torch.sim.broadcast import (
+    CHANGE_WIRE_BYTES,
     LAST_SYNC_CAP,
     NO_Q,
     CrdtState,
     ingest_changes,
+    kernel_ingest,
+    local_write,
+    local_write_tx,
 )
 from corrosion_tpu_torch.sim.config import FUSED_MODES, QUIET_MODES
 from corrosion_tpu_torch.sim.scale import (
@@ -200,23 +208,14 @@ def scale_sim_config(n_nodes: int, **overrides) -> ScaleSimConfig:
 
 
 def check_slice(cfg: ScaleSimConfig) -> None:
-    """Raise for configurations this port does not run yet, naming the
-    ROADMAP item that will port each."""
-    unported = [
-        (cfg.tx_max_cells > 1,
-         "tx_max_cells > 1 (ROADMAP Queue 1: multi-cell transactions with "
-         "ops/partials.py ingest)"),
-        (cfg.bcast_wire_budget,
-         "bcast_wire_budget (ROADMAP Queue 2: the ingest kernel's wire-budget lane)"),
-        (cfg.pig_changes <= 0,
-         "pig_changes == 0 (ROADMAP Queue 2: the non-emitting local-write form)"),
-        (cfg.fused in ("off", "interpret"),
-         f"fused={cfg.fused!r}: the port has no XLA or interpret path; the "
-         f"route follows the tensors' device (ROADMAP Queue 2 item 4 is not ported)"),
-    ]
-    bad = [why for cond, why in unported if cond]
-    if bad:
-        raise ValueError("not ported yet: " + "; ".join(bad))
+    """Raise for the execution knobs the port does not have: ``fused="off"``
+    and ``"interpret"`` (the route follows the config and the tensors'
+    device, ROADMAP, rules of the port)."""
+    if cfg.fused in ("off", "interpret"):
+        raise ValueError(
+            f"fused={cfg.fused!r}: the port has no XLA or interpret path; the "
+            f"route follows the config and the tensors' device (ROADMAP, "
+            f"rules of the port)")
 
 
 class ScaleSimState(NamedTuple):
@@ -264,15 +263,23 @@ class ScaleRoundInput(NamedTuple):
 def make_write_inputs(cfg: ScaleSimConfig, key, rounds: int, write_mask,
                       device="cuda") -> ScaleRoundInput:
     """Stacked per-round inputs with conflict-heavy random writes for the
-    nodes in ``write_mask`` (bool [rounds, N]); the same draws as the JAX
-    package's ``make_write_inputs``."""
+    nodes in ``write_mask`` (bool [rounds, N]): single-cell writes, or at
+    ``tx_max_cells > 1`` one transaction of 1..K cells (drawn with
+    replacement) per writer; the same draws as the JAX package's
+    ``make_write_inputs``."""
     dev = resolve_device(device)
-    if cfg.tx_max_cells > 1:
-        check_slice(cfg)
-    k_cell, k_val, _k_len = prng.split(key, 3)
+    k_cell, k_val, k_len = prng.split(key, 3)
     n = cfg.n_nodes
     quiet = ScaleRoundInput.quiet(cfg, dev)
     inputs = ScaleRoundInput(*(a.expand((rounds,) + tuple(a.shape)).clone() for a in quiet))
+    if cfg.tx_max_cells > 1:
+        k = cfg.tx_max_cells
+        return inputs._replace(
+            tx_mask=write_mask.to(dev),
+            tx_len=prng.randint(k_len, (rounds, n), 1, k + 1, dev),
+            tx_cell=prng.randint(k_cell, (rounds, n, k), 0, cfg.n_cells, dev),
+            tx_val=prng.randint(k_val, (rounds, n, k), 0, 1 << 20, dev),
+        )
     return inputs._replace(
         write_mask=write_mask.to(dev),
         write_cell=prng.randint(k_cell, (rounds, n), 0, cfg.n_cells, dev),
@@ -303,35 +310,65 @@ def flagship_workload(cfg: ScaleSimConfig, rounds: int, device="cuda"):
             prng.key(0), make_write_inputs(cfg, k_in, rounds, w, dev))
 
 
-def piggyback_bcast_step(cfg, cst: CrdtState, channels, carried, emitted):
-    """Disseminate queued changesets over the SWIM packet channels: each
-    delivered packet carries its sender's emitted payload (the local-write
-    kernel's selection); the senders' budgets burn once per delivered
-    packet, and the receivers ingest through the receiving kernel."""
+def piggyback_bcast_step(cfg, cst: CrdtState, channels, key, carried=None,
+                         emitted=None):
+    """Disseminate queued changesets over the SWIM packet channels
+    (``(src, valid)`` pairs, one sender per receiver). Each delivered packet
+    carries its sender's ``pig_changes`` selected queue slots: the
+    local-write kernel's ``emitted`` ``(payload, sel_slots, sel_ok)`` when
+    given, else the selection here (the per-sender byte budget over
+    ``carried`` delivered packets, then a uniform sample of the live slots
+    under ``key``, packed once per sender as ``[N, (n_fields + 1) * R]``
+    int32, with the remaining-budget lane under ``bcast_wire_budget``). The
+    senders' budgets burn once per delivered packet; the receivers ingest.
+    ``carried`` int32 [N] defaults to the delivered packets per sender."""
     n, q, r = cfg.n_nodes, cfg.bcast_queue, cfg.pig_changes
-    payload, sel_slots, sel_ok = emitted
-    n_fields = 10
+    dev = cst.q_origin.device
+    i32 = torch.int32
+    if carried is None:
+        carried = torch.zeros(n + 1, dtype=i32, device=dev)
+        for src, valid in channels:
+            src = torch.clamp(src, min=0).long()
+            carried.scatter_add_(0, torch.where(src < n, src, n), valid.to(i32))
+        carried = carried[:n]
+    wire = bool(cfg.bcast_wire_budget)
+    if emitted is not None:
+        if wire:
+            raise ValueError(
+                "kernel-emitted payloads carry no wire-budget lane; "
+                "bcast_wire_budget runs the plain selection")
+        payload, sel_slots, sel_ok = emitted
+    else:
+        live_slot = (cst.q_origin != NO_Q) & (cst.q_tx > 0)
+        allowed = torch.clamp(
+            cfg.bcast_budget_bytes // (CHANGE_WIRE_BYTES * torch.clamp(carried, min=1)),
+            min=1).to(i32)
+        sel_slots, sel_ok = sample_k(budget_mask(live_slot, cst.q_tx, allowed), r, key)
+        fields = [cst.q_origin, cst.q_dbv, cst.q_cell, cst.q_ver, cst.q_val,
+                  cst.q_site, cst.q_clp, cst.q_seq, cst.q_nseq, cst.q_ts]
+        if wire:
+            fields.append(cst.q_tx)
+        payload = torch.cat([select_cols(f, sel_slots).to(i32) for f in fields]
+                            + [sel_ok.to(i32)], dim=1)
+    n_fields = 11 if wire else 10
     parts, valids = [], []
     for src, valid in channels:
         got = take_rows(payload, torch.clamp(src, min=0))
         parts.append([got[:, i * r:(i + 1) * r] for i in range(n_fields)])
         valids.append(valid[:, None] & (got[:, n_fields * r:(n_fields + 1) * r] != 0))
     lanes = [torch.cat([p[i] for p in parts], dim=1) for i in range(n_fields)]
-    m_origin, m_dbv, m_cell, m_ver, m_val, m_site, m_clp, _m_seq, _m_nseq, m_ts = lanes
     live = torch.cat(valids, dim=1)
 
     # sender budget decrement: one per delivered packet, in the plane dtype
     dec = scatter_cols_add(
-        torch.zeros((n, q), dtype=cst.q_tx.dtype, device=cst.q_tx.device),
+        torch.zeros((n, q), dtype=cst.q_tx.dtype, device=dev),
         sel_slots, carried[:, None].expand(sel_slots.shape), sel_ok,
     )
     q_tx = torch.clamp(cst.q_tx - dec, min=0)
     exhausted = (cst.q_origin != NO_Q) & (q_tx <= 0)
     cst = cst._replace(q_tx=q_tx, q_origin=torch.where(exhausted, NO_Q, cst.q_origin))
-    return ingest_changes(
-        cfg, cst, live, m_origin, m_dbv, m_cell, m_ver, m_val, m_site, m_clp,
-        m_ts=m_ts,
-    )
+    return ingest_changes(cfg, cst, live, *lanes[:10],
+                          m_tx=lanes[10] if wire else None)
 
 
 def _post_swim(cfg, st, net, swim, swim_info, channels, carried, k_pig, k_sp,
@@ -345,12 +382,23 @@ def _post_swim(cfg, st, net, swim, swim_info, channels, carried, k_pig, k_sp,
     dev = swim.mem_id.device
     cst = st.crdt._replace(now=st.crdt.now + 1)
 
-    rand = prng.uniform(k_pig, (n, cfg.bcast_queue), dev)
-    cst, emitted = megakernel.local_write_fused(
-        cfg, cst, inp.write_mask, inp.write_cell, inp.write_val, inp.write_clp,
-        rand=rand, carried=carried,
-    )
-    cst, b_info = piggyback_bcast_step(cfg, cst, channels, carried, emitted)
+    emitted = None
+    if kernel_ingest(cfg) and cfg.pig_changes > 0:
+        # the local-write kernel also emits the round's piggyback selection,
+        # from the same draw the plain selection would make under k_pig
+        rand = prng.uniform(k_pig, (n, cfg.bcast_queue), dev)
+        cst, emitted = megakernel.local_write_fused(
+            cfg, cst, inp.write_mask, inp.write_cell, inp.write_val,
+            inp.write_clp, rand=rand, carried=carried,
+        )
+    else:
+        cst = local_write(cfg, cst, inp.write_mask, inp.write_cell,
+                          inp.write_val, inp.write_clp)
+        if cfg.tx_max_cells > 1:
+            cst = local_write_tx(cfg, cst, inp.tx_mask, inp.tx_cell, inp.tx_val,
+                                 inp.tx_clp, inp.tx_len)
+    cst, b_info = piggyback_bcast_step(cfg, cst, channels, k_pig, carried,
+                                       emitted=emitted)
 
     iarr = torch.arange(n, dtype=torch.int32, device=dev)
     bel_alive = (

@@ -7,9 +7,12 @@ round. ``run_rounds`` is a Python loop over rounds in place of the JAX
 package's ``lax.scan``; the per-round key is split off the carried key, so
 chaining carries reproduces a straight run bit for bit.
 
-The round runs on CUDA tensors through the ingest kernel in two forms (the
-non-emitting local write, m=1, and the ``recv_slots``-wide receive batch)
-and on CPU tensors through its plain version. It reads nothing back from
+At ``tx_max_cells == 1`` the round runs on CUDA tensors through the ingest
+kernel in two forms (the non-emitting local write, m=1, and the
+``recv_slots``-wide receive batch) and on CPU tensors through its plain
+version. At ``wan_config``'s default ``tx_max_cells=8`` it runs multi-cell
+transactions (``local_write_tx``, chunked delivery through the partial
+buffer) on the plain route, as the JAX package does. It reads nothing back from
 the device except once per ``run_rounds_carry`` call, for the host mirror
 of the round counter that the sweep predicate needs.
 """
@@ -30,6 +33,7 @@ from corrosion_tpu_torch.sim.broadcast import (
     CrdtState,
     bcast_step,
     local_write,
+    local_write_tx,
 )
 from corrosion_tpu_torch.sim.config import SimConfig, check_full_slice
 from corrosion_tpu_torch.sim.swim import SwimState, swim_metrics, swim_step
@@ -57,8 +61,8 @@ class RoundInput(NamedTuple):
     write_cell: torch.Tensor  # int32 [N]
     write_val: torch.Tensor  # int32 [N]
     write_clp: torch.Tensor  # int32 [N]
-    tx_mask: torch.Tensor  # bool [N] — multi-cell transactions (not ported)
-    tx_len: torch.Tensor  # int32 [N]
+    tx_mask: torch.Tensor  # bool [N] — one multi-cell transaction a node
+    tx_len: torch.Tensor  # int32 [N] — real lanes (1..K)
     tx_cell: torch.Tensor  # int32 [N, K]
     tx_val: torch.Tensor  # int32 [N, K]
     tx_clp: torch.Tensor  # int32 [N, K]
@@ -98,6 +102,9 @@ def sim_step(cfg: SimConfig, st: SimState, net: NetModel, key, inp: RoundInput,
     cst = st.crdt._replace(now=st.crdt.now + 1)
     cst = local_write(cfg, cst, inp.write_mask, inp.write_cell, inp.write_val,
                       inp.write_clp)
+    if cfg.tx_max_cells > 1:
+        cst = local_write_tx(cfg, cst, inp.tx_mask, inp.tx_cell, inp.tx_val,
+                             inp.tx_clp, inp.tx_len)
 
     # broadcast fanout: same-region members take strict priority
     targets, t_ok = sample_k_biased(

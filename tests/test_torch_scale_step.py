@@ -223,10 +223,7 @@ def test_wide_planes_equal_narrow_planes():
     assert all(torch.equal(ia[k], ib[k]) for k in ia)
 
 
-@pytest.mark.parametrize("over", [
-    dict(tx_max_cells=2), dict(bcast_wire_budget=True),
-    dict(fused="off"), dict(pig_changes=0),
-])
+@pytest.mark.parametrize("over", [dict(fused="off"), dict(fused="interpret")])
 def test_unported_configs_raise_naming_roadmap(over):
     cfg = scale_step.scale_sim_config(64, **over)
     with pytest.raises(ValueError, match="ROADMAP"):
