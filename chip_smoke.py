@@ -908,15 +908,11 @@ def phase_million(dev) -> dict:
     total = warm + batch * reps
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    st, net, key, inputs = flagship_workload(cfg, total, dev)
-    state_bytes = _nbytes(_flat(st))
-
-    def part(lo, hi):
-        return ScaleRoundInput(*(a[lo:hi] for a in inputs))
-
     mk.reset_launches()
-    st, rates, batch_infos = _timed_batches(
-        lambda s, k, i: scale_run_rounds_carry(cfg, s, net, k, i), st, key, part,
+    st, state_bytes, rates, batch_infos = _timed_batches(
+        lambda: flagship_workload(cfg, total, dev),
+        lambda s, net, k, i: scale_run_rounds_carry(cfg, s, net, k, i),
+        lambda inputs, lo, hi: ScaleRoundInput(*(a[lo:hi] for a in inputs)),
         warm, batch, reps)
     launches, forms = dict(mk.LAUNCHES), dict(mk.FORM_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
@@ -1041,21 +1037,28 @@ def phase_full_tx_trajectory(dev) -> None:
           f"launched; info sums {sums}", flush=True)
 
 
-def _timed_batches(run, st, key, part, warm: int, batch: int, reps: int):
-    """Run ``warm`` rounds, then ``reps`` timed batches of ``batch`` rounds;
-    returns ``(st, rates, infos of every batch)``."""
+def _timed_batches(make, run, cut, warm: int, batch: int, reps: int):
+    """Build the workload with ``make()`` (``(state, net, key, inputs)``),
+    run ``warm`` rounds, then ``reps`` timed batches of ``batch`` rounds of
+    ``run(state, net, key, cut(inputs, lo, hi))``. Only this frame holds
+    the state, so the first round's input state is freed as in a plain
+    loop and the peak memory is the run's own. Returns ``(final state,
+    the initial state's bytes, rates, infos of the warm-up and of every
+    batch)``."""
     import torch
 
-    (st, key), warm_infos = run(st, key, part(0, warm))
+    st, net, key, inputs = make()
+    state_bytes = _nbytes(_flat(st))
+    (st, key), warm_infos = run(st, net, key, cut(inputs, 0, warm))
     torch.cuda.synchronize()
     rates, infos = [], [warm_infos]
     for lo in range(warm, warm + batch * reps, batch):
         t0 = time.perf_counter()
-        (st, key), got = run(st, key, part(lo, lo + batch))
+        (st, key), got = run(st, net, key, cut(inputs, lo, lo + batch))
         torch.cuda.synchronize()
         rates.append(batch / (time.perf_counter() - t0))
         infos.append(got)
-    return st, rates, infos
+    return st, state_bytes, rates, infos
 
 
 def _spread(rates) -> tuple:
@@ -1085,11 +1088,12 @@ def phase_scale_point(dev, name: str, **over) -> dict:
     total = warm + batch * reps
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    st, net, key, inputs = flagship_workload(cfg, total, dev)
     mk.reset_launches()
-    st, rates, infos = _timed_batches(
-        lambda s, k, i: scale_run_rounds_carry(cfg, s, net, k, i), st, key,
-        lambda lo, hi: ScaleRoundInput(*(a[lo:hi] for a in inputs)), warm, batch, reps)
+    st, _, rates, infos = _timed_batches(
+        lambda: flagship_workload(cfg, total, dev),
+        lambda s, net, k, i: scale_run_rounds_carry(cfg, s, net, k, i),
+        lambda inputs, lo, hi: ScaleRoundInput(*(a[lo:hi] for a in inputs)),
+        warm, batch, reps)
     launches, forms = dict(mk.LAUNCHES), dict(mk.FORM_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     want = {"swim_tables": total, "ingest": 0, "ingest_emit": 0}
@@ -1125,12 +1129,12 @@ def phase_full_tx(dev) -> dict:
     total = warm + batch * reps
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    st, net, key, inputs = _tx_workload(cfg, total, dev)
-    state_bytes = _nbytes(_flat(st))
     mk.reset_launches()
-    st, rates, infos = _timed_batches(
-        lambda s, k, i: run_rounds_carry(cfg, s, net, k, i), st, key,
-        lambda lo, hi: RoundInput(*(a[lo:hi] for a in inputs)), warm, batch, reps)
+    st, state_bytes, rates, infos = _timed_batches(
+        lambda: _tx_workload(cfg, total, dev),
+        lambda s, net, k, i: run_rounds_carry(cfg, s, net, k, i),
+        lambda inputs, lo, hi: RoundInput(*(a[lo:hi] for a in inputs)),
+        warm, batch, reps)
     forms = dict(mk.FORM_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     sums = {k: sum(int(i[k].sum()) for i in infos) for k in infos[0]}
@@ -1165,15 +1169,11 @@ def phase_full(dev) -> dict:
     total = warm + batch * reps
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    st, net, key, inputs = full_view_workload(cfg, total, dev)
-    state_bytes = _nbytes(_flat(st))
-
-    def part(lo, hi):
-        return RoundInput(*(a[lo:hi] for a in inputs))
-
     mk.reset_launches()
-    st, rates, batch_infos = _timed_batches(
-        lambda s, k, i: run_rounds_carry(cfg, s, net, k, i), st, key, part,
+    st, state_bytes, rates, batch_infos = _timed_batches(
+        lambda: full_view_workload(cfg, total, dev),
+        lambda s, net, k, i: run_rounds_carry(cfg, s, net, k, i),
+        lambda inputs, lo, hi: RoundInput(*(a[lo:hi] for a in inputs)),
         warm, batch, reps)
     forms = dict(mk.FORM_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
