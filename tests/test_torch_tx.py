@@ -448,6 +448,37 @@ def test_piggyback_bcast_step_selection_matches_jax(pig_states, name, carried):
     assert int(winfo["delivered"]) > 0
 
 
+@pytest.mark.parametrize("which", ["scale_tx4", "full_tx8"])
+def test_multi_slot_state_round_trips(which):
+    """A state with a multi-slot partial buffer ([N, P, K] payload lanes,
+    P = 8 or 16, K = 4 or 8), every leaf random over its dtype's range,
+    survives the trip to the port and back, leaf for leaf."""
+    rng = np.random.default_rng(31)
+
+    def fill(a):
+        a = np.asarray(a)
+        if a.dtype == np.bool_:
+            return jnp.asarray(rng.random(a.shape) < 0.5)
+        info = np.iinfo(a.dtype)
+        return jnp.asarray(rng.integers(info.min, info.max, a.shape, dtype=a.dtype,
+                                        endpoint=True))
+
+    if which == "scale_tx4":
+        jcfg = jscale.scale_sim_config(48, tx_max_cells=4)
+        st = jax.tree.map(fill, jscale.ScaleSimState.create(jcfg))
+        back = convert.scale_state_from_numpy(
+            scale_step.scale_sim_config(48, tx_max_cells=4), convert.as_numpy_tree(st), "cpu")
+    else:
+        jcfg = jconfig.wan_config(40)
+        st = jax.tree.map(fill, jstep.SimState.create(jcfg))
+        back = convert.full_state_from_numpy(config.wan_config(40), convert.as_numpy_tree(st),
+                                             "cpu")
+    k = jcfg.tx_max_cells
+    assert back.crdt.partials.cell.shape == (jcfg.n_nodes, jcfg.partial_slots, k)
+    _leaves_equal(jax.tree.leaves(convert.as_numpy_tree(st)),
+                  jax.tree.leaves(convert.state_to_numpy(back)), which)
+
+
 # --- whole rounds ------------------------------------------------------------
 
 N, ROUNDS = 256, 12
