@@ -77,6 +77,25 @@ Phases (any failure raises and the script exits non-zero):
     phase 10's transactions: 2 warm-up rounds, then ten timed batches of 1
     round; median and quartiles of rounds/s, peak device memory; no kernel
     launches.
+13. parity: BASELINE's state-parity check at N=256 (16 origins, 64
+    cells, 24 rounds, up to 512 rounds to settle): single-writer scripts
+    (without and with 5 % loss) and multi-cell transactions (tx 4, plain
+    route) equal to the pure-Python oracle cluster bitwise; conflicting,
+    delete/resurrect and full-mix scripts (kill, revive, partition, heal)
+    agree and hold only written values. Every script converges on both
+    sides, the card equals the CPU route bitwise, and each kernel launches
+    once a round (the swim kernel alone at tx 4); the single writer also
+    runs ``quiet="on"`` to the same result.
+14. soak: the flagship for 64 rounds straight, as ``run_segmented`` in 4
+    segments of 16 with the async writer (keep_last 2), and as its first
+    32 rounds segmented then ``resume_segmented`` from disk: every leaf
+    and info bitwise equal, the same launches per form, peak device bytes
+    within 5 % of the straight run's; prints rounds/s, checkpoint stall
+    and writer seconds, one checkpoint's bytes, and save, verify and load
+    seconds.
+15. full-soak: ``full_view_config(1024)`` for 16 rounds, one segment of 8
+    checkpointed and resumed from disk, equal to the straight run bitwise,
+    with the ingest kernel at m = 96 once a round.
 
 Each kernel's bound is the larger of the bytes it must move on these inputs
 over the memory rate and the integer operations its function needs on them
@@ -107,6 +126,9 @@ MILLION_NODES = 1_000_000
 TRAJECTORY_NODES = 4096  # small enough for the CPU route to keep pace
 FULL_NODES = 8192  # the full view's measured point (sim.config.full_view_config)
 FULL_TRAJECTORY_NODES = 1024  # the full view, card vs CPU: float ties are common
+# BASELINE's correctness size: a 256-node cluster, 16 origins, 64 cells
+PARITY_NODES, PARITY_ORIGINS, PARITY_CELLS, PARITY_ROUNDS = 256, 16, 64, 24
+SOAK_ROUNDS, SOAK_SEGMENT = 64, 16
 
 
 def _swim_ops(args, pig_k: int = 0) -> int:
@@ -1252,6 +1274,308 @@ def phase_quiet(dev) -> None:
           flush=True)
 
 
+#: the parity phase's scripts: (label, generator, its arguments after
+#: (n_nodes, n_origins), run_sim_script keywords, the check that applies)
+PARITY_SCRIPTS = (
+    ("single_writer", "random_single_writer", (PARITY_CELLS, PARITY_ROUNDS),
+     dict(seed=3), dict(seed=3, quiet="off"), "bitwise"),
+    ("single_writer_loss", "random_single_writer", (PARITY_CELLS, PARITY_ROUNDS),
+     dict(seed=3), dict(seed=11, drop_prob=0.05), "bitwise"),
+    ("transactions_tx4", "random_transactions", (PARITY_CELLS, PARITY_ROUNDS),
+     dict(tx_cells=4, seed=3), dict(seed=3), "bitwise"),
+    ("conflicting", "random_conflicting", (PARITY_CELLS, PARITY_ROUNDS),
+     dict(seed=5, hot_cells=2), dict(seed=5), "agreement"),
+    ("delete_resurrect", "random_delete_resurrect", (16, 4, PARITY_ROUNDS),
+     dict(seed=9), dict(seed=9), "agreement"),
+    ("full_mix", "random_full_mix", (PARITY_CELLS, PARITY_ROUNDS),
+     dict(seed=9), dict(seed=9), "agreement"),
+)
+
+
+def _same_run(a, b) -> bool:
+    """Two ``run_sim_script`` results (planes, alive, rounds-taken) equal."""
+    import numpy as np
+
+    return (a[2] == b[2] and np.array_equal(a[1], b[1])
+            and all(np.array_equal(p, q) for p, q in zip(a[0], b[0], strict=True)))
+
+
+def phase_parity(dev) -> dict:
+    """BASELINE's state-parity check at N = ``PARITY_NODES``: each script
+    through the pure-Python oracle cluster and through the port's
+    ``run_sim_script`` on the card, which must converge, equal the oracle
+    (bitwise for single writers, agreement and validity otherwise), equal
+    the same script on the CPU route bitwise, and launch each kernel once
+    a round on the kernel route (the swim kernel alone on the plain route
+    of multi-cell transactions)."""
+    import torch
+
+    from corrosion_tpu_torch.ops import megakernel as mk
+    from corrosion_tpu_torch.sim import parity
+
+    n, o = PARITY_NODES, PARITY_ORIGINS
+    out = {}
+    for label, gen, args, gen_kw, kw, check in PARITY_SCRIPTS:
+        script = getattr(parity.WorkloadScript, gen)(n, o, *args, **gen_kw)
+        oc = parity.OracleCluster(n, o, script.n_cells, seed=1)
+        t0 = time.perf_counter()
+        o_taken = oc.run(script, settle_rounds=512)
+        o_s = time.perf_counter() - t0
+        mk.reset_launches()
+        t0 = time.perf_counter()
+        card = parity.run_sim_script(script, settle_rounds=512, device=dev, **kw)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        launches = dict(mk.LAUNCHES)
+        t0 = time.perf_counter()
+        cpu = parity.run_sim_script(script, settle_rounds=512, device="cpu", **kw)
+        cpu_s = time.perf_counter() - t0
+        planes, alive, taken = card
+        if check == "bitwise":
+            problems = parity.check_bitwise_parity(oc, planes, alive)
+        else:
+            problems = parity.check_agreement_validity(script, planes, alive)
+        # the round steps run: the script, the final revive-all, the settle
+        steps = taken + (1 if script.faults else 0)
+        kernel = script.max_tx_cells == 1
+        want = {"swim_tables": steps, "ingest": steps if kernel else 0,
+                "ingest_emit": steps if kernel else 0}
+        if (o_taken <= 0 or taken <= 0 or problems or not _same_run(card, cpu)
+                or launches != want):
+            raise AssertionError(
+                f"parity {label}: oracle rounds {o_taken}, card rounds {taken}, "
+                f"card == cpu {_same_run(card, cpu)}, problems {problems[:4]}, "
+                f"launches {launches} != {want}")
+        if gen == "random_full_mix" and not {"kill", "partition"} <= {
+                e[0] for evs in script.faults for e in evs}:
+            raise AssertionError(f"parity {label}: the script has no kill or partition")
+        line = (f"[parity] N={n} {label} ({check}): oracle {o_taken} rounds in "
+                f"{o_s:.2f} s; card {taken} rounds in {card_s:.2f} s, cpu "
+                f"{cpu[2]} rounds in {cpu_s:.2f} s, card == cpu bitwise; "
+                f"launches {launches}")
+        if label == "single_writer":
+            mk.reset_launches()
+            t0 = time.perf_counter()
+            on = parity.run_sim_script(script, settle_rounds=512, device=dev,
+                                       **{**kw, "quiet": "on"})
+            torch.cuda.synchronize()
+            on_s = time.perf_counter() - t0
+            dense = mk.LAUNCHES["swim_tables"]
+            if not _same_run(on, card) or not 0 < dense <= steps:
+                raise AssertionError(
+                    f"parity {label}: quiet='on' != 'off' ({on[2]} vs {taken} "
+                    f"rounds) or {dense} dense rounds of {steps}")
+            line += (f"; quiet='on' equal in {on_s:.2f} s, {dense} of {steps} "
+                     f"rounds dense")
+        print(line, flush=True)
+        out[label] = {"oracle_rounds": o_taken, "rounds": taken, "card_s": card_s,
+                      "cpu_s": cpu_s, "oracle_s": o_s, "launches": launches}
+    return out
+
+
+def _to_host(st):
+    from corrosion_tpu_torch.resilience.segments import _host_copy
+
+    return _host_copy(st)
+
+
+def _soak_arm(run):
+    """``run()`` with the peak-memory and launch counters reset before it;
+    returns (its result, seconds, peak device bytes, launches per form)."""
+    import torch
+
+    from corrosion_tpu_torch.ops import megakernel as mk
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mk.reset_launches()
+    t0 = time.perf_counter()
+    got = run()
+    torch.cuda.synchronize()
+    return got, time.perf_counter() - t0, torch.cuda.max_memory_allocated(), dict(
+        mk.FORM_LAUNCHES)
+
+
+def _dir_bytes(path) -> int:
+    import os
+
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+
+def _check_soak(label, arms: dict) -> None:
+    """Every arm's final state and infos equal the straight arm's bitwise,
+    its launches per form equal, and its peak device bytes within 5 %."""
+    want_st, want_infos, want_forms, want_peak = arms["straight"]
+    for name, (st, infos, forms, peak) in arms.items():
+        err = _max_abs_err(_flat(want_st), _flat(st))
+        ierr = _max_abs_err(_flat(want_infos), _flat({k: infos[k] for k in want_infos}))
+        if err or ierr or forms != want_forms or abs(peak - want_peak) > 0.05 * want_peak:
+            raise AssertionError(
+                f"{label} {name}: state err {err}, info err {ierr}, launches "
+                f"{forms} vs {want_forms}, peak {peak} vs {want_peak} bytes")
+
+
+def phase_soak(dev) -> dict:
+    """The flagship (``scale_sim_config(FLAGSHIP_NODES)``, bench.py's
+    workload) for ``SOAK_ROUNDS`` rounds three ways: straight; segmented in
+    segments of ``SOAK_SEGMENT`` with the async writer (keep_last 2); and
+    the first half segmented, then resumed from disk. All three equal
+    bitwise (every leaf and info), launch the same kernels, and peak
+    within 5 % of the straight run. Prints rounds/s, checkpoint stall and
+    writer seconds, one checkpoint's bytes, and save, verify and load
+    seconds."""
+    import os
+    import tempfile
+
+    import torch
+
+    from corrosion_tpu_torch.checkpoint import load_checkpoint, save_checkpoint, verify_checkpoint
+    from corrosion_tpu_torch.resilience import resume_segmented, run_segmented
+    from corrosion_tpu_torch.resilience.async_ckpt import _SegmentView
+    from corrosion_tpu_torch.sim.scale_step import (
+        ScaleRoundInput,
+        flagship_workload,
+        scale_run_rounds_carry,
+        scale_sim_config,
+    )
+
+    cfg = scale_sim_config(FLAGSHIP_NODES)
+    rounds, seg, half = SOAK_ROUNDS, SOAK_SEGMENT, SOAK_ROUNDS // 2
+    with tempfile.TemporaryDirectory(prefix="soak-") as tmp:
+        roots = {k: os.path.join(tmp, k) for k in ("segmented", "resumed", "single")}
+
+        # each arm builds its own workload and hands the state into the run
+        # (``w.pop(0)``), so no frame here holds the initial carry
+        def straight():
+            w = list(flagship_workload(cfg, rounds, dev))
+            net, key, inputs = w[1:]
+            (st, _), infos = scale_run_rounds_carry(cfg, w.pop(0), net, key, inputs)
+            return _to_host(st), {k: v.cpu() for k, v in infos.items()}
+
+        def segmented():
+            w = list(flagship_workload(cfg, rounds, dev))
+            net, key, inputs = w[1:]
+            res = run_segmented(cfg, w.pop(0), net, key, inputs, seg,
+                                checkpoint_root=roots["segmented"], keep_last=2)
+            return (_to_host(res.state), {k: v.cpu() for k, v in res.infos.items()},
+                    res.stats, res.checkpoint)
+
+        def resumed():
+            w = list(flagship_workload(cfg, rounds, dev))
+            net, key, inputs = w[1:]
+            first = run_segmented(cfg, w.pop(0), net, key,
+                                  ScaleRoundInput(*(a[:half] for a in inputs)), seg,
+                                  checkpoint_root=roots["resumed"], keep_last=2)
+            infos, stats = first.infos, first.stats
+            del first  # a resuming process holds no carry of its own
+            rest = resume_segmented(cfg, net, inputs, seg,
+                                    checkpoint_root=roots["resumed"], keep_last=2)
+            return (_to_host(rest.state),
+                    {k: torch.cat([infos[k], rest.infos[k]]).cpu() for k in infos},
+                    (stats, rest.stats), rest.completed_rounds)
+
+        (st, infos), s_straight, p_straight, f_straight = _soak_arm(straight)
+        (sst, sinfos, sstats, last), s_seg, p_seg, f_seg = _soak_arm(segmented)
+        (rst, rinfos, rstats, done), s_res, p_res, f_res = _soak_arm(resumed)
+        if done != rounds or sstats["segments"] != rounds // seg or sstats["ckpt_written"] != rounds // seg:
+            raise AssertionError(f"soak: resumed to {done}, segmented stats {sstats}")
+        _check_soak("soak", {"straight": (st, infos, f_straight, p_straight),
+                             "segmented": (sst, sinfos, f_seg, p_seg),
+                             "resumed": (rst, rinfos, f_res, p_res)})
+        want_forms = {("swim_tables", "aligned/16/16"): rounds, ("ingest", "16/16"): rounds,
+                      ("ingest_emit", "16/16"): rounds}
+        if f_straight != want_forms:
+            raise AssertionError(f"soak launches {f_straight} != {want_forms}")
+        ckpt_bytes = _dir_bytes(last)
+        kept = sorted(os.listdir(roots["segmented"]))
+        if kept != ["LATEST", f"seg-{rounds - seg:08d}", f"seg-{rounds:08d}"]:
+            raise AssertionError(f"soak retention kept {kept}")
+        # one checkpoint of the straight run's final state, timed alone
+        path = os.path.join(roots["single"], "one")
+        t0 = time.perf_counter()
+        save_checkpoint(_SegmentView("scale", cfg, st, rounds), path=path)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        verify_checkpoint(path)
+        verify_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _, loaded = load_checkpoint(path, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        if _max_abs_err(_flat(st), [t.cpu() for t in _flat(loaded)]):
+            raise AssertionError("soak: the loaded checkpoint differs from the state saved")
+        del loaded
+    state_bytes = _nbytes(_flat(st))
+    rates = {k: rounds / s for k, s in (("straight", s_straight), ("segmented", s_seg),
+                                         ("resumed", s_res))}
+    print(f"[soak] N={cfg.n_nodes} {rounds} rounds, segments of {seg}: straight, "
+          f"segmented and resumed bitwise equal in every leaf and info; launches "
+          f"{f_straight} in each; rounds/s {rates}; peak device bytes straight "
+          f"{p_straight}, segmented {p_seg}, resumed {p_res}; segmented "
+          f"ckpt_stall_s {sstats['ckpt_stall_s']!r} vs ckpt_io_s {sstats['ckpt_io_s']!r} "
+          f"({sstats['ckpt_written']} written, {sstats['ckpt_overlapped_segments']} "
+          f"overlapped); resumed arm stall/io {rstats[0]['ckpt_stall_s']!r}/"
+          f"{rstats[0]['ckpt_io_s']!r} then {rstats[1]['ckpt_stall_s']!r}/"
+          f"{rstats[1]['ckpt_io_s']!r}; state {state_bytes} bytes, one checkpoint "
+          f"{ckpt_bytes} bytes on disk; save {save_s!r} s, verify {verify_s!r} s, "
+          f"load {load_s!r} s", flush=True)
+    return {"rates": rates, "peaks": (p_straight, p_seg, p_res), "stats": sstats,
+            "ckpt_bytes": ckpt_bytes, "save_s": save_s, "verify_s": verify_s,
+            "load_s": load_s}
+
+
+def phase_full_soak(dev) -> None:
+    """The full view at ``full_view_config(FULL_TRAJECTORY_NODES)`` for 16
+    rounds: the first segment of 8 checkpointed, then resumed from disk,
+    equal to the straight ``run_rounds_carry`` bitwise, with the ingest
+    kernel launched at m = 96 once a round in both."""
+    import os
+    import tempfile
+
+    import torch
+
+    from corrosion_tpu_torch.resilience import resume_segmented, run_segmented
+    from corrosion_tpu_torch.sim.config import full_view_config
+    from corrosion_tpu_torch.sim.scenario import full_view_workload
+    from corrosion_tpu_torch.sim.step import RoundInput, run_rounds_carry
+
+    cfg = full_view_config(FULL_TRAJECTORY_NODES)
+    rounds, seg = 16, 8
+
+    def straight():
+        w = list(full_view_workload(cfg, rounds, dev))
+        net, key, inputs = w[1:]
+        (st, _), infos = run_rounds_carry(cfg, w.pop(0), net, key, inputs)
+        return _to_host(st), {k: v.cpu() for k, v in infos.items()}
+
+    with tempfile.TemporaryDirectory(prefix="full-soak-") as tmp:
+        root = os.path.join(tmp, "soak")
+
+        def resumed():
+            w = list(full_view_workload(cfg, rounds, dev))
+            net, key, inputs = w[1:]
+            first = run_segmented(cfg, w.pop(0), net, key,
+                                  RoundInput(*(a[:seg] for a in inputs)), seg,
+                                  checkpoint_root=root)
+            infos = first.infos
+            del first
+            rest = resume_segmented(cfg, net, inputs, seg, checkpoint_root=root)
+            return (_to_host(rest.state),
+                    {k: torch.cat([infos[k], rest.infos[k]]).cpu() for k in infos})
+
+        (st, infos), s_straight, p_straight, f_straight = _soak_arm(straight)
+        (rst, rinfos), s_res, p_res, f_res = _soak_arm(resumed)
+    _check_soak("full-soak", {"straight": (st, infos, f_straight, p_straight),
+                              "resumed": (rst, rinfos, f_res, p_res)})
+    want = {("ingest", "32/32"): rounds, ("ingest", f"32/32/m{cfg.recv_slots}"): rounds}
+    if f_straight != want:
+        raise AssertionError(f"full-soak launches {f_straight} != {want}")
+    print(f"[full-soak] N={cfg.n_nodes} {rounds} rounds: segment of {seg} resumed from "
+          f"disk == straight, bitwise in every leaf and info; launches {f_res}; "
+          f"{s_straight:.2f} s straight, {s_res:.2f} s segmented and resumed; peak "
+          f"{p_straight} / {p_res} bytes", flush=True)
+
+
 _PTX_TYPES = {"a": "int8", "s": "int16", "i": "int32"}
 
 
@@ -1361,6 +1685,12 @@ def main() -> int:
     done("wirebudget")
     phase_full_tx(dev)
     done("full-tx")
+    phase_parity(dev)
+    done("parity")
+    phase_soak(dev)
+    done("soak")
+    phase_full_soak(dev)
+    done("full-soak")
 
     # each form's launches are read from the path that runs it (0: no path
     # here runs the form)
