@@ -128,6 +128,9 @@ FULL_NODES = 8192  # the full view's measured point (sim.config.full_view_config
 FULL_TRAJECTORY_NODES = 1024  # the full view, card vs CPU: float ties are common
 # BASELINE's correctness size: a 256-node cluster, 16 origins, 64 cells
 PARITY_NODES, PARITY_ORIGINS, PARITY_CELLS, PARITY_ROUNDS = 256, 16, 64, 24
+# empty rounds after the single writer's script for the quiet check: the
+# cluster goes quiet about 100 rounds after the last write
+PARITY_QUIET_TAIL = 128
 SOAK_ROUNDS, SOAK_SEGMENT = 64, 16
 
 
@@ -1307,7 +1310,10 @@ def phase_parity(dev) -> dict:
     (bitwise for single writers, agreement and validity otherwise), equal
     the same script on the CPU route bitwise, and launch each kernel once
     a round on the kernel route (the swim kernel alone on the plain route
-    of multi-cell transactions)."""
+    of multi-cell transactions). The single writer's script with
+    ``PARITY_QUIET_TAIL`` empty rounds appended gives the same result under
+    ``quiet="on"`` as under ``"off"`` with some rounds quiet (no swim
+    launch) and some dense."""
     import torch
 
     from corrosion_tpu_torch.ops import megakernel as mk
@@ -1354,29 +1360,29 @@ def phase_parity(dev) -> dict:
                 f"{cpu[2]} rounds in {cpu_s:.2f} s, card == cpu bitwise; "
                 f"launches {launches}")
         if label == "single_writer":
+            # the same writes, then empty rounds: the cluster settles inside
+            # the script, so some rounds take the quiet branch
+            tail = getattr(parity.WorkloadScript, gen)(n, o, *args, **gen_kw)
+            tail.writes += [[] for _ in range(PARITY_QUIET_TAIL)]
+            off = parity.run_sim_script(tail, settle_rounds=512, device=dev, **kw)
             mk.reset_launches()
             t0 = time.perf_counter()
-            on = parity.run_sim_script(script, settle_rounds=512, device=dev,
+            on = parity.run_sim_script(tail, settle_rounds=512, device=dev,
                                        **{**kw, "quiet": "on"})
             torch.cuda.synchronize()
             on_s = time.perf_counter() - t0
             dense = mk.LAUNCHES["swim_tables"]
-            if not _same_run(on, card) or not 0 < dense <= steps:
+            if off[2] <= 0 or not _same_run(on, off) or not 0 < dense < off[2]:
                 raise AssertionError(
-                    f"parity {label}: quiet='on' != 'off' ({on[2]} vs {taken} "
-                    f"rounds) or {dense} dense rounds of {steps}")
-            line += (f"; quiet='on' equal in {on_s:.2f} s, {dense} of {steps} "
-                     f"rounds dense")
+                    f"parity {label}: with {PARITY_QUIET_TAIL} empty rounds, "
+                    f"quiet='on' != 'off' ({on[2]} vs {off[2]} rounds) or "
+                    f"{dense} dense rounds of {off[2]}")
+            line += (f"; with {PARITY_QUIET_TAIL} empty rounds appended, quiet='on' "
+                     f"== 'off' in {on_s:.2f} s, {dense} of {off[2]} rounds dense")
         print(line, flush=True)
         out[label] = {"oracle_rounds": o_taken, "rounds": taken, "card_s": card_s,
                       "cpu_s": cpu_s, "oracle_s": o_s, "launches": launches}
     return out
-
-
-def _to_host(st):
-    from corrosion_tpu_torch.resilience.segments import _host_copy
-
-    return _host_copy(st)
 
 
 def _soak_arm(run):
@@ -1431,7 +1437,7 @@ def phase_soak(dev) -> dict:
 
     from corrosion_tpu_torch.checkpoint import load_checkpoint, save_checkpoint, verify_checkpoint
     from corrosion_tpu_torch.resilience import resume_segmented, run_segmented
-    from corrosion_tpu_torch.resilience.async_ckpt import _SegmentView
+    from corrosion_tpu_torch.resilience.segments import host_copy
     from corrosion_tpu_torch.sim.scale_step import (
         ScaleRoundInput,
         flagship_workload,
@@ -1450,14 +1456,14 @@ def phase_soak(dev) -> dict:
             w = list(flagship_workload(cfg, rounds, dev))
             net, key, inputs = w[1:]
             (st, _), infos = scale_run_rounds_carry(cfg, w.pop(0), net, key, inputs)
-            return _to_host(st), {k: v.cpu() for k, v in infos.items()}
+            return host_copy(st), {k: v.cpu() for k, v in infos.items()}
 
         def segmented():
             w = list(flagship_workload(cfg, rounds, dev))
             net, key, inputs = w[1:]
             res = run_segmented(cfg, w.pop(0), net, key, inputs, seg,
                                 checkpoint_root=roots["segmented"], keep_last=2)
-            return (_to_host(res.state), {k: v.cpu() for k, v in res.infos.items()},
+            return (host_copy(res.state), {k: v.cpu() for k, v in res.infos.items()},
                     res.stats, res.checkpoint)
 
         def resumed():
@@ -1470,7 +1476,7 @@ def phase_soak(dev) -> dict:
             del first  # a resuming process holds no carry of its own
             rest = resume_segmented(cfg, net, inputs, seg,
                                     checkpoint_root=roots["resumed"], keep_last=2)
-            return (_to_host(rest.state),
+            return (host_copy(rest.state),
                     {k: torch.cat([infos[k], rest.infos[k]]).cpu() for k in infos},
                     (stats, rest.stats), rest.completed_rounds)
 
@@ -1493,7 +1499,7 @@ def phase_soak(dev) -> dict:
         # one checkpoint of the straight run's final state, timed alone
         path = os.path.join(roots["single"], "one")
         t0 = time.perf_counter()
-        save_checkpoint(_SegmentView("scale", cfg, st, rounds), path=path)
+        save_checkpoint(cfg, st, rounds, path=path)
         save_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         verify_checkpoint(path)
@@ -1535,6 +1541,7 @@ def phase_full_soak(dev) -> None:
     import torch
 
     from corrosion_tpu_torch.resilience import resume_segmented, run_segmented
+    from corrosion_tpu_torch.resilience.segments import host_copy
     from corrosion_tpu_torch.sim.config import full_view_config
     from corrosion_tpu_torch.sim.scenario import full_view_workload
     from corrosion_tpu_torch.sim.step import RoundInput, run_rounds_carry
@@ -1546,7 +1553,7 @@ def phase_full_soak(dev) -> None:
         w = list(full_view_workload(cfg, rounds, dev))
         net, key, inputs = w[1:]
         (st, _), infos = run_rounds_carry(cfg, w.pop(0), net, key, inputs)
-        return _to_host(st), {k: v.cpu() for k, v in infos.items()}
+        return host_copy(st), {k: v.cpu() for k, v in infos.items()}
 
     with tempfile.TemporaryDirectory(prefix="full-soak-") as tmp:
         root = os.path.join(tmp, "soak")
@@ -1560,7 +1567,7 @@ def phase_full_soak(dev) -> None:
             infos = first.infos
             del first
             rest = resume_segmented(cfg, net, inputs, seg, checkpoint_root=root)
-            return (_to_host(rest.state),
+            return (host_copy(rest.state),
                     {k: torch.cat([infos[k], rest.infos[k]]).cpu() for k in infos})
 
         (st, infos), s_straight, p_straight, f_straight = _soak_arm(straight)

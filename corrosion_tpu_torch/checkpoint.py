@@ -149,11 +149,19 @@ def _publish_manifest(tmp: str, final: str) -> None:
     os.replace(tmp, final)
 
 
-def save_checkpoint(view, path: str = "./checkpoint",
+def config_mode(cfg) -> str:
+    """The manifest's ``mode`` of a config: ``"scale"`` for a
+    :class:`ScaleSimConfig`, ``"full"`` for the full view's config."""
+    from corrosion_tpu_torch.sim.scale_step import ScaleSimConfig
+
+    return "scale" if isinstance(cfg, ScaleSimConfig) else "full"
+
+
+def save_checkpoint(cfg, state, round_no: int, path: str,
                     extra: Optional[dict] = None) -> str:
-    """Write ``view``'s state to the directory ``path``. ``view`` has
-    ``mode``, ``cfg``, ``round_no`` and ``device_state()`` (a state on any
-    device; the soak runner hands over CPU copies).
+    """Write ``state`` (of ``cfg``, after ``round_no`` rounds; on any
+    device, the soak runner hands over CPU copies) to the directory
+    ``path``.
 
     Crash-safe ordering: the manifest is removed first and written LAST
     through an atomic rename, so a directory without a manifest is
@@ -169,7 +177,7 @@ def save_checkpoint(view, path: str = "./checkpoint",
         if name == "state.npz" or (
                 name.startswith("shard-") and name.endswith(".npz")):
             os.unlink(os.path.join(path, name))
-    arrays = host_arrays(view.device_state())
+    arrays = host_arrays(state)
     buf = io.BytesIO()
     np.savez_compressed(buf, **{f"leaf_{i}_0": a for i, a in enumerate(arrays)})
     blob = buf.getvalue()
@@ -178,9 +186,9 @@ def save_checkpoint(view, path: str = "./checkpoint",
     files = {_SHARD_FILE: hashlib.sha256(blob).hexdigest()}
     manifest = {
         "format": FORMAT_VERSION,
-        "mode": view.mode,
-        "round": view.round_no,
-        "sim_config": dataclasses.asdict(view.cfg),
+        "mode": config_mode(cfg),
+        "round": round_no,
+        "sim_config": dataclasses.asdict(cfg),
         "n_leaves": len(arrays),
         "mesh": None,
         "leaves": [

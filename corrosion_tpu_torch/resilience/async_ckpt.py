@@ -7,9 +7,9 @@ Split of work per segment boundary:
   tensors the writer owns. This is the only stall; it is bounded by the
   device-to-host transfer of the carry.
 - **writer thread (overlapped)**: serialization, SHA-256, manifest
-  write, ``LATEST`` pointer and retention pruning, through the same
-  crash-consistent path as the synchronous writer
-  (:func:`write_segment_checkpoint`), while the next segment runs.
+  write, ``LATEST`` pointer and retention pruning
+  (:func:`write_segment_checkpoint`, crash-consistent), while the next
+  segment runs.
 
 Commit order: the checkpoint directory first, then ``LATEST``, then
 pruning, which never deletes the pointer's target. A crash can lose the
@@ -33,22 +33,8 @@ from corrosion_tpu_torch.resilience.retention import (
 from corrosion_tpu_torch.utils import logger
 
 
-class _SegmentView:
-    """The minimal agent-shaped surface ``save_checkpoint`` needs — the
-    soak runner has no live agent, just the carry."""
-
-    def __init__(self, mode: str, cfg, state, round_no: int):
-        self.mode = mode
-        self.cfg = cfg
-        self.round_no = round_no
-        self._state = state
-
-    def device_state(self):
-        return self._state
-
-
-def write_segment_checkpoint(cfg, mode: str, state, key_json: dict,
-                             completed: int, root: str, keep_last: int) -> str:
+def write_segment_checkpoint(cfg, state, key_json: dict, completed: int,
+                             root: str, keep_last: int) -> str:
     """Commit one segment checkpoint (crash-consistent ordering).
 
     ``state`` is a state on any device (the soak runner's host copies).
@@ -56,7 +42,7 @@ def write_segment_checkpoint(cfg, mode: str, state, key_json: dict,
     (``segments._key_to_json``)."""
     name = f"seg-{completed:08d}"
     path = save_checkpoint(
-        _SegmentView(mode, cfg, state, completed), path=os.path.join(root, name),
+        cfg, state, completed, path=os.path.join(root, name),
         extra={"soak": {"completed_rounds": completed, "key": key_json}},
     )
     # pointer moves only AFTER the directory is fully committed; pruning
@@ -84,9 +70,9 @@ class AsyncCheckpointWriter:
     :meth:`close` — the soak must not keep running believing checkpoints
     are landing."""
 
-    def __init__(self, cfg, mode: str, root: str, keep_last: int = 3,
+    def __init__(self, cfg, root: str, keep_last: int = 3,
                  progress: Optional[Callable[[], int]] = None):
-        self._cfg, self._mode = cfg, mode
+        self._cfg = cfg
         self._root, self._keep_last = root, keep_last
         # reports the runner's current segment ordinal; a write that
         # finishes after the runner moved past its segment genuinely
@@ -137,7 +123,7 @@ class AsyncCheckpointWriter:
             try:
                 t0 = time.perf_counter()
                 self.last_path = write_segment_checkpoint(
-                    self._cfg, self._mode, job.state, job.key_json,
+                    self._cfg, job.state, job.key_json,
                     job.completed, self._root, self._keep_last,
                 )
                 self.io_seconds += time.perf_counter() - t0

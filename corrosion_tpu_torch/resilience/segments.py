@@ -36,11 +36,8 @@ import torch
 
 from corrosion_tpu_torch import random as prng
 from corrosion_tpu_torch._device import resolve_device
-from corrosion_tpu_torch.checkpoint import config_identity, load_checkpoint
-from corrosion_tpu_torch.resilience.async_ckpt import (
-    AsyncCheckpointWriter,
-    write_segment_checkpoint,
-)
+from corrosion_tpu_torch.checkpoint import config_identity, config_mode, load_checkpoint
+from corrosion_tpu_torch.resilience.async_ckpt import AsyncCheckpointWriter
 from corrosion_tpu_torch.resilience.retention import latest_valid_checkpoint
 from corrosion_tpu_torch.resilience.supervisor import SupervisorAborted
 from corrosion_tpu_torch.utils import logger
@@ -57,12 +54,6 @@ class SoakResult(NamedTuple):
     aborted: bool  # True when the supervisor exhausted its retries
     checkpoint: Optional[str]  # newest committed checkpoint path
     stats: dict = {}  # pipeline facts: segments, checkpoint stall/IO
-
-
-def _infer_mode(cfg) -> str:
-    from corrosion_tpu_torch.sim.scale_step import ScaleSimConfig
-
-    return "scale" if isinstance(cfg, ScaleSimConfig) else "full"
 
 
 def _run_carry_fn(mode: str):
@@ -97,18 +88,16 @@ def _n_rounds(inputs) -> int:
     return int(inputs.kill.shape[0])
 
 
-def _pipeline_stats(async_checkpoint: bool, quiet_mode: str = "off") -> dict:
+def _pipeline_stats(quiet_mode: str = "off") -> dict:
     """A zeroed stats record (the keys every SoakResult.stats carries)."""
     return {
-        "async_checkpoint": async_checkpoint,
         "quiet_mode": quiet_mode,
         # segments the quiet="auto" resolver ran on the quiet round
         "quiet_segments": 0,
         "segments": 0,
         # retries that restarted from the host copy of the last boundary
         "carry_reuploads": 0,
-        # hot-loop seconds: the host copy, writer backpressure, and the
-        # whole write when it is synchronous
+        # hot-loop seconds: the host copy and writer backpressure
         "ckpt_stall_s": 0.0,
         # the writer thread's seconds (overlapped with the segments)
         "ckpt_io_s": 0.0,
@@ -130,7 +119,7 @@ def _map_state(fn, st):
     ))
 
 
-def _host_copy(st):
+def host_copy(st):
     """The carry's host snapshot: owned CPU tensors (a copy on the CPU
     route too, so nothing aliases a live carry)."""
     return _map_state(lambda t: t.to("cpu", copy=True), st)
@@ -181,12 +170,10 @@ def run_segmented(
     inputs,
     segment_rounds: int,
     *,
-    mode: Optional[str] = None,
     checkpoint_root: Optional[str] = None,
     keep_last: int = 3,
     supervisor=None,
     start_round: int = 0,
-    async_checkpoint: bool = True,
 ) -> SoakResult:
     """Run ``inputs`` (stacked per-round, leading axis = rounds) in
     K-round segments, checkpointing after each.
@@ -202,10 +189,9 @@ def run_segmented(
     last committed checkpoint intact and the last boundary's carry as its
     state.
 
-    **Async checkpointing** (``async_checkpoint=True``, needs
-    ``checkpoint_root``): the hot loop only copies the carry to the host;
-    serialization, hashing, manifest commit, ``LATEST`` and pruning run
-    on a background writer overlapped with the next segment.
+    With a ``checkpoint_root`` the hot loop only copies the carry to the
+    host; serialization, hashing, manifest commit, ``LATEST`` and pruning
+    run on a background writer overlapped with the next segment.
 
     Under ``quiet="auto"`` (scale mode, cohort sync) a segment whose
     inputs inject nothing and whose carry is quiet at the boundary runs
@@ -214,7 +200,7 @@ def run_segmented(
     """
     if segment_rounds <= 0:
         raise ValueError("segment_rounds must be positive")
-    mode = mode or _infer_mode(cfg)
+    mode = config_mode(cfg)
     run_carry = _run_carry_fn(mode)
     rounds = _n_rounds(inputs)
     dev = st.swim.alive.device
@@ -222,13 +208,12 @@ def run_segmented(
                   and getattr(cfg, "sync_cohort", False))
     quiet_cfg = (dataclasses.replace(cfg, quiet="on").validate()
                  if quiet_auto else cfg)
-    use_writer = bool(checkpoint_root and async_checkpoint)
-    stats = _pipeline_stats(use_writer, str(getattr(cfg, "quiet", "off")))
+    stats = _pipeline_stats(str(getattr(cfg, "quiet", "off")))
     seg_box = {"index": 0}  # read by the async writer's overlap probe
     writer = None
-    if use_writer:
+    if checkpoint_root:
         writer = AsyncCheckpointWriter(
-            cfg, mode, checkpoint_root, keep_last,
+            cfg, checkpoint_root, keep_last,
             progress=lambda: seg_box["index"],
         )
     # the boundary carry lives only in ``box``; a segment takes it out, so
@@ -291,7 +276,8 @@ def run_segmented(
                     box.update(restart())
                 logger.exception(
                     "soak aborted at round %d; last good checkpoint: %s",
-                    start_round + completed, last_ckpt,
+                    start_round + completed,
+                    writer.last_path if writer is not None else None,
                 )
                 aborted = True
                 break
@@ -299,19 +285,14 @@ def run_segmented(
             seg_box["index"] += 1
             stats["segments"] += 1
             info_parts.append(infos)
-            if checkpoint_root:
+            if writer is not None:
                 # the only synchronous cost on the hot loop: the host copy
                 # (plus writer backpressure while the previous segment's
                 # checkpoint is still being written)
                 t0 = time.perf_counter()
-                host_carry = (_host_copy(st2), _key_to_json(key2))
-                if writer is not None:
-                    writer.submit(host_carry[0], host_carry[1],
-                                  start_round + completed, seg_box["index"])
-                else:
-                    last_ckpt = write_segment_checkpoint(
-                        cfg, mode, host_carry[0], host_carry[1],
-                        start_round + completed, checkpoint_root, keep_last)
+                host_carry = (host_copy(st2), _key_to_json(key2))
+                writer.submit(host_carry[0], host_carry[1],
+                              start_round + completed, seg_box["index"])
                 stats["ckpt_stall_s"] += time.perf_counter() - t0
                 held = None
             elif supervisor is not None:
@@ -331,8 +312,6 @@ def run_segmented(
             stats["ckpt_io_s"] = writer.io_seconds
             stats["ckpt_written"] = writer.written
             stats["ckpt_overlapped_segments"] = writer.overlapped
-        elif checkpoint_root:
-            stats["ckpt_written"] = stats["segments"]
     return SoakResult(
         state=box["st"],
         key=box["key"],
@@ -346,8 +325,7 @@ def run_segmented(
     )
 
 
-def restore_soak_carry(cfg, checkpoint_root: str, *,
-                       mode: Optional[str] = None, device="cuda"):
+def restore_soak_carry(cfg, checkpoint_root: str, *, device="cuda"):
     """Restore the newest valid soak checkpoint under
     ``checkpoint_root`` onto ``device`` without running anything: the
     restore gate of :func:`resume_segmented`.
@@ -356,7 +334,7 @@ def restore_soak_carry(cfg, checkpoint_root: str, *,
     ``FileNotFoundError`` when no restorable checkpoint exists and
     ``ValueError`` on mode/config drift, a missing soak carry, or a key
     of another implementation."""
-    mode = mode or _infer_mode(cfg)
+    mode = config_mode(cfg)
     path = latest_valid_checkpoint(checkpoint_root)
     if path is None:
         raise FileNotFoundError(
@@ -394,8 +372,6 @@ def resume_segmented(
     checkpoint_root: str,
     keep_last: int = 3,
     supervisor=None,
-    mode: Optional[str] = None,
-    async_checkpoint: bool = True,
 ) -> SoakResult:
     """Resume a segmented run from the newest valid checkpoint under
     ``checkpoint_root``, on ``net``'s device.
@@ -408,8 +384,7 @@ def resume_segmented(
 
     Raises ``FileNotFoundError`` when no restorable checkpoint exists
     and ``ValueError`` on config drift."""
-    mode = mode or _infer_mode(cfg)
-    carry = list(restore_soak_carry(cfg, checkpoint_root, mode=mode,
+    carry = list(restore_soak_carry(cfg, checkpoint_root,
                                     device=net.partition.device))
     completed, path = carry[2], carry[3]
     rounds = _n_rounds(inputs)
@@ -417,25 +392,24 @@ def resume_segmented(
                 rounds)
     if completed >= rounds:
         return SoakResult(carry[0], carry[1], {}, completed, False, path,
-                          stats=_pipeline_stats(async_checkpoint))
+                          stats=_pipeline_stats())
     # the restored carry is popped into the call, so this frame does not
     # hold it while the run goes on
     return run_segmented(
         cfg, carry.pop(0), net, carry.pop(0),
         _slice_inputs(inputs, completed, rounds),
-        segment_rounds, mode=mode, checkpoint_root=checkpoint_root,
+        segment_rounds, checkpoint_root=checkpoint_root,
         keep_last=keep_last, supervisor=supervisor, start_round=completed,
-        async_checkpoint=async_checkpoint,
     )
 
 
 def make_soak_inputs(cfg, key, rounds: int, write_frac: float = 0.0,
-                     mode: Optional[str] = None, device="cuda"):
+                     device="cuda"):
     """Stacked per-round inputs for a soak run: quiet rounds with an
     optional ``write_frac`` of nodes issuing random single-cell writes
     each round; the same draws as the JAX package's ``make_soak_inputs``."""
     dev = resolve_device(device)
-    mode = mode or _infer_mode(cfg)
+    mode = config_mode(cfg)
     if mode == "scale":
         from corrosion_tpu_torch.sim.scale_step import ScaleRoundInput as RI
     else:

@@ -28,10 +28,15 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Callable, Optional, Tuple, Type
+from typing import Callable, Optional
 
 from corrosion_tpu_torch.utils import logger
 from corrosion_tpu_torch.utils.backoff import Backoff, retry_call
+
+
+#: exception types treated as transient: deadline misses and device or
+#: runtime hiccups (torch surfaces CUDA errors as RuntimeError subclasses)
+RETRY_ON = (TimeoutError, ConnectionError, OSError, RuntimeError)
 
 
 class DispatchTimeout(TimeoutError):
@@ -55,68 +60,43 @@ class _AbortPassthrough(BaseException):
 class Supervisor:
     """Deadline + retry wrapper for device dispatch.
 
-    States: ``idle`` -> ``running`` -> (``backoff`` -> ``running``)* ->
-    ``idle`` on success, or ``aborted`` once retries are exhausted.
-    Thread-safe to observe from API threads while a round thread runs
-    supervised calls."""
-
-    #: exception types treated as transient by default: deadline misses
-    #: and device/runtime hiccups (torch surfaces CUDA errors as
-    #: RuntimeError subclasses)
-    DEFAULT_RETRY_ON: Tuple[Type[BaseException], ...] = (
-        TimeoutError, ConnectionError, OSError, RuntimeError,
-    )
+    ``state``: ``idle`` -> ``running`` -> (``backoff`` -> ``running``)* ->
+    ``idle`` on success, or ``aborted`` once retries are exhausted."""
 
     def __init__(
         self,
         deadline_seconds: Optional[float] = None,
         backoff: Optional[Backoff] = None,
-        retry_on: Optional[Tuple[Type[BaseException], ...]] = None,
-        sleep: Optional[Callable[[float], object]] = None,
-        abort: Optional[Callable[[], bool]] = None,
+        sleep: Callable[[float], object] = time.sleep,
     ):
         self.deadline_seconds = deadline_seconds
         self.backoff = backoff or Backoff(
             min_wait=1.0, max_wait=15.0, max_retries=4
         )
-        self.retry_on = tuple(retry_on or self.DEFAULT_RETRY_ON)
-        self._sleep = sleep or time.sleep
-        self._abort = abort
-        self._mu = threading.Lock()
-        self._state = "idle"
+        self._sleep = sleep
+        self.state = "idle"
         self.retries = 0  # total retries over the supervisor's lifetime
         self.aborts = 0
-
-    # --- observable surface -------------------------------------------------
-    @property
-    def state(self) -> str:
-        with self._mu:
-            return self._state
-
-    def _set(self, state: str) -> None:
-        with self._mu:
-            self._state = state
 
     # --- the wrapper -----------------------------------------------------
     def call(self, fn: Callable, *args, label: str = "dispatch", **kwargs):
         """Run ``fn`` under the deadline, retrying transient failures on
         the jittered policy; raises :class:`SupervisorAborted` once the
-        policy is exhausted (or ``abort()`` trips mid-backoff)."""
+        policy is exhausted."""
 
         def attempt():
-            self._set("running")
+            self.state = "running"
             try:
                 return self._with_deadline(fn, args, kwargs, label)
             except SupervisorAborted as e:
                 # an inner supervised workload already aborted: never
-                # re-run it, whatever the retry_on tuple covers (it
-                # subclasses RuntimeError). BaseException carrier slips
+                # re-run it, although it subclasses RuntimeError. BaseException carrier slips
                 # past retry_call's except clause.
                 raise _AbortPassthrough(e) from None
 
         def on_retry(exc, delay, attempt_no):
             self.retries += 1
-            self._set("backoff")
+            self.state = "backoff"
             logger.warning(
                 "supervisor: %s failed (%s: %s); retry %d in %.1fs",
                 label, type(exc).__name__, exc, attempt_no, delay,
@@ -126,17 +106,16 @@ class Supervisor:
             result = retry_call(
                 attempt,
                 backoff=self.backoff,
-                retry_on=self.retry_on,
+                retry_on=RETRY_ON,
                 sleep=self._sleep,
-                abort=self._abort,
                 on_retry=on_retry,
             )
         except _AbortPassthrough as w:
-            self._set("aborted")
+            self.state = "aborted"
             self.aborts += 1
             raise w.exc
-        except self.retry_on as e:
-            self._set("aborted")
+        except RETRY_ON as e:
+            self.state = "aborted"
             self.aborts += 1
             raise SupervisorAborted(
                 f"{label}: retries exhausted ({type(e).__name__}: {e}); "
@@ -146,9 +125,9 @@ class Supervisor:
             # non-retryable (ValueError from a bad state, Keyboard-
             # Interrupt, ...): nothing is executing anymore — the state
             # must not stay stuck at "running"
-            self._set("idle")
+            self.state = "idle"
             raise
-        self._set("idle")
+        self.state = "idle"
         return result
 
     def _with_deadline(self, fn: Callable, args, kwargs, label: str):

@@ -389,8 +389,7 @@ class OracleCluster:
 
 def run_sim_script(script: WorkloadScript, seed: int = 0,
                    settle_rounds: int = 512, drop_prob: float = 0.0,
-                   sync_interval: int = 4, quiet: str = "auto",
-                   device="cuda"):
+                   quiet: str = "auto", device="cuda"):
     """Run the scale sim on ``device`` under the same script until
     converged: the JAX package's ``run_sim_script`` round for round, with
     the same config, keys, fault folding and final revive-all-and-heal.
@@ -408,7 +407,7 @@ def run_sim_script(script: WorkloadScript, seed: int = 0,
     cfg = scale_sim_config(
         n, n_origins=script.n_origins,
         n_rows=n_rows, n_cols=(script.n_cells + n_rows - 1) // n_rows,
-        sync_interval=sync_interval, tx_max_cells=tx_k, quiet=quiet,
+        sync_interval=4, tx_max_cells=tx_k, quiet=quiet,
     )
     # the configured grid must cover the script's cell space
     if cfg.n_cells < script.n_cells:

@@ -2,11 +2,10 @@
 ``corrosion_tpu/utils/backoff.py``).
 
 Mirrors the reference's ``backoff`` crate (``crates/backoff/src/lib.rs:7-50``):
-an iterator of sleep durations that grows exponentially from ``min`` to
-``max`` with multiplicative ``factor``, each step jittered by a random
-fraction so a fleet of nodes does not thunder-herd. Used by the sync loop
-(1 s -> 15 s, ``agent/util.rs:352-398``) and bootstrap announcements
-(5 s -> 120 s, ``agent/bootstrap.rs``).
+an iterator of sleep durations that doubles from ``min`` to ``max``, each
+step jittered by up to half its size so a fleet of nodes does not
+thunder-herd. The sync loop's policy is 1 s -> 15 s
+(``agent/util.rs:352-398``).
 """
 
 from __future__ import annotations
@@ -15,95 +14,54 @@ import random
 import time
 from typing import Callable, Iterator, Optional, Tuple, Type
 
+#: growth of the delay per attempt, and the +-fraction each delay is
+#: jittered by (the JAX package's defaults)
+FACTOR, JITTER = 2.0, 0.5
+
 
 class Backoff:
-    """``iter(Backoff(...))`` yields jittered, exponentially growing delays.
+    """``iter(Backoff(...))`` yields jittered, exponentially growing delays,
+    each clamped to ``[min_wait, max_wait]``; ``max_retries`` of them, or
+    forever when it is None."""
 
-    The iterator is infinite unless ``max_retries`` is set; after the cap
-    it keeps yielding ``max_wait`` (like the reference's saturating
-    iterator).
-    """
-
-    def __init__(
-        self,
-        min_wait: float = 1.0,
-        max_wait: float = 15.0,
-        factor: float = 2.0,
-        jitter: float = 0.5,
-        max_retries: Optional[int] = None,
-        rng: Optional[random.Random] = None,
-    ):
-        if not (min_wait > 0 and max_wait >= min_wait and factor >= 1.0):
+    def __init__(self, min_wait: float = 1.0, max_wait: float = 15.0,
+                 max_retries: Optional[int] = None):
+        if not 0 < min_wait <= max_wait:
             raise ValueError(
-                f"need 0 < min_wait <= max_wait and factor >= 1.0, got "
-                f"min={min_wait} max={max_wait} factor={factor}"
-            )
-        if not 0.0 <= jitter <= 1.0:
-            raise ValueError(f"jitter must be in [0, 1], got {jitter}")
+                f"need 0 < min_wait <= max_wait, got min={min_wait} max={max_wait}")
         self.min_wait = min_wait
         self.max_wait = max_wait
-        self.factor = factor
-        self.jitter = jitter
         self.max_retries = max_retries
-        self._rng = rng or random.Random()
 
     def __iter__(self) -> Iterator[float]:
         base = self.min_wait
         n = 0
-        while True:
-            if self.max_retries is not None and n >= self.max_retries:
-                return
-            # jitter scales the delay in [1-j, 1+j], clamped to [min, max]
-            scale = 1.0 + self.jitter * (2.0 * self._rng.random() - 1.0)
+        while self.max_retries is None or n < self.max_retries:
+            scale = 1.0 + JITTER * (2.0 * random.random() - 1.0)
             yield max(self.min_wait, min(self.max_wait, base * scale))
-            base = min(self.max_wait, base * self.factor)
+            base = min(self.max_wait, base * FACTOR)
             n += 1
 
 
 def retry_call(
     fn: Callable,
-    *args,
-    backoff: Optional[Backoff] = None,
-    retry_on: Tuple[Type[BaseException], ...] = (
-        ConnectionError, TimeoutError, OSError,
-    ),
+    backoff: Backoff,
+    retry_on: Tuple[Type[BaseException], ...],
     sleep: Callable[[float], object] = time.sleep,
-    abort: Optional[Callable[[], bool]] = None,
     on_retry: Optional[Callable[[BaseException, float, int], None]] = None,
-    **kwargs,
 ):
-    """Call ``fn(*args, **kwargs)`` until it succeeds, sleeping through
-    one shared jittered policy between attempts — the ONE retry engine
-    every poll/reconnect loop in the codebase rides (the reference's
-    ``backoff`` crate is likewise the single policy behind sync retries
-    and bootstrap announcements).
-
-    - ``backoff``: delay source; default ``Backoff(max_retries=5)``. A
-      ``Backoff`` without ``max_retries`` retries forever (pair it with
-      ``abort``).
-    - ``retry_on``: exception types that trigger a retry; anything else
-      propagates immediately.
-    - ``sleep``: delay function — pass an ``Event.wait`` to make waits
-      interruptible by shutdown.
-    - ``abort``: checked after each failure; when it returns True the
-      last exception propagates instead of sleeping (shutdown must not
-      sit out a 30 s delay).
-    - ``on_retry(exc, delay, attempt)``: observation hook (logging,
-      supervisor state).
-
-    When the delay iterator is exhausted the last exception propagates —
-    callers keep their natural ``except`` types. (The JAX package's
-    ``Retry-After`` server hint belongs to its HTTP clients and is not
-    ported.)"""
-    bo = backoff if backoff is not None else Backoff(max_retries=5)
-    delays = iter(bo)
+    """Call ``fn()`` until it succeeds, sleeping through ``backoff``'s
+    delays between attempts. Exceptions of ``retry_on`` trigger a retry,
+    anything else propagates at once; when the delays run out the last
+    exception propagates, so callers keep their natural ``except`` types.
+    ``on_retry(exc, delay, attempt)`` observes each retry (logging,
+    supervisor state)."""
+    delays = iter(backoff)
     attempt = 0
     while True:
         try:
-            return fn(*args, **kwargs)
+            return fn()
         except retry_on as e:
-            if abort is not None and abort():
-                raise
             delay = next(delays, None)
             if delay is None:
                 raise
@@ -111,8 +69,3 @@ def retry_call(
             if on_retry is not None:
                 on_retry(e, delay, attempt)
             sleep(delay)
-            if abort is not None and abort():
-                # an interruptible sleep (Event.wait) returns early on
-                # shutdown — don't launch one more full attempt after
-                # the caller already tripped
-                raise
