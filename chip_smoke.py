@@ -96,6 +96,23 @@ Phases (any failure raises and the script exits non-zero):
 15. full-soak: ``full_view_config(1024)`` for 16 rounds, one segment of 8
     checkpointed and resumed from disk, equal to the straight run bitwise,
     with the ingest kernel at m = 96 once a round.
+16. agent-trajectory: two never-started agents at the agent's default
+    config with 4096 nodes, one on the card and one on the CPU, driven by
+    hand through the same SQL writes (a ``Database`` each), kills, a
+    revive, a partition and its heal for 24 rounds: ``device_state()``
+    bitwise equal after every round, the same query rows, and each kernel
+    once a round on the card.
+17. agent: ``python -m corrosion_tpu_torch agent`` as a process at
+    N=100,000 (the ``Config`` defaults otherwise), a schema file and an
+    ephemeral API port: a row written at node 0 through the HTTP client is
+    polled at node 99,999 until it is there (at most 400 rounds); 50
+    queries are timed; the live loop's rounds/s is read from
+    ``/v1/health``, quiet and under back-to-back queries; the admin socket
+    kills and revives a node and writes a
+    checkpoint that ``verify-checkpoint`` passes; the ``/metrics`` launch
+    gauges must show every kernel once a round; SIGTERM must end it with
+    exit 0. Then, in this process at the same config, the hand-driven
+    agent round, the snapshot copy and ``scale_run_rounds`` are timed.
 
 Each kernel's bound is the larger of the bytes it must move on these inputs
 over the memory rate and the integer operations its function needs on them
@@ -132,6 +149,14 @@ PARITY_NODES, PARITY_ORIGINS, PARITY_CELLS, PARITY_ROUNDS = 256, 16, 64, 24
 # cluster goes quiet about 100 rounds after the last write
 PARITY_QUIET_TAIL = 128
 SOAK_ROUNDS, SOAK_SEGMENT = 64, 16
+# the agent: card vs CPU by hand at 4096 nodes; the process at 100,000
+AGENT_TRAJECTORY_NODES, AGENT_TRAJECTORY_ROUNDS = 4096, 24
+AGENT_NODES = 100_000
+AGENT_BOOT_S = 300  # seconds for "agent up"
+AGENT_VISIBLE_ROUNDS = 400  # rounds a write may take to reach the last node
+AGENT_RATE_S = 5.0  # seconds of /v1/health rounds for the live loop's rate
+AGENT_POLL_S = 0.05  # seconds between the reader's polls
+AGENT_STOP_S = 60  # seconds for exit 0 after SIGTERM
 
 
 def _swim_ops(args, pig_k: int = 0) -> int:
@@ -1583,6 +1608,385 @@ def phase_full_soak(dev) -> None:
           f"{p_straight} / {p_res} bytes", flush=True)
 
 
+# --- the agent ----------------------------------------------------------------
+
+AGENT_SCHEMA = "CREATE TABLE kv (k TEXT PRIMARY KEY, v INTEGER);"
+
+
+def _agent_config(n: int):
+    """The agent's ``Config`` at its defaults with ``n`` nodes."""
+    from corrosion_tpu_torch.config import Config
+
+    cfg = Config()
+    cfg.sim.n_nodes = n
+    return cfg
+
+
+def _np_leaves(x) -> list:
+    """numpy leaves of nested NamedTuples / tuples, in order."""
+    if isinstance(x, tuple):
+        return [a for v in x for a in _np_leaves(v)]
+    return [x]
+
+
+def phase_agent_trajectory(dev) -> dict:
+    """Two never-started agents at the agent's default config with
+    ``AGENT_TRAJECTORY_NODES`` nodes, one on the card and one on the CPU,
+    driven by hand through the same SQL writes (a ``Database`` each), kills,
+    a revive, a partition and its heal for ``AGENT_TRAJECTORY_ROUNDS``
+    rounds: ``device_state()`` bitwise equal after every round, the query
+    rows equal at the last node, and each kernel launched once a round on
+    the card."""
+    import numpy as np
+
+    from corrosion_tpu_torch.agent import Agent
+    from corrosion_tpu_torch.db import Database
+    from corrosion_tpu_torch.ops import megakernel as mk
+
+    n, rounds = AGENT_TRAJECTORY_NODES, AGENT_TRAJECTORY_ROUNDS
+    agents = {d: Agent(_agent_config(n), device=d) for d in ("cpu", dev)}
+    dbs = {d: Database(a) for d, a in agents.items()}
+    for db in dbs.values():
+        db.apply_schema_sql(AGENT_SCHEMA)
+    t0 = time.perf_counter()
+    mk.reset_launches()
+    for r in range(rounds):
+        for d, agent in agents.items():
+            if r % 3 == 0:
+                dbs[d].execute(r % agent.n_origins,
+                               [("INSERT INTO kv (k, v) VALUES (?, ?)", [f"k{r}", r])],
+                               wait=False)
+            if r == 4:
+                agent.kill_node(100)
+                agent.kill_node(n - 7)
+            elif r == 8:
+                agent.set_partition(np.arange(n) % 2)
+            elif r == 12:
+                agent.revive_node(100)
+            elif r == 16:
+                agent.heal_partition()
+            agent._one_round()
+        a, b = (_np_leaves(agents[d].device_state()) for d in ("cpu", dev))
+        bad = [i for i, (x, y) in enumerate(zip(a, b, strict=True))
+               if x.dtype != y.dtype or not np.array_equal(x, y)]
+        if bad:
+            raise AssertionError(f"agent-trajectory round {r}: leaves {bad} differ "
+                                 f"cuda vs cpu")
+    launches, forms = dict(mk.LAUNCHES), dict(mk.FORM_LAUNCHES)
+    want = {"swim_tables": rounds, "ingest": rounds, "ingest_emit": rounds}
+    if launches != want:
+        raise AssertionError(f"agent-trajectory launches {launches} != {want}")
+    sql = "SELECT k, v FROM kv ORDER BY k"
+    rows = {d: [list(x) for x in db.query(n - 1, sql)[1]] for d, db in dbs.items()}
+    if rows["cpu"] != rows[dev] or not agents[dev].snapshot()["alive"][100]:
+        raise AssertionError(f"agent-trajectory rows {rows} or revive differ")
+    print(f"[agent-trajectory] N={n} agent defaults: {rounds} rounds of SQL writes, "
+          f"kills, revive, partition and heal; device_state() bitwise equal cuda vs "
+          f"cpu after every round; {len(rows['cpu'])} rows at node {n - 1} on both; "
+          f"card launches {forms} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    return {"forms": forms}
+
+
+def _metric_values(text: str, name: str) -> dict:
+    """``{labels: value}`` of one metric in Prometheus text."""
+    import re
+
+    out = {}
+    for line in text.splitlines():
+        got = re.match(rf"{name}(\{{[^}}]*\}})? (\S+)$", line)
+        if got:
+            out[got.group(1) or ""] = float(got.group(2))
+    return out
+
+
+def _compute_apps() -> list:
+    """``nvidia-smi --query-compute-apps=pid,used_memory`` rows (empty when
+    nvidia-smi does not run)."""
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30).stdout.splitlines()
+    except (OSError, subprocess.TimeoutExpired):
+        return []
+
+
+def _process_memory(pid: int, before: list) -> str:
+    """The agent process's device memory as ``nvidia-smi
+    --query-compute-apps`` lists it: its own pid's row, else the rows that
+    were not there before it started (a container may show other pids)."""
+    rows = _compute_apps()
+    mine = [r for r in rows if r.split(",")[0].strip() == str(pid)]
+    new = mine or [r for r in rows if r not in before]
+    if not new:
+        return f"not listed ({len(rows)} rows, {len(before)} before the agent)"
+    return "; ".join(r.split(",", 1)[1].strip() for r in new) + (
+        "" if mine else f" (the rows new since the agent started: {new})")
+
+
+def _agent_process(dev, tmp: str) -> dict:
+    """``python -m corrosion_tpu_torch agent`` at ``AGENT_NODES`` nodes
+    through its HTTP API, its admin socket and SIGTERM."""
+    import os
+    import queue
+    import re
+    import signal
+    import threading
+
+    import torch
+
+    from corrosion_tpu_torch.admin import AdminClient
+    from corrosion_tpu_torch.client import CorrosionApiClient
+
+    n = AGENT_NODES
+    schema, uds = os.path.join(tmp, "schema.sql"), os.path.join(tmp, "admin.sock")
+    cfg_path = os.path.join(tmp, "agent.toml")
+    with open(schema, "w") as f:
+        f.write(AGENT_SCHEMA)
+    with open(cfg_path, "w") as f:
+        f.write(f'[db]\npath = "{os.path.join(tmp, "state")}"\n'
+                f'schema_paths = ["{schema}"]\n[api]\nport = 0\n'
+                f'[admin]\nuds_path = "{uds}"\n[sim]\nn_nodes = {n}\n')
+    err_path = os.path.join(tmp, "agent.err")
+    err = open(err_path, "w")
+    root = os.path.dirname(os.path.abspath(__file__))
+    apps_before = _compute_apps()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "corrosion_tpu_torch", "agent", "-c", cfg_path,
+         "--device", str(dev), "--pace", "0"],
+        cwd=root, stdout=subprocess.PIPE, stderr=err, text=True)
+    lines: queue.Queue = queue.Queue()
+    reader = threading.Thread(
+        target=lambda: [lines.put(x) for x in proc.stdout] + [lines.put(None)],
+        daemon=True)
+    reader.start()
+    out = {}
+    try:
+        t_boot = time.perf_counter()
+        up = None
+        while up is None:
+            left = AGENT_BOOT_S - (time.perf_counter() - t_boot)
+            line = lines.get(timeout=max(0.1, left))
+            if line is None or left <= 0:
+                raise AssertionError(f"agent exited or did not come up in {AGENT_BOOT_S} s")
+            up = re.match(r"agent up: api http://([\d.]+):(\d+) .*nodes=(\d+) "
+                          r"device=(\S+)", line)
+        addr, port, nodes, device = up.groups()
+        if int(nodes) != n or torch.device(device).type != dev.type:
+            raise AssertionError(f"agent up line {line.strip()!r}")
+        out["boot_s"] = time.perf_counter() - t_boot
+        client = CorrosionApiClient(addr, int(port), timeout=120)
+
+        def round_no() -> int:
+            return int(client._request_json("GET", "/v1/health")["round"])
+
+        # the first rounds load the kernels: write once the loop runs warm
+        while round_no() < 3:
+            if time.perf_counter() - t_boot > AGENT_BOOT_S:
+                raise AssertionError(f"the agent ran no 3 rounds in {AGENT_BOOT_S} s")
+            time.sleep(AGENT_POLL_S)
+        # write at node 0, read at the last node until the whole row is there
+        t_w = time.perf_counter()
+        client.execute([("INSERT INTO kv (k, v) VALUES (?, ?)", ["probe", 4242])], node=0)
+        r_w = round_no()
+        while client.query("SELECT k, v FROM kv WHERE k = ?", ["probe"],
+                           node=n - 1)[1] != [["probe", 4242]]:
+            if round_no() - r_w > AGENT_VISIBLE_ROUNDS:
+                raise AssertionError(f"the row was not visible at node {n - 1} "
+                                     f"{AGENT_VISIBLE_ROUNDS} rounds after its write")
+            time.sleep(AGENT_POLL_S)
+        out["visible_s"] = time.perf_counter() - t_w
+        out["visible_rounds"] = round_no() - r_w
+        lat, r_q = [], round_no()
+        for _ in range(50):
+            t0 = time.perf_counter()
+            client.query("SELECT v FROM kv WHERE k = ?", ["probe"], node=n - 1)
+            lat.append(time.perf_counter() - t0)
+        out["query_rounds"] = round_no() - r_q
+        out["query_s"] = sum(lat)
+        lat.sort()
+        out["query_median_s"], out["query_max_s"] = lat[len(lat) // 2], lat[-1]
+        # the live loop's rate: /v1/health's round over wall time, first
+        # with no client traffic, then while queries run back to back
+        r0, t0 = round_no(), time.perf_counter()
+        time.sleep(AGENT_RATE_S)
+        r1, t1 = round_no(), time.perf_counter()
+        out["live_rounds_per_s"] = (r1 - r0) / (t1 - t0)
+        queries = 0
+        while time.perf_counter() - t1 < AGENT_RATE_S:
+            client.query("SELECT v FROM kv WHERE k = ?", ["probe"], node=n - 1)
+            queries += 1
+        r2, t2 = round_no(), time.perf_counter()
+        out["loaded_rounds_per_s"] = (r2 - r1) / (t2 - t1)
+        out["loaded_queries"] = queries
+        health = client._request_json("GET", "/v1/health")
+        out["device_bytes"] = (health.get("device_bytes"), health.get("device_peak_bytes"))
+
+        def wait_rounds(k: int) -> None:
+            start = round_no()
+            while round_no() < start + k:
+                time.sleep(0.05)
+
+        with AdminClient(uds, timeout=300) as admin:
+            admin.call("kill", node=5)
+            wait_rounds(2)
+            if admin.call("cluster_members")[5]["state"] != "Down":
+                raise AssertionError("node 5 is not down after the admin kill")
+            admin.call("revive", node=5)
+            wait_rounds(2)
+            if admin.call("cluster_members")[5]["state"] != "Alive":
+                raise AssertionError("node 5 is not alive after the admin revive")
+            t0 = time.perf_counter()
+            ck = admin.call("checkpoint", path=os.path.join(tmp, "ck"))
+            out["checkpoint_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ver = subprocess.run(
+            [sys.executable, "-m", "corrosion_tpu_torch", "verify-checkpoint", ck],
+            cwd=root, capture_output=True, text=True, timeout=300)
+        out["verify_s"] = time.perf_counter() - t0
+        summary = json.loads(ver.stdout) if ver.returncode == 0 else {}
+        if not summary.get("ok") or summary.get("mode") != "scale":
+            raise AssertionError(f"verify-checkpoint rc {ver.returncode}: "
+                                 f"{ver.stdout[-500:]} {ver.stderr[-500:]}")
+        with open(os.path.join(ck, "manifest.json")) as f:
+            if not json.load(f)["db"]:
+                raise AssertionError("the agent's checkpoint carries no database")
+        r_a = round_no()
+        text = client.metrics()
+        r_b = round_no()
+        launches = _metric_values(text, "corro_kernel_launches")
+        counts = {re.search(r'kernel="(\w+)"', k).group(1): v for k, v in launches.items()}
+        if (set(counts) != {"swim_tables", "ingest", "ingest_emit"}
+                or len(set(counts.values())) != 1
+                or not r_a <= next(iter(counts.values())) <= r_b + 1):
+            raise AssertionError(f"agent launches {launches} at rounds {r_a}..{r_b}")
+        out["launches"] = launches
+        out["rounds"] = r_b
+        out["mem"] = _metric_values(text, "corro_mem_state_bytes")[""]
+        out["mem_by_class"] = _metric_values(text, "corro_mem_class_bytes")
+        out["process_memory"] = _process_memory(proc.pid, apps_before)
+        t0 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=AGENT_STOP_S)
+        out["stop_s"] = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"agent exited {rc} on SIGTERM")
+    except BaseException:
+        err.flush()
+        with open(err_path) as f:
+            print(f"[agent] agent stderr tail:\n{f.read()[-3000:]}", flush=True)
+        raise
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        reader.join(timeout=10)
+        err.close()
+    return out
+
+
+def _agent_in_process(dev) -> dict:
+    """At the agent's default config with ``AGENT_NODES`` nodes: rounds/s of
+    a never-started agent's rounds driven by hand and of
+    ``scale_run_rounds`` with quiet inputs, three batches of 8 each in
+    turns (sorted), and the median ``snapshot()`` time."""
+    import torch
+
+    from corrosion_tpu_torch import random as prng
+    from corrosion_tpu_torch.agent import Agent
+    from corrosion_tpu_torch.sim.scale_step import (
+        ScaleRoundInput,
+        ScaleSimState,
+        scale_run_rounds_carry,
+    )
+    from corrosion_tpu_torch.sim.transport import NetModel
+
+    config = _agent_config(AGENT_NODES)
+    warm, batch, reps = 2, 8, 3
+    agent = Agent(config, device=dev)
+    cfg = agent.cfg
+    st = ScaleSimState.create(cfg, dev)
+    net = NetModel.create(cfg.n_nodes, drop_prob=config.gossip.drop_prob,
+                          n_regions=config.gossip.n_regions, device=dev)
+    quiet = ScaleRoundInput.quiet(cfg, dev)
+
+    def stack(k):
+        return ScaleRoundInput(*(a.expand((k,) + tuple(a.shape)) for a in quiet))
+
+    def agent_rounds(k):
+        for _ in range(k):
+            agent._one_round()
+
+    def plain_rounds(k):
+        nonlocal st, key
+        (st, key), _ = scale_run_rounds_carry(cfg, st, net, key, stack(k))
+        torch.cuda.synchronize(dev)
+
+    key = prng.key(config.sim.seed)
+    agent_rounds(warm)
+    plain_rounds(warm)
+    # the two loops take turns, batch by batch, on one card
+    rates = {"hand": [], "plain": []}
+    for _ in range(reps):
+        for name, run in (("hand", agent_rounds), ("plain", plain_rounds)):
+            t0 = time.perf_counter()
+            run(batch)
+            rates[name].append(batch / (time.perf_counter() - t0))
+    snaps = []
+    for _ in range(5):
+        agent._snapshot_host = None
+        t0 = time.perf_counter()
+        agent.snapshot()
+        snaps.append(time.perf_counter() - t0)
+    hand, plain = (sorted(rates[k]) for k in ("hand", "plain"))
+    return {"hand_rounds_per_s": hand, "run_rounds_per_s": plain,
+            "snapshot_s": sorted(snaps)[len(snaps) // 2]}
+
+
+def phase_agent(dev) -> dict:
+    """The agent as its users run it: ``python -m corrosion_tpu_torch agent``
+    with ``AGENT_NODES`` nodes and the other keys at the ``Config``
+    defaults, a schema file and an ephemeral API port. A row written at node
+    0 through the HTTP client is polled at the last node until it is there
+    (at most ``AGENT_VISIBLE_ROUNDS`` rounds); 50 queries are timed; the
+    live loop's rounds/s is read from ``/v1/health`` with no client
+    traffic and while queries run back to back; the admin socket kills and
+    revives a node and writes a checkpoint, which
+    ``verify-checkpoint`` must pass; the process's kernel launch gauges
+    must show every kernel once a round; SIGTERM must stop it with exit 0.
+    Then, in this process at the same config, the hand-driven agent round,
+    the snapshot copy and ``scale_run_rounds`` are timed."""
+    import tempfile
+
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="agent-") as tmp:
+        out = _agent_process(dev, tmp)
+    out.update(_agent_in_process(dev))
+    print(f"[agent] N={AGENT_NODES} agent defaults on {dev}: up in {out['boot_s']:.1f} s; "
+          f"live loop {out['live_rounds_per_s']!r} rounds/s (/v1/health round over "
+          f"{AGENT_RATE_S} s, --pace 0), {out['loaded_rounds_per_s']!r} while "
+          f"{out['loaded_queries']} queries ran back to back; in this process, "
+          f"batches of 8 in turns: hand-driven _one_round "
+          f"{[repr(x) for x in out['hand_rounds_per_s']]} rounds/s, scale_run_rounds "
+          f"{[repr(x) for x in out['run_rounds_per_s']]} at the same config; "
+          f"write at node 0 "
+          f"visible at node {AGENT_NODES - 1} after {out['visible_rounds']} rounds, "
+          f"{out['visible_s']!r} s; query latency median {out['query_median_s']!r} s, "
+          f"max {out['query_max_s']!r} s over 50 back to back ({out['query_s']!r} s, "
+          f"{out['query_rounds']} rounds meanwhile); snapshot {out['snapshot_s']!r} s; "
+          f"admin checkpoint {out['checkpoint_s']!r} s, verify-checkpoint "
+          f"{out['verify_s']!r} s; process device memory {out['process_memory']} "
+          f"(nvidia-smi), allocated and peak {out['device_bytes']} bytes "
+          f"(/v1/health); "
+          f"corro.mem.state.bytes {int(out['mem'])} by class {out['mem_by_class']}; "
+          f"launch gauges {out['launches']} after {out['rounds']} rounds; SIGTERM "
+          f"exit 0 in {out['stop_s']:.1f} s", flush=True)
+    return out
+
+
 _PTX_TYPES = {"a": "int8", "s": "int16", "i": "int32"}
 
 
@@ -1698,6 +2102,10 @@ def main() -> int:
     done("soak")
     phase_full_soak(dev)
     done("full-soak")
+    phase_agent_trajectory(dev)
+    done("agent-trajectory")
+    phase_agent(dev)
+    done("agent")
 
     # each form's launches are read from the path that runs it (0: no path
     # here runs the form)

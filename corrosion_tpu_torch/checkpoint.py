@@ -12,6 +12,15 @@ NamedTuples (``jax.tree.leaves`` order), dtypes are numpy names, and
 uint32 and read back as int32 bits. Formats 1 and 2 (one ``state.npz`` of
 ``leaf_<i>``) still load.
 
+A checkpoint of a live agent (:func:`save_checkpoint` given the agent)
+also carries the attached ``Database``'s host state (schema, value heap,
+row map) under the manifest's ``db``; :func:`restore_checkpoint` swaps both
+back in. A **backup** is one node's replica, portable between clusters:
+:func:`backup_node` writes its store planes and bookkeeping rows (plus the
+host database beside it), and :func:`restore_backup` grafts them onto a
+node of a live agent, re-pivoting site ids to the new identity. The files
+are the JAX package's in both directions here too.
+
 The mesh-sharded save and the elastic restore are not ported: a
 checkpoint whose manifest records a mesh of more than one device is
 refused whole, never loaded in part.
@@ -96,10 +105,11 @@ def _file_dtype(path, t: torch.Tensor) -> str:
 
 def host_arrays(state) -> list:
     """The leaves as numpy arrays in their file dtypes (views of CPU
-    tensors; device tensors are copied to the host)."""
+    tensors; device tensors are copied to the host; numpy leaves, as an
+    agent's ``device_state()`` holds them, pass through)."""
     out = []
     for path, t in named_leaves(state):
-        a = t.detach().cpu().numpy()
+        a = t if isinstance(t, np.ndarray) else t.detach().cpu().numpy()
         out.append(a.view(np.uint32) if path == _SEEN_PATH else a)
     return out
 
@@ -157,17 +167,27 @@ def config_mode(cfg) -> str:
     return "scale" if isinstance(cfg, ScaleSimConfig) else "full"
 
 
-def save_checkpoint(cfg, state, round_no: int, path: str,
-                    extra: Optional[dict] = None) -> str:
-    """Write ``state`` (of ``cfg``, after ``round_no`` rounds; on any
-    device, the soak runner hands over CPU copies) to the directory
-    ``path``.
+def save_checkpoint(source, state=None, round_no: Optional[int] = None,
+                    path: str = "./checkpoint", extra: Optional[dict] = None,
+                    db=None) -> str:
+    """Write a checkpoint to the directory ``path``, in one of two forms:
+
+    - ``save_checkpoint(agent, db=db, path=path)``: a live agent's state
+      after ``agent.round_no`` rounds, with ``db.state_dict()`` (the host
+      database) under the manifest's ``db`` (the JAX package's signature,
+      which the admin socket and the maintenance loop call);
+    - ``save_checkpoint(cfg, state, round_no, path)``: a bare ``state`` of
+      ``cfg`` on any device (the soak runner hands over CPU copies).
 
     Crash-safe ordering: the manifest is removed first and written LAST
     through an atomic rename, so a directory without a manifest is
     incomplete by definition; the state file's SHA-256 is recorded in the
     manifest, so later corruption is detected on load. ``extra`` is a
     JSON-able payload stored in the manifest (the soak runner's carry)."""
+    if hasattr(source, "device_state"):  # a live agent
+        cfg, state, round_no = source.cfg, source.device_state(), source.round_no
+    else:
+        cfg = source
     os.makedirs(path, exist_ok=True)
     manifest_path = os.path.join(path, "manifest.json")
     if os.path.exists(manifest_path):
@@ -199,7 +219,7 @@ def save_checkpoint(cfg, state, round_no: int, path: str,
         "slices": {_SHARD_FILE: [{"leaf": i, "start": 0, "stop": None}
                                  for i in range(len(arrays))]},
         "files": files,
-        "db": None,
+        "db": db.state_dict() if db is not None else None,
     }
     if extra is not None:
         manifest["extra"] = extra
@@ -353,3 +373,103 @@ def verify_checkpoint(path: str) -> dict:
         "hashed_files": sorted((manifest.get("files") or {})),
         "extra": manifest.get("extra"),
     }
+
+
+def restore_checkpoint(agent, path: str, db=None, verify: bool = True) -> dict:
+    """Swap a checkpoint into a live agent (and its Database's host state).
+
+    ``verify=False`` skips the hash pass, for callers that just verified
+    the same path."""
+    manifest, state = load_checkpoint(path, verify=verify, device=agent.device)
+    if manifest["mode"] != agent.mode:
+        raise ValueError(
+            f"checkpoint mode {manifest['mode']!r} != agent mode {agent.mode!r}"
+        )
+    if not agent.restore_state(state):
+        raise TimeoutError("restore did not apply in time")
+    if db is not None:
+        if manifest.get("db") is not None:
+            db.load_state_dict(manifest["db"])
+        else:
+            # the device state rewinds but the host DB cannot: rows
+            # committed after the checkpoint stay visible host-side even
+            # though the cluster no longer holds them
+            from corrosion_tpu_torch.utils.tracing import logger
+
+            logger.warning(
+                "checkpoint %s carries no host-DB state; the attached "
+                "Database was NOT rewound and may serve rows the "
+                "restored cluster no longer holds", path,
+            )
+    return manifest
+
+
+# --- portable single-node backup ----------------------------------------
+
+def backup_node(agent, node: int, db=None, path: str = "./backup.npz") -> str:
+    """Portable backup of one node's replica (``corrosion backup``)."""
+    snap = agent.snapshot()
+    planes = {f"plane_{i}": p[node] for i, p in enumerate(snap["store"])}
+    np.savez_compressed(
+        path,
+        **planes,
+        head=snap["head"][node],
+        known_max=snap["known_max"][node],
+        meta=np.array([FORMAT_VERSION, node, len(snap["store"])], np.int64),
+    )
+    if db is not None:
+        with open(path + ".db.json", "w") as f:
+            json.dump(db.state_dict(), f)
+    return path
+
+
+def restore_backup(agent, path: str, node: Optional[int] = None,
+                   db=None, repivot: bool = True) -> int:
+    """Graft a node backup onto ``node`` of a live cluster.
+
+    With ``repivot`` (the site-id ordinal rewrite analog, ``main.rs:227-330``),
+    site-plane entries naming the backed-up node are rewritten to the
+    restored node's id, and the per-origin head/known_max rows move with
+    the identity. Use it to move an identity, not to clone one: grafting
+    onto a cluster where the source node is still a live, distinct
+    identity can collide versions."""
+    with np.load(path) as z:
+        fmt, src_node, n_planes = (int(x) for x in z["meta"])
+        if fmt != FORMAT_VERSION:
+            raise ValueError(f"unsupported backup format {fmt}")
+        planes = [np.array(z[f"plane_{i}"]) for i in range(n_planes)]
+        head = np.array(z["head"])
+        known_max = np.array(z["known_max"])
+    target = src_node if node is None else node
+    if repivot and target != src_node:
+        site = planes[2]  # (ver, val, site, dbv) plane order
+        site[site == src_node] = target
+        n_origins = head.shape[0]
+        if src_node < n_origins:
+            if target < n_origins:
+                head[target] = max(head[target], head[src_node])
+                known_max[target] = max(known_max[target], known_max[src_node])
+            head[src_node] = 0
+            known_max[src_node] = 0
+    # patch a host copy of the live state, then stage the swap
+    state = agent.device_state()
+    store = tuple(np.array(p) for p in state.crdt.store)
+    for plane, backup_plane in zip(store, planes):
+        plane[target] = backup_plane
+    book = state.crdt.book
+    h = np.array(book.head)
+    km = np.array(book.known_max)
+    h[target] = head
+    km[target] = np.maximum(known_max, km[target])
+    # the seen window is relative to the head being replaced — clear it
+    # (out-of-order dedupe hints only; anti-entropy sync re-derives them)
+    seen = np.array(book.seen)
+    seen[target] = 0
+    crdt = state.crdt._replace(
+        store=store, book=book._replace(head=h, known_max=km, seen=seen))
+    if not agent.restore_state(state._replace(crdt=crdt)):
+        raise TimeoutError("backup restore did not apply in time")
+    if db is not None and os.path.exists(path + ".db.json"):
+        with open(path + ".db.json") as f:
+            db.load_state_dict(json.load(f))
+    return target

@@ -17,11 +17,11 @@ returns. The supervisor wraps dispatch with
   leaving the last committed checkpoint as the recovery point.
 
 The supervised call must finish its device work inside the deadline:
-the soak runner synchronises the device inside it
+the soak runner and the agent synchronise the device inside it
 (``torch.cuda.synchronize``), so a wedged card shows up as a missed
-deadline and not at the next read. The agent's late-bound abort hook and
-the readiness surface (``bind_abort``, ``retry_after_seconds``) come with
-the agent.
+deadline and not at the next read. The agent binds its tripwire as the
+abort predicate and the interruptible sleep (:meth:`Supervisor.bind_abort`),
+and ``/v1/health`` reads ``state`` and :meth:`Supervisor.retry_after_seconds`.
 """
 
 from __future__ import annotations
@@ -74,15 +74,34 @@ class Supervisor:
             min_wait=1.0, max_wait=15.0, max_retries=4
         )
         self._sleep = sleep
+        self._abort: Optional[Callable[[], bool]] = None
         self.state = "idle"
+        self._retry_at = 0.0  # wall-clock time of the next attempt
         self.retries = 0  # total retries over the supervisor's lifetime
         self.aborts = 0
+
+    def retry_after_seconds(self) -> float:
+        """Seconds until the next attempt (0 when not backing off)."""
+        if self.state != "backoff":
+            return 0.0
+        return max(0.0, self._retry_at - time.time())
+
+    def bind_abort(self, fn: Callable[[], bool],
+                   sleep: Optional[Callable[[float], object]] = None,
+                   ) -> "Supervisor":
+        """Bind the abort predicate and, when given, an interruptible
+        sleep: the agent ties both to its tripwire, so shutdown never sits
+        out a backoff delay. Returns the supervisor."""
+        self._abort = fn
+        if sleep is not None:
+            self._sleep = sleep
+        return self
 
     # --- the wrapper -----------------------------------------------------
     def call(self, fn: Callable, *args, label: str = "dispatch", **kwargs):
         """Run ``fn`` under the deadline, retrying transient failures on
         the jittered policy; raises :class:`SupervisorAborted` once the
-        policy is exhausted."""
+        policy is exhausted (or the bound abort predicate trips)."""
 
         def attempt():
             self.state = "running"
@@ -96,6 +115,7 @@ class Supervisor:
 
         def on_retry(exc, delay, attempt_no):
             self.retries += 1
+            self._retry_at = time.time() + delay
             self.state = "backoff"
             logger.warning(
                 "supervisor: %s failed (%s: %s); retry %d in %.1fs",
@@ -108,6 +128,7 @@ class Supervisor:
                 backoff=self.backoff,
                 retry_on=RETRY_ON,
                 sleep=self._sleep,
+                abort=self._abort,
                 on_retry=on_retry,
             )
         except _AbortPassthrough as w:

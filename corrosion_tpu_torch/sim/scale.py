@@ -17,6 +17,7 @@ import dataclasses
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from corrosion_tpu_torch import random as prng
@@ -152,6 +153,34 @@ class ScaleSwimState(NamedTuple):
             mem_tx=torch.full((n, m), cfg.max_transmissions,
                               dtype=cfg.tx_dtype, device=dev),
         )
+
+
+def bootstrap_members(st: ScaleSwimState, member_ids,
+                      incarnations=None) -> ScaleSwimState:
+    """Seed every node's bounded member table with a persisted member list
+    (ids outside ``[0, N)`` are dropped). Entries land in their hash
+    class; where two ids share a class the later one is kept, and each
+    node's own entry wins its class back."""
+    n, m = st.mem_id.shape
+    ids = np.asarray(member_ids, np.int32)
+    incs = (np.asarray(incarnations, np.int32) if incarnations is not None
+            else np.zeros(ids.shape, np.int32))
+    in_range = (ids >= 0) & (ids < n)
+    by_slot = {int(i) % m: (int(i), int(inc))
+               for i, inc in zip(ids[in_range], incs[in_range])}
+    if not by_slot:
+        return st
+    dev = st.mem_id.device
+    slots = torch.tensor(list(by_slot), dtype=torch.int64, device=dev)
+    vals = torch.tensor(list(by_slot.values()), dtype=torch.int32, device=dev)
+    mem_id = st.mem_id.clone()
+    mem_view = st.mem_view.clone()
+    mem_id[:, slots] = vals[:, 0][None, :]
+    mem_view[:, slots] = pack_inc_state(vals[:, 1], STATE_ALIVE)[None, :]
+    rows = torch.arange(n, device=dev)
+    mem_id[rows, rows % m] = rows.to(torch.int32)
+    mem_view[rows, rows % m] = pack_inc_state(st.inc, STATE_ALIVE)
+    return st._replace(mem_id=mem_id, mem_view=mem_view)
 
 
 def _election_pri_bits(n: int) -> int:

@@ -19,6 +19,8 @@ from corrosion_tpu_torch._device import resolve_device
 from corrosion_tpu_torch.ops.dense import take_rows
 
 N_RINGS = 6  # the reference buckets RTT into 6 rings (members.rs:38)
+#: round-trip time of each ring, milliseconds (the members dump shows it)
+RING_RTT_MS = (3.0, 15.0, 45.0, 80.0, 150.0, 250.0)
 
 CARD_ALIVE, CARD_PART, CARD_CLUSTER, CARD_REGION = 0, 1, 2, 3
 CARD_EXTRA = 4  # first caller-defined column

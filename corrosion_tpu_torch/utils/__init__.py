@@ -1,7 +1,6 @@
-"""Host-side utilities of the port: the retry policy and the package's
-logger (a plain ``logging`` logger; the JAX package's OTLP span exporter
-is not part of the port yet)."""
+"""Host-side utilities of the port (copies of ``corrosion_tpu/utils/``
+with their imports pointed here): the retry policy, the hybrid logical
+clock, tracked locks, lifecycle helpers, metrics, assertions and tracing.
+``logger`` is the package's logger (``utils/tracing.py``)."""
 
-import logging
-
-logger = logging.getLogger("corrosion_tpu_torch")
+from corrosion_tpu_torch.utils.tracing import logger  # noqa: F401
