@@ -157,6 +157,9 @@ AGENT_VISIBLE_ROUNDS = 400  # rounds a write may take to reach the last node
 AGENT_RATE_S = 5.0  # seconds of /v1/health rounds for the live loop's rate
 AGENT_POLL_S = 0.05  # seconds between the reader's polls
 AGENT_STOP_S = 60  # seconds for exit 0 after SIGTERM
+AGENT_QUERIES = 50  # rounds with a pair of timed queries each
+AGENT_QUERY_S = 120  # seconds the paced queries may take
+AGENT_QUERY_POLL_S = 0.01  # seconds between /v1/health reads while pacing
 
 
 def _swim_ops(args, pig_k: int = 0) -> int:
@@ -1460,7 +1463,7 @@ def phase_soak(dev) -> dict:
 
     import torch
 
-    from corrosion_tpu_torch.checkpoint import load_checkpoint, save_checkpoint, verify_checkpoint
+    from corrosion_tpu_torch.checkpoint import load_checkpoint, save_state_checkpoint, verify_checkpoint
     from corrosion_tpu_torch.resilience import resume_segmented, run_segmented
     from corrosion_tpu_torch.resilience.segments import host_copy
     from corrosion_tpu_torch.sim.scale_step import (
@@ -1524,7 +1527,7 @@ def phase_soak(dev) -> dict:
         # one checkpoint of the straight run's final state, timed alone
         path = os.path.join(roots["single"], "one")
         t0 = time.perf_counter()
-        save_checkpoint(cfg, st, rounds, path=path)
+        save_state_checkpoint(cfg, st, rounds, path=path)
         save_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         verify_checkpoint(path)
@@ -1622,6 +1625,13 @@ def _agent_config(n: int):
     return cfg
 
 
+def _agent_read_nodes(n: int) -> tuple:
+    """Nodes agent-trajectory reads: two writers, the node killed and
+    revived, an even and an odd node of the partition's halves, the node
+    killed for good and the last node."""
+    return (0, 1, 100, n // 2, n // 2 + 1, n - 7, n - 1)
+
+
 def _np_leaves(x) -> list:
     """numpy leaves of nested NamedTuples / tuples, in order."""
     if isinstance(x, tuple):
@@ -1635,8 +1645,9 @@ def phase_agent_trajectory(dev) -> dict:
     driven by hand through the same SQL writes (a ``Database`` each), kills,
     a revive, a partition and its heal for ``AGENT_TRAJECTORY_ROUNDS``
     rounds: ``device_state()`` bitwise equal after every round, the query
-    rows equal at the last node, and each kernel launched once a round on
-    the card."""
+    rows equal at ``_agent_read_nodes`` (writers, a killed and revived node,
+    both sides of the partition, the last node), both databases' state
+    equal, and each kernel launched once a round on the card."""
     import numpy as np
 
     from corrosion_tpu_torch.agent import Agent
@@ -1677,12 +1688,18 @@ def phase_agent_trajectory(dev) -> dict:
     if launches != want:
         raise AssertionError(f"agent-trajectory launches {launches} != {want}")
     sql = "SELECT k, v FROM kv ORDER BY k"
-    rows = {d: [list(x) for x in db.query(n - 1, sql)[1]] for d, db in dbs.items()}
+    nodes = _agent_read_nodes(n)
+    rows = {d: [[list(x) for x in db.query(v, sql)[1]] for v in nodes]
+            for d, db in dbs.items()}
     if rows["cpu"] != rows[dev] or not agents[dev].snapshot()["alive"][100]:
         raise AssertionError(f"agent-trajectory rows {rows} or revive differ")
+    if dbs["cpu"].state_dict() != dbs[dev].state_dict():
+        raise AssertionError("agent-trajectory: the two databases' state differs")
+    held = {v: len(r) for v, r in zip(nodes, rows["cpu"])}
     print(f"[agent-trajectory] N={n} agent defaults: {rounds} rounds of SQL writes, "
           f"kills, revive, partition and heal; device_state() bitwise equal cuda vs "
-          f"cpu after every round; {len(rows['cpu'])} rows at node {n - 1} on both; "
+          f"cpu after every round; query rows equal at nodes {held} (node: rows, of "
+          f"{len(range(0, rounds, 3))} written) and the databases' state equal; "
           f"card launches {forms} ({time.perf_counter() - t0:.1f} s)", flush=True)
     return {"forms": forms}
 
@@ -1711,17 +1728,52 @@ def _compute_apps() -> list:
         return []
 
 
-def _process_memory(pid: int, before: list) -> str:
-    """The agent process's device memory as ``nvidia-smi
-    --query-compute-apps`` lists it: its own pid's row, else the rows that
-    were not there before it started (a container may show other pids)."""
+def _process_memory(pid: int) -> str:
+    """The agent process's device memory from the ``nvidia-smi
+    --query-compute-apps`` row that carries its pid. In a container the
+    rows may carry other pids; then no reading is the agent's."""
     rows = _compute_apps()
-    mine = [r for r in rows if r.split(",")[0].strip() == str(pid)]
-    new = mine or [r for r in rows if r not in before]
-    if not new:
-        return f"not listed ({len(rows)} rows, {len(before)} before the agent)"
-    return "; ".join(r.split(",", 1)[1].strip() for r in new) + (
-        "" if mine else f" (the rows new since the agent started: {new})")
+    mine = [r.split(",", 1)[1].strip() for r in rows
+            if r.split(",")[0].strip() == str(pid)]
+    return "; ".join(mine) if mine else (
+        f"not attributed (no row carries pid {pid}; rows {rows})")
+
+
+def _paced_queries(client, round_no, node: int) -> dict:
+    """Query latency with the loop running: just after each of
+    ``AGENT_QUERIES`` rounds (read from ``/v1/health``) two queries in a
+    row. The first pays the copy of the round's snapshot, the second reads
+    it from the cache; a pair across a round boundary is dropped and
+    counted. Median and max of each, and the loop's rounds/s meanwhile."""
+    fresh, cached, dropped = [], [], 0
+    r_q, t_q = round_no(), time.perf_counter()
+    last = r_q
+    while len(fresh) < AGENT_QUERIES:
+        if time.perf_counter() - t_q > AGENT_QUERY_S:
+            raise AssertionError(f"{len(fresh)} of {AGENT_QUERIES} paced queries "
+                                 f"in {AGENT_QUERY_S} s")
+        r = round_no()
+        if r == last:
+            time.sleep(AGENT_QUERY_POLL_S)
+            continue
+        last = r
+        lat = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            client.query("SELECT v FROM kv WHERE k = ?", ["probe"], node=node)
+            lat.append(time.perf_counter() - t0)
+        if round_no() != r:
+            dropped += 1
+            continue
+        fresh.append(lat[0])
+        cached.append(lat[1])
+    rounds, wall = round_no() - r_q, time.perf_counter() - t_q
+    fresh.sort()
+    cached.sort()
+    return {"query_fresh_s": (fresh[len(fresh) // 2], fresh[-1]),
+            "query_cached_s": (cached[len(cached) // 2], cached[-1]),
+            "query_dropped": dropped, "query_rounds": rounds,
+            "query_rounds_per_s": rounds / wall}
 
 
 def _agent_process(dev, tmp: str) -> dict:
@@ -1750,7 +1802,6 @@ def _agent_process(dev, tmp: str) -> dict:
     err_path = os.path.join(tmp, "agent.err")
     err = open(err_path, "w")
     root = os.path.dirname(os.path.abspath(__file__))
-    apps_before = _compute_apps()
     proc = subprocess.Popen(
         [sys.executable, "-m", "corrosion_tpu_torch", "agent", "-c", cfg_path,
          "--device", str(dev), "--pace", "0"],
@@ -1797,15 +1848,7 @@ def _agent_process(dev, tmp: str) -> dict:
             time.sleep(AGENT_POLL_S)
         out["visible_s"] = time.perf_counter() - t_w
         out["visible_rounds"] = round_no() - r_w
-        lat, r_q = [], round_no()
-        for _ in range(50):
-            t0 = time.perf_counter()
-            client.query("SELECT v FROM kv WHERE k = ?", ["probe"], node=n - 1)
-            lat.append(time.perf_counter() - t0)
-        out["query_rounds"] = round_no() - r_q
-        out["query_s"] = sum(lat)
-        lat.sort()
-        out["query_median_s"], out["query_max_s"] = lat[len(lat) // 2], lat[-1]
+        out.update(_paced_queries(client, round_no, n - 1))
         # the live loop's rate: /v1/health's round over wall time, first
         # with no client traffic, then while queries run back to back
         r0, t0 = round_no(), time.perf_counter()
@@ -1864,7 +1907,7 @@ def _agent_process(dev, tmp: str) -> dict:
         out["rounds"] = r_b
         out["mem"] = _metric_values(text, "corro_mem_state_bytes")[""]
         out["mem_by_class"] = _metric_values(text, "corro_mem_class_bytes")
-        out["process_memory"] = _process_memory(proc.pid, apps_before)
+        out["process_memory"] = _process_memory(proc.pid)
         t0 = time.perf_counter()
         proc.send_signal(signal.SIGTERM)
         rc = proc.wait(timeout=AGENT_STOP_S)
@@ -1948,7 +1991,8 @@ def phase_agent(dev) -> dict:
     with ``AGENT_NODES`` nodes and the other keys at the ``Config``
     defaults, a schema file and an ephemeral API port. A row written at node
     0 through the HTTP client is polled at the last node until it is there
-    (at most ``AGENT_VISIBLE_ROUNDS`` rounds); 50 queries are timed; the
+    (at most ``AGENT_VISIBLE_ROUNDS`` rounds); queries are timed just after
+    a round, paying its snapshot copy, and again from the cache; the
     live loop's rounds/s is read from ``/v1/health`` with no client
     traffic and while queries run back to back; the admin socket kills and
     revives a node and writes a checkpoint, which
@@ -1974,13 +2018,16 @@ def phase_agent(dev) -> dict:
           f"{[repr(x) for x in out['run_rounds_per_s']]} at the same config; "
           f"write at node 0 "
           f"visible at node {AGENT_NODES - 1} after {out['visible_rounds']} rounds, "
-          f"{out['visible_s']!r} s; query latency median {out['query_median_s']!r} s, "
-          f"max {out['query_max_s']!r} s over 50 back to back ({out['query_s']!r} s, "
-          f"{out['query_rounds']} rounds meanwhile); snapshot {out['snapshot_s']!r} s; "
+          f"{out['visible_s']!r} s; query latency with the loop running, the first "
+          f"query after each of {AGENT_QUERIES} rounds (a fresh snapshot) median, max "
+          f"{out['query_fresh_s']!r} s, the next one in the same round (cached) "
+          f"{out['query_cached_s']!r} s ({out['query_dropped']} pairs across a round "
+          f"dropped; {out['query_rounds']} rounds meanwhile, "
+          f"{out['query_rounds_per_s']!r} rounds/s); snapshot {out['snapshot_s']!r} s; "
           f"admin checkpoint {out['checkpoint_s']!r} s, verify-checkpoint "
-          f"{out['verify_s']!r} s; process device memory {out['process_memory']} "
-          f"(nvidia-smi), allocated and peak {out['device_bytes']} bytes "
-          f"(/v1/health); "
+          f"{out['verify_s']!r} s; the agent's allocated and peak device bytes "
+          f"{out['device_bytes']} (/v1/health); nvidia-smi's row of its pid "
+          f"{out['process_memory']}; "
           f"corro.mem.state.bytes {int(out['mem'])} by class {out['mem_by_class']}; "
           f"launch gauges {out['launches']} after {out['rounds']} rounds; SIGTERM "
           f"exit 0 in {out['stop_s']:.1f} s", flush=True)

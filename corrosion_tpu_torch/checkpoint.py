@@ -12,10 +12,11 @@ NamedTuples (``jax.tree.leaves`` order), dtypes are numpy names, and
 uint32 and read back as int32 bits. Formats 1 and 2 (one ``state.npz`` of
 ``leaf_<i>``) still load.
 
-A checkpoint of a live agent (:func:`save_checkpoint` given the agent)
-also carries the attached ``Database``'s host state (schema, value heap,
-row map) under the manifest's ``db``; :func:`restore_checkpoint` swaps both
-back in. A **backup** is one node's replica, portable between clusters:
+A checkpoint of a live agent (:func:`save_checkpoint`; the soak runner's
+bare state goes through :func:`save_state_checkpoint`) also carries the
+attached ``Database``'s host state (schema, value heap, row map) under the
+manifest's ``db``; :func:`restore_checkpoint` swaps both back in. A
+**backup** is one node's replica, portable between clusters:
 :func:`backup_node` writes its store planes and bookkeeping rows (plus the
 host database beside it), and :func:`restore_backup` grafts them onto a
 node of a live agent, re-pivoting site ids to the new identity. The files
@@ -167,27 +168,27 @@ def config_mode(cfg) -> str:
     return "scale" if isinstance(cfg, ScaleSimConfig) else "full"
 
 
-def save_checkpoint(source, state=None, round_no: Optional[int] = None,
-                    path: str = "./checkpoint", extra: Optional[dict] = None,
-                    db=None) -> str:
-    """Write a checkpoint to the directory ``path``, in one of two forms:
+def save_checkpoint(agent, db=None, path: str = "./checkpoint") -> str:
+    """Write a live agent's state after ``agent.round_no`` rounds to the
+    directory ``path``, with ``db.state_dict()`` (the host database) under
+    the manifest's ``db`` (the JAX package's signature, which the admin
+    socket and the maintenance loop call)."""
+    return save_state_checkpoint(agent.cfg, agent.device_state(), agent.round_no,
+                                 path, db=db)
 
-    - ``save_checkpoint(agent, db=db, path=path)``: a live agent's state
-      after ``agent.round_no`` rounds, with ``db.state_dict()`` (the host
-      database) under the manifest's ``db`` (the JAX package's signature,
-      which the admin socket and the maintenance loop call);
-    - ``save_checkpoint(cfg, state, round_no, path)``: a bare ``state`` of
-      ``cfg`` on any device (the soak runner hands over CPU copies).
+
+def save_state_checkpoint(cfg, state, round_no: int, path: str,
+                          extra: Optional[dict] = None, db=None) -> str:
+    """Write ``state`` (of ``cfg``, after ``round_no`` rounds; on any
+    device, the soak runner hands over CPU copies) to the directory
+    ``path``; ``db``, when given, is the host database whose
+    ``state_dict()`` goes under the manifest's ``db``.
 
     Crash-safe ordering: the manifest is removed first and written LAST
     through an atomic rename, so a directory without a manifest is
     incomplete by definition; the state file's SHA-256 is recorded in the
     manifest, so later corruption is detected on load. ``extra`` is a
     JSON-able payload stored in the manifest (the soak runner's carry)."""
-    if hasattr(source, "device_state"):  # a live agent
-        cfg, state, round_no = source.cfg, source.device_state(), source.round_no
-    else:
-        cfg = source
     os.makedirs(path, exist_ok=True)
     manifest_path = os.path.join(path, "manifest.json")
     if os.path.exists(manifest_path):

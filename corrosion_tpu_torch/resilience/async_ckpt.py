@@ -25,7 +25,7 @@ import threading
 import time
 from typing import Callable, NamedTuple, Optional
 
-from corrosion_tpu_torch.checkpoint import save_checkpoint
+from corrosion_tpu_torch.checkpoint import save_state_checkpoint
 from corrosion_tpu_torch.resilience.retention import (
     prune_checkpoints,
     update_latest,
@@ -41,7 +41,7 @@ def write_segment_checkpoint(cfg, state, key_json: dict, completed: int,
     ``key_json`` is the serialized carried PRNG key
     (``segments._key_to_json``)."""
     name = f"seg-{completed:08d}"
-    path = save_checkpoint(
+    path = save_state_checkpoint(
         cfg, state, completed, path=os.path.join(root, name),
         extra={"soak": {"completed_rounds": completed, "key": key_json}},
     )

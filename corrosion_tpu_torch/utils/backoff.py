@@ -2,9 +2,9 @@
 ``corrosion_tpu/utils/backoff.py``).
 
 Mirrors the reference's ``backoff`` crate (``crates/backoff/src/lib.rs:7-50``):
-an iterator of sleep durations that grows from ``min`` to ``max`` by a
-multiplicative ``factor``, each step jittered by a random fraction so a
-fleet of nodes does not thunder-herd. The sync loop's policy is 1 s -> 15 s
+an iterator of sleep durations that doubles from ``min`` to ``max``, each
+step jittered by up to half its size so a fleet of nodes does not
+thunder-herd. The sync loop's policy is 1 s -> 15 s
 (``agent/util.rs:352-398``).
 """
 
@@ -14,60 +14,47 @@ import random
 import time
 from typing import Callable, Iterator, Optional, Tuple, Type
 
+#: growth of the delay per attempt, and the +-fraction each delay is
+#: jittered by (the JAX package's defaults)
+FACTOR, JITTER = 2.0, 0.5
+
 
 class Backoff:
     """``iter(Backoff(...))`` yields jittered, exponentially growing delays,
     each clamped to ``[min_wait, max_wait]``; ``max_retries`` of them, or
-    forever when it is None. ``rng`` (a ``random.Random``) makes the jitter
-    reproducible."""
+    forever when it is None."""
 
-    def __init__(
-        self,
-        min_wait: float = 1.0,
-        max_wait: float = 15.0,
-        factor: float = 2.0,
-        jitter: float = 0.5,
-        max_retries: Optional[int] = None,
-        rng: Optional[random.Random] = None,
-    ):
-        if not (min_wait > 0 and max_wait >= min_wait and factor >= 1.0):
+    def __init__(self, min_wait: float = 1.0, max_wait: float = 15.0,
+                 max_retries: Optional[int] = None):
+        if not 0 < min_wait <= max_wait:
             raise ValueError(
-                f"need 0 < min_wait <= max_wait and factor >= 1.0, got "
-                f"min={min_wait} max={max_wait} factor={factor}")
-        if not 0.0 <= jitter <= 1.0:
-            raise ValueError(f"jitter must be in [0, 1], got {jitter}")
+                f"need 0 < min_wait <= max_wait, got min={min_wait} max={max_wait}")
         self.min_wait = min_wait
         self.max_wait = max_wait
-        self.factor = factor
-        self.jitter = jitter
         self.max_retries = max_retries
-        self._rng = rng or random.Random()
 
     def __iter__(self) -> Iterator[float]:
         base = self.min_wait
         n = 0
         while self.max_retries is None or n < self.max_retries:
-            scale = 1.0 + self.jitter * (2.0 * self._rng.random() - 1.0)
+            scale = 1.0 + JITTER * (2.0 * random.random() - 1.0)
             yield max(self.min_wait, min(self.max_wait, base * scale))
-            base = min(self.max_wait, base * self.factor)
+            base = min(self.max_wait, base * FACTOR)
             n += 1
 
 
 def retry_call(
     fn: Callable,
-    backoff: Optional[Backoff] = None,
-    retry_on: Tuple[Type[BaseException], ...] = (
-        ConnectionError, TimeoutError, OSError,
-    ),
+    backoff: Backoff,
+    retry_on: Tuple[Type[BaseException], ...],
     sleep: Callable[[float], object] = time.sleep,
     abort: Optional[Callable[[], bool]] = None,
     on_retry: Optional[Callable[[BaseException, float, int], None]] = None,
 ):
     """Call ``fn()`` until it succeeds, sleeping through ``backoff``'s
-    delays (default ``Backoff(max_retries=5)``) between attempts.
-    Exceptions of ``retry_on`` trigger a retry, anything else propagates
-    at once; when the delays run out the last exception propagates, so
-    callers keep their natural ``except`` types.
+    delays between attempts. Exceptions of ``retry_on`` trigger a retry,
+    anything else propagates at once; when the delays run out the last
+    exception propagates, so callers keep their natural ``except`` types.
 
     - ``abort``: checked after each failure and after each sleep; when it
       returns True the last exception propagates (shutdown must not sit
@@ -78,8 +65,7 @@ def retry_call(
     - An exception with a numeric ``retry_after`` attribute (the parsed
       ``Retry-After`` of a 503) sets that attempt's delay instead of the
       jittered one, capped at the policy's ``max_wait``."""
-    bo = backoff if backoff is not None else Backoff(max_retries=5)
-    delays = iter(bo)
+    delays = iter(backoff)
     attempt = 0
     while True:
         try:
@@ -92,7 +78,7 @@ def retry_call(
                 raise
             hint = getattr(e, "retry_after", None)
             if hint is not None:
-                delay = min(float(hint), bo.max_wait)
+                delay = min(float(hint), backoff.max_wait)
             attempt += 1
             if on_retry is not None:
                 on_retry(e, delay, attempt)

@@ -1,23 +1,22 @@
-"""Lifecycle utilities: graceful shutdown, counted spawns, backoff.
+"""Lifecycle utilities: graceful shutdown and counted spawns.
 
 The reference's layer-9 crates (SURVEY §1): ``tripwire`` — a shutdown
 future tripped by SIGTERM/SIGINT or programmatically
 (``crates/tripwire/src/tripwire.rs:21``); ``spawn`` — ``spawn_counted``
 tracks pending tasks so shutdown can wait for all of them
-(``crates/spawn/src/lib.rs:14-28``); ``backoff`` — a jittered exponential
-backoff iterator (``crates/backoff/src/lib.rs:7-50``). Threads play the
-role of tokio tasks in the host agent.
+(``crates/spawn/src/lib.rs:14-28``). Threads play the role of tokio
+tasks in the host agent. The ``backoff`` crate's analog is
+:mod:`corrosion_tpu_torch.utils.backoff`.
 """
 
 from __future__ import annotations
 
-import random
 import signal
 import socket
 import threading
 import time
 import weakref
-from typing import Iterator, Optional
+from typing import Optional
 
 
 class Tripwire:
@@ -150,19 +149,3 @@ class DrainingConnMixin:
                     t.join(timeout=max(0.1, deadline - time.monotonic()))
         return not any(t.is_alive() for t in threads)
 
-
-def backoff(
-    base: float = 0.1,
-    factor: float = 2.0,
-    max_delay: float = 60.0,
-    jitter: float = 0.25,
-    rng: Optional[random.Random] = None,
-) -> Iterator[float]:
-    """Jittered exponential backoff delays (``backoff`` crate analog).
-
-    Thin generator facade over :class:`corrosion_tpu_torch.utils.backoff.Backoff`
-    for call sites that just want delays."""
-    from corrosion_tpu_torch.utils.backoff import Backoff
-
-    yield from Backoff(min_wait=base, max_wait=max_delay, factor=factor,
-                       jitter=jitter, rng=rng)

@@ -278,7 +278,7 @@ def test_crash_mid_save_leaves_no_manifest(two_segments, monkeypatch):
     monkeypatch.setattr(ckpt, "_publish_manifest", crash)
     half = os.path.join(root, "seg-00000012")
     with pytest.raises(OSError):
-        ckpt.save_checkpoint(cfg, st, 12, path=half)
+        ckpt.save_state_checkpoint(cfg, st, 12, path=half)
     monkeypatch.undo()
     assert os.path.exists(os.path.join(half, "shard-00000.npz"))
     for check in (ckpt.verify_checkpoint, jckpt.verify_checkpoint):
@@ -289,7 +289,7 @@ def test_crash_mid_save_leaves_no_manifest(two_segments, monkeypatch):
     side = os.path.join(root, "seg-00000008")
     monkeypatch.setattr(ckpt, "_publish_manifest", crash)
     with pytest.raises(OSError):
-        ckpt.save_checkpoint(cfg, st, 12, path=side)
+        ckpt.save_state_checkpoint(cfg, st, 12, path=side)
     monkeypatch.undo()
     with pytest.raises(ckpt.CheckpointIntegrityError):
         ckpt.load_checkpoint(side, device="cpu")
@@ -323,7 +323,7 @@ def test_format_2_checkpoint_loads(tmp_path):
     """A whole-state ``state.npz`` of format 2 loads as format 3 does."""
     cfg = port_cfg("scale")
     st = port_state(cfg, "scale")
-    path = ckpt.save_checkpoint(cfg, st, 7, path=str(tmp_path / "v3"))
+    path = ckpt.save_state_checkpoint(cfg, st, 7, path=str(tmp_path / "v3"))
     v2 = str(tmp_path / "v2")
     os.makedirs(v2)
     arrays = ckpt.host_arrays(st)
@@ -345,8 +345,8 @@ def test_retention_and_latest_pointer(tmp_path):
     cfg = port_cfg("scale")
     root = str(tmp_path)
     for r in (8, 16, 24, 32):
-        ckpt.save_checkpoint(cfg, port_state(cfg, "scale"), r,
-                             path=os.path.join(root, f"seg-{r:08d}"))
+        ckpt.save_state_checkpoint(cfg, port_state(cfg, "scale"), r,
+                                   path=os.path.join(root, f"seg-{r:08d}"))
         update_latest(root, f"seg-{r:08d}")
     assert read_latest(root) == "seg-00000032"
     pruned = prune_checkpoints(root, keep_last=2)
