@@ -86,9 +86,9 @@ Phases (any failure raises and the script exits non-zero):
     sides, the card equals the CPU route bitwise, and each kernel launches
     once a round (the swim kernel alone at tx 4); the single writer also
     runs ``quiet="on"`` to the same result.
-14. soak: the flagship for 64 rounds straight, as ``run_segmented`` in 4
+14. soak: the flagship for 32 rounds straight, as ``run_segmented`` in 2
     segments of 16 with the async writer (keep_last 2), and as its first
-    32 rounds segmented then ``resume_segmented`` from disk: every leaf
+    16 rounds segmented then ``resume_segmented`` from disk: every leaf
     and info bitwise equal, the same launches per form, peak device bytes
     within 5 % of the straight run's; prints rounds/s, checkpoint stall
     and writer seconds, one checkpoint's bytes, and save, verify and load
@@ -113,6 +113,27 @@ Phases (any failure raises and the script exits non-zero):
     gauges must show every kernel once a round; SIGTERM must end it with
     exit 0. Then, in this process at the same config, the hand-driven
     agent round, the snapshot copy and ``scale_run_rounds`` are timed.
+18. soak-cli: ``python -m corrosion_tpu_torch soak`` as a process at
+    N=100,000 (the ``Config`` defaults otherwise), 16 rounds in segments of
+    4 with a flight record, an OTLP file and ``--prom-port 0``: ``/metrics``
+    is scraped once after the first commit (the soak's rounds and the
+    launch gauges), the process is SIGKILLed after its second commit, and
+    ``--resume`` runs to the end. The flight record of both runs replays (a
+    torn tail allowed), the final checkpoint is bitwise equal to a straight
+    ``scale_run_rounds`` in this process on the same config, seed and
+    inputs, the resumed run's metric sums equal that run's info sums over
+    the rounds it ran, and each kernel launched once in each of them.
+19. chaos: (a) every scenario of ``resilience.chaos.SCENARIOS`` at its
+    N=24, seed 0, on the card, equal field for field to the JAX package's
+    verdicts in ``tests/data/chaos_verdicts_jax.json`` (digests, rounds to
+    convergence and quiescence, info sums, counters, ``ok``), with exactly
+    the mesh and ``fused="off"/"interpret"`` scenarios skipped, each with
+    its reason; (b) ``preempt-storm`` at N=256 with a settle budget of
+    1024 through all three oracles; (c) ``python -m corrosion_tpu_torch chaos --script`` on the
+    committed corpus file, exit 0. Each kernel launches once in every dense
+    round of (a) and (b) (their sum is the forms' launches in the kernel
+    record); the kernels phase holds the three forms at the chaos shapes
+    (m_slots 8, 4 origins, 4x2 cells) at N=100,000.
 
 Each kernel's bound is the larger of the bytes it must move on these inputs
 over the memory rate and the integer operations its function needs on them
@@ -148,7 +169,7 @@ PARITY_NODES, PARITY_ORIGINS, PARITY_CELLS, PARITY_ROUNDS = 256, 16, 64, 24
 # empty rounds after the single writer's script for the quiet check: the
 # cluster goes quiet about 100 rounds after the last write
 PARITY_QUIET_TAIL = 128
-SOAK_ROUNDS, SOAK_SEGMENT = 64, 16
+SOAK_ROUNDS, SOAK_SEGMENT = 32, 16
 # the agent: card vs CPU by hand at 4096 nodes; the process at 100,000
 AGENT_TRAJECTORY_NODES, AGENT_TRAJECTORY_ROUNDS = 4096, 24
 AGENT_NODES = 100_000
@@ -160,6 +181,24 @@ AGENT_STOP_S = 60  # seconds for exit 0 after SIGTERM
 AGENT_QUERIES = 50  # rounds with a pair of timed queries each
 AGENT_QUERY_S = 120  # seconds the paced queries may take
 AGENT_QUERY_POLL_S = 0.01  # seconds between /v1/health reads while pacing
+# the soak subcommand as a process at the flagship's width (the Config
+# defaults with n_nodes = SOAK_CLI_NODES), killed after its second commit
+SOAK_CLI_NODES, SOAK_CLI_ROUNDS, SOAK_CLI_SEGMENT = 100_000, 16, 4
+SOAK_CLI_WAIT_S = 300  # seconds for the two commits, and for the resume
+# chaos: every registry scenario at its N=24 against the JAX package's
+# verdicts; preempt-storm at CHAOS_STORM_NODES; the corpus through the CLI.
+# preempt-storm's broadcast queues drain ever more slowly as N grows (4 book
+# slots for any writer: changes from untracked origins turn fresh again):
+# its quiescence oracle holds 776 rounds after the start at N=256 and not
+# within 4096 settle rounds at N=4096, so the storm runs at the ladder's
+# N=256 with a settle budget of 1024 (the script's field)
+CHAOS_STORM_NODES = 256
+CHAOS_STORM_SETTLE = 1024
+CHAOS_VERDICTS = "tests/data/chaos_verdicts_jax.json"
+CHAOS_CORPUS = "tests/chaos_corpus/fuzz-000024-min.json"
+#: the scenarios the port skips, with a word of each reason
+CHAOS_SKIPS = {"elastic-remesh": "item 14", "corrupt-remesh": "item 14",
+               "fused-flip": "rules of the port"}
 
 
 def _swim_ops(args, pig_k: int = 0) -> int:
@@ -744,11 +783,16 @@ def phase_kernels(dev) -> dict:
     the shapes of the path that runs it. Each result names that path and its
     launch-count key (``FORM_LAUNCHES``), or no path for the forms no path
     here runs (timed at the shapes of the configuration they belong to)."""
+    import dataclasses
+
     import torch
 
+    from corrosion_tpu_torch.resilience.chaos import SCENARIOS, scenario_config
     from corrosion_tpu_torch.sim.config import full_view_config
     from corrosion_tpu_torch.sim.scale_step import million_config, scale_sim_config
 
+    storm = scenario_config(dataclasses.replace(SCENARIOS["preempt-storm"],
+                                                n_nodes=FLAGSHIP_NODES))
     flag = scale_sim_config(FLAGSHIP_NODES)
     wide = scale_sim_config(FLAGSHIP_NODES, narrow_dtypes=False)
     big = million_config(MILLION_NODES)
@@ -774,6 +818,13 @@ def phase_kernels(dev) -> dict:
         ("ingest_empty", "pig0", ("ingest", "16/16/m0"),
          lambda n: _ingest_form(n, scale_sim_config(FLAGSHIP_NODES, pig_changes=0),
                                 "receive", 53, dev)),
+        # the chaos shapes (m_slots 8, 4 origins, 4x2 cells) at N=100,000
+        ("swim_tables_chaos", "chaos", ("swim_tables", "aligned/16/16"),
+         lambda n: _swim_form(n, storm, 18, dev)),
+        ("ingest_chaos", "chaos", ("ingest", "16/16"),
+         lambda n: _ingest_form(n, storm, "receive", 54, dev)),
+        ("ingest_emit_chaos", "chaos", ("ingest_emit", "16/16"),
+         lambda n: _ingest_form(n, storm, "write_emit", 55, dev)),
     ]
     for c, form, seed in ((wide, "receive", 36), (wide, "write", 37),
                           (wide, "write_emit", 38), (flag, "write", 39),
@@ -2034,6 +2085,280 @@ def phase_agent(dev) -> dict:
     return out
 
 
+def _soak_cli_committed(ck: str) -> list:
+    """The soak's committed checkpoints (a manifest is the commit)."""
+    import os
+
+    if not os.path.isdir(ck):
+        return []
+    return sorted(d for d in os.listdir(ck)
+                  if os.path.exists(os.path.join(ck, d, "manifest.json")))
+
+
+def phase_soak_cli(dev) -> dict:
+    """``python -m corrosion_tpu_torch soak`` as its users run it: the
+    ``Config`` defaults with ``SOAK_CLI_NODES`` nodes, ``SOAK_CLI_ROUNDS``
+    rounds in segments of ``SOAK_CLI_SEGMENT``, a flight record, an OTLP
+    file and ``--prom-port 0``. ``/metrics`` is scraped once after the first
+    commit; the process is SIGKILLed after its second commit; ``--resume``
+    runs to the end. Both runs' flight record replays (a torn tail
+    allowed), the final checkpoint equals an in-process straight
+    ``scale_run_rounds`` of the same config, seed and inputs bitwise, the
+    resumed run's metric sums equal that run's info sums over the rounds
+    it ran, and each kernel launched once a round in it."""
+    import os
+    import signal
+    import tempfile
+    import urllib.request
+
+    import torch
+
+    from corrosion_tpu_torch import random as prng
+    from corrosion_tpu_torch.checkpoint import load_checkpoint
+    from corrosion_tpu_torch.config import load_config
+    from corrosion_tpu_torch.obs.flight import info_sums, replay_flight_record
+    from corrosion_tpu_torch.ops import megakernel as mk
+    from corrosion_tpu_torch.resilience.segments import make_soak_inputs
+    from corrosion_tpu_torch.sim.scale_step import ScaleSimState, scale_run_rounds
+    from corrosion_tpu_torch.sim.transport import NetModel
+
+    rounds, seg = SOAK_CLI_ROUNDS, SOAK_CLI_SEGMENT
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="soak-cli-") as tmp:
+        cfg_path, otlp = os.path.join(tmp, "soak.toml"), os.path.join(tmp, "otlp.json")
+        with open(cfg_path, "w") as f:
+            f.write(f'[sim]\nn_nodes = {SOAK_CLI_NODES}\n'
+                    f'[telemetry]\notlp_path = "{otlp}"\n')
+        ck, flight = os.path.join(tmp, "ck"), os.path.join(tmp, "flight.ndjson")
+        argv = [sys.executable, "-m", "corrosion_tpu_torch", "soak", "-c", cfg_path,
+                "--device", str(dev), "--rounds", str(rounds), "--segment", str(seg),
+                "--checkpoint-dir", ck, "--keep-last", str(rounds // seg),
+                "--flight", flight]
+        err_path = os.path.join(tmp, "soak.err")
+        err = open(err_path, "w")
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(argv + ["--prom-port", "0"], cwd=root,
+                                stdout=subprocess.PIPE, stderr=err, text=True)
+        try:
+            line = proc.stdout.readline()
+            if not line:
+                raise AssertionError("the soak exited before its listener came up")
+            port = json.loads(line)["prometheus_port"]
+            scrape = None
+            while True:
+                done = _soak_cli_committed(ck)
+                if done and scrape is None:
+                    text = urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}/metrics", timeout=60).read().decode()
+                    scrape = (_metric_values(text, "corro_soak_rounds_total"),
+                              _metric_values(text, "corro_kernel_launches"))
+                if len(done) >= 2:
+                    break
+                if proc.poll() is not None or time.perf_counter() - t0 > SOAK_CLI_WAIT_S:
+                    raise AssertionError(f"the soak committed {done} in "
+                                         f"{time.perf_counter() - t0:.1f} s, rc {proc.poll()}")
+                time.sleep(0.05)
+            out["kill_s"] = time.perf_counter() - t0
+            os.kill(proc.pid, signal.SIGKILL)
+            proc.wait(60)
+            killed = replay_flight_record(flight)
+            soak_rounds = scrape[0].get("", 0.0)
+            launches = {k: v for k, v in scrape[1].items()}
+            if (killed["ended"] or killed["segments"] < 2 or soak_rounds < seg
+                    or len(launches) != 3 or min(launches.values()) < soak_rounds):
+                raise AssertionError(f"soak-cli killed run: replay {killed}, scrape {scrape}")
+            t1 = time.perf_counter()
+            res = subprocess.run(argv + ["--resume"], cwd=root, capture_output=True,
+                                 text=True, timeout=SOAK_CLI_WAIT_S)
+            out["resume_s"] = time.perf_counter() - t1
+            if res.returncode != 0:
+                raise AssertionError(f"soak --resume rc {res.returncode}: {res.stderr[-3000:]}")
+            summary = json.loads(res.stdout)
+        except BaseException:
+            err.flush()
+            with open(err_path) as f:
+                print(f"[soak-cli] soak stderr tail:\n{f.read()[-3000:]}", flush=True)
+            raise
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            err.close()
+        both = replay_flight_record(flight)
+        start = both["header"]["start_round"]
+        if (both["runs"] != 2 or not both["ended"] or both["crashed"]
+                or summary["completed_rounds"] != rounds or start < 2 * seg
+                or both["completed_rounds"] != rounds):
+            raise AssertionError(f"soak-cli: replay {both}, summary {summary}")
+        want_launches = {f"{k}:{form}": rounds - start for k, form in (
+            ("swim_tables", "aligned/16/16"), ("ingest", "16/16"), ("ingest_emit", "16/16"))}
+        if summary["kernel_launches"] != want_launches:
+            raise AssertionError(f"soak-cli resumed launches {summary['kernel_launches']} "
+                                 f"!= {want_launches}")
+        spans = open(otlp).read()
+        if "soak.segment.dispatch" not in spans or "soak.ckpt.serialize" not in spans:
+            raise AssertionError("soak-cli: the OTLP file lacks the pipeline spans")
+        # in this process: the straight run of the same config, seed, inputs
+        config = load_config(cfg_path)
+        cfg = config.sim_config()
+        net = NetModel.create(cfg.n_nodes, drop_prob=config.gossip.drop_prob,
+                              n_regions=config.gossip.n_regions, device=dev)
+        inputs = make_soak_inputs(cfg, prng.key(config.sim.seed + 1), rounds,
+                                  write_frac=0.25, device=dev)
+        mk.reset_launches()
+        t2 = time.perf_counter()
+        want, infos = scale_run_rounds(cfg, ScaleSimState.create(cfg, dev), net,
+                                       prng.key(config.sim.seed), inputs)
+        torch.cuda.synchronize()
+        out["straight_rounds_per_s"] = rounds / (time.perf_counter() - t2)
+        straight_launches = dict(mk.FORM_LAUNCHES)
+        _, got = load_checkpoint(summary["checkpoint"], device=dev)
+        err_state = _max_abs_err(_flat(want), _flat(got))
+        tail = info_sums({k: v[start:] for k, v in infos.items()})
+        if err_state or summary["metrics"] != tail:
+            raise AssertionError(f"soak-cli: final checkpoint err {err_state}; metrics "
+                                 f"{summary['metrics']} vs straight {tail}")
+        out.update(killed_segments=killed["segments"], killed_skipped=killed["skipped_lines"],
+                   resumed_from=start, scrape_rounds=soak_rounds, scrape_launches=launches,
+                   stats=summary["stats"], flight_rounds_per_s=both["rounds_per_s"],
+                   straight_launches=straight_launches)
+    print(f"[soak-cli] N={SOAK_CLI_NODES} Config defaults, {rounds} rounds in segments "
+          f"of {seg} on {dev}: SIGKILL after 2 commits at {out['kill_s']:.1f} s (flight "
+          f"record {out['killed_segments']} segments, {out['killed_skipped']} torn lines; "
+          f"/metrics mid-run corro_soak_rounds_total {out['scrape_rounds']!r}, launch "
+          f"gauges {out['scrape_launches']}); --resume from round {out['resumed_from']} "
+          f"ran to {rounds} in {out['resume_s']:.1f} s (stats {out['stats']}); final "
+          f"checkpoint bitwise equal to scale_run_rounds in this process "
+          f"({out['straight_rounds_per_s']!r} rounds/s, launches "
+          f"{out['straight_launches']}); resumed metric sums equal its info sums",
+          flush=True)
+    return out
+
+
+def _counting_rounds(tally: dict):
+    """Wrap ``scale_step.scale_run_rounds_carry`` to count the rounds it runs
+    and the dense ones among them (a quiet round's fixpoint branch launches
+    no kernel); -> the function to put back."""
+    from corrosion_tpu_torch.sim import scale_step
+
+    real = scale_step.scale_run_rounds_carry
+
+    def counting(cfg, st, net, key, inputs):
+        out = real(cfg, st, net, key, inputs)
+        n = int(inputs.kill.shape[0])
+        cheap = int(out[1]["quiet_round"].sum()) if "quiet_round" in out[1] else 0
+        tally["rounds"] += n
+        tally["dense"] += n - cheap
+        return out
+
+    scale_step.scale_run_rounds_carry = counting
+    return real
+
+
+def _chaos_run(dev, run) -> tuple:
+    """``run()`` with the launch counters reset and the rounds counted;
+    -> (its result, seconds, dense rounds, launches per form). Each kernel
+    must launch once in every dense round."""
+    from corrosion_tpu_torch.ops import megakernel as mk
+    from corrosion_tpu_torch.sim import scale_step
+
+    tally = {"rounds": 0, "dense": 0}
+    real = _counting_rounds(tally)
+    mk.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        got = run()
+    finally:
+        scale_step.scale_run_rounds_carry = real
+    seconds = time.perf_counter() - t0
+    launches = dict(mk.LAUNCHES)
+    if set(launches.values()) != {tally["dense"]} or not tally["dense"]:
+        raise AssertionError(f"chaos launches {launches} over {tally} rounds")
+    return got, seconds, tally, dict(mk.FORM_LAUNCHES)
+
+
+def phase_chaos(dev) -> dict:
+    """The chaos engine on the card. (a) Every registry scenario at its N=24,
+    seed 0, against the JAX package's verdicts (``CHAOS_VERDICTS``, read, no
+    JAX imported): the digests, rounds to convergence and quiescence, info
+    sums, counters and ``ok`` equal field for field; the scenarios on a
+    mesh or ``fused="off"/"interpret"`` skip with their reasons, and no
+    other. (b) ``preempt-storm`` at ``CHAOS_STORM_NODES`` passes all three
+    oracles. (c) The corpus reproducer replays through ``python -m
+    corrosion_tpu_torch chaos --script``. Each kernel launches once in
+    every dense round of (a) and (b); every form's launches are printed."""
+    import dataclasses
+    import os
+
+    from corrosion_tpu_torch.resilience import chaos
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, CHAOS_VERDICTS)) as f:
+        verdicts = json.load(f)["scenarios"]
+    if set(verdicts) != set(chaos.SCENARIOS):
+        raise AssertionError(f"verdicts for {sorted(verdicts)}")
+
+    def sweep():
+        return {name: chaos.run_scenario(script, seed=0, device=dev)
+                for name, script in sorted(chaos.SCENARIOS.items())}
+
+    recs, sweep_s, sweep_rounds, sweep_forms = _chaos_run(dev, sweep)
+    skipped = {n for n, r in recs.items() if r.get("skipped")}
+    if skipped != set(CHAOS_SKIPS):
+        raise AssertionError(f"chaos skipped {sorted(skipped)}")
+    for name, rec in recs.items():
+        want = verdicts[name]
+        if name in CHAOS_SKIPS:
+            same = all(rec[f] == want[f] for f in (
+                "name", "seed", "n_nodes", "trace_digest", "rounds_scripted", "phases"))
+            if not (rec["ok"] and CHAOS_SKIPS[name] in rec["skipped"] and same):
+                raise AssertionError(f"chaos {name}: skip record {rec}")
+        elif rec != want:
+            diff = {k: (rec.get(k), want.get(k)) for k in set(rec) | set(want)
+                    if rec.get(k) != want.get(k)}
+            raise AssertionError(f"chaos {name} differs from JAX's verdict: {diff}")
+    ran = sorted(set(recs) - skipped)
+    print(f"[chaos] (a) {len(ran)} scenarios at N=24 on {dev} equal JAX's verdicts "
+          f"field for field ({ran}); skipped "
+          f"{ {n: recs[n]['skipped'] for n in sorted(skipped)} }; rounds to convergence "
+          f"{ {n: recs[n]['rounds_to_convergence'] for n in ran} }, to quiescence "
+          f"{ {n: recs[n]['rounds_to_quiescence'] for n in ran} }; {sweep_s:.1f} s, "
+          f"{sweep_rounds} rounds, launches {sweep_forms}", flush=True)
+
+    storm = dataclasses.replace(chaos.SCENARIOS["preempt-storm"], n_nodes=CHAOS_STORM_NODES,
+                                settle_budget=CHAOS_STORM_SETTLE)
+    rec, storm_s, storm_rounds, storm_forms = _chaos_run(
+        dev, lambda: chaos.run_scenario(storm, seed=0, device=dev))
+    if not (rec["ok"] and rec["converged"] and rec["quiesced"] and rec["bitwise_match"]
+            and rec["checkpoints_validated"] > 0):
+        raise AssertionError(f"chaos preempt-storm at N={CHAOS_STORM_NODES}: {rec}")
+    print(f"[chaos] (b) preempt-storm at N={CHAOS_STORM_NODES} on {dev}: ok, all three "
+          f"oracles; rounds to convergence {rec['rounds_to_convergence']}, to "
+          f"quiescence {rec['rounds_to_quiescence']}; {rec['faults_injected']} faults, "
+          f"{rec['resumes']} resumes, {rec['checkpoints_validated']} checkpoints "
+          f"validated, {rec['checkpoints_refused']} refused; info sums "
+          f"{rec['info_sums']}; {storm_s:.1f} s, {storm_rounds} rounds, launches "
+          f"{storm_forms}", flush=True)
+
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "corrosion_tpu_torch", "chaos", "--script", CHAOS_CORPUS,
+         "--device", str(dev)], cwd=root, capture_output=True, text=True, timeout=600)
+    corpus_s = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"chaos --script {CHAOS_CORPUS} rc {res.returncode}: "
+                             f"{res.stdout[-2000:]} {res.stderr[-2000:]}")
+    (replay,) = json.loads(res.stdout)["scenarios"]
+    print(f"[chaos] (c) chaos --script {CHAOS_CORPUS} exit 0 in {corpus_s:.1f} s: "
+          f"ok {replay['ok']}, {replay['checkpoints_refused']} checkpoint refused, "
+          f"converged at {replay['rounds_to_convergence']}", flush=True)
+    forms = {k: sweep_forms.get(k, 0) + storm_forms.get(k, 0)
+             for k in set(sweep_forms) | set(storm_forms)}
+    return {"forms": forms, "sweep_forms": sweep_forms, "storm_forms": storm_forms,
+            "storm": rec, "storm_s": storm_s, "sweep_s": sweep_s, "corpus_s": corpus_s}
+
+
 _PTX_TYPES = {"a": "int8", "s": "int16", "i": "int32"}
 
 
@@ -2153,10 +2478,15 @@ def main() -> int:
     done("agent-trajectory")
     phase_agent(dev)
     done("agent")
+    phase_soak_cli(dev)
+    done("soak-cli")
+    chaos = phase_chaos(dev)
+    done("chaos")
 
     # each form's launches are read from the path that runs it (0: no path
     # here runs the form)
-    paths = {"flagship": flag, "million": million, "full": full, "pig0": tx_paths["pig0"]}
+    paths = {"flagship": flag, "million": million, "full": full, "pig0": tx_paths["pig0"],
+             "chaos": chaos}
     source = {
         "swim_tables": "corrosion_tpu_torch/csrc/swim_tables.cu",
         "ingest": "corrosion_tpu_torch/csrc/ingest.cu",

@@ -353,13 +353,80 @@ class Agent:
         self.shutdown()
         return False
 
-    def soak(self, *args, **kwargs):
-        """The segmented soak dispatch of the JAX agent needs the flight
-        recorder (``obs/flight.py``), which the port does not have yet."""
-        raise NotImplementedError(
-            "Agent.soak is not ported yet (ROADMAP Queue 1 item 12-rest: "
-            "the soak's flight recorder and metrics bridge); drive "
-            "corrosion_tpu_torch.resilience.run_segmented directly")
+    def soak(self, rounds: int, segment_rounds: int = 128,
+             checkpoint_root: Optional[str] = None, keep_last: int = 3,
+             write_frac: float = 0.0, resume: bool = False, mesh=None):
+        """Throughput soak: run ``rounds`` rounds from the agent's current
+        state through the segmented runner
+        (:func:`corrosion_tpu_torch.resilience.segments.run_segmented`;
+        checkpoints carry the attached database and are written on the
+        overlapped background writer), then adopt the final carry as the
+        agent's state (the round counter advances by the completed rounds;
+        the generation fence moves so no stale in-flight result can commit
+        over it).
+
+        The round loop must be stopped. ``resume=True`` continues from the
+        newest valid checkpoint under ``checkpoint_root`` instead of the
+        live state. The inputs are ``make_soak_inputs`` from the config's
+        seed; segments run under the agent's supervisor, if it has one.
+        ``mesh`` (a sharded soak) is not ported yet.
+
+        The observer comes from ``config.obs`` (flight path, Prometheus
+        port, profiler labels) or, with that section idle, is a
+        bridge-only observer onto the agent's own metrics registry, so a
+        soak always advances ``corro.soak.rounds_total`` on this agent's
+        ``/metrics``; it is closed before returning."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "a sharded soak is not ported yet (ROADMAP Queue 1 item 14: "
+                "the node-axis sharding)")
+        if self._thread is not None and self._thread.is_alive():
+            raise RuntimeError("stop the round loop before a soak dispatch")
+        if resume and not checkpoint_root:
+            raise ValueError("resume needs a checkpoint root")
+        from corrosion_tpu_torch.obs.flight import SoakObserver, make_observer
+        from corrosion_tpu_torch.resilience.segments import (
+            make_soak_inputs,
+            resume_segmented,
+            run_segmented,
+        )
+
+        inputs = make_soak_inputs(
+            self.cfg, prng.key(self.config.sim.seed + 1), rounds,
+            write_frac=write_frac, device=self.device,
+        )
+        # serve_registry = the agent's own metrics: admission and
+        # subscription shed counters publish there, so the soak's flight
+        # record carries its shed story
+        obs = (make_observer(self.config.obs, registry=self.metrics,
+                             serve_registry=self.metrics)
+               or SoakObserver(registry=self.metrics, serve_registry=self.metrics))
+        common = dict(checkpoint_root=checkpoint_root, keep_last=keep_last,
+                      db=self.recovery_db, supervisor=self._supervisor, obs=obs)
+        try:
+            if resume:
+                result = resume_segmented(self.cfg, self._net, inputs,
+                                          segment_rounds, **common)
+            else:
+                result = run_segmented(self.cfg, self._state, self._net,
+                                       self._key, inputs, segment_rounds,
+                                       **common)
+        finally:
+            obs.close()
+        with self._input_lock:
+            self._state = result.state
+            self._key = result.key
+            self._now = None  # read the adopted state's round counter once
+            if resume:
+                # completed_rounds is absolute within the input stack and
+                # the adopted state replaces this agent's
+                self.round_no = result.completed_rounds
+            else:
+                self.round_no += result.completed_rounds
+            self.generation += 1
+        with self._snap_lock:
+            self._snapshot_host = None
+        return result
 
     # --- the round loop -------------------------------------------------
     def _run_loop(self, pace_seconds: float):

@@ -153,10 +153,18 @@ def _verify_files(path: str, manifest: dict) -> None:
             )
 
 
+def _write_bytes(path: str, data: bytes) -> None:
+    """Write a state file (a module seam, like :func:`_publish_manifest`,
+    so crash injection can kill a save mid-write)."""
+    with open(path, "wb") as f:
+        f.write(data)
+
+
 def _publish_manifest(tmp: str, final: str) -> None:
     """The commit point: a checkpoint exists iff this rename lands (a
-    module seam, so a test can crash a save between the state file and
-    the manifest)."""
+    module seam, so crash injection, the tests and the chaos engine's
+    ``crash_manifest``, can kill a save between the state file and the
+    manifest)."""
     os.replace(tmp, final)
 
 
@@ -202,8 +210,7 @@ def save_state_checkpoint(cfg, state, round_no: int, path: str,
     buf = io.BytesIO()
     np.savez_compressed(buf, **{f"leaf_{i}_0": a for i, a in enumerate(arrays)})
     blob = buf.getvalue()
-    with open(os.path.join(path, _SHARD_FILE), "wb") as f:
-        f.write(blob)
+    _write_bytes(os.path.join(path, _SHARD_FILE), blob)
     files = {_SHARD_FILE: hashlib.sha256(blob).hexdigest()}
     manifest = {
         "format": FORMAT_VERSION,

@@ -1,5 +1,5 @@
 """The ``corrosion-tpu-torch`` command line (port of
-``corrosion_tpu_torch/cli.py``).
+``corrosion_tpu/cli.py``).
 
 Mirrors the reference binary's command surface (``Command`` enum,
 ``crates/corrosion/src/main.rs:649-737``):
@@ -15,11 +15,19 @@ Mirrors the reference binary's command surface (``Command`` enum,
 - ``cluster members`` / ``rejoin`` / ``set-id`` — membership ops via admin;
 - ``backup`` / ``restore`` / ``checkpoint`` / ``verify-checkpoint`` —
   portable node backup and full checkpoints (``main.rs:160-330``);
-- ``locks``, ``compact``, ``reload``, ``assertions``, ``default-config``.
+- ``locks``, ``compact``, ``reload``, ``assertions``, ``default-config``;
+- ``soak`` — a preemption-safe segmented run with a checkpoint after every
+  segment, ``--resume``, a flight record (``--flight``) and a live
+  ``/metrics`` listener (``--prom-port``);
+- ``chaos`` — seeded fault scenarios through the segmented runner, judged
+  by three oracles (``--list``, ``--tier1``, names, ``--seed-range``,
+  ``--script FILE``); ``fuzz`` — generated scenarios, with a shrinker.
 
-The JAX package's ``soak``, ``template``, ``consul``, ``mem-report``,
-``devcluster``, ``lint``, ``san``, ``chaos``, ``fuzz`` and ``load`` are not
-ported yet (ROADMAP Queue 1).
+``soak``, ``chaos`` and ``fuzz`` take ``--device`` (default ``cuda``). The
+JAX package's ``template``, ``consul``, ``mem-report``, ``devcluster``,
+``lint``, ``san`` and ``load`` are not ported yet (ROADMAP Queue 1), nor is
+a sharded soak (``--shard``, item 14) or ``CORROSAN=1`` (``analysis/``,
+item 16).
 
 Run as ``python -m corrosion_tpu_torch <command>``.
 """
@@ -28,6 +36,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 from corrosion_tpu_torch.config import Config, default_toml, load_config
@@ -266,6 +275,268 @@ def cmd_verify_checkpoint(args) -> int:
     return 0
 
 
+def cmd_soak(args) -> int:
+    """Preemption-safe soak run: R rounds in K-round segments with a
+    crash-consistent checkpoint after each. ``--resume`` continues from
+    the newest valid checkpoint under ``--checkpoint-dir`` (losing at most
+    one segment); the segmented run is bitwise identical to a straight run
+    of the same seed.
+
+    ``--resume`` must be given the same config, ``--rounds`` and
+    ``--write-frac`` as the original run: the input stack is rebuilt from
+    the seed (sim-config drift is refused; the workload flags are the
+    caller's contract)."""
+    import dataclasses
+
+    from corrosion_tpu_torch import random as prng
+    from corrosion_tpu_torch._device import resolve_device
+    from corrosion_tpu_torch.obs.flight import info_sums, make_observer
+    from corrosion_tpu_torch.ops.megakernel import FORM_LAUNCHES
+    from corrosion_tpu_torch.resilience import (
+        Supervisor,
+        resume_segmented,
+        run_segmented,
+    )
+    from corrosion_tpu_torch.resilience.segments import make_soak_inputs
+    from corrosion_tpu_torch.sim.transport import NetModel
+    from corrosion_tpu_torch.utils.tracing import configure_otlp_file, flush_otlp
+
+    if args.shard or args.mesh_hosts:
+        raise SystemExit(
+            "--shard/--mesh-hosts: a sharded soak is not ported yet "
+            "(ROADMAP Queue 1 item 14)")
+    if args.fused in ("off", "interpret"):
+        raise SystemExit(
+            f"--fused {args.fused}: the port has no XLA or interpret path; "
+            f"the route follows the config and the tensors' device "
+            f"(ROADMAP, rules of the port)")
+    dev = resolve_device(args.device)
+    cfg_file = load_config(args.config) if args.config else Config()
+    # the pipeline spans (segment dispatch, host copy, serialize) land in
+    # the OTLP file only with the exporter installed
+    if cfg_file.telemetry.otlp_path:
+        configure_otlp_file(cfg_file.telemetry.otlp_path)
+    cfg = cfg_file.sim_config()
+    if args.fused:
+        cfg = dataclasses.replace(cfg, fused=args.fused).validate()
+    if args.quiet_mode:
+        # execution-only: quiet == dense bitwise, and checkpoint identity
+        # ignores the key, so --resume composes freely
+        cfg = dataclasses.replace(cfg, quiet=args.quiet_mode).validate()
+    net = NetModel.create(cfg.n_nodes, drop_prob=cfg_file.gossip.drop_prob,
+                          n_regions=cfg_file.gossip.n_regions, device=dev)
+    inputs = make_soak_inputs(cfg, prng.key(cfg_file.sim.seed + 1), args.rounds,
+                              write_frac=args.write_frac, device=dev)
+    supervisor = Supervisor(deadline_seconds=args.deadline or None)
+    # the observability flags override the [obs] section; one observer
+    # covers the run: flight record, live /metrics, spans
+    if args.flight:
+        cfg_file.obs.flight_path = args.flight
+    if args.prom_port is not None:
+        cfg_file.obs.prometheus_port = args.prom_port
+    if args.jax_profile:
+        cfg_file.obs.jax_profile = True
+    obs = make_observer(cfg_file.obs)
+    if obs is not None and obs.listener is not None:
+        print(json.dumps({"prometheus_port": obs.listener.bound_port}),
+              flush=True)
+    common = dict(
+        checkpoint_root=args.checkpoint_dir, keep_last=args.keep_last,
+        supervisor=supervisor, async_checkpoint=not args.sync_checkpoint,
+        obs=obs,
+    )
+    try:
+        if args.resume:
+            result = resume_segmented(cfg, net, inputs, args.segment, **common)
+        else:
+            if cfg_file.sim.mode == "scale":
+                from corrosion_tpu_torch.sim.scale_step import ScaleSimState
+
+                st = ScaleSimState.create(cfg, dev)
+            else:
+                from corrosion_tpu_torch.sim.step import SimState
+
+                st = SimState.create(cfg, device=dev)
+            result = run_segmented(cfg, st, net, prng.key(cfg_file.sim.seed),
+                                   inputs, args.segment, **common)
+    finally:
+        if obs is not None:
+            obs.close()
+        flush_otlp()
+    summary = {
+        "completed_rounds": result.completed_rounds,
+        "aborted": result.aborted,
+        "checkpoint": result.checkpoint,
+        "stats": result.stats,
+        "metrics": info_sums(result.infos),
+        # this process's kernel launches per form (``kernel:form``)
+        "kernel_launches": {f"{k}:{form}": n
+                            for (k, form), n in sorted(FORM_LAUNCHES.items())},
+    }
+    if cfg_file.obs.flight_path:
+        summary["flight"] = cfg_file.obs.flight_path
+    print(json.dumps(summary, indent=2))
+    return 1 if result.aborted else 0
+
+
+def _refuse_corrosan() -> None:
+    if os.environ.get("CORROSAN") == "1":
+        raise SystemExit(
+            "CORROSAN=1: the runtime sanitizer (analysis/) is not ported "
+            "yet (ROADMAP Queue 1 item 16)")
+
+
+def _write_json(path: str, obj) -> None:
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(obj, f, indent=2)
+
+
+def cmd_chaos(args) -> int:
+    """corrochaos: run seeded fault scenarios through the segmented soak
+    runner and judge them by the three oracles. A scenario is reproducible
+    from ``(name, seed)`` alone: the verdict carries the trace digest that
+    pins it."""
+    from corrosion_tpu_torch.resilience.chaos import (
+        HOST_SCENARIOS,
+        SCENARIOS,
+        TIER1_SCENARIOS,
+        run_sweep,
+    )
+
+    if args.list:
+        for name, script in sorted(SCENARIOS.items()):
+            tier = " [tier1]" if name in TIER1_SCENARIOS else ""
+            print(f"{name}{tier}: {len(script.phases)} phases, "
+                  f"{script.total_rounds} rounds, "
+                  f"{len(script.injections)} injection(s)")
+        for name, item in sorted(HOST_SCENARIOS.items()):
+            print(f"{name} [host-plane]: not ported yet ({item})")
+        return 0
+    _refuse_corrosan()
+    if args.script:
+        return _chaos_replay_scripts(args)
+    if args.scenario:
+        names = list(args.scenario)
+    elif args.tier1:
+        names = list(TIER1_SCENARIOS)
+    else:
+        names = sorted(SCENARIOS)
+    seed_range = None
+    if args.seed_range:
+        try:
+            lo, _, hi = args.seed_range.partition(":")
+            seed_range = (int(lo), int(hi))
+        except ValueError:
+            print(f"error: --seed-range wants A:B, got {args.seed_range!r}",
+                  file=sys.stderr)
+            return 2
+    try:
+        out = run_sweep(names, seed=args.seed, seed_range=seed_range,
+                        device=args.device)
+    except NotImplementedError as e:
+        raise SystemExit(str(e))
+    if args.output_json:
+        _write_json(args.output_json, out)
+    if args.convergence_json:
+        # rounds to convergence, one entry per scenario that ran
+        conv = [
+            {
+                "scenario": r["name"],
+                "seed": r["seed"],
+                "n": r["n_nodes"],
+                "faults": True,
+                "rounds_to_convergence": r.get("rounds_to_convergence", -1),
+                "converged": bool(r.get("converged")),
+                "platform": out["platform"],
+            }
+            for r in out["scenarios"] if not r.get("skipped")
+        ]
+        _write_json(args.convergence_json, conv)
+    print(json.dumps(out, indent=2))
+    return 0 if out["ok"] else 1
+
+
+def _chaos_replay_scripts(args) -> int:
+    """``chaos --script FILE [...]``: replay serialized scenario scripts,
+    corpus reproducers (the envelope ``fuzz.save_reproducer`` writes,
+    which pins its own seed) or bare ``script_to_json`` documents (run at
+    ``--seed``); a replay derives the trace digest the original run
+    recorded."""
+    from corrosion_tpu_torch.resilience.chaos import (
+        platform_name,
+        run_scenario,
+        script_from_json,
+    )
+    from corrosion_tpu_torch.resilience.fuzz import load_reproducer
+
+    records = []
+    for path in args.script:
+        with open(path) as f:
+            payload = json.load(f)
+        if isinstance(payload, dict) and "script" in payload:
+            script, seed, _meta = load_reproducer(path)
+        else:
+            script, seed = script_from_json(payload), args.seed
+        records.append(run_scenario(script, seed=seed, device=args.device))
+    out = {
+        "metric": "chaos_sweep",
+        "seed": int(args.seed),
+        "platform": platform_name(args.device),
+        "scripts": list(args.script),
+        "scenarios": records,
+        "ok": all(r["ok"] for r in records),
+    }
+    if args.output_json:
+        _write_json(args.output_json, out)
+    print(json.dumps(out, indent=2))
+    return 0 if out["ok"] else 1
+
+
+def cmd_fuzz(args) -> int:
+    """corrofuzz: sweep a fixed-seed budget of generated chaos scenarios
+    and print the per-seed verdicts with rounds to convergence and
+    quiescence. Deterministic end to end. ``--shrink-failures DIR``
+    delta-debugs every failing seed to a 1-minimal reproducer in DIR for
+    ``chaos --script`` replay."""
+    from corrosion_tpu_torch.resilience import fuzz
+
+    try:
+        lo, _, hi = args.seeds.partition(":")
+        seeds = list(range(int(lo), int(hi) + 1))
+    except ValueError:
+        print(f"error: --seeds wants A:B, got {args.seeds!r}", file=sys.stderr)
+        return 2
+    if args.list:
+        for seed in seeds:
+            script = fuzz.gen_script(seed, profile=args.profile)
+            print(f"{script.name}: N={script.n_nodes}, "
+                  f"{len(script.phases)} phases, "
+                  f"{script.total_rounds} rounds, injections="
+                  f"{[i.kind for i in script.injections] or '[]'}")
+        return 0
+    _refuse_corrosan()
+    out = fuzz.run_fuzz(seeds, profile=args.profile, device=args.device)
+    if args.shrink_failures is not None:
+        shrunk = []
+        for case in out["cases"]:
+            if case["ok"] or case.get("skipped"):
+                continue
+            script = fuzz.gen_script(case["seed"], profile=args.profile)
+            minimal, runs = fuzz.shrink(script, case["seed"], device=args.device)
+            shrunk.append(fuzz.save_reproducer(
+                minimal, case["seed"],
+                note=f"shrunk from {script.name} in {runs} oracle runs; "
+                     f"problems: {case.get('problems')}",
+                path=os.path.join(args.shrink_failures, f"{minimal.name}.json"),
+            ))
+        out["reproducers"] = shrunk
+    if args.output_json:
+        _write_json(args.output_json, out)
+    print(json.dumps(out, indent=2))
+    return 0 if out["ok"] else 1
+
+
 def cmd_reload(args) -> int:
     with _admin(args) as admin:
         out = admin.call("reload", config=args.config)
@@ -364,6 +635,117 @@ def build_parser() -> argparse.ArgumentParser:
                         help="verify a checkpoint directory's integrity")
     vc.add_argument("path")
     vc.set_defaults(fn=cmd_verify_checkpoint)
+
+    sk = sub.add_parser("soak",
+                        help="segmented soak run with per-segment "
+                             "checkpoints (preemption-safe)")
+    sk.add_argument("-c", "--config", default=None)
+    sk.add_argument("--rounds", type=int, default=1024)
+    sk.add_argument("--segment", type=int, default=128,
+                    help="rounds per segment (checkpoint cadence)")
+    sk.add_argument("--checkpoint-dir", default="./soak_checkpoints")
+    sk.add_argument("--keep-last", type=int, default=3)
+    sk.add_argument("--write-frac", type=float, default=0.25,
+                    help="fraction of nodes writing per round")
+    sk.add_argument("--deadline", type=float, default=0.0,
+                    help="per-segment dispatch deadline in seconds "
+                         "(0 = none)")
+    sk.add_argument("--resume", action="store_true",
+                    help="continue from the newest valid checkpoint")
+    sk.add_argument("--no-donate", action="store_true",
+                    help="accepted for the JAX package's command line; the "
+                         "port's round is functional and never donates its "
+                         "carry (stats donated_segments stays 0)")
+    sk.add_argument("--sync-checkpoint", action="store_true",
+                    help="write checkpoints synchronously on the hot "
+                         "loop instead of the overlapped background "
+                         "writer")
+    sk.add_argument("--shard", type=int, default=0,
+                    help="a sharded soak: not ported yet (ROADMAP Queue 1 "
+                         "item 14); any value but 0 exits")
+    sk.add_argument("--mesh-hosts", type=int, default=0,
+                    help="with --shard: not ported yet (item 14)")
+    from corrosion_tpu_torch.sim.config import FUSED_MODES, QUIET_MODES
+
+    sk.add_argument("--fused", choices=list(FUSED_MODES), default=None,
+                    help="execution-mode override of the [perf] fused key; "
+                         "the port runs 'auto' and 'on' (its kernels) and "
+                         "refuses 'off' and 'interpret'")
+    sk.add_argument("--quiet-mode", choices=list(QUIET_MODES),
+                    dest="quiet_mode", default=None,
+                    help="quiet active-set round override (default: the "
+                         "[perf] quiet key); 'on' runs the quiet round, "
+                         "'auto' lets the runner pick it for all-quiet "
+                         "segments; results are bitwise identical")
+    sk.add_argument("--flight", default=None, metavar="PATH",
+                    help="flight-recorder NDJSON path (overrides [obs] "
+                         "flight_path): crash-safe per-segment records a "
+                         "dead soak leaves behind")
+    sk.add_argument("--prom-port", type=int, default=None,
+                    help="serve live /metrics for this soak on this port "
+                         "(0 = ephemeral; overrides [obs] prometheus_port)")
+    sk.add_argument("--jax-profile", action="store_true",
+                    help="label the pipeline spans in torch.profiler traces "
+                         "(overrides [obs] jax_profile; the name is the "
+                         "JAX package's)")
+    sk.add_argument("--device", default="cuda",
+                    help="torch device of the run (default cuda; 'cpu' "
+                         "runs the kernels' plain versions)")
+    sk.set_defaults(fn=cmd_soak)
+
+    ch = sub.add_parser(
+        "chaos",
+        help="corrochaos: run deterministic seeded fault scenarios "
+             "through the segmented soak runner, judged by three oracles")
+    ch.add_argument("scenario", nargs="*", default=None,
+                    help="scenario name(s) to run (default: the whole "
+                         "registry; see --list)")
+    ch.add_argument("--seed", type=int, default=0,
+                    help="scenario seed: (name, seed) determines the trace "
+                         "and the verdict")
+    ch.add_argument("--seed-range", metavar="A:B", default=None,
+                    help="run every scenario at seeds A..B (inclusive); the "
+                         "record gains a per_seed map of rounds to "
+                         "convergence")
+    ch.add_argument("--tier1", action="store_true",
+                    help="run only the tier-1 subset")
+    ch.add_argument("--list", action="store_true",
+                    help="list the scenarios and exit")
+    ch.add_argument("--output-json", metavar="PATH", default=None,
+                    help="write the sweep record")
+    ch.add_argument("--convergence-json", metavar="PATH", default=None,
+                    help="also write rounds to convergence per scenario")
+    ch.add_argument("--script", metavar="FILE", action="append",
+                    default=None,
+                    help="replay serialized scenario script(s): corpus "
+                         "reproducers (tests/chaos_corpus/*.json, which pin "
+                         "their own seed) or bare script JSON (run at "
+                         "--seed); repeatable")
+    ch.add_argument("--device", default="cuda",
+                    help="torch device of the scenarios (default cuda)")
+    ch.set_defaults(fn=cmd_chaos)
+
+    fz = sub.add_parser(
+        "fuzz",
+        help="corrofuzz: sweep a fixed-seed budget of generated chaos "
+             "scenarios and optionally shrink failures to reproducers")
+    fz.add_argument("--seeds", metavar="A:B", default="0:24",
+                    help="inclusive fuzz-seed range; each seed generates "
+                         "and judges one scenario (default 0:24)")
+    fz.add_argument("--profile", choices=("fast", "scale"), default="fast",
+                    help="N ladder: fast = the small rungs only; scale = "
+                         "up to 4096 nodes")
+    fz.add_argument("--list", action="store_true",
+                    help="print the generated scripts without running them")
+    fz.add_argument("--shrink-failures", metavar="DIR", default=None,
+                    help="delta-debug every failing seed to a 1-minimal "
+                         "reproducer JSON in DIR (replay with "
+                         "'chaos --script')")
+    fz.add_argument("--output-json", metavar="PATH", default=None,
+                    help="write the fuzz record")
+    fz.add_argument("--device", default="cuda",
+                    help="torch device of the scenarios (default cuda)")
+    fz.set_defaults(fn=cmd_fuzz)
 
     rl = sub.add_parser("reload", help="re-apply config (schema, log level)")
     rl.add_argument("config")

@@ -214,7 +214,8 @@ class ObsConfig:
     # standalone Prometheus listener for the soak registry: -1 = off,
     # 0 = ephemeral (bound port on the server's ``bound_port``), >0 fixed
     prometheus_port: int = -1
-    # annotate pipeline spans for jax.profiler device traces
+    # label the pipeline spans in torch.profiler traces (the key keeps the
+    # JAX package's name, where it annotates jax.profiler traces)
     jax_profile: bool = False
 
 

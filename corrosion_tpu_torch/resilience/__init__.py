@@ -9,9 +9,12 @@ segmented soak runs, checkpoint retention and the watchdog supervisor.
   the hot loop pays only the device-to-host copy;
 - :mod:`retention` — keep-last-K pruning plus an atomic ``LATEST``
   pointer naming the newest committed checkpoint;
-- :mod:`supervisor` — deadline-and-retry watchdog around device dispatch.
+- :mod:`supervisor` — deadline-and-retry watchdog around device dispatch;
+- :mod:`chaos` — seeded fault scenarios over the segmented runner, judged
+  by the convergence, checkpoint-lineage and quiescence oracles;
+- :mod:`fuzz` — generated scenarios, the shrinker and the corpus.
 
-The JAX package's fault-scenario engines (``chaos``, ``fuzz``) are not
+The JAX package's ``serve_overload`` (host-plane overload scenario) is not
 ported yet.
 """
 

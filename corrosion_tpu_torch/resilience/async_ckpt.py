@@ -34,17 +34,24 @@ from corrosion_tpu_torch.utils import logger
 
 
 def write_segment_checkpoint(cfg, state, key_json: dict, completed: int,
-                             root: str, keep_last: int) -> str:
+                             root: str, keep_last: int, db=None) -> str:
     """Commit one segment checkpoint (crash-consistent ordering).
 
     ``state`` is a state on any device (the soak runner's host copies).
     ``key_json`` is the serialized carried PRNG key
-    (``segments._key_to_json``)."""
+    (``segments._key_to_json``); ``db``, when given, is the host database
+    the checkpoint carries (an agent's soak)."""
+    from corrosion_tpu_torch.utils.tracing import span
+
     name = f"seg-{completed:08d}"
-    path = save_state_checkpoint(
-        cfg, state, completed, path=os.path.join(root, name),
-        extra={"soak": {"completed_rounds": completed, "key": key_json}},
-    )
+    # on the async writer this span runs overlapped with the next
+    # segment's soak.segment.dispatch
+    with span("soak.ckpt.serialize", warn_seconds=30.0, round=completed):
+        path = save_state_checkpoint(
+            cfg, state, completed, path=os.path.join(root, name),
+            extra={"soak": {"completed_rounds": completed, "key": key_json}},
+            db=db,
+        )
     # pointer moves only AFTER the directory is fully committed; pruning
     # runs last so the recovery point is never the one being deleted
     update_latest(root, name)
@@ -70,9 +77,10 @@ class AsyncCheckpointWriter:
     :meth:`close` — the soak must not keep running believing checkpoints
     are landing."""
 
-    def __init__(self, cfg, root: str, keep_last: int = 3,
+    def __init__(self, cfg, root: str, keep_last: int = 3, db=None,
                  progress: Optional[Callable[[], int]] = None):
         self._cfg = cfg
+        self._db = db
         self._root, self._keep_last = root, keep_last
         # reports the runner's current segment ordinal; a write that
         # finishes after the runner moved past its segment genuinely
@@ -124,7 +132,7 @@ class AsyncCheckpointWriter:
                 t0 = time.perf_counter()
                 self.last_path = write_segment_checkpoint(
                     self._cfg, job.state, job.key_json,
-                    job.completed, self._root, self._keep_last,
+                    job.completed, self._root, self._keep_last, self._db,
                 )
                 self.io_seconds += time.perf_counter() - t0
                 self.written += 1

@@ -37,7 +37,12 @@ import torch
 from corrosion_tpu_torch import random as prng
 from corrosion_tpu_torch._device import resolve_device
 from corrosion_tpu_torch.checkpoint import config_identity, config_mode, load_checkpoint
-from corrosion_tpu_torch.resilience.async_ckpt import AsyncCheckpointWriter
+from corrosion_tpu_torch.obs.memory import state_bytes
+from corrosion_tpu_torch.obs.spans import pipeline_span
+from corrosion_tpu_torch.resilience.async_ckpt import (
+    AsyncCheckpointWriter,
+    write_segment_checkpoint,
+)
 from corrosion_tpu_torch.resilience.retention import latest_valid_checkpoint
 from corrosion_tpu_torch.resilience.supervisor import SupervisorAborted
 from corrosion_tpu_torch.utils import logger
@@ -88,22 +93,46 @@ def _n_rounds(inputs) -> int:
     return int(inputs.kill.shape[0])
 
 
-def _pipeline_stats(quiet_mode: str = "off") -> dict:
+def _pipeline_stats(quiet_mode: str = "off", async_checkpoint: bool = True,
+                    kernel_route: str = "cuda", fused_mode: str = "auto") -> dict:
     """A zeroed stats record (the keys every SoakResult.stats carries)."""
     return {
+        # the port's round is functional: a segment never donates its
+        # carry, so ``donate`` is False and ``donated_segments`` stays 0
+        "donate": False,
+        "async_checkpoint": async_checkpoint,
+        "fused_mode": fused_mode,
+        # "cuda": the kernels launch (CUDA tensors); "plain": their plain
+        # versions (CPU tensors)
+        "kernel_route": kernel_route,
         "quiet_mode": quiet_mode,
         # segments the quiet="auto" resolver ran on the quiet round
         "quiet_segments": 0,
         "segments": 0,
+        "donated_segments": 0,
         # retries that restarted from the host copy of the last boundary
         "carry_reuploads": 0,
         # hot-loop seconds: the host copy and writer backpressure
         "ckpt_stall_s": 0.0,
-        # the writer thread's seconds (overlapped with the segments)
+        # the writer's seconds (overlapped with the segments when async)
         "ckpt_io_s": 0.0,
         "ckpt_written": 0,
         "ckpt_overlapped_segments": 0,
+        # bytes of the carry's host copies
+        "ckpt_drain_bytes": 0,
     }
+
+
+def _obs_hook(obs, name: str, **kwargs) -> None:
+    """Drive one observer hook, guarded: the observability plane must
+    never kill (or change the result of) the soak it observes; a raising
+    hook is logged and the run goes on."""
+    if obs is None:
+        return
+    try:
+        getattr(obs, name)(**kwargs)
+    except Exception:  # noqa: BLE001 — observers are caller-supplied
+        logger.exception("soak observer hook %s failed; continuing", name)
 
 
 def _slice_inputs(inputs, lo: int, hi: int):
@@ -172,8 +201,11 @@ def run_segmented(
     *,
     checkpoint_root: Optional[str] = None,
     keep_last: int = 3,
+    db=None,
     supervisor=None,
     start_round: int = 0,
+    async_checkpoint: bool = True,
+    obs=None,
 ) -> SoakResult:
     """Run ``inputs`` (stacked per-round, leading axis = rounds) in
     K-round segments, checkpointing after each.
@@ -190,13 +222,23 @@ def run_segmented(
     state.
 
     With a ``checkpoint_root`` the hot loop only copies the carry to the
-    host; serialization, hashing, manifest commit, ``LATEST`` and pruning
-    run on a background writer overlapped with the next segment.
+    host; with ``async_checkpoint`` (the default) serialization, hashing,
+    manifest commit, ``LATEST`` and pruning run on a background writer
+    overlapped with the next segment, else on the hot loop. ``db`` is the
+    host database each checkpoint carries (an agent's soak).
 
     Under ``quiet="auto"`` (scale mode, cohort sync) a segment whose
     inputs inject nothing and whose carry is quiet at the boundary runs
     the quiet round (``quiet="on"``, bitwise equal to the dense round);
     ``stats["quiet_segments"]`` counts them.
+
+    ``obs`` (an :class:`corrosion_tpu_torch.obs.flight.SoakObserver` or
+    None): each completed segment appends a flight-record line and drains
+    its infos into the observer's metrics registry, and the run's end
+    record lands whatever ends the run. The observer belongs to the
+    caller; this function only drives its hooks. The segment dispatch,
+    the carry's host copy and (in the writer) the serialize run in
+    pipeline spans, labelled for ``torch.profiler`` when the observer asks.
     """
     if segment_rounds <= 0:
         raise ValueError("segment_rounds must be positive")
@@ -208,12 +250,22 @@ def run_segmented(
                   and getattr(cfg, "sync_cohort", False))
     quiet_cfg = (dataclasses.replace(cfg, quiet="on").validate()
                  if quiet_auto else cfg)
-    stats = _pipeline_stats(str(getattr(cfg, "quiet", "off")))
+    use_writer = bool(checkpoint_root and async_checkpoint)
+    stats = _pipeline_stats(
+        str(getattr(cfg, "quiet", "off")), use_writer,
+        "cuda" if dev.type == "cuda" else "plain", str(cfg.fused))
+    prof = bool(obs is not None and getattr(obs, "jax_profile", False))
+    # the observer's hooks run guarded and before the writer thread
+    # exists: a broken observer must neither kill the soak nor strand a
+    # writer thread
+    _obs_hook(obs, "open_run", cfg=cfg, mode=mode, total_rounds=rounds,
+              start_round=start_round, segment_rounds=segment_rounds,
+              stats=stats, state=st)
     seg_box = {"index": 0}  # read by the async writer's overlap probe
     writer = None
-    if checkpoint_root:
+    if use_writer:
         writer = AsyncCheckpointWriter(
-            cfg, checkpoint_root, keep_last,
+            cfg, checkpoint_root, keep_last, db,
             progress=lambda: seg_box["index"],
         )
     # the boundary carry lives only in ``box``; a segment takes it out, so
@@ -228,9 +280,12 @@ def run_segmented(
     info_parts: list = []
     completed = 0
     aborted = False
+    crashed = False  # an exception unwound this run
     last_ckpt = None
     try:
         while completed < rounds:
+            lo = completed
+            seg_no = seg_box["index"] + 1  # 1-based, shared by span and record
             hi = min(completed + segment_rounds, rounds)
             seg = _slice_inputs(inputs, completed, hi)
             quiet_now = (quiet_auto and _inputs_quiet(seg)
@@ -262,14 +317,19 @@ def run_segmented(
                 return out
 
             try:
-                if supervisor is not None:
-                    (st2, key2), infos = supervisor.call(
-                        seg_dispatch,
-                        label=f"segment[{start_round + completed}:"
-                              f"{start_round + hi}]",
-                    )
-                else:
-                    (st2, key2), infos = seg_dispatch()
+                # segments legitimately run for minutes: the slow-span
+                # warning is for the host copy and the serialize
+                with pipeline_span("soak.segment.dispatch", jax_profile=prof,
+                                   warn_seconds=float("inf"), seg=seg_no,
+                                   lo=start_round + lo, hi=start_round + hi):
+                    if supervisor is not None:
+                        (st2, key2), infos = supervisor.call(
+                            seg_dispatch,
+                            label=f"segment[{start_round + completed}:"
+                                  f"{start_round + hi}]",
+                        )
+                    else:
+                        (st2, key2), infos = seg_dispatch()
             except SupervisorAborted:
                 if not box:
                     # hand back the last boundary's values, a usable state
@@ -277,7 +337,7 @@ def run_segmented(
                 logger.exception(
                     "soak aborted at round %d; last good checkpoint: %s",
                     start_round + completed,
-                    writer.last_path if writer is not None else None,
+                    writer.last_path if writer is not None else last_ckpt,
                 )
                 aborted = True
                 break
@@ -285,33 +345,63 @@ def run_segmented(
             seg_box["index"] += 1
             stats["segments"] += 1
             info_parts.append(infos)
-            if writer is not None:
-                # the only synchronous cost on the hot loop: the host copy
-                # (plus writer backpressure while the previous segment's
-                # checkpoint is still being written)
+            if checkpoint_root:
+                # the only synchronous cost on the hot loop with the writer:
+                # the host copy (plus backpressure while the previous
+                # segment's checkpoint is still being written)
                 t0 = time.perf_counter()
-                host_carry = (host_copy(st2), _key_to_json(key2))
-                writer.submit(host_carry[0], host_carry[1],
-                              start_round + completed, seg_box["index"])
+                with pipeline_span("soak.ckpt.drain", jax_profile=prof,
+                                   warn_seconds=30.0):
+                    host_carry = (host_copy(st2), _key_to_json(key2))
+                stats["ckpt_drain_bytes"] += state_bytes(host_carry[0])
+                if writer is not None:
+                    writer.submit(host_carry[0], host_carry[1],
+                                  start_round + completed, seg_box["index"])
+                else:
+                    t1 = time.perf_counter()
+                    last_ckpt = write_segment_checkpoint(
+                        cfg, host_carry[0], host_carry[1],
+                        start_round + completed, checkpoint_root, keep_last, db)
+                    stats["ckpt_io_s"] += time.perf_counter() - t1
+                    stats["ckpt_written"] += 1
                 stats["ckpt_stall_s"] += time.perf_counter() - t0
                 held = None
             elif supervisor is not None:
                 held = (st2, key2)
             box.update(st=st2, key=key2)
             del st2, key2
+            # after the checkpoint: the segment record carries this
+            # segment's checkpoint facts
+            _obs_hook(obs, "on_segment", seg_index=seg_no,
+                      lo=start_round + lo, hi=start_round + completed,
+                      infos=infos, stats=stats, state=box["st"])
+    except BaseException:
+        # the run's own crash (a caller's enclosing except handler must
+        # not mark a clean run crashed)
+        crashed = True
+        raise
     finally:
-        if writer is not None:
-            # drain overlapped writes; a write failure surfaces here (or
-            # earlier, on submit) rather than being silently lost
-            try:
-                last_ckpt = writer.close() or last_ckpt
-            except Exception:
-                if not aborted:
-                    raise
-                logger.exception("async checkpoint drain failed")
-            stats["ckpt_io_s"] = writer.io_seconds
-            stats["ckpt_written"] = writer.written
-            stats["ckpt_overlapped_segments"] = writer.overlapped
+        try:
+            if writer is not None:
+                # drain overlapped writes; a write failure surfaces here (or
+                # earlier, on submit) rather than being silently lost
+                try:
+                    last_ckpt = writer.close() or last_ckpt
+                except BaseException:
+                    if aborted:
+                        logger.exception("async checkpoint drain failed")
+                    else:
+                        crashed = True
+                        raise
+                stats["ckpt_io_s"] = writer.io_seconds
+                stats["ckpt_written"] = writer.written
+                stats["ckpt_overlapped_segments"] = writer.overlapped
+        finally:
+            # the end record lands whatever ended the run
+            _obs_hook(obs, "end_run", stats=stats,
+                      completed_rounds=start_round + completed,
+                      aborted=aborted, crashed=crashed and not aborted,
+                      checkpoint=last_ckpt)
     return SoakResult(
         state=box["st"],
         key=box["key"],
@@ -371,7 +461,10 @@ def resume_segmented(
     *,
     checkpoint_root: str,
     keep_last: int = 3,
+    db=None,
     supervisor=None,
+    async_checkpoint: bool = True,
+    obs=None,
 ) -> SoakResult:
     """Resume a segmented run from the newest valid checkpoint under
     ``checkpoint_root``, on ``net``'s device.
@@ -392,14 +485,15 @@ def resume_segmented(
                 rounds)
     if completed >= rounds:
         return SoakResult(carry[0], carry[1], {}, completed, False, path,
-                          stats=_pipeline_stats())
+                          stats=_pipeline_stats(async_checkpoint=async_checkpoint))
     # the restored carry is popped into the call, so this frame does not
     # hold it while the run goes on
     return run_segmented(
         cfg, carry.pop(0), net, carry.pop(0),
         _slice_inputs(inputs, completed, rounds),
         segment_rounds, checkpoint_root=checkpoint_root,
-        keep_last=keep_last, supervisor=supervisor, start_round=completed,
+        keep_last=keep_last, db=db, supervisor=supervisor,
+        start_round=completed, async_checkpoint=async_checkpoint, obs=obs,
     )
 
 

@@ -364,8 +364,9 @@ def _recording(fn, seen):
 
 
 def test_agent_soak_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 12-rest"):
-        Agent(small_config(Config), device="cpu").soak(8)
+    """The soak is ported; its sharded form waits for item 14."""
+    with pytest.raises(NotImplementedError, match="item 14"):
+        Agent(small_config(Config), device="cpu").soak(8, mesh=object())
 
 
 def test_supervised_agent_binds_its_tripwire():
