@@ -114,6 +114,13 @@ class AsyncCheckpointWriter:
         self._raise_pending()
         self._q.put(_Job(state, key_json, completed, seg_index))
 
+    def drain(self) -> None:
+        """Block until every submitted snapshot is committed (the
+        synchronous mode: submit, then drain). Re-raises a write
+        failure."""
+        self._q.join()
+        self._raise_pending()
+
     def close(self) -> Optional[str]:
         """Drain outstanding writes, stop the worker, and return the
         newest committed checkpoint path. Re-raises a pending write
@@ -127,6 +134,7 @@ class AsyncCheckpointWriter:
         while True:
             job = self._q.get()
             if job is None:
+                self._q.task_done()
                 return
             try:
                 t0 = time.perf_counter()
@@ -145,3 +153,5 @@ class AsyncCheckpointWriter:
                 )
                 with self._mu:
                     self._error = exc
+            finally:
+                self._q.task_done()

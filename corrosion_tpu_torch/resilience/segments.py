@@ -39,10 +39,7 @@ from corrosion_tpu_torch._device import resolve_device
 from corrosion_tpu_torch.checkpoint import config_identity, config_mode, load_checkpoint
 from corrosion_tpu_torch.obs.memory import state_bytes
 from corrosion_tpu_torch.obs.spans import pipeline_span
-from corrosion_tpu_torch.resilience.async_ckpt import (
-    AsyncCheckpointWriter,
-    write_segment_checkpoint,
-)
+from corrosion_tpu_torch.resilience.async_ckpt import AsyncCheckpointWriter
 from corrosion_tpu_torch.resilience.retention import latest_valid_checkpoint
 from corrosion_tpu_torch.resilience.supervisor import SupervisorAborted
 from corrosion_tpu_torch.utils import logger
@@ -224,7 +221,8 @@ def run_segmented(
     With a ``checkpoint_root`` the hot loop only copies the carry to the
     host; with ``async_checkpoint`` (the default) serialization, hashing,
     manifest commit, ``LATEST`` and pruning run on a background writer
-    overlapped with the next segment, else on the hot loop. ``db`` is the
+    overlapped with the next segment; without it the hot loop waits for
+    each write (the same writer, drained after every submit). ``db`` is the
     host database each checkpoint carries (an agent's soak).
 
     Under ``quiet="auto"`` (scale mode, cohort sync) a segment whose
@@ -250,9 +248,8 @@ def run_segmented(
                   and getattr(cfg, "sync_cohort", False))
     quiet_cfg = (dataclasses.replace(cfg, quiet="on").validate()
                  if quiet_auto else cfg)
-    use_writer = bool(checkpoint_root and async_checkpoint)
     stats = _pipeline_stats(
-        str(getattr(cfg, "quiet", "off")), use_writer,
+        str(getattr(cfg, "quiet", "off")), bool(checkpoint_root and async_checkpoint),
         "cuda" if dev.type == "cuda" else "plain", str(cfg.fused))
     prof = bool(obs is not None and getattr(obs, "jax_profile", False))
     # the observer's hooks run guarded and before the writer thread
@@ -263,7 +260,7 @@ def run_segmented(
               stats=stats, state=st)
     seg_box = {"index": 0}  # read by the async writer's overlap probe
     writer = None
-    if use_writer:
+    if checkpoint_root:
         writer = AsyncCheckpointWriter(
             cfg, checkpoint_root, keep_last, db,
             progress=lambda: seg_box["index"],
@@ -337,7 +334,7 @@ def run_segmented(
                 logger.exception(
                     "soak aborted at round %d; last good checkpoint: %s",
                     start_round + completed,
-                    writer.last_path if writer is not None else last_ckpt,
+                    writer.last_path if writer is not None else None,
                 )
                 aborted = True
                 break
@@ -354,16 +351,10 @@ def run_segmented(
                                    warn_seconds=30.0):
                     host_carry = (host_copy(st2), _key_to_json(key2))
                 stats["ckpt_drain_bytes"] += state_bytes(host_carry[0])
-                if writer is not None:
-                    writer.submit(host_carry[0], host_carry[1],
-                                  start_round + completed, seg_box["index"])
-                else:
-                    t1 = time.perf_counter()
-                    last_ckpt = write_segment_checkpoint(
-                        cfg, host_carry[0], host_carry[1],
-                        start_round + completed, checkpoint_root, keep_last, db)
-                    stats["ckpt_io_s"] += time.perf_counter() - t1
-                    stats["ckpt_written"] += 1
+                writer.submit(host_carry[0], host_carry[1],
+                              start_round + completed, seg_box["index"])
+                if not async_checkpoint:
+                    writer.drain()
                 stats["ckpt_stall_s"] += time.perf_counter() - t0
                 held = None
             elif supervisor is not None:
@@ -386,7 +377,7 @@ def run_segmented(
                 # drain overlapped writes; a write failure surfaces here (or
                 # earlier, on submit) rather than being silently lost
                 try:
-                    last_ckpt = writer.close() or last_ckpt
+                    last_ckpt = writer.close()
                 except BaseException:
                     if aborted:
                         logger.exception("async checkpoint drain failed")

@@ -5,7 +5,8 @@ The tier-1 scenarios' verdicts equal JAX's field for field (digests,
 rounds to convergence and quiescence, info sums, counters, ``ok``) and
 equal ``tests/data/chaos_verdicts_jax.json``, the JAX package's verdicts of
 every registry scenario at seed 0 (made on the CPU, regenerated by the slow
-test below with ``CHAOS_VERDICTS_WRITE=1``); what the port cannot run
+test below with ``CHAOS_VERDICTS_WRITE=1``, as is
+``tests/data/chaos_storm_jax.json``, preempt-storm at N=4096); what the port cannot run
 (a device mesh, ``fused="off"/"interpret"``) is a skip with its reason; a
 crash before the first commit fails its verdict and not the sweep; a
 corrupt checkpoint is refused; scripts round-trip through JSON with their
@@ -31,6 +32,16 @@ from corrosion_tpu_torch.sim.scenario import FaultPhase
 
 ROOT = Path(__file__).resolve().parent.parent
 VERDICTS = ROOT / "tests" / "data" / "chaos_verdicts_jax.json"
+#: JAX's verdict of preempt-storm at the ladder's top rung, seed 0: the
+#: reference the card's storm leg is held to (regenerated by the slow test
+#: below with ``CHAOS_VERDICTS_WRITE=1``)
+STORM = ROOT / "tests" / "data" / "chaos_storm_jax.json"
+STORM_N, STORM_SETTLE = 4096, 512
+#: preempt-storm at the top rung with a settle budget its queues drain
+#: within (``chaos --script`` runs it in either package)
+DRAIN = ROOT / "tests" / "data" / "preempt_storm_4096.json"
+DRAIN_SETTLE = 14336
+QUIESCENCE_PROBLEM = "did not drain within 512 settle rounds (oracle 3)"
 #: the scenarios the port skips, with a word of each reason
 SKIPS = {"elastic-remesh": "item 14", "corrupt-remesh": "item 14",
          "fused-flip": "rules of the port"}
@@ -74,6 +85,46 @@ def test_committed_file_pins_every_registry_trace(name):
     assert jrec["ok"] and jrec["name"] == name and jrec["seed"] == 0
     _, _, digest = chaos.compile_scenario(chaos.SCENARIOS[name], 0, device="cpu")
     assert digest == jrec["trace_digest"]
+
+
+def storm_script(module, n: int, budget: int):
+    import dataclasses
+
+    return dataclasses.replace(module.SCENARIOS["preempt-storm"], n_nodes=n,
+                               settle_budget=budget)
+
+
+def test_storm_file_pins_the_top_rung_trace():
+    """The JAX package's own verdict at N=4096 converges, replays every
+    checkpoint and matches its chaos leg bitwise, and fails only oracle 3
+    (its queues do not drain within the budget); the port compiles the
+    same trace at that size."""
+    with open(STORM) as f:
+        doc = json.load(f)
+    assert (doc["n_nodes"], doc["settle_budget"], doc["seed"]) == (
+        STORM_N, STORM_SETTLE, 0)
+    jrec = doc["verdict"]
+    assert jrec["converged"] and jrec["bitwise_match"]
+    assert jrec["checkpoints_validated"] == 8 and jrec["checkpoints_refused"] == 0
+    assert not jrec["quiesced"] and jrec["rounds_to_quiescence"] == -1
+    assert [p[-len(QUIESCENCE_PROBLEM):] for p in jrec["problems"]] == [
+        QUIESCENCE_PROBLEM]
+    _, _, digest = chaos.compile_scenario(
+        storm_script(chaos, STORM_N, STORM_SETTLE), 0, device="cpu")
+    assert digest == jrec["trace_digest"]
+
+
+def test_drain_script_is_the_registry_storm_at_the_top_rung():
+    """The committed drain script is preempt-storm at N=4096 with a wide
+    settle budget, and both packages compile it to the same trace."""
+    with open(DRAIN) as f:
+        doc = json.load(f)
+    script = chaos.script_from_json(doc)
+    assert script == storm_script(chaos, STORM_N, DRAIN_SETTLE)
+    assert json.loads(json.dumps(chaos.script_to_json(script))) == doc
+    _, _, digest = chaos.compile_scenario(script, 0, device="cpu")
+    _, _, jdigest = jchaos.compile_scenario(jchaos.script_from_json(doc), 0)
+    assert digest == jdigest
 
 
 @pytest.mark.parametrize("name", sorted(SKIPS))
@@ -240,31 +291,47 @@ def test_jax_verdicts_file_is_current_and_the_port_equals_it(tmp_path):
 
 @pytest.mark.slow
 def test_port_verdicts_are_deterministic_and_equal_jax_at_another_seed():
+    # seed 2: at seeds 1 and 3 the JAX package's own verdict fails the
+    # script's expected refutation (no node is refuted), and the port's
+    # equals it there too
     script = chaos.SCENARIOS["preempt-storm"]
-    a = chaos.run_scenario(script, seed=1, device="cpu")
-    assert a == chaos.run_scenario(script, seed=1, device="cpu")
+    a = chaos.run_scenario(script, seed=2, device="cpu")
+    assert a == chaos.run_scenario(script, seed=2, device="cpu")
     assert a["ok"], a.get("problems")
-    assert a == jchaos.run_scenario(jchaos.SCENARIOS["preempt-storm"], seed=1)
+    assert a == jchaos.run_scenario(jchaos.SCENARIOS["preempt-storm"], seed=2)
 
 
 @pytest.mark.slow
 def test_preempt_storm_quiesces_ever_later_as_n_grows():
-    """preempt-storm's broadcast queues drain more slowly as N grows (4 book
-    slots for any writer: a change from an untracked origin turns fresh
-    again); all three oracles hold at N=64, 256 and 512 with the settle
-    budget the chip check uses at 256, and the rounds to quiescence grow.
-    At N=64 the verdict equals the JAX package's."""
-    import dataclasses
-
-    storm = chaos.SCENARIOS["preempt-storm"]
+    """preempt-storm's broadcast queues drain more slowly as N grows: all
+    three oracles hold at N=64, 256, 512 and 1024 with a settle budget
+    that grows with N, the rounds to quiescence grow, and every verdict
+    equals the JAX package's field for field."""
     took = []
-    for n, budget in ((64, 256), (256, 1024), (512, 2048)):
-        rec = chaos.run_scenario(
-            dataclasses.replace(storm, n_nodes=n, settle_budget=budget),
-            seed=0, device="cpu")
+    for n, budget in ((64, 256), (256, 1024), (512, 2048), (1024, 4096)):
+        rec = chaos.run_scenario(storm_script(chaos, n, budget), seed=0,
+                                 device="cpu")
         assert rec["ok"], (n, rec.get("problems"))
+        assert rec == jchaos.run_scenario(storm_script(jchaos, n, budget), seed=0)
         took.append(rec["rounds_to_quiescence"])
-        if n == 64:
-            assert rec == jchaos.run_scenario(dataclasses.replace(
-                jchaos.SCENARIOS["preempt-storm"], n_nodes=64), seed=0)
     assert took == sorted(took) and took[-1] > 4 * took[0], took
+
+
+@pytest.mark.slow
+def test_jax_storm_file_is_current_and_the_port_equals_it():
+    """Regenerate JAX's preempt-storm verdict at N=4096 (settle budget 512;
+    ``CHAOS_VERDICTS_WRITE=1`` writes it to the file), then hold the
+    port's to it field for field."""
+    want = jchaos.run_scenario(storm_script(jchaos, STORM_N, STORM_SETTLE), seed=0)
+    doc = {"seed": 0, "n_nodes": STORM_N, "settle_budget": STORM_SETTLE,
+           "made_by": "corrosion_tpu.resilience.chaos.run_scenario, JAX on "
+                      "the CPU", "verdict": want}
+    if os.environ.get("CHAOS_VERDICTS_WRITE") == "1":
+        with open(STORM, "w") as f:
+            json.dump(doc, f, indent=1, sort_keys=True)
+            f.write("\n")
+    with open(STORM) as f:
+        assert json.load(f) == json.loads(json.dumps(doc))
+    rec = chaos.run_scenario(storm_script(chaos, STORM_N, STORM_SETTLE), seed=0,
+                             device="cpu")
+    assert rec == want

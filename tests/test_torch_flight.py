@@ -456,7 +456,10 @@ def _soak_cli(cfg_path, ck, flight, *extra):
             "--keep-last", "64", *extra]
 
 
-def test_soak_cli_killed_and_resumed_equals_a_straight_run(tmp_path):
+def _soak_cli_kill_resume(tmp_path, *mode):
+    """``soak`` (with ``mode``'s flags) SIGKILLed after its second commit,
+    then ``--resume``d to the end; -> the resumed run's summary, checked
+    against a straight ``scale_run_rounds`` of the same config."""
     from corrosion_tpu_torch.config import load_config
 
     rounds, segment = 240, 4
@@ -464,7 +467,7 @@ def test_soak_cli_killed_and_resumed_equals_a_straight_run(tmp_path):
     with open(cfg_path, "w") as f:
         f.write(SOAK_TOML.format(n=32, otlp=tmp_path / "otlp.json"))
     ck, flight = str(tmp_path / "ck"), str(tmp_path / "flight.ndjson")
-    args = ["--rounds", str(rounds), "--segment", str(segment)]
+    args = ["--rounds", str(rounds), "--segment", str(segment), *mode]
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.Popen(_soak_cli(cfg_path, ck, flight, *args, "--prom-port", "0"),
                             stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
@@ -515,6 +518,21 @@ def test_soak_cli_killed_and_resumed_equals_a_straight_run(tmp_path):
     assert summary["metrics"] == tail
     spans = open(tmp_path / "otlp.json").read()
     assert "soak.segment.dispatch" in spans and "soak.ckpt.serialize" in spans
+    return summary
+
+
+def test_soak_cli_killed_and_resumed_equals_a_straight_run(tmp_path):
+    summary = _soak_cli_kill_resume(tmp_path)
+    assert summary["stats"]["async_checkpoint"] is True
+
+
+def test_soak_cli_sync_checkpoint_killed_and_resumed_equals_a_straight_run(tmp_path):
+    """``--sync-checkpoint``: the same writer, drained after every submit."""
+    summary = _soak_cli_kill_resume(tmp_path, "--sync-checkpoint")
+    stats = summary["stats"]
+    assert stats["async_checkpoint"] is False
+    assert stats["ckpt_written"] == stats["segments"]
+    assert stats["ckpt_overlapped_segments"] == 0
 
 
 def test_soak_cli_refuses_what_the_port_lacks(tmp_path):
