@@ -21,13 +21,20 @@ Mirrors the reference binary's command surface (``Command`` enum,
   ``/metrics`` listener (``--prom-port``);
 - ``chaos`` — seeded fault scenarios through the segmented runner, judged
   by three oracles (``--list``, ``--tier1``, names, ``--seed-range``,
-  ``--script FILE``); ``fuzz`` — generated scenarios, with a shrinker.
+  ``--script FILE``), and the host-plane ``serve-overload`` by name;
+  ``fuzz`` — generated scenarios, with a shrinker;
+- ``template`` — render Python templates over the HTTP API (``--once``, or
+  re-render on change); ``consul sync`` — mirror a Consul agent's services
+  and checks into tables;
+- ``devcluster`` — boot an agent from an ``A -> B`` topology file, one
+  region per connected component;
+- ``load`` — the seeded concurrent-client load harness over HTTP,
+  subscriptions and PG wire (``--overload``: the two-arm overload bench).
 
-``soak``, ``chaos`` and ``fuzz`` take ``--device`` (default ``cuda``). The
-JAX package's ``template``, ``consul``, ``mem-report``, ``devcluster``,
-``lint``, ``san`` and ``load`` are not ported yet (ROADMAP Queue 1), nor is
-a sharded soak (``--shard``, item 14) or ``CORROSAN=1`` (``analysis/``,
-item 16).
+``agent``, ``devcluster``, ``soak``, ``chaos``, ``fuzz`` and ``load`` take
+``--device`` (default ``cuda``). The JAX package's ``mem-report``, ``lint``
+and ``san`` are not ported yet (ROADMAP Queue 1 item 16-rest), nor is a
+sharded soak (``--shard``, item 14) or ``CORROSAN=1`` (``analysis/``).
 
 Run as ``python -m corrosion_tpu_torch <command>``.
 """
@@ -66,7 +73,7 @@ def _params(raw):
     return out
 
 
-def cmd_agent(args, cfg=None) -> int:
+def cmd_agent(args, cfg=None, regions=None) -> int:
     from corrosion_tpu_torch.admin import AdminServer
     from corrosion_tpu_torch.agent import Agent
     from corrosion_tpu_torch.api import ApiServer
@@ -74,10 +81,6 @@ def cmd_agent(args, cfg=None) -> int:
 
     if cfg is None:
         cfg = load_config(args.config) if args.config else Config()
-    if cfg.pg.enabled:
-        raise SystemExit(
-            "pg.enabled = true: the PostgreSQL wire listener is not ported "
-            "yet (ROADMAP Queue 1 item 15-rest)")
     # validate listener addresses BEFORE anything starts, so a config typo
     # cannot strand half-booted servers
     prom_hostport = None
@@ -90,8 +93,10 @@ def cmd_agent(args, cfg=None) -> int:
             )
         prom_hostport = (host or "127.0.0.1", int(port))
     agent = Agent(cfg, device=args.device).start(pace_seconds=args.pace)
+    if regions is not None:
+        agent.set_regions(regions)
     agent.tripwire.hook_signals()
-    api = admin = prom = None
+    api = admin = pg = prom = None
     try:
         db = Database(agent)
         from corrosion_tpu_torch.maintenance import MaintenanceLoop
@@ -118,6 +123,10 @@ def cmd_agent(args, cfg=None) -> int:
         ).start()
         api = ApiServer(db, addr=cfg.api.addr, port=cfg.api.port).start()
         admin = AdminServer(agent, cfg.admin.uds_path, db=db).start()
+        if cfg.pg.enabled:
+            from corrosion_tpu_torch.pg import PgServer
+
+            pg = PgServer(db, addr=cfg.pg.addr, port=cfg.pg.port).start()
         if prom_hostport:
             from corrosion_tpu_torch.utils.metrics import start_prometheus_listener
 
@@ -126,7 +135,8 @@ def cmd_agent(args, cfg=None) -> int:
             from corrosion_tpu_torch.utils.tracing import configure_otlp_file
 
             configure_otlp_file(cfg.telemetry.otlp_path)
-        extras = f" prometheus {cfg.telemetry.prometheus_addr}" if prom else ""
+        extras = (f" pg {pg.addr}:{pg.port}" if pg else "") + (
+            f" prometheus {cfg.telemetry.prometheus_addr}" if prom else "")
         print(f"agent up: api http://{api.addr}:{api.port} "
               f"admin {cfg.admin.uds_path}{extras} nodes={agent.n_nodes} "
               f"device={agent.device}", flush=True)
@@ -137,6 +147,8 @@ def cmd_agent(args, cfg=None) -> int:
             admin.stop()
         if api:
             api.stop()
+        if pg:
+            pg.stop()
         if prom:
             prom.shutdown()
         agent.shutdown()
@@ -383,7 +395,7 @@ def _refuse_corrosan() -> None:
     if os.environ.get("CORROSAN") == "1":
         raise SystemExit(
             "CORROSAN=1: the runtime sanitizer (analysis/) is not ported "
-            "yet (ROADMAP Queue 1 item 16)")
+            "yet (ROADMAP Queue 1 item 16-rest)")
 
 
 def _write_json(path: str, obj) -> None:
@@ -398,9 +410,9 @@ def cmd_chaos(args) -> int:
     from ``(name, seed)`` alone: the verdict carries the trace digest that
     pins it."""
     from corrosion_tpu_torch.resilience.chaos import (
-        HOST_SCENARIOS,
         SCENARIOS,
         TIER1_SCENARIOS,
+        _host_scenarios,
         run_sweep,
     )
 
@@ -410,8 +422,9 @@ def cmd_chaos(args) -> int:
             print(f"{name}{tier}: {len(script.phases)} phases, "
                   f"{script.total_rounds} rounds, "
                   f"{len(script.injections)} injection(s)")
-        for name, item in sorted(HOST_SCENARIOS.items()):
-            print(f"{name} [host-plane]: not ported yet ({item})")
+        for name in sorted(_host_scenarios()):
+            print(f"{name} [host-plane]: serving-plane scenario, "
+                  f"run by name (not part of the default sweep)")
         return 0
     _refuse_corrosan()
     if args.script:
@@ -431,11 +444,8 @@ def cmd_chaos(args) -> int:
             print(f"error: --seed-range wants A:B, got {args.seed_range!r}",
                   file=sys.stderr)
             return 2
-    try:
-        out = run_sweep(names, seed=args.seed, seed_range=seed_range,
-                        device=args.device)
-    except NotImplementedError as e:
-        raise SystemExit(str(e))
+    out = run_sweep(names, seed=args.seed, seed_range=seed_range,
+                    device=args.device)
     if args.output_json:
         _write_json(args.output_json, out)
     if args.convergence_json:
@@ -450,7 +460,8 @@ def cmd_chaos(args) -> int:
                 "converged": bool(r.get("converged")),
                 "platform": out["platform"],
             }
-            for r in out["scenarios"] if not r.get("skipped")
+            for r in out["scenarios"]
+            if not r.get("skipped") and not r.get("host_plane")
         ]
         _write_json(args.convergence_json, conv)
     print(json.dumps(out, indent=2))
@@ -535,6 +546,120 @@ def cmd_fuzz(args) -> int:
         _write_json(args.output_json, out)
     print(json.dumps(out, indent=2))
     return 0 if out["ok"] else 1
+
+
+def cmd_load(args) -> int:
+    """corroload: the seeded concurrent-client load harness. Drives an
+    in-process rig's HTTP API, NDJSON subscriptions and PG-wire server with
+    N writers + M subscribers + K readers whose op streams are a pure
+    function of ``--seed``, and prints the ``BENCH_SERVE`` record:
+    client-side p50/p95/p99 per op class, delivery lag, and the
+    server-vs-client request-count agreement gate. ``--overload`` runs the
+    two-arm overload bench instead (exit 0 when the guard holds the
+    degradation contract and the unguarded arm violates it)."""
+    from corrosion_tpu_torch.obs.load import run_load, run_overload_bench
+    from corrosion_tpu_torch.ops.megakernel import FORM_LAUNCHES
+
+    _refuse_corrosan()
+    if args.overload:
+        # the harness's own defaults govern everything but these flags
+        out = run_overload_bench(
+            stages=tuple(int(x) for x in args.stages.split(",")),
+            slow_subs=args.slow_subs, slow_ms=args.slow_ms,
+            lag_bound_s=args.lag_bound, seed=args.seed, device=args.device,
+        )
+    else:
+        out = run_load(
+            writers=args.writers, subscribers=args.subscribers,
+            pg_readers=args.pg_readers, write_ops=args.write_ops,
+            pg_ops=args.pg_ops, keys=args.keys, seed=args.seed,
+            device=args.device,
+        )
+    out["corrosan"] = False
+    # this process's kernel launches per form (``kernel:form``)
+    out["kernel_launches"] = {f"{k}:{form}": n
+                              for (k, form), n in sorted(FORM_LAUNCHES.items())}
+    if args.output_json:
+        _write_json(args.output_json, out)
+    print(json.dumps(out, indent=2))
+    return 0 if out["ok"] else 1
+
+
+def cmd_template(args) -> int:
+    from corrosion_tpu_torch.tpl import render_template_cli
+
+    return render_template_cli(args)
+
+
+def cmd_consul(args) -> int:
+    from corrosion_tpu_torch.consul import consul_sync_cli
+
+    return consul_sync_cli(args)
+
+
+def parse_topology(text: str):
+    """``A -> B`` edge-list topology (corro-devcluster's format,
+    ``corro-devcluster/src/topology/mod.rs``): returns (names in
+    first-appearance order, edges as index pairs, group id per node from
+    connected components)."""
+    names: list = []
+    index: dict = {}
+    edges = []
+
+    def nid(name: str) -> int:
+        if name not in index:
+            index[name] = len(names)
+            names.append(name)
+        return index[name]
+
+    for line in text.splitlines():
+        line = line.split("#", 1)[0].strip()
+        if not line:
+            continue
+        if "->" in line:
+            a, b = (s.strip() for s in line.split("->", 1))
+            edges.append((nid(a), nid(b)))
+        else:
+            nid(line)
+    # connected components -> region groups
+    parent = list(range(len(names)))
+
+    def find(x):
+        while parent[x] != x:
+            parent[x] = parent[parent[x]]
+            x = parent[x]
+        return x
+
+    for a, b in edges:
+        parent[find(a)] = find(b)
+    roots = {}
+    groups = []
+    for i in range(len(names)):
+        r = find(i)
+        groups.append(roots.setdefault(r, len(roots)))
+    return names, edges, groups
+
+
+def cmd_devcluster(args) -> int:
+    """Boot an N-node cluster from a topology file (corro-devcluster
+    analog): node names map to simulator indices, topology components map
+    to regions, and the agent serves the whole cluster."""
+    with open(args.topology) as f:
+        names, edges, groups = parse_topology(f.read())
+    if not names:
+        raise SystemExit(f"no nodes in topology file {args.topology}")
+    cfg = load_config(args.config) if args.config else Config()
+    cfg.sim.n_nodes = len(names)
+    cfg.sim.n_origins = min(cfg.sim.n_origins, len(names))
+    cfg.gossip.n_regions = max(groups) + 1 if groups else 1
+    print(json.dumps({
+        "nodes": {name: i for i, name in enumerate(names)},
+        "edges": [[names[a], names[b]] for a, b in edges],
+        "regions": {name: g for name, g in zip(names, groups)},
+    }, indent=2), flush=True)
+    # the per-node component assignment goes into the RTT-ring model (the
+    # region count alone would deal nodes out round-robin)
+    return cmd_agent(args, cfg=cfg, regions=groups)
 
 
 def cmd_reload(args) -> int:
@@ -746,6 +871,72 @@ def build_parser() -> argparse.ArgumentParser:
     fz.add_argument("--device", default="cuda",
                     help="torch device of the scenarios (default cuda)")
     fz.set_defaults(fn=cmd_fuzz)
+
+    t = sub.add_parser("template", help="render templates (re-render on change)")
+    t.add_argument("spec", nargs="+", help="template.py:output pairs")
+    t.add_argument("--once", action="store_true")
+    t.add_argument("--node", type=int, default=0)
+    t.set_defaults(fn=cmd_template)
+
+    co = sub.add_parser("consul", help="consul bridge")
+    cosub = co.add_subparsers(dest="consul_cmd", required=True)
+    cs = cosub.add_parser("sync")
+    cs.add_argument("--consul-addr", default="127.0.0.1:8500")
+    cs.add_argument("--once", action="store_true")
+    cs.add_argument("--node", type=int, default=0)
+    cs.set_defaults(fn=cmd_consul)
+
+    dc = sub.add_parser("devcluster",
+                        help="boot a cluster from an `A -> B` topology file")
+    dc.add_argument("topology")
+    dc.add_argument("-c", "--config", default=None)
+    dc.add_argument("--pace", type=float, default=0.05)
+    dc.add_argument("--device", default="cuda",
+                    help="torch device of the cluster state (default cuda)")
+    dc.set_defaults(fn=cmd_devcluster)
+
+    ld = sub.add_parser(
+        "load",
+        help="corroload: seeded concurrent-client load harness over the "
+             "serving plane (HTTP + subscriptions + PG wire): prints the "
+             "BENCH_SERVE record with client p50/p95/p99 and the "
+             "server-vs-client agreement gate")
+    ld.add_argument("--writers", type=int, default=4,
+                    help="open-loop HTTP transaction writers")
+    ld.add_argument("--subscribers", type=int, default=2,
+                    help="NDJSON subscription streams measuring "
+                         "write-commit -> delivery lag")
+    ld.add_argument("--pg-readers", type=int, default=2,
+                    help="PG-wire simple-query readers")
+    ld.add_argument("--write-ops", type=int, default=32,
+                    help="transactions per writer")
+    ld.add_argument("--pg-ops", type=int, default=32,
+                    help="queries per reader")
+    ld.add_argument("--keys", type=int, default=12,
+                    help="keyspace size (rows in load_kv)")
+    ld.add_argument("--seed", type=int, default=0,
+                    help="op-plan seed; the record carries the plan digest "
+                         "it determines")
+    ld.add_argument("--overload", action="store_true",
+                    help="run the overload bench instead: a guarded arm "
+                         "(admission control + bounded queues) and an "
+                         "unguarded arm, gated on the degradation contract")
+    ld.add_argument("--stages", default="2,4,8",
+                    help="[overload] comma-separated open-loop writer "
+                         "counts per ramp stage")
+    ld.add_argument("--slow-subs", type=int, default=2,
+                    help="[overload] deliberately slow subscribers")
+    ld.add_argument("--slow-ms", type=float, default=25.0,
+                    help="[overload] per-event stall of a slow subscriber, "
+                         "milliseconds")
+    ld.add_argument("--lag-bound", type=float, default=2.5,
+                    help="[overload] p99 delivery-lag bound (seconds) the "
+                         "guarded arm must hold")
+    ld.add_argument("--output-json", metavar="PATH", default=None,
+                    help="write the BENCH_SERVE record")
+    ld.add_argument("--device", default="cuda",
+                    help="torch device of the rig's agent (default cuda)")
+    ld.set_defaults(fn=cmd_load)
 
     rl = sub.add_parser("reload", help="re-apply config (schema, log level)")
     rl.add_argument("config")

@@ -31,15 +31,18 @@
 //     org_last and its W seen words);
 //   - its queue slots: slot lane + 32h, h < QH (1 for Q <= 32, else 2), all
 //     nine planes in registers;
-//   - its cells: cell lane + 32h; the LWW store row is copied to shared
-//     memory with cp.async while the messages are checked, updated there by
-//     the batch winners and written out from there.
+//   - its cells: cell lane + 32h, h < CH (2 for C <= 64, else 8: up to 256
+//     cells, a template parameter, so that the narrower rows keep the
+//     smaller shared-memory row); the LWW store row is copied to shared
+//     memory with cp.async while the messages are checked, updated there
+//     by the batch winners and written out from there.
 // A lane reads another lane's element with __shfl_sync. Shared memory holds,
 // per warp, the staged store row, the claim's per-slot candidate, the
 // record step's seen words and known_max (set with shared atomicOr/atomicMax,
 // which are order-free), and the message index of each enqueue rank: 2,304
-// bytes a warp. No array is indexed by data in registers: every register
-// array is indexed by an unrolled loop counter, so nothing goes to the stack.
+// bytes a warp at CH = 2, 6,144 at CH = 8. No array is indexed by data in
+// registers: every register array is indexed by an unrolled loop counter,
+// so nothing goes to the stack.
 //
 // The pallas body's sequential steps, made lane-parallel, with its tie rules:
 //   - HLC fold: a warp max of (ok ? ts : 0) over the batch (not clamped at 0
@@ -101,11 +104,12 @@
 // narrow_dtypes, else (int32, int32).
 //
 // Instantiations: 3 type pairs x {EMIT with m <= 32, non-emitting m <= 32,
-// non-emitting m <= 128} x QH {1, 2} = 18. ptxas (-Xptxas -v, printed by
-// chip_smoke.py's build phase) reports 0 bytes of stack frame and 0 bytes of
-// spill for all 18, 9,216 bytes of shared memory a block (4 rows), and
-// registers: m <= 32 non-emitting 56 (Q <= 32) / 70 (Q = 64), emitting
-// 61-62 / 72, m <= 128 109 / 113-122.
+// non-emitting m <= 128} x QH {1, 2} x CH {2, 8} = 36. ptxas (-Xptxas -v,
+// printed by chip_smoke.py's build phase) reports 0 bytes of stack frame
+// and 0 bytes of spill for all 18 at CH = 2, 9,216 bytes of shared memory a
+// block (4 rows), and registers: m <= 32 non-emitting 56 (Q <= 32) / 70
+// (Q = 64), emitting 61-62 / 72, m <= 128 109 / 113-122; at CH = 8, 24,576
+// bytes a block and at most 3 registers more (emitting 64).
 // Times on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit (kernel device
 // time from torch.profiler; chip_smoke.py, random inputs): the 1M point's
 // receive 2.11 ms and emitting write 2.02 ms against bounds of 1.68 and
@@ -128,8 +132,7 @@ constexpr int kMaxOrigins = 32;
 constexpr int kMaxWords = 4;
 constexpr int kMaxQueue = 64;
 constexpr int kMaxPig = 16;
-constexpr int kMaxCells = 64;
-constexpr int kCH = kMaxCells / 32;  // cells a lane
+constexpr int kMaxCells = 256;  // CH = 8 cells a lane
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int32_t kNoQ = -1;
 constexpr int32_t kIntMin = INT32_MIN;
@@ -224,9 +227,10 @@ __device__ __forceinline__ int32_t float_order(float f) {
   return i >= 0 ? i : i ^ 0x7FFFFFFF;
 }
 
-// One warp's slice of the block's shared memory.
+// One warp's slice of the block's shared memory (CH cells a lane).
+template <int CH>
 struct WarpSmem {
-  int32_t store[5][kMaxCells];  // the LWW store row: ver, val, site, dbv, clp
+  int32_t store[5][32 * CH];  // the LWW store row: ver, val, site, dbv, clp
   int32_t cand[kMaxOrigins];  // claim: largest fresh candidate origin a slot
   int32_t km[kMaxOrigins];
   uint32_t seen[kMaxOrigins * kMaxWords];
@@ -306,14 +310,14 @@ struct IngestArgs {
   int32_t enqueue_all;
 };
 
-template <typename CT, typename XT, bool EMIT, int KM, int QH>
+template <typename CT, typename XT, bool EMIT, int KM, int QH, int CH>
 __global__ void __launch_bounds__(32 * kRowsPerBlock) ingest_kernel(const IngestArgs a) {
-  __shared__ WarpSmem smem[kRowsPerBlock];
+  __shared__ WarpSmem<CH> smem[kRowsPerBlock];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int64_t r = static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + warp;
   if (r >= a.n) return;  // the whole warp: rows past n are masked
-  WarpSmem& sm = smem[warp];
+  WarpSmem<CH>& sm = smem[warp];
   const int m = a.m, O = a.n_origins, W = a.seen_words, C = a.n_cells, Q = a.q_slots;
   const int kn = (m + 31) >> 5;  // chunks in use
   const unsigned below = (1u << lane) - 1u;  // lanes below this one
@@ -322,7 +326,7 @@ __global__ void __launch_bounds__(32 * kRowsPerBlock) ingest_kernel(const Ingest
   // --- stage the store row in shared memory (waited for at the LWW step) --
   const int64_t cb = r * C;
 #pragma unroll
-  for (int h = 0; h < kCH; ++h) {
+  for (int h = 0; h < CH; ++h) {
     const int c = lane + 32 * h;
     if (c < C) {
 #pragma unroll
@@ -624,7 +628,7 @@ __global__ void __launch_bounds__(32 * kRowsPerBlock) ingest_kernel(const Ingest
   }
   __syncwarp();
 #pragma unroll
-  for (int h = 0; h < kCH; ++h) {
+  for (int h = 0; h < CH; ++h) {
     const int c = lane + 32 * h;
     if (c < C) {
 #pragma unroll
@@ -803,14 +807,24 @@ extern "C" int ingest_limits(int* out) {
   return 0;
 }
 
-// the queue's slots a lane (QH) are a template parameter, so that a queue of
-// 32 slots carries no second half
-template <typename CT, typename XT, bool EMIT, int KM>
+// the queue's slots a lane (QH) and the cells a lane (CH) are template
+// parameters, so that a queue of 32 slots carries no second half and a row
+// of up to 64 cells keeps the smaller shared-memory row
+template <typename CT, typename XT, bool EMIT, int KM, int CH>
 static void launch_queue(const IngestArgs* a, dim3 grid, int threads, cudaStream_t s) {
   if (a->q_slots <= 32) {
-    ingest_kernel<CT, XT, EMIT, KM, 1><<<grid, threads, 0, s>>>(*a);
+    ingest_kernel<CT, XT, EMIT, KM, 1, CH><<<grid, threads, 0, s>>>(*a);
   } else {
-    ingest_kernel<CT, XT, EMIT, KM, kMaxQueue / 32><<<grid, threads, 0, s>>>(*a);
+    ingest_kernel<CT, XT, EMIT, KM, kMaxQueue / 32, CH><<<grid, threads, 0, s>>>(*a);
+  }
+}
+
+template <typename CT, typename XT, bool EMIT, int KM>
+static void launch_cells(const IngestArgs* a, dim3 grid, int threads, cudaStream_t s) {
+  if (a->n_cells <= 64) {
+    launch_queue<CT, XT, EMIT, KM, 2>(a, grid, threads, s);
+  } else {
+    launch_queue<CT, XT, EMIT, KM, kMaxCells / 32>(a, grid, threads, s);
   }
 }
 
@@ -818,11 +832,11 @@ template <typename CT, typename XT>
 static void launch_form(const IngestArgs* a, int emit, dim3 grid, int threads,
                         cudaStream_t s) {
   if (emit) {
-    launch_queue<CT, XT, true, kMaxMsgs / 32>(a, grid, threads, s);
+    launch_cells<CT, XT, true, kMaxMsgs / 32>(a, grid, threads, s);
   } else if (a->m <= kMaxMsgs) {
-    launch_queue<CT, XT, false, kMaxMsgs / 32>(a, grid, threads, s);
+    launch_cells<CT, XT, false, kMaxMsgs / 32>(a, grid, threads, s);
   } else {
-    launch_queue<CT, XT, false, kMaxMsgsWide / 32>(a, grid, threads, s);
+    launch_cells<CT, XT, false, kMaxMsgsWide / 32>(a, grid, threads, s);
   }
 }
 

@@ -32,7 +32,7 @@ reason, never failed): a scenario on a device mesh or with a ``remesh``
 injection (the node-axis sharding is ROADMAP Queue 1 item 14), and one
 that runs or flips to ``fused="off"``/``"interpret"`` (the port has no XLA
 or interpret path, ROADMAP, rules of the port). The host-plane
-``serve-overload`` scenario is not ported (item 16-rest).
+``serve-overload`` scenario (:mod:`.serve_overload`) runs when named.
 
 Host-plane injections (``Injection.kind``):
 
@@ -852,26 +852,31 @@ SCENARIOS = {
 #: (crash windows; corruption fallback)
 TIER1_SCENARIOS = ("preempt-mid-segment", "ckpt-corrupt")
 
-#: host-plane scenarios of the JAX package the port does not have yet
-HOST_SCENARIOS = {"serve-overload": "ROADMAP Queue 1 item 16-rest"}
+def _host_scenarios() -> dict:
+    """Host-plane scenarios: serving-plane rigs judged by serving-plane
+    oracles (no fault traces, no device-state bitwise oracle). They are not
+    in the default sweep (``SCENARIOS`` stays the device-plane registry) and
+    run only when named."""
+    from corrosion_tpu_torch.resilience.serve_overload import run_serve_overload
+
+    return {"serve-overload": run_serve_overload}
 
 
 def run_sweep(names=None, seed: int = 0, seed_range=None,
               device="cuda") -> dict:
-    """Run a set of scenarios (default: the whole registry) and fold the
+    """Run a set of scenarios (default: every device-plane scenario of
+    ``SCENARIOS``; host-plane ones join only when named) and fold the
     verdicts into one record. ``seed_range=(a, b)`` runs every scenario
     once per seed ``a..b`` inclusive and adds a ``per_seed`` map of
     rounds-to-convergence."""
     dev = resolve_device(device)
+    hosts = _host_scenarios()
     names = list(names) if names else sorted(SCENARIOS)
     for name in names:
-        if name in HOST_SCENARIOS:
-            raise NotImplementedError(
-                f"the host-plane scenario {name!r} is not ported yet "
-                f"({HOST_SCENARIOS[name]})")
-        if name not in SCENARIOS:
+        if name not in SCENARIOS and name not in hosts:
             raise ValueError(
-                f"unknown scenario {name!r}; have {sorted(SCENARIOS)}"
+                f"unknown scenario {name!r}; have "
+                f"{sorted(SCENARIOS) + sorted(hosts)}"
             )
     if seed_range is not None:
         a, b = int(seed_range[0]), int(seed_range[1])
@@ -881,6 +886,7 @@ def run_sweep(names=None, seed: int = 0, seed_range=None,
     else:
         seeds = [int(seed)]
     records = [run_scenario(SCENARIOS[name], seed=s, device=dev)
+               if name in SCENARIOS else hosts[name](seed=s, device=dev)
                for s in seeds for name in names]
     out = {
         "metric": "chaos_sweep",
@@ -895,7 +901,7 @@ def run_sweep(names=None, seed: int = 0, seed_range=None,
         for r in records:
             per_seed.setdefault(str(r["seed"]), {})[r["name"]] = (
                 r.get("rounds_to_convergence", -1)
-                if not r.get("skipped") else None
+                if not r.get("skipped") and not r.get("host_plane") else None
             )
         out["per_seed"] = per_seed
     return out

@@ -215,11 +215,27 @@ def test_seed_range_sweep_structure(monkeypatch):
         chaos.run_sweep(["nope"], device="cpu")
 
 
-def test_serve_overload_and_corrosan_name_their_items(monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 16-rest"):
-        chaos.run_sweep(["serve-overload"], device="cpu")
-    with pytest.raises(SystemExit, match="item 16-rest"):
-        cli.main(["chaos", "serve-overload", "--device", "cpu"])
+def test_serve_overload_and_corrosan_name_their_items(monkeypatch, capsys):
+    """``serve-overload`` is a host-plane runner the sweep calls by name with
+    the seed and the device (``tests/test_torch_serve.py`` runs it); the
+    runtime sanitizer is still refused, naming ``analysis/``."""
+    from corrosion_tpu_torch.resilience import serve_overload
+
+    calls = []
+
+    def fake(seed, device):
+        calls.append((seed, str(device)))
+        return {"name": "serve-overload", "seed": seed, "n_nodes": 8,
+                "host_plane": True, "ok": True}
+
+    monkeypatch.setattr(serve_overload, "run_serve_overload", fake)
+    out = chaos.run_sweep(["serve-overload"], seed_range=(1, 1), device="cpu")
+    assert calls == [(1, "cpu")] and out["ok"]
+    assert out["per_seed"]["1"]["serve-overload"] is None
+    assert out["scenarios"][0]["host_plane"]
+    assert cli.main(["chaos", "serve-overload", "--device", "cpu"]) == 0
+    assert calls[-1] == (0, "cpu")
+    assert json.loads(capsys.readouterr().out)["scenarios"][0]["name"] == "serve-overload"
     monkeypatch.setenv("CORROSAN", "1")
     for argv in (["chaos", "--tier1"], ["fuzz", "--seeds", "0:0"]):
         with pytest.raises(SystemExit, match="analysis/"):
@@ -247,7 +263,8 @@ def test_chaos_cli_lists_the_registry():
     lines = out.stdout.splitlines()
     assert len(lines) == len(chaos.SCENARIOS) + 1
     assert any(ln.startswith("ckpt-corrupt [tier1]") for ln in lines)
-    assert "serve-overload [host-plane]: not ported yet" in lines[-1]
+    assert lines[-1] == ("serve-overload [host-plane]: serving-plane scenario, "
+                         "run by name (not part of the default sweep)")
 
 
 def test_chaos_cli_replays_the_corpus_on_the_cpu(tmp_path):

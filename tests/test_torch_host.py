@@ -299,10 +299,41 @@ def test_retry_call_honours_retry_after_and_abort():
 
 
 def test_cli_agent_refuses_the_pg_listener(tmp_path):
+    """``pg.enabled = true`` is no longer refused: the agent process serves
+    PG wire beside HTTP, names it in its ready line, answers a query over it
+    and stops on SIGTERM with exit 0."""
+    from corrosion_tpu_torch.obs.load import _PgClient
+
+    schema = tmp_path / "schema.sql"
+    schema.write_text(SCHEMA)
     cfg = tmp_path / "cfg.toml"
-    cfg.write_text("[pg]\nenabled = true\n")
-    with pytest.raises(SystemExit, match="item 15-rest"):
-        cli.main(["agent", "-c", str(cfg), "--device", "cpu"])
+    cfg.write_text(
+        f'[db]\npath = "{tmp_path / "state"}"\nschema_paths = ["{schema}"]\n'
+        f'[api]\nport = 0\n[admin]\nuds_path = "{tmp_path / "admin.sock"}"\n'
+        f'[pg]\nenabled = true\nport = 0\n'
+        f'[sim]\nn_nodes = {N}\nm_slots = 8\nn_origins = 4\nn_rows = 8\nn_cols = 4\n')
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "corrosion_tpu_torch", "agent", "-c", str(cfg),
+         "--device", "cpu", "--pace", "0.01"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        line = ""
+        while not line.startswith("agent up"):
+            line = proc.stdout.readline()
+            assert line, "the agent exited before it came up"
+        m = re.search(r"http://([\d.]+):(\d+) .* pg ([\d.]+):(\d+) nodes=", line)
+        assert m, line
+        client = CorrosionApiClient(m.group(1), int(m.group(2)))
+        client.execute([("INSERT INTO kv (k, v) VALUES (?, ?)", ["p", 3])])
+        pg = _PgClient(m.group(3), int(m.group(4)))
+        assert pg.query("SELECT k, v FROM kv") == [["p", "3"]]
+        pg.close()
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
 
 
 def test_cli_agent_process_serves_and_stops_on_sigterm(tmp_path):

@@ -18,6 +18,7 @@ import chip_smoke
 from corrosion_tpu_torch.ops import megakernel as mk
 from corrosion_tpu_torch.sim.config import full_view_config
 from corrosion_tpu_torch.sim.scale_step import million_config, scale_sim_config
+from corrosion_tpu_torch.testing import cluster_config
 from cuda_host import host_build
 
 N_ROWS = 61
@@ -27,12 +28,16 @@ CONFIGS = {
     "wide": lambda: scale_sim_config(100_000, narrow_dtypes=False),
     "million": lambda: million_config(1_000_000),
     "full": lambda: full_view_config(8192),
+    # the overload bench's rig: 36x4 = 144 cells a row, the kernel's wide
+    # rows (8 cells a lane)
+    "overload": lambda: cluster_config(n_rows=36).sim_config(),
 }
 # (configuration, form): every form of chip_smoke.py's kernels phase
 FORMS = [("flagship", "receive"), ("flagship", "write_emit"), ("flagship", "write"),
          ("million", "receive"), ("million", "write_emit"), ("million", "write"),
          ("full", "receive_full"), ("full", "write"),
-         ("wide", "receive"), ("wide", "write"), ("wide", "write_emit")]
+         ("wide", "receive"), ("wide", "write"), ("wide", "write_emit"),
+         ("overload", "receive"), ("overload", "write_emit")]
 
 
 @pytest.fixture(scope="module")
