@@ -133,47 +133,50 @@ Phases (any failure raises and the script exits non-zero):
     ``scale_run_rounds`` in this process on the same config, seed and
     inputs, the resumed run's metric sums equal that run's info sums over
     the rounds it ran, and each kernel launched once in each of them.
-19. chaos: (a) the tier-1 scenarios of ``resilience.chaos.SCENARIOS``
-    (``TIER1_SCENARIOS``; the whole registry ran before the serving phases
-    needed its time) and the three the port skips, at N=24, seed 0, on the
-    card, equal field for field to the JAX package's verdicts in
+19. chaos: (a) every scenario of ``resilience.chaos.SCENARIOS`` at its
+    N=24, seed 0, on the card, in a worker process beside (b)-(d), equal
+    field for field to the JAX package's verdicts in
     ``tests/data/chaos_verdicts_jax.json`` (digests, rounds to convergence
-    and quiescence, info sums, counters, ``ok``), the mesh and
-    ``fused="off"/"interpret"`` scenarios skipped, each with its reason; (b) ``preempt-storm`` with a settle budget of 512 at
+    and quiescence, info sums, counters, ``ok``), with exactly the mesh and
+    ``fused="off"/"interpret"`` scenarios skipped, each with its reason;
+    (b) ``preempt-storm`` with a settle budget of 512 at
     N=4,096, equal field for field to the JAX package's verdict in
     ``tests/data/chaos_storm_jax.json`` (converged, chaos leg bitwise,
     lineage validated; neither drains its queues within the budget, oracle
     3); (c) ``python -m corrosion_tpu_torch chaos --script`` on the
     committed corpus file, exit 0; (d) the host-plane ``serve-overload``
-    through the sweep at the registry's defaults (N=8): equal to the JAX
-    package's verdict (``tests/data/serve_overload_jax.json``) on its
-    seed-pure fields, both oracles holding; whether the ramp overloaded the
-    slow subscriber (a run precondition that depends on how fast rounds
-    commit) is printed with the wall-time fields. Each
+    (N=8, seed 0, its op plan and guard the defaults') with a 400 ms slow
+    consumer (the defaults' 25 ms never overloads it at the port's round
+    pace): ``ok`` as the JAX package's verdict is
+    (``tests/data/serve_overload_jax.json``), equal to it on the seed-pure
+    fields, the slow subscriber shed; its wall-time fields are printed. Each
     kernel launches once in every dense round of (a) and (b) (their sum is
     the chaos forms' launches in the kernel record) and every round of (d);
     the kernels phase holds the three forms at the chaos shapes (m_slots 8,
     4 origins, 4x2 cells) at N=100,000.
-20. load: ``obs.load.run_load(n_nodes=100_000)`` in this process with the
-    harness's default clients and half its default ops (4 writers x 16
-    transactions over HTTP, 2 NDJSON subscribers, 2 PG-wire readers x 16
-    queries, 12 keys, seed 0):
-    ``ok``, the server's request counts equal the clients', the plan digest
-    the JAX package's, each kernel once a round of the rig; p50/p95/p99 per
-    op class, QPS, delivery lag, the rig's rounds/s and peak device bytes.
-    Then ``python -m corrosion_tpu_torch load --overload`` as a process at
-    its defaults (N=16): the plan digest the JAX package's, the guard holds
-    the degradation contract, both arms' counts agree and nothing leaks;
-    whether the unguarded arm violates the lag bound (the bench's exit
-    code) is printed. The kernels
-    phase holds the three forms at both rigs' shapes (16x4 cells at
-    N=100,000; 36x4 = 144 cells at N=16).
-21. devcluster: ``python -m corrosion_tpu_torch devcluster
+20. devcluster: ``python -m corrosion_tpu_torch devcluster
     tests/data/devcluster_topology.txt`` (30 nodes in three components):
     its printed JSON equals the JAX package's
     (``tests/data/devcluster_jax.json``), a write in one region is read in
     another, the launch gauges show each kernel once a round, SIGTERM ends
     it with exit 0.
+21. overload: ``python -m corrosion_tpu_torch load --overload`` as a
+    process, started before the chaos phase and run beside it and
+    devcluster, at its default ramp and rig (N=16) with its time constants
+    scaled to the port's pace (``LOAD_OVERLOAD_FLAGS``: a slower slow
+    consumer, the lag bound to match, a longer closed-loop retry window):
+    exit 0, so the guard holds the degradation contract and the unguarded
+    arm breaks it; the plan digest the JAX package's, both arms' counts
+    agree and nothing leaks.
+22. load: ``obs.load.run_load(n_nodes=100_000)`` in this process, alone,
+    with the harness's default clients and half its default ops (4 writers
+    x 16 transactions over HTTP, 2 NDJSON subscribers, 2 PG-wire readers x
+    16 queries, 12 keys, seed 0): ``ok``, the server's request counts equal
+    the clients', the plan digest the JAX package's, each kernel once a
+    round of the rig; p50/p95/p99 per op class, QPS, delivery lag, the
+    rig's rounds/s and peak device bytes. The kernels phase holds the
+    three forms at both serving rigs' shapes (16x4 cells at N=100,000;
+    36x4 = 144 cells at N=16).
 
 Each kernel's bound is the larger of the bytes it must move on these inputs
 over the memory rate and the integer operations its function needs on them
@@ -243,9 +246,12 @@ CHAOS_CORPUS = "tests/chaos_corpus/fuzz-000024-min.json"
 #: the scenarios the port skips, with a word of each reason
 CHAOS_SKIPS = {"elastic-remesh": "item 14", "corrupt-remesh": "item 14",
                "fused-flip": "rules of the port"}
-# serve-overload (the host-plane scenario) at the registry's defaults, held to
-# the JAX package's verdict on its seed-pure fields
+# serve-overload (the host-plane scenario), held to the JAX package's verdict
+# at its defaults on its seed-pure fields and ``ok``; its slow consumer stalls
+# 400 ms a frame (the defaults' 25 ms: the port's rounds at N=8 commit too few
+# writes a second to overload it)
 SERVE_OVERLOAD_VERDICT = "tests/data/serve_overload_jax.json"
+SERVE_OVERLOAD_SLOW_MS = 400.0
 # the load harness at the flagship's N with its default clients (4 writers,
 # 2 subscribers, 2 PG readers, 12 keys, seed 0) and half its default ops (16
 # transactions a writer and 16 queries a reader, not 32: the script's time);
@@ -254,9 +260,16 @@ SERVE_OVERLOAD_VERDICT = "tests/data/serve_overload_jax.json"
 LOAD_NODES = 100_000
 LOAD_OPS = 16
 LOAD_PLAN_DIGEST = "e8287e4965bb49b6"
-# the overload bench (``load --overload``) at its defaults (N=16): its plan's
-# digest in the JAX package
+# the overload bench (``load --overload``) at its default ramp and rig (N=16):
+# its plan's digest in the JAX package, and its time constants at the port's
+# pace (the defaults: a 25 ms slow consumer, a 2.5 s lag bound, 16 closed-loop
+# retries). The port's round at N=16 commits too few writes a second for a
+# 25 ms (or a 100 ms) consumer to fall behind, so the unguarded arm never
+# breaks its bound; a 150 ms one just does. At 250 ms it falls well behind,
+# while the guarded arm's lag stays ~50 frames of 250 ms, inside 25 s; and
+# the ramp's heaviest stage can outlast 16 retries of 0.25 s
 LOAD_OVERLOAD_PLAN_DIGEST = "3050689524567f7d"
+LOAD_OVERLOAD_FLAGS = ("--slow-ms", "250", "--lag-bound", "25", "--closed-retries", "64")
 
 
 def _swim_ops(args, pig_k: int = 0) -> int:
@@ -2521,23 +2534,40 @@ def _chaos_run(dev, run) -> tuple:
     return got, seconds, tally, dict(mk.FORM_LAUNCHES)
 
 
+def _chaos_sweep(names) -> tuple:
+    """chaos (a), run in a worker process: ``names`` at their N=24, seed 0,
+    on the card; -> ``_chaos_run``'s (records, seconds, rounds, launches per
+    form)."""
+    import torch
+
+    from corrosion_tpu_torch.resilience import chaos
+
+    dev = torch.device("cuda")
+    return _chaos_run(dev, lambda: {
+        name: chaos.run_scenario(chaos.SCENARIOS[name], seed=0, device=dev)
+        for name in names})
+
+
 def phase_chaos(dev) -> dict:
-    """The chaos engine on the card. (a) The tier-1 scenarios and the ones
-    the port skips, at their N=24, seed 0, against the JAX package's
-    verdicts (``CHAOS_VERDICTS``, read, no JAX imported): the digests,
-    rounds to convergence and quiescence, info sums, counters and ``ok``
-    equal field for field; the scenarios on a mesh or
-    ``fused="off"/"interpret"`` skip with their reasons. (b) ``preempt-storm`` at ``CHAOS_STORM_NODES`` equals the JAX
+    """The chaos engine on the card. (a) Every scenario of the registry at
+    its N=24, seed 0, in a worker process (``_chaos_sweep``) while (b)-(d)
+    run here, against the JAX package's verdicts (``CHAOS_VERDICTS``, read,
+    no JAX imported): the digests, rounds to convergence and quiescence,
+    info sums, counters and ``ok`` equal field for field; the scenarios on a
+    mesh or ``fused="off"/"interpret"`` skip with their reasons.
+    (b) ``preempt-storm`` at ``CHAOS_STORM_NODES`` equals the JAX
     package's verdict there (``CHAOS_STORM_VERDICT``) field for field: it
     converges, its chaos leg matches the straight run bitwise, every
     checkpoint replays, and its queues do not drain within the settle budget
     (oracle 3) in either package. (c) The corpus reproducer replays through
-    ``python -m corrosion_tpu_torch chaos --script``. (d) The host-plane
-    ``serve-overload`` (``_serve_overload``). Each kernel launches once in
-    every dense round of (a) and (b) and in every round of (d); every form's
-    launches are printed."""
-    import dataclasses
+    ``python -m corrosion_tpu_torch chaos --script``, as a process started
+    with (a). (d) The host-plane ``serve-overload`` (``_serve_overload``).
+    Each kernel launches once in every dense round of (a) and (b) and in
+    every round of (d); every form's launches are printed."""
+    import concurrent.futures
+    import multiprocessing
     import os
+    import tempfile
 
     from corrosion_tpu_torch.resilience import chaos
 
@@ -2547,15 +2577,36 @@ def phase_chaos(dev) -> dict:
     if set(verdicts) != set(chaos.SCENARIOS):
         raise AssertionError(f"verdicts for {sorted(verdicts)}")
 
-    # the tier-1 scenarios and the skips (the script's time: the other five
-    # runnable scenarios of the registry took 85-115 s more on the card)
-    names = sorted(set(chaos.TIER1_SCENARIOS) | set(CHAOS_SKIPS))
+    spawn = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(1, mp_context=spawn) as pool, \
+            tempfile.TemporaryFile("w+") as out_f, tempfile.TemporaryFile("w+") as err_f:
+        sweep_job = pool.submit(_chaos_sweep, sorted(chaos.SCENARIOS))
+        t_corpus = time.perf_counter()
+        corpus = subprocess.Popen(
+            [sys.executable, "-m", "corrosion_tpu_torch", "chaos", "--script",
+             CHAOS_CORPUS, "--device", str(dev)], cwd=root, stdout=out_f, stderr=err_f)
+        try:
+            storm = _chaos_storm(dev, root)
+            sovl, sovl_forms = _serve_overload(dev, root)
+            corpus.wait(timeout=600)
+            corpus_s = time.perf_counter() - t_corpus
+            recs, sweep_s, sweep_rounds, sweep_forms = sweep_job.result(timeout=900)
+        finally:
+            if corpus.poll() is None:
+                corpus.kill()
+                corpus.wait()
+        out_f.seek(0)
+        err_f.seek(0)
+        out, err = out_f.read(), err_f.read()
+    if corpus.returncode != 0:
+        raise AssertionError(f"chaos --script {CHAOS_CORPUS} rc {corpus.returncode}: "
+                             f"{out[-2000:]} {err[-2000:]}")
+    (replay,) = json.loads(out)["scenarios"]
+    print(f"[chaos] (c) chaos --script {CHAOS_CORPUS} exit 0 in {corpus_s:.1f} s "
+          f"(beside (a), (b), (d)): ok {replay['ok']}, "
+          f"{replay['checkpoints_refused']} checkpoint refused, converged at "
+          f"{replay['rounds_to_convergence']}", flush=True)
 
-    def sweep():
-        return {name: chaos.run_scenario(chaos.SCENARIOS[name], seed=0, device=dev)
-                for name in names}
-
-    recs, sweep_s, sweep_rounds, sweep_forms = _chaos_run(dev, sweep)
     skipped = {n for n, r in recs.items() if r.get("skipped")}
     if skipped != set(CHAOS_SKIPS):
         raise AssertionError(f"chaos skipped {sorted(skipped)}")
@@ -2571,12 +2622,29 @@ def phase_chaos(dev) -> dict:
                     if rec.get(k) != want.get(k)}
             raise AssertionError(f"chaos {name} differs from JAX's verdict: {diff}")
     ran = sorted(set(recs) - skipped)
-    print(f"[chaos] (a) the {len(ran)} tier-1 scenarios at N=24 on {dev} equal JAX's verdicts "
-          f"field for field ({ran}); skipped "
+    print(f"[chaos] (a) {len(ran)} scenarios at N=24 on {dev} (a worker process) equal "
+          f"JAX's verdicts field for field ({ran}); skipped "
           f"{ {n: recs[n]['skipped'] for n in sorted(skipped)} }; rounds to convergence "
           f"{ {n: recs[n]['rounds_to_convergence'] for n in ran} }, to quiescence "
           f"{ {n: recs[n]['rounds_to_quiescence'] for n in ran} }; {sweep_s:.1f} s, "
           f"{sweep_rounds} rounds, launches {sweep_forms}", flush=True)
+    storm_s, storm_forms = storm
+    forms = dict(sweep_forms)
+    for k, v in storm_forms.items():
+        forms[k] = forms.get(k, 0) + v
+    return {"forms": forms, "sweep_forms": sweep_forms, "storm_s": storm_s,
+            "sweep_s": sweep_s, "corpus_s": corpus_s, "serve_overload": sovl,
+            "serve_overload_forms": sovl_forms}
+
+
+def _chaos_storm(dev, root: str) -> tuple:
+    """chaos (b): ``preempt-storm`` at ``CHAOS_STORM_NODES`` against the JAX
+    package's verdict; -> (seconds, launches per form)."""
+    import dataclasses
+
+    import os
+
+    from corrosion_tpu_torch.resilience import chaos
 
     with open(os.path.join(root, CHAOS_STORM_VERDICT)) as f:
         ref = json.load(f)
@@ -2609,26 +2677,7 @@ def phase_chaos(dev) -> dict:
           f"{rec['checkpoints_refused']} refused; ok {rec['ok']}; info sums "
           f"{rec['info_sums']}; {storm_s:.1f} s, {storm_rounds} rounds, launches "
           f"{storm_forms}", flush=True)
-
-    sovl, sovl_forms = _serve_overload(dev, root)
-    t0 = time.perf_counter()
-    res = subprocess.run(
-        [sys.executable, "-m", "corrosion_tpu_torch", "chaos", "--script", CHAOS_CORPUS,
-         "--device", str(dev)], cwd=root, capture_output=True, text=True, timeout=600)
-    corpus_s = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise AssertionError(f"chaos --script {CHAOS_CORPUS} rc {res.returncode}: "
-                             f"{res.stdout[-2000:]} {res.stderr[-2000:]}")
-    (replay,) = json.loads(res.stdout)["scenarios"]
-    print(f"[chaos] (c) chaos --script {CHAOS_CORPUS} exit 0 in {corpus_s:.1f} s: "
-          f"ok {replay['ok']}, {replay['checkpoints_refused']} checkpoint refused, "
-          f"converged at {replay['rounds_to_convergence']}", flush=True)
-    forms = dict(sweep_forms)
-    for k, v in storm_forms.items():
-        forms[k] = forms.get(k, 0) + v
-    return {"forms": forms, "sweep_forms": sweep_forms, "storm_s": storm_s,
-            "sweep_s": sweep_s, "corpus_s": corpus_s, "serve_overload": sovl,
-            "serve_overload_forms": sovl_forms}
+    return storm_s, storm_forms
 
 
 def _agent_rounds_run(run) -> tuple:
@@ -2666,37 +2715,37 @@ def _agent_rounds_run(run) -> tuple:
 
 
 def _serve_overload(dev, root: str) -> tuple:
-    """chaos (d): the host-plane scenario ``serve-overload`` through the
-    sweep at the registry's defaults (N=8, seed 0): it equals the JAX
-    package's verdict (``SERVE_OVERLOAD_VERDICT``) on its seed-pure fields
-    and passes the two oracles (no lost committed write; delivered or shed,
-    never silently gapped). Its one precondition, that the ramp overloads
-    the slow subscriber's fanout, depends on how fast rounds commit: its
-    outcome and the wall-time fields are printed beside JAX's. Each kernel
-    launches once in every round of the rig."""
+    """chaos (d): the host-plane scenario ``serve-overload`` (N=8, seed 0,
+    the defaults' op plan, guard and ready flap) with its slow consumer
+    stalling ``SERVE_OVERLOAD_SLOW_MS`` a frame: ``ok`` as the JAX package's
+    verdict at its defaults is (``SERVE_OVERLOAD_VERDICT``), so both oracles
+    hold (no lost committed write; delivered or shed, never silently
+    gapped), equal to that verdict on its seed-pure fields, the ready flap
+    applied and the slow subscriber shed. The wall-time fields are printed
+    beside JAX's. Each kernel launches once in every round of the rig."""
     import os
 
-    from corrosion_tpu_torch.resilience import chaos, serve_overload
+    from corrosion_tpu_torch.resilience import serve_overload
 
     with open(os.path.join(root, SERVE_OVERLOAD_VERDICT)) as f:
         ref = json.load(f)["verdict"]
     rec, seconds, rounds, rate, forms = _agent_rounds_run(
-        lambda: chaos.run_sweep(["serve-overload"], seed=0, device=dev)["scenarios"][0])
+        lambda: serve_overload.run_serve_overload(
+            seed=0, slow_ms=SERVE_OVERLOAD_SLOW_MS, device=dev))
     pure = {k: (rec[k], ref[k]) for k in serve_overload.SEED_PURE_FIELDS
             if rec[k] != ref[k]}
-    faults = [p for p in rec.get("problems", [])
-              if not p.startswith(serve_overload.NEVER_SHED)]
-    if pure or faults or not rec["ready_flap_applied"]:
+    if (pure or not rec["ok"] or rec["ok"] != ref["ok"] or rec["subs_shed_total"] <= 0
+            or not rec["ready_flap_applied"]):
         raise AssertionError(f"serve-overload on {dev}: seed-pure fields differing "
                              f"from JAX's {pure}; verdict {rec}")
     wall = {k: rec[k] for k in ("acked_writes", "rejected_writes",
                                 "admission_rejected_total", "subs_shed_total",
                                 "resyncs", "frames_dropped", "ready_503_observed")}
-    print(f"[chaos] (d) serve-overload (registry defaults, N=8, seed 0) on {dev}: "
-          f"seed-pure fields equal JAX's "
-          f"({ {k: rec[k] for k in serve_overload.SEED_PURE_FIELDS} }); oracles 1 and "
-          f"2 hold; ok {rec['ok']} (JAX: {ref['ok']}), problems "
-          f"{rec.get('problems', [])}; wall-time fields {wall} (JAX on the CPU: "
+    print(f"[chaos] (d) serve-overload (N=8, seed 0, a {SERVE_OVERLOAD_SLOW_MS:g} ms slow "
+          f"consumer) on {dev}: ok as JAX's, both oracles hold, the slow subscriber "
+          f"shed; seed-pure fields equal JAX's "
+          f"({ {k: rec[k] for k in serve_overload.SEED_PURE_FIELDS} }); wall-time "
+          f"fields {wall} (JAX at its defaults on the CPU: "
           f"{ {k: ref[k] for k in wall} }); {seconds:.1f} s, {rounds} rounds at "
           f"{rate!r} rounds/s, launches {forms}", flush=True)
     return {"ok": rec["ok"], "seconds": seconds, "rounds": rounds,
@@ -2704,24 +2753,15 @@ def _serve_overload(dev, root: str) -> tuple:
 
 
 def phase_load(dev) -> dict:
-    """The serving plane under concurrent clients. (a) The load harness in
+    """The serving plane under concurrent clients: the load harness in
     this process, ``obs.load.run_load(n_nodes=LOAD_NODES)`` with its default
     clients and ``LOAD_OPS`` ops a client: its record ``ok``, the server's
     request counts equal the
     clients' (the agreement gate), the plan's digest ``LOAD_PLAN_DIGEST``
     (the JAX package's), each kernel once in every round of the rig; prints
     p50/p95/p99 per op class, QPS, delivery lag, the rig's rounds/s and its
-    peak device bytes. (b) ``python -m corrosion_tpu_torch load --overload``
-    as a process at its defaults (N=16): the plan's digest the JAX
-    package's, the guarded arm holding the degradation contract (p99
-    delivery lag within its bound, shed counters rising, the closed-loop
-    client absorbed, the plane shedding), both arms' server and client
-    counts agreeing with nothing leaked, each kernel launched; whether the
-    unguarded arm violates the lag bound (the bench's exit code) depends on
-    how fast rounds commit against the slow subscribers, and is printed."""
-    import os
-    import tempfile
-
+    peak device bytes. It runs alone (after the overload bench's process
+    has ended): its numbers are the serving plane's measurement."""
     import torch
 
     from corrosion_tpu_torch.obs.load import run_load
@@ -2746,52 +2786,87 @@ def phase_load(dev) -> dict:
           f"quantiles {rec['server']['delivery_quantiles_s']}; the rig's loop "
           f"{rounds} rounds at {rate!r} rounds/s, each kernel once a round "
           f"({forms}); peak device bytes {peak}; {seconds:.1f} s in all", flush=True)
+    return {"forms": forms, "record": rec, "rounds": rounds, "rounds_per_s": rate,
+            "peak": peak, "seconds": seconds}
+
+
+def _start_overload(dev) -> dict:
+    """Start ``python -m corrosion_tpu_torch load --overload`` with
+    ``LOAD_OVERLOAD_FLAGS`` as a process (``phase_overload`` reads it, and
+    ``_stop_overload`` ends it)."""
+    import os
+    import tempfile
+
     root = os.path.dirname(os.path.abspath(__file__))
-    with tempfile.TemporaryDirectory(prefix="overload-") as tmp:
-        path = os.path.join(tmp, "overload.json")
-        t0 = time.perf_counter()
-        res = subprocess.run(
-            [sys.executable, "-m", "corrosion_tpu_torch", "load", "--overload",
-             "--device", str(dev), "--output-json", path],
-            cwd=root, capture_output=True, text=True, timeout=900)
-        ovl_s = time.perf_counter() - t0
-        bench = {}
-        if os.path.exists(path):
-            with open(path) as f:
-                bench = json.load(f)
+    tmp = tempfile.mkdtemp(prefix="overload-")
+    job = {"tmp": tmp, "path": os.path.join(tmp, "overload.json"),
+           "out": open(os.path.join(tmp, "stdout"), "w+"),
+           "err": open(os.path.join(tmp, "stderr"), "w+"), "t0": time.perf_counter()}
+    job["proc"] = subprocess.Popen(
+        [sys.executable, "-m", "corrosion_tpu_torch", "load", "--overload",
+         *LOAD_OVERLOAD_FLAGS, "--device", str(dev), "--output-json", job["path"]],
+        cwd=root, stdout=job["out"], stderr=job["err"])
+    return job
+
+
+def _stop_overload(job) -> None:
+    import shutil
+
+    if job["proc"].poll() is None:
+        job["proc"].kill()
+        job["proc"].wait()
+    job["out"].close()
+    job["err"].close()
+    shutil.rmtree(job["tmp"], ignore_errors=True)
+
+
+def phase_overload(dev, job) -> dict:
+    """The overload bench, started by ``_start_overload`` before the chaos
+    phase and run beside it and devcluster (its arms' outcomes hold with
+    wide margins at the flags' time constants): exit 0 (the guarded arm
+    holds the degradation contract: p99 delivery lag within its bound, shed
+    counters rising, the closed-loop client absorbed; the unguarded arm
+    breaks the lag bound), the plan's digest the JAX package's, both arms'
+    server and client counts agreeing with nothing leaked, only the guarded
+    arm shedding, each kernel launched."""
+    import os
+
+    rc = job["proc"].wait(timeout=900)
+    ovl_s = time.perf_counter() - job["t0"]
+    bench = {}
+    if os.path.exists(job["path"]):
+        with open(job["path"]) as f:
+            bench = json.load(f)
     launched = bench.get("kernel_launches", {})
     guarded, unguarded = bench.get("guarded", {}), bench.get("unguarded", {})
-    # the exit code is the bench's gate: the guard holds AND the unguarded
-    # arm violates the lag bound; everything but the violation is held here
-    held = (res.returncode in (0, 1)
-            and res.returncode == (0 if bench.get("contract_violated_unguarded") else 1)
+    held = (rc == 0 and bench.get("ok")
             and bench.get("plan_digest") == LOAD_OVERLOAD_PLAN_DIGEST
-            and bench.get("contract_holds_guarded")
-            and guarded.get("ok") and guarded["contract"]["pressure_final"] > 0
+            and guarded["contract"]["pressure_final"] > 0
             and not unguarded.get("problems") and unguarded["agreement"]["ok"]
             and unguarded["contract"]["pressure_final"] == 0
             and {k.split(":")[0] for k, v in launched.items() if v}
             == {"swim_tables", "ingest", "ingest_emit"})
     if not held:
-        raise AssertionError(f"load --overload rc {res.returncode}: "
-                             f"{res.stdout[-3000:]} {res.stderr[-2000:]}")
+        tails = []
+        for f in (job["out"], job["err"]):
+            f.seek(0)
+            tails.append(f.read()[-3000:])
+        raise AssertionError(f"load --overload rc {rc}: {tails[0]} {tails[1]}")
     arms = {arm: {k: bench[arm]["contract"][k] for k in
                   ("delivery_p99_s", "lag_bounded", "shed_monotone", "pressure_final",
                    "absorbed")} | {"duration_s": bench[arm]["duration_s"],
                                    "http_503": bench[arm]["http_503"],
+                                   "closed_loop_attempts_503":
+                                       bench[arm]["closed_loop"]["attempts_503"],
                                    "agreement": bench[arm]["agreement"]["ok"]}
             for arm in ("guarded", "unguarded")}
-    print(f"[load] load --overload --device {dev} (its defaults, N=16): exit "
-          f"{res.returncode} in {ovl_s:.1f} s, plan digest {bench['plan_digest']} "
-          f"(JAX's); the guard holds the degradation contract "
-          f"({bench['contract_holds_guarded']}): {arms['guarded']}; the unguarded arm "
-          f"violates the lag bound: {bench['contract_violated_unguarded']} "
-          f"({arms['unguarded']}); launches {launched}", flush=True)
-    overload_forms = {tuple(k.split(":", 1)): v for k, v in launched.items()}
-    return {"forms": forms, "record": rec, "rounds": rounds, "rounds_per_s": rate,
-            "peak": peak, "seconds": seconds, "overload": arms,
-            "overload_rc": res.returncode, "overload_s": ovl_s,
-            "overload_forms": overload_forms}
+    print(f"[overload] load --overload {' '.join(LOAD_OVERLOAD_FLAGS)} --device {dev} "
+          f"(its default ramp, N=16; beside chaos and devcluster): exit 0 in "
+          f"{ovl_s:.1f} s, plan digest {bench['plan_digest']} (JAX's); the guard holds "
+          f"the degradation contract: {arms['guarded']}; the unguarded arm breaks the "
+          f"lag bound: {arms['unguarded']}; launches {launched}", flush=True)
+    return {"forms": {tuple(k.split(":", 1)): v for k, v in launched.items()},
+            "arms": arms, "seconds": ovl_s}
 
 
 DEVCLUSTER_TOPOLOGY = "tests/data/devcluster_topology.txt"
@@ -3012,12 +3087,18 @@ def main() -> int:
     done("agent")
     phase_soak_cli(dev)
     done("soak-cli")
-    chaos = phase_chaos(dev)
-    done("chaos")
+    bench = _start_overload(dev)
+    try:
+        chaos = phase_chaos(dev)
+        done("chaos")
+        phase_devcluster(dev)
+        done("devcluster")
+        overload = phase_overload(dev, bench)
+        done("overload (the rest of its wait)")
+    finally:
+        _stop_overload(bench)
     load = phase_load(dev)
     done("load")
-    phase_devcluster(dev)
-    done("devcluster")
 
     # each form's launches are read from the path that runs it (0: no path
     # here runs the form); the load forms count the load rig's rounds and
@@ -3027,7 +3108,7 @@ def main() -> int:
         serve_forms[k] = serve_forms.get(k, 0) + v
     paths = {"flagship": flag, "million": million, "full": full, "pig0": tx_paths["pig0"],
              "chaos": chaos, "load": {"forms": serve_forms},
-             "overload": {"forms": load["overload_forms"]}}
+             "overload": overload}
     source = {
         "swim_tables": "corrosion_tpu_torch/csrc/swim_tables.cu",
         "ingest": "corrosion_tpu_torch/csrc/ingest.cu",

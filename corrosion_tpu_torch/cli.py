@@ -566,7 +566,8 @@ def cmd_load(args) -> int:
         out = run_overload_bench(
             stages=tuple(int(x) for x in args.stages.split(",")),
             slow_subs=args.slow_subs, slow_ms=args.slow_ms,
-            lag_bound_s=args.lag_bound, seed=args.seed, device=args.device,
+            lag_bound_s=args.lag_bound, closed_loop_retries=args.closed_retries,
+            seed=args.seed, device=args.device,
         )
     else:
         out = run_load(
@@ -932,6 +933,9 @@ def build_parser() -> argparse.ArgumentParser:
     ld.add_argument("--lag-bound", type=float, default=2.5,
                     help="[overload] p99 delivery-lag bound (seconds) the "
                          "guarded arm must hold")
+    ld.add_argument("--closed-retries", type=int, default=16,
+                    help="[overload] 503 retries of the closed-loop client "
+                         "(0.25 s apart at most) before an op fails")
     ld.add_argument("--output-json", metavar="PATH", default=None,
                     help="write the BENCH_SERVE record")
     ld.add_argument("--device", default="cuda",

@@ -2,10 +2,10 @@
 one card: the checkout's ``csrc/ingest.cu`` (A) and a baseline copy of it
 (B, for example a parent commit's, written out with ``git show``).
 
-    python3 -m corrosion_tpu_torch.kernel_ab BASELINE.cu [--reps 3]
+    python3 scripts/ingest_ab.py BASELINE.cu [--reps 3]
 
-Run from the repository root (it reads ``chip_smoke.py``'s input builder).
-For the ingest forms that the flagship, the 1M point and the full view run,
+It reads ``chip_smoke.py``'s input builder from the repository root. For
+the ingest forms that the flagship, the 1M point and the full view run,
 on ``chip_smoke.py``'s kernels-phase inputs, it holds both builds bitwise to
 the plain version, then times each through the wrapper with CUDA events
 over 20 calls, ``--reps`` times in ABBA order, and prints the card's name
@@ -44,9 +44,9 @@ def main(argv=None) -> int:
     parser.add_argument("--reps", type=int, default=3)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
-        print("kernel_ab: no CUDA device", file=sys.stderr)
+        print("ingest_ab: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(Path.cwd()))
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
     import chip_smoke as cs
 
     from corrosion_tpu_torch.ops import cuda_lib
@@ -78,7 +78,7 @@ def main(argv=None) -> int:
                 times[which].append(cs._cuda_ms(lambda: mk.ingest(p, x), 20))
         cuda_lib._loaded["ingest"] = libs["A"]
         med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
-        print(f"[kernel_ab] {name} at N={cfg.n_nodes}: both bitwise equal to the plain "
+        print(f"[ingest_ab] {name} at N={cfg.n_nodes}: both bitwise equal to the plain "
               f"version; A (checkout) {times['A']} ms, B (baseline) {times['B']} ms; "
               f"medians A {med['A']!r}, B {med['B']!r}, A/B {med['A'] / med['B']!r}",
               flush=True)
