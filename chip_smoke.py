@@ -177,6 +177,21 @@ Phases (any failure raises and the script exits non-zero):
     rig's rounds/s and peak device bytes. The kernels phase holds the
     three forms at both serving rigs' shapes (16x4 cells at N=100,000;
     36x4 = 144 cells at N=16).
+23. san: the runtime sanitizer (``analysis/sanitizer``) on the card. (a)
+    In this process, while the overload bench finishes: corrosan's nine
+    seeded fixtures with ``device="cuda"``, each with its expected verdict;
+    then one sanitized window over an agent on the card at a small config
+    (N=16) with a ``Supervisor``, a ``SubsManager`` with a persist
+    directory, an ``UpdatesManager`` and the HTTP API: four inserts,
+    ``/v1/health``, an unsubscribe, shutdown. The gate must be empty, the
+    ``SubsManager._mu -> Matcher._mu`` edge witnessed, every named
+    witnessed edge in the static lock graph or the allowlist, more than 10
+    threads spawned, and each kernel launched inside the window. (b)
+    ``CORROSAN=1 python -m corrosion_tpu_torch load --device cuda
+    --write-ops 8 --pg-ops 8`` as a process (the CLI's rig, N=16), started
+    beside the chaos phase and read after the load phase: exit 0, the
+    record ``ok`` with ``corrosan: true`` and no findings, each kernel
+    launched.
 
 Each kernel's bound is the larger of the bytes it must move on these inputs
 over the memory rate and the integer operations its function needs on them
@@ -270,6 +285,8 @@ LOAD_PLAN_DIGEST = "e8287e4965bb49b6"
 # the ramp's heaviest stage can outlast 16 retries of 0.25 s
 LOAD_OVERLOAD_PLAN_DIGEST = "3050689524567f7d"
 LOAD_OVERLOAD_FLAGS = ("--slow-ms", "250", "--lag-bound", "25", "--closed-retries", "64")
+#: the sanitized load process: the CLI's rig (N=16), 8 ops a client
+SAN_LOAD_FLAGS = ("--write-ops", "8", "--pg-ops", "8")
 
 
 def _swim_ops(args, pig_k: int = 0) -> int:
@@ -2790,26 +2807,46 @@ def phase_load(dev) -> dict:
             "peak": peak, "seconds": seconds}
 
 
-def _start_overload(dev) -> dict:
-    """Start ``python -m corrosion_tpu_torch load --overload`` with
-    ``LOAD_OVERLOAD_FLAGS`` as a process (``phase_overload`` reads it, and
-    ``_stop_overload`` ends it)."""
+def _start_load(dev, flags, env=None) -> dict:
+    """Start ``python -m corrosion_tpu_torch load`` with ``flags`` as a
+    process (its phase reads it, and ``_stop_load`` ends it)."""
     import os
     import tempfile
 
     root = os.path.dirname(os.path.abspath(__file__))
-    tmp = tempfile.mkdtemp(prefix="overload-")
-    job = {"tmp": tmp, "path": os.path.join(tmp, "overload.json"),
+    tmp = tempfile.mkdtemp(prefix="load-")
+    job = {"tmp": tmp, "path": os.path.join(tmp, "load.json"),
            "out": open(os.path.join(tmp, "stdout"), "w+"),
            "err": open(os.path.join(tmp, "stderr"), "w+"), "t0": time.perf_counter()}
     job["proc"] = subprocess.Popen(
-        [sys.executable, "-m", "corrosion_tpu_torch", "load", "--overload",
-         *LOAD_OVERLOAD_FLAGS, "--device", str(dev), "--output-json", job["path"]],
-        cwd=root, stdout=job["out"], stderr=job["err"])
+        [sys.executable, "-m", "corrosion_tpu_torch", "load", *flags,
+         "--device", str(dev), "--output-json", job["path"]],
+        cwd=root, stdout=job["out"], stderr=job["err"],
+        env=None if env is None else {**os.environ, **env})
     return job
 
 
-def _stop_overload(job) -> None:
+def _start_overload(dev) -> dict:
+    """The overload bench's process: ``load --overload`` with
+    ``LOAD_OVERLOAD_FLAGS`` (``phase_overload`` reads it)."""
+    return _start_load(dev, ("--overload", *LOAD_OVERLOAD_FLAGS))
+
+
+def _start_san_load(dev) -> dict:
+    """The sanitized load process: ``CORROSAN=1 load`` with
+    ``SAN_LOAD_FLAGS`` (``phase_san_load`` reads it)."""
+    return _start_load(dev, SAN_LOAD_FLAGS, env={"CORROSAN": "1"})
+
+
+def _job_tails(job) -> list:
+    tails = []
+    for f in (job["out"], job["err"]):
+        f.seek(0)
+        tails.append(f.read()[-3000:])
+    return tails
+
+
+def _stop_load(job) -> None:
     import shutil
 
     if job["proc"].poll() is None:
@@ -2847,10 +2884,7 @@ def phase_overload(dev, job) -> dict:
             and {k.split(":")[0] for k, v in launched.items() if v}
             == {"swim_tables", "ingest", "ingest_emit"})
     if not held:
-        tails = []
-        for f in (job["out"], job["err"]):
-            f.seek(0)
-            tails.append(f.read()[-3000:])
+        tails = _job_tails(job)
         raise AssertionError(f"load --overload rc {rc}: {tails[0]} {tails[1]}")
     arms = {arm: {k: bench[arm]["contract"][k] for k in
                   ("delivery_p99_s", "lag_bounded", "shed_monotone", "pressure_final",
@@ -2867,6 +2901,148 @@ def phase_overload(dev, job) -> dict:
           f"lag bound: {arms['unguarded']}; launches {launched}", flush=True)
     return {"forms": {tuple(k.split(":", 1)): v for k, v in launched.items()},
             "arms": arms, "seconds": ovl_s}
+
+
+def _san_config():
+    """The sanitized battery's agent: the config of the JAX package's
+    ``tests/test_corrosan.py``."""
+    from corrosion_tpu_torch.config import Config
+
+    cfg = Config()
+    cfg.sim.n_nodes = 16
+    cfg.sim.m_slots = 8
+    cfg.sim.n_origins = 4
+    cfg.sim.n_rows = 8
+    cfg.sim.n_cols = 2
+    cfg.gossip.drop_prob = 0.0
+    return cfg
+
+
+def phase_san(dev) -> dict:
+    """corrosan on the card, in this process: the nine seeded fixtures with
+    ``device`` (each ``ok``: every seeded bug found, every clean twin
+    clean), then the sanitized battery of the JAX package's
+    ``tests/test_corrosan.py`` on an agent on ``device``: an empty gate,
+    the ``SubsManager._mu -> Matcher._mu`` edge witnessed, witnessed edges
+    within the static graph and the allowlist, more than 10 threads, and
+    each kernel launched inside the window. CUDA and the kernels are built
+    and loaded before any window opens (the kernels phase did both)."""
+    import json as _json
+    import shutil
+    import tempfile
+    import urllib.request
+
+    from corrosion_tpu_torch.analysis.sanitizer import (
+        run_all_fixtures,
+        sanitized,
+        static_lock_graph,
+    )
+    from corrosion_tpu_torch.analysis.sanitizer.allowlist import ALLOWED_LOCK_EDGES
+    from corrosion_tpu_torch.ops import megakernel as mk
+
+    t0 = time.perf_counter()
+    fixtures = run_all_fixtures(device=dev)
+    bad = [(r.name, r.expect, r.found, r.details) for r in fixtures if not r.ok]
+    if bad:
+        raise AssertionError(f"san: fixture verdicts wrong on {dev}: {bad}")
+    fixtures_s = time.perf_counter() - t0
+    tmp = tempfile.mkdtemp(prefix="san-")
+    before = dict(mk.LAUNCHES)
+    t1 = time.perf_counter()
+    try:
+        with sanitized() as san:
+            from corrosion_tpu_torch.agent import Agent
+            from corrosion_tpu_torch.api import ApiServer
+            from corrosion_tpu_torch.db import Database
+            from corrosion_tpu_torch.pubsub import SubsManager, UpdatesManager
+            from corrosion_tpu_torch.resilience import Supervisor
+
+            agent = Agent(_san_config(), device=dev).start(
+                supervisor=Supervisor(deadline_seconds=300.0))
+            try:
+                db = Database(agent)
+                db.apply_schema_sql("CREATE TABLE t (pk INTEGER PRIMARY KEY, v INTEGER);")
+                mgr = SubsManager(db, persist_dir=f"{tmp}/subs")
+                matcher, _ = mgr.subscribe(0, "SELECT pk, v FROM t")
+                matcher.attach()
+                upd = UpdatesManager(db)
+                feed_q = upd.attach("t")
+                api = ApiServer(db, subs=mgr, updates=upd).start()
+                for i in range(4):
+                    db.execute(0, [(f"INSERT INTO t (pk, v) VALUES ({i}, {i * 7})",)])
+                if not agent.wait_rounds(3, timeout=300):
+                    raise AssertionError("san: the agent ran no 3 rounds in 300 s")
+                with urllib.request.urlopen(
+                        f"http://{api.addr}:{api.port}/v1/health", timeout=30) as resp:
+                    health = _json.load(resp)
+                mgr.unsubscribe(matcher.id)
+                if not agent.wait_rounds(2, timeout=300):
+                    raise AssertionError("san: the agent ran no 2 rounds in 300 s")
+                upd.detach("t", feed_q)
+                api.stop()
+                mgr.close()
+            finally:
+                agent.shutdown()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    battery_s = time.perf_counter() - t1
+    launched = {k: v - before[k] for k, v in mk.LAUNCHES.items()}
+    findings = san.gate()
+    named = san.witness.named_edges()
+    edge = ("corrosion_tpu_torch.pubsub.SubsManager._mu",
+            "corrosion_tpu_torch.pubsub.Matcher._mu")
+    extra = named - static_lock_graph().edge_names() - set(ALLOWED_LOCK_EDGES)
+    threads = san.leaks.spawned_count()
+    if (findings or edge not in named or extra or threads <= 10
+            or not all(launched.values()) or health["supervisor"]["state"] == "aborted"):
+        raise AssertionError(
+            f"san: battery on {dev}: findings {[f.render() for f in findings]}, "
+            f"edge witnessed {edge in named}, outside static + allowlist {extra}, "
+            f"{threads} threads, launches in the window {launched}, health {health}")
+    verdicts = ", ".join(f"{r.name}: {list(r.found) or 'clean'}" for r in fixtures)
+    print(f"[san] corrosan on {dev}: {len(fixtures)} fixtures, each its verdict "
+          f"({verdicts}) "
+          f"in {fixtures_s:.1f} s; the battery (agent N=16 with Supervisor, "
+          f"SubsManager, UpdatesManager, HTTP API; 4 inserts, /v1/health, "
+          f"unsubscribe, shutdown) in one window: gate empty, {len(named)} named "
+          f"lock edges witnessed ({len(san.witness.edges_payload())} in all), "
+          f"{' -> '.join(edge)} among them, all within the static graph "
+          f"({len(static_lock_graph().edge_names())} edges) and the allowlist; "
+          f"{threads} threads spawned; launches inside the window {launched}; "
+          f"{battery_s:.1f} s", flush=True)
+    return {"fixtures": len(fixtures), "named_edges": len(named), "threads": threads,
+            "launches": launched, "seconds": time.perf_counter() - t0}
+
+
+def phase_san_load(dev, job) -> dict:
+    """The sanitized load process started by ``_start_san_load`` beside the
+    chaos phase: exit 0, ``corrosan: true``, ``ok``, no findings, and each
+    kernel launched in the process."""
+    import os
+
+    rc = job["proc"].wait(timeout=600)
+    seconds = time.perf_counter() - job["t0"]
+    rec = {}
+    if os.path.exists(job["path"]):
+        with open(job["path"]) as f:
+            rec = json.load(f)
+    launched = rec.get("kernel_launches", {})
+    kernels = {k.split(":")[0] for k, v in launched.items() if v}
+    if not (rc == 0 and rec.get("corrosan") is True and rec.get("ok")
+            and not rec.get("problems")
+            and kernels == {"swim_tables", "ingest", "ingest_emit"}):
+        tails = _job_tails(job)
+        raise AssertionError(f"CORROSAN=1 load rc {rc}: {rec.get('problems')} "
+                             f"{tails[0]} {tails[1]}")
+    agree = rec["agreement"]
+    print(f"[san] CORROSAN=1 load {' '.join(SAN_LOAD_FLAGS)} --device {dev} (the CLI's "
+          f"rig, N=16; beside chaos): exit 0, corrosan true, ok, no findings, "
+          f"agreement {agree['transactions']} {agree['pg_select']}; the harness ran "
+          f"{rec['duration_s']!r} s at {rec['qps']!r} ops/s, write p50 "
+          f"{rec['ops']['write']['p50']!r} s; launches {launched}; read "
+          f"{seconds:.1f} s after its start", flush=True)
+    return {"forms": {tuple(k.split(":", 1)): v for k, v in launched.items()},
+            "seconds": seconds}
 
 
 DEVCLUSTER_TOPOLOGY = "tests/data/devcluster_topology.txt"
@@ -3088,17 +3264,23 @@ def main() -> int:
     phase_soak_cli(dev)
     done("soak-cli")
     bench = _start_overload(dev)
+    san_load = _start_san_load(dev)
     try:
         chaos = phase_chaos(dev)
         done("chaos")
         phase_devcluster(dev)
         done("devcluster")
+        phase_san(dev)
+        done("san (in process)")
         overload = phase_overload(dev, bench)
         done("overload (the rest of its wait)")
+        load = phase_load(dev)
+        done("load")
+        phase_san_load(dev, san_load)
+        done("san (the load process's rest)")
     finally:
-        _stop_overload(bench)
-    load = phase_load(dev)
-    done("load")
+        _stop_load(bench)
+        _stop_load(san_load)
 
     # each form's launches are read from the path that runs it (0: no path
     # here runs the form); the load forms count the load rig's rounds and

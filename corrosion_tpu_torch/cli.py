@@ -29,12 +29,16 @@ Mirrors the reference binary's command surface (``Command`` enum,
 - ``devcluster`` — boot an agent from an ``A -> B`` topology file, one
   region per connected component;
 - ``load`` — the seeded concurrent-client load harness over HTTP,
-  subscriptions and PG wire (``--overload``: the two-arm overload bench).
+  subscriptions and PG wire (``--overload``: the two-arm overload bench);
+- ``lint`` — corrolint over the port (lock discipline, strippable
+  asserts, lock order); ``san`` — replay corrosan's seeded race/leak
+  fixtures.
 
-``agent``, ``devcluster``, ``soak``, ``chaos``, ``fuzz`` and ``load`` take
-``--device`` (default ``cuda``). The JAX package's ``mem-report``, ``lint``
-and ``san`` are not ported yet (ROADMAP Queue 1 item 16-rest), nor is a
-sharded soak (``--shard``, item 14) or ``CORROSAN=1`` (``analysis/``).
+``agent``, ``devcluster``, ``soak``, ``chaos``, ``fuzz``, ``load`` and
+``san`` take ``--device`` (default ``cuda``). Under ``CORROSAN=1``,
+``chaos``, ``fuzz`` and ``load`` run inside one corrosan window and fail
+on its findings. The JAX package's ``mem-report`` is not ported yet
+(ROADMAP Queue 1 item 16b), nor is a sharded soak (``--shard``, item 14).
 
 Run as ``python -m corrosion_tpu_torch <command>``.
 """
@@ -391,11 +395,41 @@ def cmd_soak(args) -> int:
     return 1 if result.aborted else 0
 
 
-def _refuse_corrosan() -> None:
-    if os.environ.get("CORROSAN") == "1":
-        raise SystemExit(
-            "CORROSAN=1: the runtime sanitizer (analysis/) is not ported "
-            "yet (ROADMAP Queue 1 item 16-rest)")
+def _corrosan_run(run, device) -> dict:
+    """The record ``run()`` returns, with ``corrosan`` saying whether it ran
+    inside a sanitized window: under ``CORROSAN=1`` it does, and any
+    finding of the window makes ``ok`` false and is listed under
+    ``problems``.
+
+    The device is resolved, CUDA initialised and the kernels built and
+    loaded before the window opens: the window instruments every lock
+    born inside it, and torch's or the build's own are not the port's."""
+    if os.environ.get("CORROSAN") != "1":
+        out = run()
+        out["corrosan"] = False
+        return out
+    from corrosion_tpu_torch._device import resolve_device
+    from corrosion_tpu_torch.analysis.sanitizer import sanitized
+
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        import torch
+
+        from corrosion_tpu_torch.ops import cuda_lib
+
+        torch.cuda.init()
+        for name in cuda_lib.SOURCES:
+            cuda_lib.library(name)
+    with sanitized() as san:
+        out = run()
+    findings = san.gate()
+    out["corrosan"] = True
+    if findings:
+        out["ok"] = False
+        out.setdefault("problems", []).extend(
+            f"corrosan: {f.kind} {f.subject}" for f in findings
+        )
+    return out
 
 
 def _write_json(path: str, obj) -> None:
@@ -408,7 +442,8 @@ def cmd_chaos(args) -> int:
     """corrochaos: run seeded fault scenarios through the segmented soak
     runner and judge them by the three oracles. A scenario is reproducible
     from ``(name, seed)`` alone: the verdict carries the trace digest that
-    pins it."""
+    pins it. Under ``CORROSAN=1`` the whole run rides inside a sanitized
+    window."""
     from corrosion_tpu_torch.resilience.chaos import (
         SCENARIOS,
         TIER1_SCENARIOS,
@@ -426,7 +461,6 @@ def cmd_chaos(args) -> int:
             print(f"{name} [host-plane]: serving-plane scenario, "
                   f"run by name (not part of the default sweep)")
         return 0
-    _refuse_corrosan()
     if args.script:
         return _chaos_replay_scripts(args)
     if args.scenario:
@@ -444,8 +478,10 @@ def cmd_chaos(args) -> int:
             print(f"error: --seed-range wants A:B, got {args.seed_range!r}",
                   file=sys.stderr)
             return 2
-    out = run_sweep(names, seed=args.seed, seed_range=seed_range,
-                    device=args.device)
+    out = _corrosan_run(
+        lambda: run_sweep(names, seed=args.seed, seed_range=seed_range,
+                          device=args.device),
+        args.device)
     if args.output_json:
         _write_json(args.output_json, out)
     if args.convergence_json:
@@ -481,23 +517,26 @@ def _chaos_replay_scripts(args) -> int:
     )
     from corrosion_tpu_torch.resilience.fuzz import load_reproducer
 
-    records = []
-    for path in args.script:
-        with open(path) as f:
-            payload = json.load(f)
-        if isinstance(payload, dict) and "script" in payload:
-            script, seed, _meta = load_reproducer(path)
-        else:
-            script, seed = script_from_json(payload), args.seed
-        records.append(run_scenario(script, seed=seed, device=args.device))
-    out = {
-        "metric": "chaos_sweep",
-        "seed": int(args.seed),
-        "platform": platform_name(args.device),
-        "scripts": list(args.script),
-        "scenarios": records,
-        "ok": all(r["ok"] for r in records),
-    }
+    def replay() -> dict:
+        records = []
+        for path in args.script:
+            with open(path) as f:
+                payload = json.load(f)
+            if isinstance(payload, dict) and "script" in payload:
+                script, seed, _meta = load_reproducer(path)
+            else:
+                script, seed = script_from_json(payload), args.seed
+            records.append(run_scenario(script, seed=seed, device=args.device))
+        return {
+            "metric": "chaos_sweep",
+            "seed": int(args.seed),
+            "platform": platform_name(args.device),
+            "scripts": list(args.script),
+            "scenarios": records,
+            "ok": all(r["ok"] for r in records),
+        }
+
+    out = _corrosan_run(replay, args.device)
     if args.output_json:
         _write_json(args.output_json, out)
     print(json.dumps(out, indent=2))
@@ -509,7 +548,8 @@ def cmd_fuzz(args) -> int:
     and print the per-seed verdicts with rounds to convergence and
     quiescence. Deterministic end to end. ``--shrink-failures DIR``
     delta-debugs every failing seed to a 1-minimal reproducer in DIR for
-    ``chaos --script`` replay."""
+    ``chaos --script`` replay. Under ``CORROSAN=1`` the sweep rides a
+    sanitized window like the chaos run (the shrinker runs after it)."""
     from corrosion_tpu_torch.resilience import fuzz
 
     try:
@@ -526,8 +566,9 @@ def cmd_fuzz(args) -> int:
                   f"{script.total_rounds} rounds, injections="
                   f"{[i.kind for i in script.injections] or '[]'}")
         return 0
-    _refuse_corrosan()
-    out = fuzz.run_fuzz(seeds, profile=args.profile, device=args.device)
+    out = _corrosan_run(
+        lambda: fuzz.run_fuzz(seeds, profile=args.profile, device=args.device),
+        args.device)
     if args.shrink_failures is not None:
         shrunk = []
         for case in out["cases"]:
@@ -556,27 +597,30 @@ def cmd_load(args) -> int:
     client-side p50/p95/p99 per op class, delivery lag, and the
     server-vs-client request-count agreement gate. ``--overload`` runs the
     two-arm overload bench instead (exit 0 when the guard holds the
-    degradation contract and the unguarded arm violates it)."""
+    degradation contract and the unguarded arm violates it). Under
+    ``CORROSAN=1`` the whole run rides inside a sanitized window."""
     from corrosion_tpu_torch.obs.load import run_load, run_overload_bench
     from corrosion_tpu_torch.ops.megakernel import FORM_LAUNCHES
 
-    _refuse_corrosan()
     if args.overload:
         # the harness's own defaults govern everything but these flags
-        out = run_overload_bench(
-            stages=tuple(int(x) for x in args.stages.split(",")),
-            slow_subs=args.slow_subs, slow_ms=args.slow_ms,
-            lag_bound_s=args.lag_bound, closed_loop_retries=args.closed_retries,
-            seed=args.seed, device=args.device,
-        )
+        def run():
+            return run_overload_bench(
+                stages=tuple(int(x) for x in args.stages.split(",")),
+                slow_subs=args.slow_subs, slow_ms=args.slow_ms,
+                lag_bound_s=args.lag_bound,
+                closed_loop_retries=args.closed_retries,
+                seed=args.seed, device=args.device,
+            )
     else:
-        out = run_load(
-            writers=args.writers, subscribers=args.subscribers,
-            pg_readers=args.pg_readers, write_ops=args.write_ops,
-            pg_ops=args.pg_ops, keys=args.keys, seed=args.seed,
-            device=args.device,
-        )
-    out["corrosan"] = False
+        def run():
+            return run_load(
+                writers=args.writers, subscribers=args.subscribers,
+                pg_readers=args.pg_readers, write_ops=args.write_ops,
+                pg_ops=args.pg_ops, keys=args.keys, seed=args.seed,
+                device=args.device,
+            )
+    out = _corrosan_run(run, args.device)
     # this process's kernel launches per form (``kernel:form``)
     out["kernel_launches"] = {f"{k}:{form}": n
                               for (k, form), n in sorted(FORM_LAUNCHES.items())}
@@ -584,6 +628,37 @@ def cmd_load(args) -> int:
         _write_json(args.output_json, out)
     print(json.dumps(out, indent=2))
     return 0 if out["ok"] else 1
+
+
+def cmd_lint(args) -> int:
+    """corrolint over the given paths (same engine as
+    ``python -m corrosion_tpu_torch.analysis`` and the tier-1 gate)."""
+    from corrosion_tpu_torch.analysis.__main__ import main as lint_main
+
+    argv = list(args.paths or [])
+    if args.format != "text":
+        argv = ["--format", args.format] + argv
+    if args.changed is not None:
+        argv = ["--changed", args.changed] + argv
+    if args.output_json is not None:
+        argv = ["--output-json", args.output_json] + argv
+    return lint_main(argv)
+
+
+def cmd_san(args) -> int:
+    """corrosan fixture replay (same engine as
+    ``python -m corrosion_tpu_torch.analysis.sanitizer``): seeded
+    race/leak/inversion scenarios the runtime sanitizer must detect."""
+    from corrosion_tpu_torch.analysis.sanitizer.__main__ import main as san_main
+
+    argv = list(args.fixtures or []) + ["--device", args.device]
+    if args.list_fixtures:
+        argv = ["--list-fixtures"] + argv
+    if args.format != "text":
+        argv = ["--format", args.format] + argv
+    if args.output_json is not None:
+        argv = ["--output-json", args.output_json] + argv
+    return san_main(argv)
 
 
 def cmd_template(args) -> int:
@@ -941,6 +1016,37 @@ def build_parser() -> argparse.ArgumentParser:
     ld.add_argument("--device", default="cuda",
                     help="torch device of the rig's agent (default cuda)")
     ld.set_defaults(fn=cmd_load)
+
+    lint = sub.add_parser(
+        "lint", help="corrolint static analysis: lock discipline, "
+                     "strippable asserts and the interprocedural lock "
+                     "order")
+    lint.add_argument("paths", nargs="*", default=None,
+                      help="files/dirs (default: corrosion_tpu_torch)")
+    lint.add_argument("--format", choices=("text", "json"), default="text")
+    lint.add_argument("--changed", metavar="GIT_REF", default=None,
+                      help="lint only .py files changed vs the git ref "
+                           "(fast pre-commit mode)")
+    lint.add_argument("--output-json", metavar="PATH", default=None,
+                      help="write a machine-readable findings report")
+    lint.set_defaults(fn=cmd_lint)
+
+    san = sub.add_parser(
+        "san", help="corrosan runtime sanitizer: replay seeded "
+                    "race/leak fixtures (detector true-positive guard); "
+                    "a sanitized run is CORROSAN=1 on chaos/fuzz/load or "
+                    "on the test command")
+    san.add_argument("fixtures", nargs="*", default=None,
+                     help="fixture names (default: all)")
+    san.add_argument("--list-fixtures", action="store_true")
+    san.add_argument("--format", choices=("text", "json"), default="text")
+    san.add_argument("--output-json", metavar="PATH", default=None,
+                     help="write the fixtures section of the corrosan "
+                          "report")
+    san.add_argument("--device", default="cuda",
+                     help="device of the agent-backed fixtures (default "
+                          "cuda)")
+    san.set_defaults(fn=cmd_san)
 
     rl = sub.add_parser("reload", help="re-apply config (schema, log level)")
     rl.add_argument("config")

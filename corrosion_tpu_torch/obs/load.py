@@ -25,8 +25,9 @@ CLI: ``python -m corrosion_tpu_torch load`` (``--output-json`` writes the
 record). Every rig runs its agent on ``device`` (default ``"cuda"``, which
 raises without a card; ``"cpu"`` runs the kernels' plain versions). The
 JAX package's CLI turns on its persistent jit cache before a run; the port
-compiles no programs, so there is no such call. ``CORROSAN=1`` (the
-runtime sanitizer, ``analysis/``) is not ported and the CLI refuses it.
+compiles no programs, so there is no such call. Under ``CORROSAN=1`` the
+CLI runs the harness inside one corrosan window (``analysis/sanitizer``)
+and fails the record on its findings.
 
 Two departures from the JAX package's ``run_overload``: a closed-loop op
 that runs out of 503 retries is counted once in the client tally (the

@@ -75,16 +75,31 @@ class Supervisor:
         )
         self._sleep = sleep
         self._abort: Optional[Callable[[], bool]] = None
-        self.state = "idle"
+        # the round thread writes the state, /v1/health reads it on an
+        # HTTP thread: both go through _mu
+        self._mu = threading.Lock()
+        self._state = "idle"
         self._retry_at = 0.0  # wall-clock time of the next attempt
         self.retries = 0  # total retries over the supervisor's lifetime
         self.aborts = 0
 
+    # --- observable surface (feeds /v1/health) ---------------------------
+    @property
+    def state(self) -> str:
+        with self._mu:
+            return self._state
+
     def retry_after_seconds(self) -> float:
         """Seconds until the next attempt (0 when not backing off)."""
-        if self.state != "backoff":
-            return 0.0
-        return max(0.0, self._retry_at - time.time())
+        with self._mu:
+            if self._state != "backoff":
+                return 0.0
+            return max(0.0, self._retry_at - time.time())
+
+    def _set(self, state: str, retry_in: float = 0.0) -> None:
+        with self._mu:
+            self._state = state
+            self._retry_at = time.time() + retry_in
 
     def bind_abort(self, fn: Callable[[], bool],
                    sleep: Optional[Callable[[float], object]] = None,
@@ -92,9 +107,10 @@ class Supervisor:
         """Bind the abort predicate and, when given, an interruptible
         sleep: the agent ties both to its tripwire, so shutdown never sits
         out a backoff delay. Returns the supervisor."""
-        self._abort = fn
-        if sleep is not None:
-            self._sleep = sleep
+        with self._mu:
+            self._abort = fn
+            if sleep is not None:
+                self._sleep = sleep
         return self
 
     # --- the wrapper -----------------------------------------------------
@@ -104,7 +120,7 @@ class Supervisor:
         policy is exhausted (or the bound abort predicate trips)."""
 
         def attempt():
-            self.state = "running"
+            self._set("running")
             try:
                 return self._with_deadline(fn, args, kwargs, label)
             except SupervisorAborted as e:
@@ -115,8 +131,7 @@ class Supervisor:
 
         def on_retry(exc, delay, attempt_no):
             self.retries += 1
-            self._retry_at = time.time() + delay
-            self.state = "backoff"
+            self._set("backoff", retry_in=delay)
             logger.warning(
                 "supervisor: %s failed (%s: %s); retry %d in %.1fs",
                 label, type(exc).__name__, exc, attempt_no, delay,
@@ -132,11 +147,11 @@ class Supervisor:
                 on_retry=on_retry,
             )
         except _AbortPassthrough as w:
-            self.state = "aborted"
+            self._set("aborted")
             self.aborts += 1
             raise w.exc
         except RETRY_ON as e:
-            self.state = "aborted"
+            self._set("aborted")
             self.aborts += 1
             raise SupervisorAborted(
                 f"{label}: retries exhausted ({type(e).__name__}: {e}); "
@@ -146,9 +161,9 @@ class Supervisor:
             # non-retryable (ValueError from a bad state, Keyboard-
             # Interrupt, ...): nothing is executing anymore — the state
             # must not stay stuck at "running"
-            self.state = "idle"
+            self._set("idle")
             raise
-        self.state = "idle"
+        self._set("idle")
         return result
 
     def _with_deadline(self, fn: Callable, args, kwargs, label: str):

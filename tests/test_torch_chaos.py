@@ -217,8 +217,9 @@ def test_seed_range_sweep_structure(monkeypatch):
 
 def test_serve_overload_and_corrosan_name_their_items(monkeypatch, capsys):
     """``serve-overload`` is a host-plane runner the sweep calls by name with
-    the seed and the device (``tests/test_torch_serve.py`` runs it); the
-    runtime sanitizer is still refused, naming ``analysis/``."""
+    the seed and the device (``tests/test_torch_serve.py`` runs it); under
+    ``CORROSAN=1`` a tier-1 scenario and one fuzz seed run inside a
+    sanitized window (``analysis/sanitizer``), say so, and are clean."""
     from corrosion_tpu_torch.resilience import serve_overload
 
     calls = []
@@ -237,9 +238,10 @@ def test_serve_overload_and_corrosan_name_their_items(monkeypatch, capsys):
     assert calls[-1] == (0, "cpu")
     assert json.loads(capsys.readouterr().out)["scenarios"][0]["name"] == "serve-overload"
     monkeypatch.setenv("CORROSAN", "1")
-    for argv in (["chaos", "--tier1"], ["fuzz", "--seeds", "0:0"]):
-        with pytest.raises(SystemExit, match="analysis/"):
-            cli.main(argv + ["--device", "cpu"])
+    for argv in (["chaos", chaos.TIER1_SCENARIOS[-1]], ["fuzz", "--seeds", "0:0"]):
+        assert cli.main(argv + ["--device", "cpu"]) == 0, argv
+        out = json.loads(capsys.readouterr().out)
+        assert out["corrosan"] is True and out["ok"] and not out.get("problems"), argv
 
 
 def test_chaos_raises_without_cuda(monkeypatch):
