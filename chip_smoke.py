@@ -40,44 +40,58 @@ Phases (any failure raises and the script exits non-zero):
    2 warm-up rounds, then three timed batches of 4 rounds. Each kernel must
    launch once a round, in that configuration's forms; prints rounds/s,
    peak device memory and the carried state's bytes.
-6. The quiet round: ``quiet="on"`` on the card against ``quiet="off"`` on
+6. cost: the static memory projection and the per-round cost model
+   (``analysis/shapes.py``, ``analysis/cost.py``) on the card. ``mem-report
+   --n-nodes 100000`` (the CLI, in this process, on the card by default)
+   must equal ``static_report(scale_sim_config(100_000))`` leaf for leaf, and the
+   1M phase's carried state, audited before it is freed, the projection of
+   ``million_config()``. One flagship round at N=100,000 (a sync-and-sweep
+   round) is counted on the card with K1-K3 launched inside it and must
+   equal the fit of ``scale_sim_step`` made in this process from CPU points,
+   exactly; ``sharded_scale_run`` counted directly at the 1M point
+   (``ROOFLINE_POINT``, flagship template) must equal its fit's projection,
+   exactly. Prints the model's bytes over the memory rate beside the same
+   round's time, each kernel unit's bytes and operations beside the kernel
+   table's count for that call, and the static roofline of the three scan
+   entries.
+7. The quiet round: ``quiet="on"`` on the card against ``quiet="off"`` on
    the card and ``quiet="on"`` on the CPU, on a settled trace; every state
    leaf and info value must be bitwise equal, the fixpoint branch must run,
    and each kernel must launch once in every dense round of the card's
    ``quiet="on"`` run and in no fixpoint round.
-7. The full view, card vs CPU: 16 rounds of ``scenario.full_mix`` (churn,
+8. The full view, card vs CPU: 16 rounds of ``scenario.full_mix`` (churn,
    conflict-heavy writes, 1 % loss) at ``full_view_config(1024)``; every
    state leaf and info value bitwise equal after every round.
-8. The full view at ``full_view_config(8192)`` (O(N^2) membership view,
+9. The full view at ``full_view_config(8192)`` (O(N^2) membership view,
    recv_slots = 96) with the same workload: 2 warm-up rounds, then three
    timed batches of 4 rounds. The ingest kernel must launch once a round as
    the local write (m = 1) and once as the receive batch (m = 96), and the
    swim kernel never; prints rounds/s, peak device memory and the carried
    state's bytes.
-9. tx-trajectory: phase 3's trajectory for the configurations whose CRDT
+10. tx-trajectory: phase 3's trajectory for the configurations whose CRDT
    half takes the plain route or the empty batch: multi-cell transactions
    (``tx_max_cells=4``), the wire-budget lane (``bcast_wire_budget``), and
    ``pig_changes=0``. Card and CPU bitwise equal after every round; the
    swim kernel launches once a round in all three; the ingest kernel never
    in the first two, and at ``pig_changes=0`` once a round as the
    non-emitting local write and once as the empty receive batch (m = 0).
-10. full-tx-trajectory: phase 7 at ``wan_config(1024, n_origins=16)``
+11. full-tx-trajectory: phase 8 at ``wan_config(1024, n_origins=16)``
     (``tx_max_cells=8``, the agent's full-view default) with one seeded
     transaction of 1..8 cells per writing origin and round; card and CPU
     bitwise equal after every round, transactions completed, no kernel
     launched (the configuration takes the plain route).
-11. tx, wirebudget: ``scale_sim_config(100_000, n_origins=16,
+12. tx, wirebudget: ``scale_sim_config(100_000, n_origins=16,
     tx_max_cells=4)`` and ``scale_sim_config(100_000, n_origins=16,
     bcast_wire_budget=True)`` with the flagship's workload (routed through
     ``make_write_inputs``' transaction branch for the first): 2 warm-up
     rounds, then ten timed batches of 2 rounds; median and quartiles of
     rounds/s, peak device memory; the swim kernel launches once a round,
     the ingest kernel never.
-12. full-tx: ``wan_config(8192, n_origins=16)`` under ``full_mix`` with
-    phase 10's transactions: 2 warm-up rounds, then ten timed batches of 1
+13. full-tx: ``wan_config(8192, n_origins=16)`` under ``full_mix`` with
+    phase 11's transactions: 2 warm-up rounds, then ten timed batches of 1
     round; median and quartiles of rounds/s, peak device memory; no kernel
     launches.
-13. parity: BASELINE's state-parity check at N=256 (16 origins, 64
+14. parity: BASELINE's state-parity check at N=256 (16 origins, 64
     cells, 24 rounds, up to 512 rounds to settle): single-writer scripts
     (without and with 5 % loss) and multi-cell transactions (tx 4, plain
     route) equal to the pure-Python oracle cluster bitwise; conflicting,
@@ -89,23 +103,23 @@ Phases (any failure raises and the script exits non-zero):
     both sides, the card equals the CPU route bitwise, and each kernel
     launches once a round (the swim kernel alone at tx 4); the single writer
     also runs ``quiet="on"`` to the same result.
-14. soak: the flagship for 16 rounds straight, as ``run_segmented`` in 2
+15. soak: the flagship for 16 rounds straight, as ``run_segmented`` in 2
     segments of 8 with the async writer (keep_last 2), and as its first
     8 rounds segmented then ``resume_segmented`` from disk: every leaf
     and info bitwise equal, the same launches per form, peak device bytes
     within 5 % of the straight run's; prints rounds/s, checkpoint stall
     and writer seconds, one checkpoint's bytes, and save, verify and load
     seconds.
-15. full-soak: ``full_view_config(1024)`` for 16 rounds, one segment of 8
+16. full-soak: ``full_view_config(1024)`` for 16 rounds, one segment of 8
     checkpointed and resumed from disk, equal to the straight run bitwise,
     with the ingest kernel at m = 96 once a round.
-16. agent-trajectory: two never-started agents at the agent's default
+17. agent-trajectory: two never-started agents at the agent's default
     config with 4096 nodes, one on the card and one on the CPU, driven by
     hand through the same SQL writes (a ``Database`` each), kills, a
     revive, a partition and its heal for 24 rounds: ``device_state()``
     bitwise equal after every round, the same query rows, and each kernel
     once a round on the card.
-17. agent: ``python -m corrosion_tpu_torch agent`` as a process at
+18. agent: ``python -m corrosion_tpu_torch agent`` as a process at
     N=100,000 (the ``Config`` defaults otherwise), a schema file, an
     ephemeral API port and ``pg.enabled`` on an ephemeral port: a row
     written at node 0 through the HTTP client is
@@ -123,7 +137,7 @@ Phases (any failure raises and the script exits non-zero):
     gauges must show every kernel once a round; SIGTERM must end it with
     exit 0. Then, in this process at the same config, the hand-driven
     agent round, the snapshot copy and ``scale_run_rounds`` are timed.
-18. soak-cli: ``python -m corrosion_tpu_torch soak`` as a process at
+19. soak-cli: ``python -m corrosion_tpu_torch soak`` as a process at
     N=100,000 (the ``Config`` defaults otherwise), 16 rounds in segments of
     4 with a flight record, an OTLP file and ``--prom-port 0``: ``/metrics``
     is scraped once after the first commit (the soak's rounds and the
@@ -133,7 +147,7 @@ Phases (any failure raises and the script exits non-zero):
     ``scale_run_rounds`` in this process on the same config, seed and
     inputs, the resumed run's metric sums equal that run's info sums over
     the rounds it ran, and each kernel launched once in each of them.
-19. chaos: (a) every scenario of ``resilience.chaos.SCENARIOS`` at its
+20. chaos: (a) every scenario of ``resilience.chaos.SCENARIOS`` at its
     N=24, seed 0, on the card, in a worker process beside (b)-(d), equal
     field for field to the JAX package's verdicts in
     ``tests/data/chaos_verdicts_jax.json`` (digests, rounds to convergence
@@ -154,13 +168,13 @@ Phases (any failure raises and the script exits non-zero):
     the chaos forms' launches in the kernel record) and every round of (d);
     the kernels phase holds the three forms at the chaos shapes (m_slots 8,
     4 origins, 4x2 cells) at N=100,000.
-20. devcluster: ``python -m corrosion_tpu_torch devcluster
+21. devcluster: ``python -m corrosion_tpu_torch devcluster
     tests/data/devcluster_topology.txt`` (30 nodes in three components):
     its printed JSON equals the JAX package's
     (``tests/data/devcluster_jax.json``), a write in one region is read in
     another, the launch gauges show each kernel once a round, SIGTERM ends
     it with exit 0.
-21. overload: ``python -m corrosion_tpu_torch load --overload`` as a
+22. overload: ``python -m corrosion_tpu_torch load --overload`` as a
     process, started before the chaos phase and run beside it and
     devcluster, at its default ramp and rig (N=16) with its time constants
     scaled to the port's pace (``LOAD_OVERLOAD_FLAGS``: a slower slow
@@ -168,7 +182,7 @@ Phases (any failure raises and the script exits non-zero):
     exit 0, so the guard holds the degradation contract and the unguarded
     arm breaks it; the plan digest the JAX package's, both arms' counts
     agree and nothing leaks.
-22. load: ``obs.load.run_load(n_nodes=100_000)`` in this process, alone,
+23. load: ``obs.load.run_load(n_nodes=100_000)`` in this process, alone,
     with the harness's default clients and half its default ops (4 writers
     x 16 transactions over HTTP, 2 NDJSON subscribers, 2 PG-wire readers x
     16 queries, 12 keys, seed 0): ``ok``, the server's request counts equal
@@ -177,7 +191,7 @@ Phases (any failure raises and the script exits non-zero):
     rig's rounds/s and peak device bytes. The kernels phase holds the
     three forms at both serving rigs' shapes (16x4 cells at N=100,000;
     36x4 = 144 cells at N=16).
-23. san: the runtime sanitizer (``analysis/sanitizer``) on the card. (a)
+24. san: the runtime sanitizer (``analysis/sanitizer``) on the card. (a)
     In this process, while the overload bench finishes: corrosan's nine
     seeded fixtures with ``device="cuda"``, each with its expected verdict;
     then one sanitized window over an agent on the card at a small config
@@ -1106,6 +1120,7 @@ def phase_million(dev) -> dict:
     planes) with the flagship's workload, through the port's entry points."""
     import torch
 
+    from corrosion_tpu_torch.obs.memory import memory_report
     from corrosion_tpu_torch.ops import megakernel as mk
     from corrosion_tpu_torch.sim.scale_step import (
         ScaleRoundInput,
@@ -1139,13 +1154,14 @@ def phase_million(dev) -> dict:
     if (int(st.crdt.now) != total or st.swim.mem_tx.dtype != torch.int8
             or st.crdt.q_tx.dtype != torch.int8 or _nbytes(_flat(st)) != state_bytes):
         raise AssertionError("1M state has the wrong round, dtypes or size")
+    audit = memory_report(st, n)
     median = sorted(rates)[len(rates) // 2]
     print(f"[million] N={n} pig_members={cfg.pig_members} int8 mem_tx/q_tx: {reps} batches of {batch} rounds at "
           f"{[repr(x) for x in rates]} rounds/s, median {median!r}; peak device "
           f"memory {peak} bytes; carried state {state_bytes} bytes "
           f"({state_bytes / n!r} B/node); launches {forms}; info sums {sums}",
           flush=True)
-    return {"rounds_per_s": median, "peak_bytes": peak, "forms": forms}
+    return {"rounds_per_s": median, "peak_bytes": peak, "forms": forms, "audit": audit}
 
 
 def phase_full_trajectory(dev) -> None:
@@ -1407,6 +1423,122 @@ def phase_full(dev) -> dict:
           f"carried state {state_bytes} bytes ({state_bytes / n!r} B/node); "
           f"launches {forms}; info sums {sums}; metrics {metrics}", flush=True)
     return {"rounds_per_s": median, "peak_bytes": peak, "forms": forms}
+
+
+def _same_tables(label, live: dict, static: dict) -> None:
+    """A live audit must equal the static projection at its point, leaf for
+    leaf (shape, dtype, bytes, class, bytes a node) and in its totals."""
+    keys = ("shape", "dtype", "nbytes", "class", "per_node_bytes")
+    if static["unresolved"] or list(live["tables"]) != list(static["tables"]):
+        raise AssertionError(f"{label}: leaves {list(live['tables'])} != "
+                             f"{list(static['tables'])} (unresolved {static['unresolved']})")
+    for name, entry in live["tables"].items():
+        want = {k: static["tables"][name].get(k) for k in keys}
+        if {k: entry.get(k) for k in keys} != want:
+            raise AssertionError(f"{label}: {name} live {entry} != static {want}")
+    for k in ("total_bytes", "n_nodes", "by_class"):
+        if live[k] != static[k]:
+            raise AssertionError(f"{label}: {k} live {live[k]} != static {static[k]}")
+
+
+def phase_cost(dev, million_audit: dict) -> dict:
+    """The static memory projection and the cost model, on the card: live
+    audits against their projections, one counted flagship round and one
+    direct 1M count against the fits, exactly."""
+    import contextlib
+    import io
+
+    import torch
+
+    from corrosion_tpu_torch import cli
+    from corrosion_tpu_torch.analysis import cost
+    from corrosion_tpu_torch.obs.memory import static_report
+    from corrosion_tpu_torch.ops import megakernel as mk
+    from corrosion_tpu_torch.sim.scale_step import million_config, scale_sim_config
+
+    # mem-report live on the card (the CLI's default device) vs --project
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["mem-report", "--n-nodes", str(FLAGSHIP_NODES)])
+    live = json.loads(out.getvalue())
+    flagship = scale_sim_config(FLAGSHIP_NODES)
+    static = static_report(flagship)
+    if rc != 0 or live["mode"] != "scale":
+        raise AssertionError(f"mem-report exit {rc}, mode {live.get('mode')}")
+    _same_tables("mem-report 100k", live, static)
+    _same_tables("1M state", million_audit, static_report(million_config(MILLION_NODES)))
+    print(f"[cost] mem-report live on the card at N={FLAGSHIP_NODES}: "
+          f"{live['total_bytes']} bytes in {len(live['tables'])} tables, equal to "
+          f"static_report leaf for leaf; the 1M phase's state {million_audit['total_bytes']} "
+          f"bytes equal to the projection of million_config()", flush=True)
+
+    # one flagship round, counted on the card with K1-K3 inside it
+    t0 = time.perf_counter()
+    fits = cost.fit_entry("scale_sim_step", device="cpu")
+    fit_s = time.perf_counter() - t0
+    env = {"N": FLAGSHIP_NODES, "M": flagship.m_slots}
+    run = cost.PRICED_ENTRY_POINTS["scale_sim_step"].build(flagship, 1, dev)
+    torch.cuda.synchronize()
+    mk.reset_launches()
+    with cost.Counter(keep=cost.KERNEL_UNITS) as counter:
+        run()
+    torch.cuda.synchronize()
+    launches, forms = dict(mk.LAUNCHES), dict(mk.FORM_LAUNCHES)
+    count = counter.count()
+    want = (fits["flops"].at(env), fits["hbm_bytes"].at(env))
+    if launches != {"swim_tables": 1, "ingest": 1, "ingest_emit": 1}:
+        raise AssertionError(f"counted round launched {launches}, not K1-K3 once each")
+    if counter.arms["sync"] != 1 or counter.arms["sweep"] != 1:
+        raise AssertionError(f"counted round took the arms {dict(counter.arms)}")
+    if (count.flops, count.hbm_bytes) != want:
+        raise AssertionError(f"flagship round on the card counts {count}, the fit {want}")
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    round_s = sorted(times)[1]
+    model_s = count.hbm_bytes / H100_BYTES_PER_S
+    print(f"[cost] flagship round at N={FLAGSHIP_NODES} on the card: {count.flops} operations, "
+          f"{count.hbm_bytes} model bytes, {count.eqns} priced calls (units {dict(counter.units)}), "
+          f"equal to the fit of scale_sim_step made from CPU points in {fit_s:.1f} s "
+          f"({fits['flops'].render()} | {fits['hbm_bytes'].render()}); launches {forms}; "
+          f"model bytes / 3.35 TB/s = {model_s * 1e3!r} ms beside the round's "
+          f"{round_s * 1e3!r} ms (median of 3, uncounted)", flush=True)
+    for name, args, _kw, got, flops, nbytes in counter.calls:
+        if name == "swim_tables":
+            consts, tensors = args[0], args[1:]
+            pig_k = int(consts[4]) if len(consts) > 4 else 0
+            table = (_swim_bytes(tensors, got, pig_k), _swim_ops(tensors, pig_k))
+        else:
+            p, x = args
+            name = "ingest_emit" if p.pig_r else "ingest"
+            table = (_ingest_bytes(x, got), _ingest_ops(p, x, got))
+        print(f"[cost] unit {name}: {nbytes} bytes, {flops} operations (worst case); the "
+              f"kernel table's count for this call: {table[0]} bytes, {table[1]} operations",
+              flush=True)
+
+    # the direct 1M count against the fit's projection
+    t0 = time.perf_counter()
+    fits = cost.fit_entry("sharded_scale_run", device="cpu")
+    torch.cuda.synchronize()
+    mk.reset_launches()
+    t1 = time.perf_counter()
+    direct = cost.price_per_round("sharded_scale_run", dict(cost.ROOFLINE_POINT), device=dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    proj = (fits["flops"].at(cost.ROOFLINE_POINT), fits["hbm_bytes"].at(cost.ROOFLINE_POINT))
+    if (direct.flops, direct.hbm_bytes) != proj or not all(f.exact for f in fits.values()):
+        raise AssertionError(f"direct 1M count {direct} != projection {proj}")
+    if dict(mk.LAUNCHES) != {"swim_tables": 3, "ingest": 3, "ingest_emit": 3}:
+        raise AssertionError(f"1M count launched {dict(mk.LAUNCHES)}")
+    roof = cost.roofline(device="cpu")
+    print(f"[cost] sharded_scale_run counted directly at {cost.ROOFLINE_POINT} on the card "
+          f"({t2 - t1:.1f} s, 2 rounds minus 1): {direct.flops} operations, {direct.hbm_bytes} "
+          f"model bytes a round, equal to the projection of its fit (made in {t1 - t0:.1f} s); "
+          f"roofline {json.dumps(roof['entries'])}", flush=True)
+    return {"flagship": count, "direct_1m": direct}
 
 
 def phase_quiet(dev) -> None:
@@ -3235,6 +3367,8 @@ def main() -> int:
     done("flagship")
     million = phase_million(dev)
     done("million")
+    phase_cost(dev, million.pop("audit"))
+    done("cost")
     phase_quiet(dev)
     done("quiet")
     phase_full_trajectory(dev)

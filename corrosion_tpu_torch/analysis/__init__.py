@@ -26,6 +26,12 @@ nonzero on findings (``--changed <git-ref>`` lints only touched files;
 The runtime half, ``sanitizer/`` (corrosan), witnesses one execution:
 happens-before attribute races, the lock order it saw against this
 package's static graph, file resurrection and thread/executor/fd leaks.
+
+Beside them, corrobudget and corrocost: ``shapes.py`` (the state's
+symbolic shape inventory from the ``meta`` device and the 1M budget gate,
+``check_budget``) and ``cost.py`` (a round's operations and memory-model
+bytes, exact fits in the extents, the 1M roofline and the degree gate,
+``check_degrees``); both gates run as tests.
 """
 
 from corrosion_tpu_torch.analysis.base import Finding, RULES

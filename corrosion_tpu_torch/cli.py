@@ -32,13 +32,15 @@ Mirrors the reference binary's command surface (``Command`` enum,
   subscriptions and PG wire (``--overload``: the two-arm overload bench);
 - ``lint`` — corrolint over the port (lock discipline, strippable
   asserts, lock order); ``san`` — replay corrosan's seeded race/leak
-  fixtures.
+  fixtures;
+- ``mem-report`` — the per-table bytes audit of the configured state
+  (``--project N[,M]``: the static projection, built on ``meta``).
 
-``agent``, ``devcluster``, ``soak``, ``chaos``, ``fuzz``, ``load`` and
-``san`` take ``--device`` (default ``cuda``). Under ``CORROSAN=1``,
-``chaos``, ``fuzz`` and ``load`` run inside one corrosan window and fail
-on its findings. The JAX package's ``mem-report`` is not ported yet
-(ROADMAP Queue 1 item 16b), nor is a sharded soak (``--shard``, item 14).
+``agent``, ``devcluster``, ``soak``, ``chaos``, ``fuzz``, ``load``,
+``san`` and ``mem-report`` take ``--device`` (default ``cuda``). Under
+``CORROSAN=1``, ``chaos``, ``fuzz`` and ``load`` run inside one corrosan
+window and fail on its findings. A sharded soak (``--shard``, ROADMAP
+Queue 1 item 14) is not ported yet.
 
 Run as ``python -m corrosion_tpu_torch <command>``.
 """
@@ -751,6 +753,27 @@ def cmd_assertions(args) -> int:
     return 0
 
 
+def _project_point(text: str) -> str:
+    """argparse type for ``--project N[,M]``: a typo is a usage error, not
+    a traceback; the string passes through to ``mem_report_cli``."""
+    try:
+        parts = [int(p) for p in text.split(",")]
+    except ValueError:
+        parts = []
+    if len(parts) not in (1, 2) or any(p <= 0 for p in parts):
+        raise argparse.ArgumentTypeError(
+            f"expected N or N,M (positive integers), got {text!r}")
+    return text
+
+
+def cmd_mem_report(args) -> int:
+    """Per-table bytes audit of the configured state (which table is O(N·M)
+    and which O(N)); with ``--project N[,M]`` the static projection."""
+    from corrosion_tpu_torch.obs.memory import mem_report_cli
+
+    return mem_report_cli(args)
+
+
 def cmd_default_config(args) -> int:
     print(default_toml())
     return 0
@@ -1055,6 +1078,22 @@ def build_parser() -> argparse.ArgumentParser:
     asr = sub.add_parser("assertions",
                          help="always/sometimes assertion report")
     asr.set_defaults(fn=cmd_assertions)
+
+    mr = sub.add_parser(
+        "mem-report",
+        help="per-table bytes audit of the configured sim state (O(N·M) "
+             "vs O(N) classification)")
+    mr.add_argument("-c", "--config", default=None)
+    mr.add_argument("--n-nodes", type=int, default=0,
+                    help="override [sim] n_nodes for the audit")
+    mr.add_argument("--project", metavar="N[,M]", default=None,
+                    type=_project_point,
+                    help="print the static projection at (N[, M]) instead "
+                         "of building a state (the meta device, any N)")
+    mr.add_argument("--device", default="cuda",
+                    help="device the audited state is built on (default "
+                         "cuda; --project builds nothing)")
+    mr.set_defaults(fn=cmd_mem_report)
 
     d = sub.add_parser("default-config", help="print an example config file")
     d.set_defaults(fn=cmd_default_config)

@@ -12,7 +12,8 @@ subcommand:
   drains each segment's infos into a ``utils.metrics.Registry`` plus the
   ``corro.soak.*`` series, so ``/metrics`` shows a soak advancing;
 - :mod:`~corrosion_tpu_torch.obs.memory`: the per-table bytes audit behind
-  the ``corro.mem.*`` gauges and ``/v1/obs/memory``;
+  the ``corro.mem.*`` gauges and ``/v1/obs/memory``, and its static
+  projection (``static_report``, ``projected_bytes``, ``mem-report``);
 - :mod:`~corrosion_tpu_torch.obs.spans`: pipeline spans (with optional
   ``torch.profiler`` labels) around segment dispatch, the carry's host
   copy and checkpoint serialize.

@@ -6,12 +6,16 @@ The audit walks the state by field name (``swim.mem_id``, ``crdt.q_val``,
 classifies its scaling against the cluster size. It reads tensor metadata
 only (``numel() * element_size()``), so auditing a state on the card moves
 no device bytes; numpy leaves (a host copy) count their ``nbytes``.
-Exposed as the ``corro.mem.*`` gauges (:func:`publish_memory_gauges`) and
-the agent's ``/v1/obs/memory`` route. The per-table audit sums to the
-total state size.
+Exposed as the ``corro.mem.*`` gauges (:func:`publish_memory_gauges`),
+the agent's ``/v1/obs/memory`` route and the ``mem-report`` command. The
+per-table audit sums to the total state size.
 
-The JAX package's static projection (``static_report``,
-``projected_bytes``) needs its symbolic shape inventory and is not ported.
+The audit has a static twin: :func:`static_report` projects the same
+tables to any (N, M) from the symbolic inventory of
+``analysis/shapes.py`` (built on the ``meta`` device, no storage), for
+``mem-report --project`` and :func:`projected_bytes`. Both planes classify
+leaves through the one :func:`classify_leaf` and name dtypes through
+:func:`leaf_dtype_name`.
 """
 
 from __future__ import annotations
@@ -51,8 +55,16 @@ def _nbytes(leaf) -> int:
     return int(getattr(leaf, "nbytes", 0))
 
 
-def _dtype_name(leaf) -> str:
-    return str(getattr(leaf, "dtype", "?")).removeprefix("torch.")
+#: leaves whose tensor holds another dtype's bit patterns, by field name:
+#: the Book's seen window is int32 in the port and uint32 in the JAX
+#: package, and the audit names the dtype it stores
+STORED_DTYPES = {"seen": "uint32"}
+
+
+def leaf_dtype_name(leaf, name: str = "") -> str:
+    """The dtype an audit names for ``leaf`` at path ``name``."""
+    stored = STORED_DTYPES.get(name.rsplit(".", 1)[-1])
+    return stored or str(getattr(leaf, "dtype", "?")).removeprefix("torch.")
 
 
 def state_bytes(state) -> int:
@@ -80,7 +92,7 @@ def memory_report(state, n_nodes: Optional[int] = None) -> dict:
         cls = classify_leaf(shape, n_nodes)
         entry = {
             "shape": list(shape),
-            "dtype": _dtype_name(leaf),
+            "dtype": leaf_dtype_name(leaf, name),
             "nbytes": nbytes,
             "class": cls,
         }
@@ -106,3 +118,72 @@ def publish_memory_gauges(report: dict, registry) -> None:
                        labels={"table": name, "class": entry["class"]})
     for cls, nbytes in report["by_class"].items():
         registry.gauge("corro.mem.class.bytes", nbytes, labels={"class": cls})
+
+
+def static_report(cfg, mode: str = "scale", n_nodes: Optional[int] = None,
+                  m_slots: Optional[int] = None) -> dict:
+    """The static projection of the state audit: the symbolic inventory of
+    ``cfg``'s state (``analysis/shapes.py``) evaluated at the config's
+    extents, with N (and M) rebound when given. :func:`memory_report`'s
+    schema plus each leaf's ``symbolic`` shape and the ``unresolved``,
+    ``source``, ``root`` and ``mode`` keys; no tensor is given storage."""
+    from corrosion_tpu_torch.analysis import shapes
+
+    inv = shapes.static_inventory(cfg, mode=mode)
+    overrides = {}
+    if n_nodes:
+        overrides["N"] = int(n_nodes)
+    if m_slots:
+        overrides["M"] = int(m_slots)
+    report = inv.report(overrides)
+    report["mode"] = mode
+    return report
+
+
+def projected_bytes(cfg, n_nodes: int, mode: str = "scale") -> int:
+    """Projected bytes of one state replica of ``cfg``'s family at
+    ``n_nodes``. A leaf the inventory cannot attribute raises: a single
+    number has no ``unresolved`` field to show the undercount in."""
+    report = static_report(cfg, mode=mode, n_nodes=n_nodes)
+    if report.get("unresolved"):
+        raise ValueError(
+            "static projection has unpriceable leaves "
+            f"{report['unresolved']}; the total would silently undercount"
+        )
+    return int(report["total_bytes"])
+
+
+def mem_report_cli(args) -> int:
+    """``mem-report``: build the configured state on ``--device`` (default
+    ``cuda``) and print its audit as JSON; with ``--project N[,M]`` print
+    the static projection at that point instead, building nothing."""
+    import json
+
+    from corrosion_tpu_torch.config import Config, load_config
+
+    cfg_file = load_config(args.config) if args.config else Config()
+    if args.n_nodes:
+        cfg_file.sim.n_nodes = args.n_nodes
+    cfg = cfg_file.sim_config()
+    mode = cfg_file.sim.mode
+    if getattr(args, "project", None):
+        parts = [int(p) for p in str(args.project).split(",") if p]
+        report = static_report(cfg, mode=mode, n_nodes=parts[0],
+                               m_slots=parts[1] if len(parts) > 1 else None)
+        print(json.dumps(report, indent=2))
+        return 0
+    from corrosion_tpu_torch._device import resolve_device
+
+    dev = resolve_device(getattr(args, "device", "cuda"))
+    if mode == "scale":
+        from corrosion_tpu_torch.sim.scale_step import ScaleSimState
+
+        state = ScaleSimState.create(cfg, dev)
+    else:
+        from corrosion_tpu_torch.sim.step import SimState
+
+        state = SimState.create(cfg, device=dev)
+    report = memory_report(state, cfg.n_nodes)
+    report["mode"] = mode
+    print(json.dumps(report, indent=2))
+    return 0

@@ -14,6 +14,8 @@ on CUDA tensors it launches the kernel (or raises), on CPU tensors it runs
 the plain version. There is no probe and no degrade path. Each launch adds
 one to :data:`LAUNCHES` and to its form's count in :data:`FORM_LAUNCHES`,
 so a run can show that it went through the kernels, in which forms.
+``swim_tables_fused`` and ``ingest`` are priced units (``_units.py``): a
+cost counter prices each call from its shapes, the same on either route.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from corrosion_tpu_torch._units import unit
 from corrosion_tpu_torch.ops import cuda_lib
 from corrosion_tpu_torch.ops.dense import (
     apply_changes,
@@ -190,6 +193,7 @@ def _swim_cuda(consts, mem_id, mem_view, old_id, old_view, mem_timer, mem_tx,
     return o_id, o_view, o_timer, o_tx, o_inc, o_refute
 
 
+@unit("swim_tables")
 def swim_tables_fused(consts, *args):
     """The SWIM back half (same arguments as ``swim_tables_update``): the
     kernel on CUDA tensors, the plain version on CPU tensors."""
@@ -488,6 +492,7 @@ def _ingest_cuda(p: IngestParams, x: IngestInputs) -> IngestOutputs:
     return out
 
 
+@unit("ingest")
 def ingest(p: IngestParams, x: IngestInputs) -> IngestOutputs:
     """The ingest kernel on CUDA tensors, its plain version on CPU tensors."""
     if _route(x.origin) == "cuda":

@@ -15,6 +15,11 @@ The algorithms follow ``jax/_src/prng.py`` (``threefry2x32`` with
 (``uniform``: mantissa bits ``| 0x3F800000``; ``randint``: two 32-bit draws
 and a multiply-mod). torch has no uint32 ``+``/``>>``/``<<`` on the CPU, so
 the tensor rounds run in int64 under ``& 0xFFFFFFFF``.
+
+``split``, ``fold_in``, ``bits``, ``uniform``, ``randint`` and ``top_k``
+are priced units (``_units.py``): an open cost counter prices each call
+from its shape as the JAX package's model prices the same call, whatever
+ops run inside it.
 """
 
 from __future__ import annotations
@@ -22,6 +27,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from corrosion_tpu_torch._units import unit
 
 _M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -72,6 +79,7 @@ def key_from_data(data) -> torch.Tensor:
     return _make(int(words[0]) & _M32, int(words[1]) & _M32)
 
 
+@unit("split")
 def split(k: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split``: int64 ``[num, 2]`` (key i hashes count i)."""
     k1, k2 = _words(k)
@@ -79,12 +87,14 @@ def split(k: torch.Tensor, num: int = 2) -> torch.Tensor:
                         dtype=torch.int64).reshape(num, 2)
 
 
+@unit("fold_in")
 def fold_in(k: torch.Tensor, data: int) -> torch.Tensor:
     """``jax.random.fold_in``: hash the count pair ``(0, data)``."""
     k1, k2 = _words(k)
     return _make(*_threefry(k1, k2, 0, int(data) & _M32))
 
 
+@unit("bits")
 def bits(k: torch.Tensor, shape, device) -> torch.Tensor:
     """32 random bits per element (int64 values in ``[0, 2**32)``): element
     ``i`` (row-major) hashes the 64-bit count ``i``; the two output words
@@ -96,6 +106,7 @@ def bits(k: torch.Tensor, shape, device) -> torch.Tensor:
     return (b0 ^ b1).reshape(shape)
 
 
+@unit("uniform")
 def uniform(k: torch.Tensor, shape, device, minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """float32 uniforms in ``[minval, maxval)``, bit-equal to
@@ -107,6 +118,7 @@ def uniform(k: torch.Tensor, shape, device, minval: float = 0.0,
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 
+@unit("randint")
 def randint(k: torch.Tensor, shape, minval: int, maxval: int,
             device) -> torch.Tensor:
     """int32 draws in ``[minval, maxval)``, bit-equal to
@@ -125,8 +137,11 @@ def randint(k: torch.Tensor, shape, minval: int, maxval: int,
     return (off + minval).to(torch.int32)
 
 
+@unit("top_k")
 def top_k(x: torch.Tensor, k: int):
     """``lax.top_k`` over the last axis: the ``k`` largest values and their
-    indices, the lowest index first among ties (a stable descending sort)."""
+    indices, the lowest index first among ties (a stable descending sort).
+    Both come back contiguous, whatever ``k`` is, so what a caller does
+    with them is the same work at every width."""
     vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
+    return vals[..., :k].contiguous(), idx[..., :k].contiguous()

@@ -76,11 +76,10 @@ FAST_LADDER_BYTES = 1 << 17  # 128 KiB of state: N<=64 at the chaos shapes
 def fuzz_ladder():
     """Price every rung: -> tuple of ``{"n_nodes", "bytes", "slow"}``.
 
-    ``bytes`` is one state replica at the chaos shapes
-    (:func:`scenario_config`), summed over a state built on the ``meta``
-    device (no storage is allocated); ``slow`` marks rungs past
-    :data:`FAST_LADDER_BYTES`. The figures equal the JAX package's
-    symbolic projection."""
+    ``bytes`` is the static projection of one state replica at the chaos
+    shapes (:func:`scenario_config`, ``obs.memory.projected_bytes``: no
+    storage is allocated); ``slow`` marks rungs past
+    :data:`FAST_LADDER_BYTES`. The figures equal the JAX package's."""
     out = []
     for n in LADDER_RUNGS:
         b = _rung_bytes(int(n))
@@ -94,13 +93,13 @@ def fuzz_ladder():
 
 @functools.lru_cache(maxsize=None)
 def _rung_bytes(n_nodes: int) -> int:
-    """Bytes of one state replica at ``n_nodes`` (a pure function of N;
-    cached because every ``gen_script`` call prices the ladder)."""
-    from corrosion_tpu_torch.obs.memory import state_bytes
-    from corrosion_tpu_torch.sim.scale_step import ScaleSimState
+    """Projected bytes of one state replica at ``n_nodes`` at the chaos
+    shapes (a pure function of N; cached because every ``gen_script`` call
+    prices the ladder). An unpriceable rung raises, never mis-bins."""
+    from corrosion_tpu_torch.obs.memory import projected_bytes
 
     cfg = scenario_config(probe_script(n_nodes=n_nodes))
-    return int(state_bytes(ScaleSimState.create(cfg, "meta")))
+    return projected_bytes(cfg, n_nodes, mode="scale")
 
 
 def probe_script(n_nodes: int = 24) -> ScenarioScript:

@@ -31,6 +31,7 @@ import torch
 
 from corrosion_tpu_torch import random as prng
 from corrosion_tpu_torch._device import resolve_device
+from corrosion_tpu_torch._units import arm
 from corrosion_tpu_torch.ops.dense import (
     scatter_cols_add,
     scatter_cols_set,
@@ -411,6 +412,7 @@ def _post_swim(cfg, st, net, swim, swim_info, channels, carried, k_pig, k_sp,
     cst = cst._replace(last_sync=torch.clamp(cst.last_sync + 1, max=LAST_SYNC_CAP))
 
     def run_sync(cst):
+        arm("sync")
         cand_slots, cand_sok = sample_k(bel_alive, min(2 * cfg.sync_peers, m), k_sp)
         cand_ids = select_cols(swim.mem_id, cand_slots)
         staleness = select_cols(cst.last_sync, cand_slots)
@@ -424,6 +426,7 @@ def _post_swim(cfg, st, net, swim, swim_info, channels, carried, k_pig, k_sp,
         if cfg.sync_sweep_every > 0:
             sweep = now % (max(1, cfg.sync_interval) * cfg.sync_sweep_every) == 0
             if sweep:
+                arm("sweep")
                 # the sweep lane pairs uniformly over the whole id space
                 r_peer = prng.randint(prng.fold_in(k_sp, 1), (n,), 0, n, dev)
                 peers = peers.clone()
@@ -537,6 +540,7 @@ def scale_sim_step_quiet(cfg: ScaleSimConfig, st: ScaleSimState, net: NetModel,
     quiet_ok = settled & schedule_ok
 
     if schedule_ok and bool(quiet_ok):
+        arm("fixpoint")
         crdt = st.crdt._replace(
             now=st.crdt.now + 1,
             last_sync=torch.clamp(st.crdt.last_sync + 1, max=LAST_SYNC_CAP),
@@ -552,6 +556,7 @@ def scale_sim_step_quiet(cfg: ScaleSimConfig, st: ScaleSimState, net: NetModel,
             "serve_rejects": zero, **activity_info(cfg, st_out),
         }
     else:
+        arm("dense")
         swim, swim_info = _swim_back(cfg, st.swim, front)
         st_out, info = _post_swim(cfg, st, net, swim, swim_info,
                                   list(front.channels), front.carried, k_pig,

@@ -25,6 +25,7 @@ import torch
 
 from corrosion_tpu_torch import random as prng
 from corrosion_tpu_torch._device import resolve_device
+from corrosion_tpu_torch._units import arm
 from corrosion_tpu_torch.ops.lww import STATE_ALIVE
 from corrosion_tpu_torch.ops.select import sample_k, sample_k_biased
 from corrosion_tpu_torch.ops.versions import needs_count
@@ -126,6 +127,9 @@ def sim_step(cfg: SimConfig, st: SimState, net: NetModel, key, inp: RoundInput,
         if now is None:
             now = int(st.crdt.now)
         sweep = (now + 1) % (max(1, cfg.sync_interval) * cfg.sync_sweep_every) == 0
+        if sweep:
+            arm("sweep")
+    arm("sync")
     cst, s_ok, s_info = sync_step(cfg, cst, peers, p_ok, swim.alive, net, k_sync,
                                   sweep=sweep)
     ls = torch.clamp(cst.last_sync + 1, max=LAST_SYNC_CAP)
