@@ -54,6 +54,18 @@ Phases (any failure raises and the script exits non-zero):
    round's time, each kernel unit's bytes and operations beside the kernel
    table's count for that call, and the static roofline of the three scan
    entries.
+6b. mesh: the node-axis sharding (``parallel/``), one
+   process with a thread per shard. ``scale_sim_config(100_000)`` with the
+   flagship workload, 8 rounds ending on a sync-and-sweep round, on a mesh
+   of 4 shards (the one card repeated, or 4 cards where there are): the
+   state, infos and key bitwise equal to the unsharded 8 rounds, K1-K3
+   launched 4 times a round; the same 8 rounds as 4 + 4 chained on a
+   ``(2, 2)`` multihost mesh; a checkpoint saved from the mesh of 4 (4
+   slice files) restored onto 2 shards and onto one device, 2 more rounds
+   each, bitwise equal to the uninterrupted run; ``million_config()`` (the
+   1M phase's inputs) 3 rounds on the mesh of 4, bitwise equal to
+   unsharded, in the packed/int8 forms. Prints the exchange bytes a round
+   by site, the sharded and unsharded rounds/s and the 1M leg's peak bytes.
 7. The quiet round: ``quiet="on"`` on the card against ``quiet="off"`` on
    the card and ``quiet="on"`` on the CPU, on a settled trace; every state
    leaf and info value must be bitwise equal, the fixpoint branch must run,
@@ -151,8 +163,9 @@ Phases (any failure raises and the script exits non-zero):
     N=24, seed 0, on the card, in a worker process beside (b)-(d), equal
     field for field to the JAX package's verdicts in
     ``tests/data/chaos_verdicts_jax.json`` (digests, rounds to convergence
-    and quiescence, info sums, counters, ``ok``), with exactly the mesh and
-    ``fused="off"/"interpret"`` scenarios skipped, each with its reason;
+    and quiescence, info sums, counters, ``ok``; the two remesh scenarios
+    sharded over 8, then 4 shards of the one card), with exactly the
+    ``fused="off"/"interpret"`` scenario skipped, with its reason;
     (b) ``preempt-storm`` with a settle budget of 512 at
     N=4,096, equal field for field to the JAX package's verdict in
     ``tests/data/chaos_storm_jax.json`` (converged, chaos leg bitwise,
@@ -273,8 +286,7 @@ CHAOS_STORM_VERDICT = "tests/data/chaos_storm_jax.json"
 CHAOS_VERDICTS = "tests/data/chaos_verdicts_jax.json"
 CHAOS_CORPUS = "tests/chaos_corpus/fuzz-000024-min.json"
 #: the scenarios the port skips, with a word of each reason
-CHAOS_SKIPS = {"elastic-remesh": "item 14", "corrupt-remesh": "item 14",
-               "fused-flip": "rules of the port"}
+CHAOS_SKIPS = {"fused-flip": "rules of the port"}
 # serve-overload (the host-plane scenario), held to the JAX package's verdict
 # at its defaults on its seed-pure fields and ``ok``; its slow consumer stalls
 # 400 ms a frame (the defaults' 25 ms: the port's rounds at N=8 commit too few
@@ -1135,9 +1147,15 @@ def phase_million(dev) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     mk.reset_launches()
+    kept: dict = {}
+
+    def make():
+        st, net, key, inputs = flagship_workload(cfg, total, dev)
+        kept.update(net=net, key=key, inputs=inputs)  # the mesh phase's too
+        return st, net, key, inputs
+
     st, state_bytes, rates, batch_infos = _timed_batches(
-        lambda: flagship_workload(cfg, total, dev),
-        lambda s, net, k, i: scale_run_rounds_carry(cfg, s, net, k, i),
+        make, lambda s, net, k, i: scale_run_rounds_carry(cfg, s, net, k, i),
         lambda inputs, lo, hi: ScaleRoundInput(*(a[lo:hi] for a in inputs)),
         warm, batch, reps)
     launches, forms = dict(mk.LAUNCHES), dict(mk.FORM_LAUNCHES)
@@ -1161,7 +1179,207 @@ def phase_million(dev) -> dict:
           f"memory {peak} bytes; carried state {state_bytes} bytes "
           f"({state_bytes / n!r} B/node); launches {forms}; info sums {sums}",
           flush=True)
-    return {"rounds_per_s": median, "peak_bytes": peak, "forms": forms, "audit": audit}
+    return {"rounds_per_s": median, "peak_bytes": peak, "forms": forms, "audit": audit,
+            "workload": kept}
+
+
+MESH_SHARDS = 4
+MESH_ROUNDS = 8  # flagship rounds on the mesh; the last is a sync-and-sweep round
+MESH_MILLION_ROUNDS = 3
+MESH_RESUME_ROUNDS = 2  # rounds run after each restore of the sharded checkpoint
+
+
+def _mesh_devices(dev, k: int) -> tuple:
+    """The mesh's devices: k cards when the machine has them, else the one
+    card repeated; -> (devices, a word for the log)."""
+    import torch
+
+    if dev.type == "cuda" and torch.cuda.device_count() >= k:
+        return [torch.device("cuda", i) for i in range(k)], f"{k} cards"
+    return [dev] * k, f"{dev} x{k} (one card, {k} shards)"
+
+
+def _same_state(label, want, got) -> None:
+    """Every leaf of ``got`` (a state or a mesh-placed one) equals
+    ``want``'s, bitwise."""
+    from corrosion_tpu_torch.parallel.mesh import ShardedTree
+
+    if isinstance(got, ShardedTree):
+        got = got.assemble(_flat(want)[0].device)
+    a, b = _flat(want), _flat(got)
+    if len(a) != len(b) or not all(x.dtype == y.dtype and x.shape == y.shape
+                                   and bool((x == y).all()) for x, y in zip(a, b)):
+        raise AssertionError(f"mesh {label}: state differs from the unsharded run")
+
+
+def _same_infos(label, want: dict, got: dict) -> None:
+    import torch
+
+    if sorted(want) != sorted(got) or not all(
+            torch.equal(want[k].cpu(), got[k].cpu()) for k in want):
+        raise AssertionError(f"mesh {label}: round infos differ from the unsharded run")
+
+
+def _mesh_launches(label, shards: int, rounds: int, want_forms: dict) -> dict:
+    """K1-K3 launched once a round on every shard, in the path's forms."""
+    from corrosion_tpu_torch.ops import megakernel as mk
+
+    want = {k: shards * rounds for k in mk.LAUNCHES}
+    forms = dict(mk.FORM_LAUNCHES)
+    if dict(mk.LAUNCHES) != want or forms != {f: shards * rounds for f in want_forms}:
+        raise AssertionError(f"mesh {label}: launches {dict(mk.LAUNCHES)} {forms}, "
+                             f"want {want}")
+    return forms
+
+
+def phase_mesh(dev, million_workload: dict) -> dict:
+    """The node-axis sharding (``parallel/``) on the card: the flagship on
+    a mesh of ``MESH_SHARDS`` (one card repeated, or that many cards), a
+    ``(2, 2)`` carry chain, the 1M point on the mesh, a sharded checkpoint
+    restored onto 2 shards and onto one device; each bitwise equal to the
+    unsharded run, with K1-K3 launched on every shard every round."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from corrosion_tpu_torch.ops import megakernel as mk
+    from corrosion_tpu_torch.parallel import (
+        make_mesh,
+        make_multihost_mesh,
+        shard_state,
+        sharded_scale_run_carry,
+    )
+    from corrosion_tpu_torch.resilience import resume_segmented, run_segmented
+    from corrosion_tpu_torch.sim.scale_step import (
+        ScaleRoundInput,
+        ScaleSimState,
+        flagship_workload,
+        million_config,
+        scale_run_rounds_carry,
+        scale_sim_config,
+    )
+
+    k = MESH_SHARDS
+    devices, where = _mesh_devices(dev, k)
+    print(f"[mesh] {k} shards on {where}; {torch.cuda.device_count()} visible "
+          f"card(s)", flush=True)
+    cut = lambda inputs, lo, hi: ScaleRoundInput(*(a[lo:hi] for a in inputs))  # noqa: E731
+
+    # --- flagship: 8 rounds ending on a sync-and-sweep round -------------
+    cfg = scale_sim_config(FLAGSHIP_NODES)
+    st0, net, key, inputs = flagship_workload(cfg, MESH_ROUNDS, dev)
+    sweep_at = max(1, cfg.sync_interval) * cfg.sync_sweep_every
+    st0 = st0._replace(crdt=st0.crdt._replace(
+        now=torch.full_like(st0.crdt.now, sweep_at - MESH_ROUNDS)))
+    torch.cuda.synchronize()
+    mk.reset_launches()
+    t0 = time.perf_counter()
+    (ref, ref_key), ref_infos = scale_run_rounds_carry(cfg, st0, net, key, inputs)
+    torch.cuda.synchronize()
+    plain_rate = MESH_ROUNDS / (time.perf_counter() - t0)
+    _mesh_launches("flagship unsharded", 1, MESH_ROUNDS, {
+        ("swim_tables", "aligned/16/16"), ("ingest", "16/16"), ("ingest_emit", "16/16")})
+    if int(ref_infos["syncs"][-1]) <= 0:
+        raise AssertionError("mesh flagship: the last round did not sync")
+    mesh = make_mesh(devices)
+    mk.reset_launches()
+    exchanges: list = []
+    t0 = time.perf_counter()
+    (out, out_key), infos = sharded_scale_run_carry(cfg, mesh, st0, net, key, inputs,
+                                                    exchanges=exchanges)
+    for d in set(devices):
+        torch.cuda.synchronize(d)
+    mesh_rate = MESH_ROUNDS / (time.perf_counter() - t0)
+    forms = _mesh_launches("flagship", k, MESH_ROUNDS, {
+        ("swim_tables", "aligned/16/16"), ("ingest", "16/16"), ("ingest_emit", "16/16")})
+    _same_state("flagship", ref, out)
+    _same_infos("flagship", ref_infos, infos)
+    if not torch.equal(ref_key, out_key):
+        raise AssertionError("mesh flagship: the carried key differs")
+    del out
+    print(f"[mesh] flagship N={FLAGSHIP_NODES}, {MESH_ROUNDS} rounds (now "
+          f"{sweep_at - MESH_ROUNDS + 1}..{sweep_at}, the last a sync-and-sweep "
+          f"round) on {k} shards: bitwise equal to the unsharded run, state and "
+          f"infos; launches {forms} ({k} a round each); {mesh_rate!r} rounds/s "
+          f"sharded vs {plain_rate!r} unsharded", flush=True)
+    print(f"[mesh] exchange bytes a round by site at N={FLAGSHIP_NODES} on {k} "
+          f"shards: round 1 {exchanges[0]}; total {sum(exchanges[0].values())}; the "
+          f"sync-and-sweep round {exchanges[-1]}; total {sum(exchanges[-1].values())}",
+          flush=True)
+
+    # --- the (2, 2) carry chain: 4 + 4 rounds ------------------------------
+    mesh22 = make_multihost_mesh(2, devices)
+    half = MESH_ROUNDS // 2
+    (carry, ck), _ = sharded_scale_run_carry(cfg, mesh22, st0, net, key, cut(inputs, 0, half))
+    (carry, ck), _ = sharded_scale_run_carry(cfg, mesh22, carry, net, ck,
+                                             cut(inputs, half, MESH_ROUNDS))
+    _same_state("(2, 2) carry chain", ref, carry)
+    if not torch.equal(ref_key, ck):
+        raise AssertionError("mesh carry chain: the carried key differs")
+    del carry
+    print(f"[mesh] (2, 2) multihost mesh, {half} + {half} rounds chained: bitwise "
+          f"equal to the straight unsharded run", flush=True)
+
+    # --- the sharded checkpoint: save on 4, restore onto 2 and onto 1 -----
+    total = half + MESH_RESUME_ROUNDS
+    (want, _), want_infos = scale_run_rounds_carry(cfg, st0, net, key, cut(inputs, 0, total))
+    tmp = tempfile.mkdtemp(prefix="chip-mesh-")
+    try:
+        root = os.path.join(tmp, "saved")
+        t0 = time.perf_counter()
+        saved = run_segmented(cfg, shard_state(mesh, cfg.n_nodes, st0), net, key,
+                              cut(inputs, 0, half), half, checkpoint_root=root)
+        save_s = time.perf_counter() - t0
+        if saved.stats["ckpt_shards"] != k or saved.aborted:
+            raise AssertionError(f"mesh checkpoint: {saved.stats}")
+        for label, target in (("2 shards", make_mesh(devices[:2])), ("one device", None)):
+            copy = os.path.join(tmp, label.replace(" ", "-"))
+            shutil.copytree(root, copy)
+            t0 = time.perf_counter()
+            res = resume_segmented(cfg, net, cut(inputs, 0, total), MESH_RESUME_ROUNDS,
+                                   checkpoint_root=copy, mesh=target)
+            resume_s = time.perf_counter() - t0
+            if res.completed_rounds != total or res.aborted:
+                raise AssertionError(f"mesh resume onto {label}: {res.completed_rounds}")
+            _same_state(f"resume onto {label}", want, res.state)
+            _same_infos(f"resume onto {label}",
+                        {kk: v[half:] for kk, v in want_infos.items()}, res.infos)
+            print(f"[mesh] checkpoint saved on {k} shards ({k} slice files, "
+                  f"{save_s:.1f} s with the segment) restored onto {label}, "
+                  f"{MESH_RESUME_ROUNDS} more rounds: bitwise equal to the "
+                  f"uninterrupted run ({resume_s:.1f} s)", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del want, ref, st0
+
+    # --- the 1M point on the mesh: packed K1, int8 tiers per shard --------
+    mcfg = million_config(MILLION_NODES)
+    mnet, mkey = million_workload["net"], million_workload["key"]
+    minputs = cut(million_workload["inputs"], 0, MESH_MILLION_ROUNDS)
+    mst = ScaleSimState.create(mcfg, dev)
+    (mref, _), mref_infos = scale_run_rounds_carry(mcfg, mst, mnet, mkey, minputs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mk.reset_launches()
+    t0 = time.perf_counter()
+    (mout, _), minfos = sharded_scale_run_carry(mcfg, mesh, mst, mnet, mkey, minputs)
+    for d in set(devices):
+        torch.cuda.synchronize(d)
+    m_rate = MESH_MILLION_ROUNDS / (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    mforms = _mesh_launches("1M", k, MESH_MILLION_ROUNDS, {
+        ("swim_tables", "packed/16/8"), ("ingest", "16/8"), ("ingest_emit", "16/8")})
+    _same_state("1M", mref, mout)
+    _same_infos("1M", mref_infos, minfos)
+    print(f"[mesh] 1M point ({MILLION_NODES} nodes, pig_members={mcfg.pig_members}, "
+          f"int8 mem_tx/q_tx) {MESH_MILLION_ROUNDS} rounds on {k} shards: bitwise "
+          f"equal to the unsharded run; launches {mforms}; {m_rate!r} rounds/s; "
+          f"peak device memory {peak} bytes", flush=True)
+    return {"flagship_rounds_per_s": mesh_rate, "unsharded_rounds_per_s": plain_rate,
+            "exchanges": exchanges, "million_rounds_per_s": m_rate, "peak_bytes": peak}
+
 
 
 def phase_full_trajectory(dev) -> None:
@@ -2649,8 +2867,10 @@ def _counting_rounds(tally: dict):
 
     real = scale_step.scale_run_rounds_carry
 
-    def counting(cfg, st, net, key, inputs):
-        out = real(cfg, st, net, key, inputs)
+    def counting(cfg, st, net, key, inputs, axis=None):
+        # on a mesh every shard runs the loop: its rounds count once per
+        # shard, as its launches do
+        out = real(cfg, st, net, key, inputs, axis=axis)
         n = int(inputs.kill.shape[0])
         cheap = int(out[1]["quiet_round"].sum()) if "quiet_round" in out[1] else 0
         tally["rounds"] += n
@@ -2702,8 +2922,9 @@ def phase_chaos(dev) -> dict:
     its N=24, seed 0, in a worker process (``_chaos_sweep``) while (b)-(d)
     run here, against the JAX package's verdicts (``CHAOS_VERDICTS``, read,
     no JAX imported): the digests, rounds to convergence and quiescence,
-    info sums, counters and ``ok`` equal field for field; the scenarios on a
-    mesh or ``fused="off"/"interpret"`` skip with their reasons.
+    info sums, counters and ``ok`` equal field for field (the mesh scenarios
+    sharded over the card repeated, 8 shards then 4); the scenario on
+    ``fused="off"/"interpret"`` skips with its reason.
     (b) ``preempt-storm`` at ``CHAOS_STORM_NODES`` equals the JAX
     package's verdict there (``CHAOS_STORM_VERDICT``) field for field: it
     converges, its chaos leg matches the straight run bitwise, every
@@ -2771,6 +2992,10 @@ def phase_chaos(dev) -> dict:
                     if rec.get(k) != want.get(k)}
             raise AssertionError(f"chaos {name} differs from JAX's verdict: {diff}")
     ran = sorted(set(recs) - skipped)
+    meshes = {n: (s.mesh_devices, [i.mesh_devices for i in s.injections if i.kind == "remesh"])
+              for n, s in chaos.SCENARIOS.items() if s.mesh_devices}
+    print(f"[chaos] (a) the mesh scenarios' shards all on {dev} (the run's device "
+          f"repeated; initial shards, remesh targets): {meshes}", flush=True)
     print(f"[chaos] (a) {len(ran)} scenarios at N=24 on {dev} (a worker process) equal "
           f"JAX's verdicts field for field ({ran}); skipped "
           f"{ {n: recs[n]['skipped'] for n in sorted(skipped)} }; rounds to convergence "
@@ -3369,6 +3594,8 @@ def main() -> int:
     done("million")
     phase_cost(dev, million.pop("audit"))
     done("cost")
+    phase_mesh(dev, million.pop("workload"))
+    done("mesh")
     phase_quiet(dev)
     done("quiet")
     phase_full_trajectory(dev)

@@ -369,17 +369,17 @@ class Agent:
         newest valid checkpoint under ``checkpoint_root`` instead of the
         live state. The inputs are ``make_soak_inputs`` from the config's
         seed; segments run under the agent's supervisor, if it has one.
-        ``mesh`` (a sharded soak) is not ported yet.
+        ``mesh`` (``parallel/mesh.Mesh``) shards the soak over the node
+        axis: state, net and inputs are placed on it, checkpoints drain
+        one slice file per shard, ``resume`` places the newest checkpoint
+        on this mesh whatever mesh wrote it, and the agent adopts the
+        final carry back on its own device.
 
         The observer comes from ``config.obs`` (flight path, Prometheus
         port, profiler labels) or, with that section idle, is a
         bridge-only observer onto the agent's own metrics registry, so a
         soak always advances ``corro.soak.rounds_total`` on this agent's
         ``/metrics``; it is closed before returning."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "a sharded soak is not ported yet (ROADMAP Queue 1 item 14: "
-                "the node-axis sharding)")
         if self._thread is not None and self._thread.is_alive():
             raise RuntimeError("stop the round loop before a soak dispatch")
         if resume and not checkpoint_root:
@@ -403,18 +403,30 @@ class Agent:
                or SoakObserver(registry=self.metrics, serve_registry=self.metrics))
         common = dict(checkpoint_root=checkpoint_root, keep_last=keep_last,
                       db=self.recovery_db, supervisor=self._supervisor, obs=obs)
+        net, st = self._net, self._state
+        if mesh is not None:
+            from corrosion_tpu_torch.parallel.mesh import shard_state
+
+            # placement copies: the agent's own state stays as it is
+            # whatever happens to the sharded run
+            inputs = shard_state(mesh, self.cfg.n_nodes, inputs)
+            net = shard_state(mesh, self.cfg.n_nodes, net)
+            if not resume:
+                st = shard_state(mesh, self.cfg.n_nodes, st)
         try:
             if resume:
-                result = resume_segmented(self.cfg, self._net, inputs,
-                                          segment_rounds, **common)
+                result = resume_segmented(self.cfg, net, inputs,
+                                          segment_rounds, mesh=mesh, **common)
             else:
-                result = run_segmented(self.cfg, self._state, self._net,
-                                       self._key, inputs, segment_rounds,
-                                       **common)
+                result = run_segmented(self.cfg, st, net, self._key, inputs,
+                                       segment_rounds, **common)
         finally:
             obs.close()
+        adopted = result.state
+        if mesh is not None:
+            adopted = adopted.assemble(self.device)
         with self._input_lock:
-            self._state = result.state
+            self._state = adopted
             self._key = result.key
             self._now = None  # read the adopted state's round counter once
             if resume:

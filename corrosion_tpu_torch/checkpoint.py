@@ -1,11 +1,17 @@
-"""Checkpoints: the single-device format-3 layout (port of
-``corrosion_tpu/checkpoint.py``).
+"""Checkpoints: the format-3 layout (port of ``corrosion_tpu/checkpoint.py``).
 
-A checkpoint is a directory: one ``shard-00000.npz`` holding every state
-leaf (npz keys ``leaf_<i>_0``), and a ``manifest.json`` that records the
-format, the mode (``"scale"`` or ``"full"``), the round, the sim config
-(``dataclasses.asdict``), each leaf's shape and numpy dtype, where each
-leaf lives, and each file's SHA-256. The files are the JAX package's, in
+A checkpoint is a directory of slice files ``shard-%05d.npz`` (npz keys
+``leaf_<i>_<start>``) and a ``manifest.json`` that records the format, the
+mode (``"scale"`` or ``"full"``), the round, the sim config
+(``dataclasses.asdict``), the saving mesh, each leaf's shape, numpy dtype,
+sharded dim and mesh axes, which slices each file holds, and each file's
+SHA-256. A single-device save writes every leaf whole into
+``shard-00000.npz``; a save from a mesh (``shards=``, the per-shard drain
+of ``parallel/mesh.host_shard_copy``) writes one file per shard, shard k
+holding the k-th window of every sharded leaf and shard 0 the replicated
+ones. A load reassembles the slices (their windows must tile each sharded
+dim exactly) and places the state on one device or, with ``mesh=``, on
+any mesh (elastic restore). The files are the JAX package's, in
 both directions: leaves go in the field order of the nested state
 NamedTuples (``jax.tree.leaves`` order), dtypes are numpy names, and
 ``Book.seen``, which the port carries as int32 bit patterns, is written as
@@ -21,10 +27,6 @@ manifest's ``db``; :func:`restore_checkpoint` swaps both back in. A
 host database beside it), and :func:`restore_backup` grafts them onto a
 node of a live agent, re-pivoting site ids to the new identity. The files
 are the JAX package's in both directions here too.
-
-The mesh-sharded save and the elastic restore are not ported: a
-checkpoint whose manifest records a mesh of more than one device is
-refused whole, never loaded in part.
 """
 
 from __future__ import annotations
@@ -33,7 +35,6 @@ import dataclasses
 import hashlib
 import io
 import json
-import math
 import os
 from typing import Optional, Tuple
 
@@ -44,7 +45,6 @@ from corrosion_tpu_torch._device import resolve_device
 
 FORMAT_VERSION = 3
 _SUPPORTED_FORMATS = (1, 2, 3)
-_SHARD_FILE = "shard-00000.npz"
 #: the leaf the port holds as int32 bits and the files hold as uint32
 _SEEN_PATH = ("crdt", "book", "seen")
 
@@ -176,27 +176,67 @@ def config_mode(cfg) -> str:
     return "scale" if isinstance(cfg, ScaleSimConfig) else "full"
 
 
-def save_checkpoint(agent, db=None, path: str = "./checkpoint") -> str:
+def save_checkpoint(agent, db=None, path: str = "./checkpoint", shards=None) -> str:
     """Write a live agent's state after ``agent.round_no`` rounds to the
     directory ``path``, with ``db.state_dict()`` (the host database) under
     the manifest's ``db`` (the JAX package's signature, which the admin
-    socket and the maintenance loop call)."""
-    return save_state_checkpoint(agent.cfg, agent.device_state(), agent.round_no,
-                                 path, db=db)
+    socket and the maintenance loop call). ``shards``: a mesh-placed state
+    drained per shard, written in its place as one slice file per shard."""
+    return save_state_checkpoint(agent.cfg,
+                                 agent.device_state() if shards is None else None,
+                                 agent.round_no, path, db=db, shards=shards)
+
+
+def _slice_key(leaf: int, start: int) -> str:
+    return f"leaf_{leaf}_{start}"
+
+
+def _shard_filename(ordinal: int) -> str:
+    return f"shard-{ordinal:05d}.npz"
+
+
+def _leaf_records(state, shards) -> tuple:
+    """-> (records, mesh meta): per leaf ``(dim, axes, shape, dtype,
+    parts)`` in file dtypes, ``parts`` = ``((start, ndarray), ...)``."""
+    if shards is None:
+        return [(None, None, a.shape, a.dtype, ((0, a),))
+                for a in host_arrays(state)], None
+    from corrosion_tpu_torch.parallel.mesh import drained_mesh_meta
+
+    records = []
+    for path, hs in named_leaves(shards):
+        parts = tuple((start, a.view(np.uint32) if path == _SEEN_PATH else a)
+                      for start, a in hs.parts)
+        records.append((hs.dim, hs.axes, hs.shape, parts[0][1].dtype, parts))
+    return records, drained_mesh_meta(shards)
+
+
+def _slice_groups(records) -> dict:
+    """The k-th window of every sharded leaf goes to shard file k, every
+    whole leaf to file 0: ``{ordinal: [(leaf, start, stop, array), ...]}``."""
+    groups: dict = {}
+    for i, (dim, _axes, _shape, _dtype, parts) in enumerate(records):
+        for k, (start, arr) in enumerate(parts):
+            ordinal, stop = (0, None) if dim is None else (k, start + arr.shape[dim])
+            groups.setdefault(ordinal, []).append((i, start, stop, arr))
+    return groups
 
 
 def save_state_checkpoint(cfg, state, round_no: int, path: str,
-                          extra: Optional[dict] = None, db=None) -> str:
+                          extra: Optional[dict] = None, db=None, shards=None) -> str:
     """Write ``state`` (of ``cfg``, after ``round_no`` rounds; on any
     device, the soak runner hands over CPU copies) to the directory
     ``path``; ``db``, when given, is the host database whose
-    ``state_dict()`` goes under the manifest's ``db``.
+    ``state_dict()`` goes under the manifest's ``db``. ``shards`` (the
+    state drained per shard, ``parallel/mesh.host_shard_copy``) replaces
+    ``state`` and writes one slice file per shard.
 
     Crash-safe ordering: the manifest is removed first and written LAST
     through an atomic rename, so a directory without a manifest is
-    incomplete by definition; the state file's SHA-256 is recorded in the
-    manifest, so later corruption is detected on load. ``extra`` is a
-    JSON-able payload stored in the manifest (the soak runner's carry)."""
+    incomplete by definition; every state file's SHA-256 is recorded in
+    the manifest, so later corruption (one damaged slice too) is detected
+    on load. ``extra`` is a JSON-able payload stored in the manifest (the
+    soak runner's carry)."""
     os.makedirs(path, exist_ok=True)
     manifest_path = os.path.join(path, "manifest.json")
     if os.path.exists(manifest_path):
@@ -206,26 +246,37 @@ def save_state_checkpoint(cfg, state, round_no: int, path: str,
         if name == "state.npz" or (
                 name.startswith("shard-") and name.endswith(".npz")):
             os.unlink(os.path.join(path, name))
-    arrays = host_arrays(state)
-    buf = io.BytesIO()
-    np.savez_compressed(buf, **{f"leaf_{i}_0": a for i, a in enumerate(arrays)})
-    blob = buf.getvalue()
-    _write_bytes(os.path.join(path, _SHARD_FILE), blob)
-    files = {_SHARD_FILE: hashlib.sha256(blob).hexdigest()}
+    records, mesh_meta = _leaf_records(state, shards)
+    groups = _slice_groups(records)
+    files = {}
+    for ordinal, entries in sorted(groups.items()):
+        buf = io.BytesIO()
+        np.savez_compressed(buf, **{_slice_key(leaf, start): a
+                                    for leaf, start, _stop, a in entries})
+        blob = buf.getvalue()
+        name = _shard_filename(ordinal)
+        _write_bytes(os.path.join(path, name), blob)
+        files[name] = hashlib.sha256(blob).hexdigest()
     manifest = {
         "format": FORMAT_VERSION,
         "mode": config_mode(cfg),
         "round": round_no,
         "sim_config": dataclasses.asdict(cfg),
-        "n_leaves": len(arrays),
-        "mesh": None,
+        "n_leaves": len(records),
+        "mesh": mesh_meta,
         "leaves": [
-            {"dim": None, "axes": None, "shape": [int(s) for s in a.shape],
-             "dtype": str(a.dtype)}
-            for a in arrays
+            {"dim": dim, "axes": list(axes) if axes else None,
+             "shape": [int(s) for s in shape], "dtype": str(dtype)}
+            for dim, axes, shape, dtype, _parts in records
         ],
-        "slices": {_SHARD_FILE: [{"leaf": i, "start": 0, "stop": None}
-                                 for i in range(len(arrays))]},
+        "slices": {
+            _shard_filename(ordinal): [
+                {"leaf": leaf, "start": int(start),
+                 "stop": None if stop is None else int(stop)}
+                for leaf, start, stop, _a in entries
+            ]
+            for ordinal, entries in sorted(groups.items())
+        },
         "files": files,
         "db": db.state_dict() if db is not None else None,
     }
@@ -238,23 +289,14 @@ def save_state_checkpoint(cfg, state, round_no: int, path: str,
     return path
 
 
-def _refuse_sharded(path: str, manifest: dict) -> None:
-    mesh = manifest.get("mesh")
-    devices = math.prod(mesh["shape"]) if mesh else 1
-    if devices > 1 or any(m.get("dim") is not None
-                          for m in manifest.get("leaves") or []):
-        raise ValueError(
-            f"checkpoint {path} was saved sharded over a mesh of {devices} "
-            f"devices; the port restores single-device checkpoints only "
-            f"(the sharded restore is ROADMAP Queue 1 item 14)"
-        )
-
-
 def _load_slices_v3(path: str, manifest: dict) -> list:
-    """The v3 slice files of a single-device save, as whole host leaves;
-    every leaf once, in its manifest dtype and shape."""
+    """Reassemble the v3 slice files into whole host leaves. Every slice's
+    shape and dtype are checked against the manifest, and a sharded dim's
+    windows must tile ``[0, shape[dim])`` exactly: a missing, repeated or
+    overlapping slice is corruption, never a partial restore."""
     metas = manifest["leaves"]
     out: list = [None] * manifest["n_leaves"]
+    windows: dict = {i: [] for i in range(manifest["n_leaves"])}
     for fname, entries in (manifest.get("slices") or {}).items():
         fp = os.path.join(path, fname)
         if not os.path.exists(fp):
@@ -263,29 +305,61 @@ def _load_slices_v3(path: str, manifest: dict) -> list:
             )
         with np.load(fp) as z:
             for e in entries:
-                i, start = int(e["leaf"]), int(e["start"])
-                arr = z[f"leaf_{i}_{start}"]
+                i, start, stop = int(e["leaf"]), int(e["start"]), e["stop"]
                 meta = metas[i]
+                shape, dim = tuple(meta["shape"]), meta["dim"]
+                arr = z[_slice_key(i, start)]
                 if str(arr.dtype) != meta["dtype"]:
                     raise CheckpointIntegrityError(
                         f"checkpoint {path}: slice {fname}:{i}@{start} "
                         f"dtype {arr.dtype} != manifest {meta['dtype']}"
                     )
-                if tuple(arr.shape) != tuple(meta["shape"]):
+                if dim is None:
+                    if tuple(arr.shape) != shape:
+                        raise CheckpointIntegrityError(
+                            f"checkpoint {path}: leaf {i} shape {arr.shape} != "
+                            f"manifest {shape}"
+                        )
+                    out[i] = arr
+                    windows[i].append((0, shape[0] if shape else 1))
+                    continue
+                stop = int(stop)
+                want = shape[:dim] + (stop - start,) + shape[dim + 1:]
+                if tuple(arr.shape) != want:
                     raise CheckpointIntegrityError(
-                        f"checkpoint {path}: leaf {i} shape {arr.shape} != "
-                        f"manifest {tuple(meta['shape'])}"
+                        f"checkpoint {path}: slice {fname}:{i}@{start} shape "
+                        f"{arr.shape} != manifest window {want}"
                     )
-                if out[i] is not None:
-                    raise CheckpointIntegrityError(
-                        f"checkpoint {path}: unsharded leaf {i} has more "
-                        f"than one slice"
-                    )
-                out[i] = arr
-    for i, arr in enumerate(out):
-        if arr is None:
+                if out[i] is None:
+                    out[i] = np.empty(shape, dtype=arr.dtype)
+                out[i][(slice(None),) * dim + (slice(start, stop),)] = arr
+                windows[i].append((start, stop))
+    for i, meta in enumerate(metas):
+        if out[i] is None:
             raise CheckpointIntegrityError(
                 f"checkpoint {path}: no slices recorded for leaf {i}"
+            )
+        dim = meta["dim"]
+        if dim is None:
+            if len(windows[i]) != 1:
+                raise CheckpointIntegrityError(
+                    f"checkpoint {path}: unsharded leaf {i} has "
+                    f"{len(windows[i])} slices"
+                )
+            continue
+        cursor = 0
+        for start, stop in sorted(windows[i]):
+            if start != cursor:
+                raise CheckpointIntegrityError(
+                    f"checkpoint {path}: leaf {i} slice coverage has a "
+                    f"gap/overlap at index {cursor} (next slice starts at "
+                    f"{start})"
+                )
+            cursor = stop
+        if cursor != meta["shape"][dim]:
+            raise CheckpointIntegrityError(
+                f"checkpoint {path}: leaf {i} slices cover only [0, {cursor}) "
+                f"of dim {dim} (size {meta['shape'][dim]})"
             )
     return out
 
@@ -315,7 +389,6 @@ def _read(path: str, verify: bool):
         manifest = json.load(f)
     if manifest["format"] not in _SUPPORTED_FORMATS:
         raise ValueError(f"unsupported checkpoint format {manifest['format']}")
-    _refuse_sharded(path, manifest)
     if verify:
         _verify_files(path, manifest)
     if manifest["mode"] == "scale":
@@ -348,18 +421,26 @@ def _read(path: str, verify: bool):
     return manifest, template, loaded
 
 
-def load_checkpoint(path: str, verify: bool = True,
-                    device="cuda") -> Tuple[dict, object]:
-    """-> (manifest, state) with the state's leaves on ``device``. The
-    state is rebuilt against a template constructed from the saved
-    config, so leaf order, shape and dtype mismatches fail loudly; the
-    file hashes are verified before anything is deserialized."""
-    dev = resolve_device(device)
+def load_checkpoint(path: str, verify: bool = True, device="cuda",
+                    mesh=None) -> Tuple[dict, object]:
+    """-> (manifest, state) with the state's leaves on ``device``, or, with
+    ``mesh`` (``parallel/mesh.Mesh``), placed on that mesh as a
+    ``ShardedTree``, whatever mesh saved it (another shard count, 1-D or
+    ``(dcn, node)``, or none): the elastic restore. The state is rebuilt
+    against a template constructed from the saved config, so leaf order,
+    shape and dtype mismatches fail loudly; the file hashes are verified
+    before anything is deserialized."""
     manifest, template, loaded = _read(path, verify)
-    tensors = [
-        torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a).to(dev)
-        for a in loaded
-    ]
+    arrays = [a.view(np.int32) if a.dtype == np.uint32 else a for a in loaded]
+    if mesh is not None:
+        from corrosion_tpu_torch.parallel.mesh import place_restored
+
+        metas = manifest.get("leaves") or [{"dim": None}] * len(arrays)
+        n_nodes = manifest["sim_config"]["n_nodes"]
+        return manifest, place_restored(mesh, n_nodes, template, arrays,
+                                        [m.get("dim") for m in metas])
+    dev = resolve_device(device)
+    tensors = [torch.from_numpy(a).to(dev) for a in arrays]
     return manifest, _rebuild(template, iter(tensors))
 
 

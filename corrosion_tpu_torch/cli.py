@@ -39,8 +39,9 @@ Mirrors the reference binary's command surface (``Command`` enum,
 ``agent``, ``devcluster``, ``soak``, ``chaos``, ``fuzz``, ``load``,
 ``san`` and ``mem-report`` take ``--device`` (default ``cuda``). Under
 ``CORROSAN=1``, ``chaos``, ``fuzz`` and ``load`` run inside one corrosan
-window and fail on its findings. A sharded soak (``--shard``, ROADMAP
-Queue 1 item 14) is not ported yet.
+window and fail on its findings. ``soak --shard N`` shards the soak over
+the first N cards (``--mesh-hosts H`` folds them into an ``(H, N/H)``
+``(dcn, node)`` mesh).
 
 Run as ``python -m corrosion_tpu_torch <command>``.
 """
@@ -319,10 +320,6 @@ def cmd_soak(args) -> int:
     from corrosion_tpu_torch.sim.transport import NetModel
     from corrosion_tpu_torch.utils.tracing import configure_otlp_file, flush_otlp
 
-    if args.shard or args.mesh_hosts:
-        raise SystemExit(
-            "--shard/--mesh-hosts: a sharded soak is not ported yet "
-            "(ROADMAP Queue 1 item 14)")
     if args.fused in ("off", "interpret"):
         raise SystemExit(
             f"--fused {args.fused}: the port has no XLA or interpret path; "
@@ -345,6 +342,29 @@ def cmd_soak(args) -> int:
                           n_regions=cfg_file.gossip.n_regions, device=dev)
     inputs = make_soak_inputs(cfg, prng.key(cfg_file.sim.seed + 1), args.rounds,
                               write_frac=args.write_frac, device=dev)
+    mesh = None
+    if args.shard:
+        # shard the soak over the first --shard cards: checkpoints drain
+        # one slice per shard, and --resume places a checkpoint written on
+        # any mesh onto this one (elastic restore)
+        import torch
+
+        from corrosion_tpu_torch.parallel.mesh import (
+            make_mesh,
+            make_multihost_mesh,
+            shard_state,
+        )
+
+        have = torch.cuda.device_count() if dev.type == "cuda" else 0
+        if args.shard > have:
+            raise SystemExit(
+                f"--shard {args.shard} exceeds the {have} available devices"
+            )
+        devices = [torch.device("cuda", i) for i in range(args.shard)]
+        mesh = (make_multihost_mesh(args.mesh_hosts, devices)
+                if args.mesh_hosts else make_mesh(devices))
+        net = shard_state(mesh, cfg.n_nodes, net)
+        inputs = shard_state(mesh, cfg.n_nodes, inputs)
     supervisor = Supervisor(deadline_seconds=args.deadline or None)
     # the observability flags override the [obs] section; one observer
     # covers the run: flight record, live /metrics, spans
@@ -365,7 +385,8 @@ def cmd_soak(args) -> int:
     )
     try:
         if args.resume:
-            result = resume_segmented(cfg, net, inputs, args.segment, **common)
+            result = resume_segmented(cfg, net, inputs, args.segment, mesh=mesh,
+                                      **common)
         else:
             if cfg_file.sim.mode == "scale":
                 from corrosion_tpu_torch.sim.scale_step import ScaleSimState
@@ -375,6 +396,8 @@ def cmd_soak(args) -> int:
                 from corrosion_tpu_torch.sim.step import SimState
 
                 st = SimState.create(cfg, device=dev)
+            if mesh is not None:
+                st = shard_state(mesh, cfg.n_nodes, st)
             result = run_segmented(cfg, st, net, prng.key(cfg_file.sim.seed),
                                    inputs, args.segment, **common)
     finally:
@@ -885,10 +908,12 @@ def build_parser() -> argparse.ArgumentParser:
                          "loop instead of the overlapped background "
                          "writer")
     sk.add_argument("--shard", type=int, default=0,
-                    help="a sharded soak: not ported yet (ROADMAP Queue 1 "
-                         "item 14); any value but 0 exits")
+                    help="shard the soak over the first N cards: per-shard "
+                         "checkpoint drains, and --resume reshards a "
+                         "checkpoint from any mesh onto this one")
     sk.add_argument("--mesh-hosts", type=int, default=0,
-                    help="with --shard: not ported yet (item 14)")
+                    help="with --shard: fold the cards into a 2-D "
+                         "(dcn, node) mesh over this many hosts")
     from corrosion_tpu_torch.sim.config import FUSED_MODES, QUIET_MODES
 
     sk.add_argument("--fused", choices=list(FUSED_MODES), default=None,

@@ -13,14 +13,18 @@ A wrapper picks its route from the tensors it is given and nothing else:
 on CUDA tensors it launches the kernel (or raises), on CPU tensors it runs
 the plain version. There is no probe and no degrade path. Each launch adds
 one to :data:`LAUNCHES` and to its form's count in :data:`FORM_LAUNCHES`,
-so a run can show that it went through the kernels, in which forms.
+so a run can show that it went through the kernels, in which forms. On a
+mesh each shard thread counts its own launches
+(:func:`shard_launch_counts`), and the runner adds them in after the join.
 ``swim_tables_fused`` and ``ingest`` are priced units (``_units.py``): a
 cost counter prices each call from its shapes, the same on either route.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import threading
 from typing import NamedTuple, Optional
 
 import torch
@@ -55,21 +59,59 @@ LAUNCHES = {"swim_tables": 0, "ingest": 0, "ingest_emit": 0}
 FORM_LAUNCHES: dict = {}
 
 
+_SHARD = threading.local()
+
+
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
     FORM_LAUNCHES.clear()
 
 
+class ShardLaunches:
+    """One shard thread's launch counts, kept apart until the join."""
+
+    def __init__(self):
+        self.launches = dict.fromkeys(LAUNCHES, 0)
+        self.forms: dict = {}
+
+    def close(self) -> "ShardLaunches":
+        _SHARD.counts = None
+        return self
+
+
+def shard_launch_counts() -> ShardLaunches:
+    """Count this thread's launches apart from the process's counters
+    until ``close()``."""
+    _SHARD.counts = ShardLaunches()
+    return _SHARD.counts
+
+
+def add_launch_counts(c: ShardLaunches) -> None:
+    for k, v in c.launches.items():
+        LAUNCHES[k] += v
+    for f, v in c.forms.items():
+        FORM_LAUNCHES[f] = FORM_LAUNCHES.get(f, 0) + v
+
+
 def _count_launch(name: str, form: str) -> None:
-    LAUNCHES[name] += 1
-    FORM_LAUNCHES[(name, form)] = FORM_LAUNCHES.get((name, form), 0) + 1
+    c = getattr(_SHARD, "counts", None)
+    launches, forms = (LAUNCHES, FORM_LAUNCHES) if c is None else (c.launches, c.forms)
+    launches[name] += 1
+    forms[(name, form)] = forms.get((name, form), 0) + 1
 
 
 def _route(t: torch.Tensor) -> str:
     if t.device.type in ("cpu", "cuda"):
         return t.device.type
     raise ValueError(f"no route for tensors on {t.device}")
+
+
+def _on_device(dev):
+    """A kernel launches on the calling thread's current device: make it the
+    tensors' (a mesh shard's thread may drive another card). The host build
+    of the kernels (``tests/cuda_host``) runs on CPU tensors: nothing to set."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -185,8 +227,9 @@ def _swim_cuda(consts, mem_id, mem_view, old_id, old_view, mem_timer, mem_tx,
                    ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(ctypes.byref(a), mem_timer.element_size(), mem_tx.element_size(),
-            int(pig_k > 0), ctypes.c_void_p(stream))
+    with _on_device(dev):
+        rc = fn(ctypes.byref(a), mem_timer.element_size(), mem_tx.element_size(),
+                int(pig_k > 0), ctypes.c_void_p(stream))
     _raise_on(rc, lib, "swim_tables_error_string")
     _count_launch("swim_tables", f"{'packed' if pig_k else 'aligned'}/"
                   f"{8 * mem_timer.element_size()}/{8 * mem_tx.element_size()}")
@@ -480,8 +523,9 @@ def _ingest_cuda(p: IngestParams, x: IngestInputs) -> IngestOutputs:
                    ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(ctypes.byref(a), x.q_cell.element_size(), x.q_tx.element_size(),
-            int(p.pig_r > 0), ctypes.c_void_p(stream))
+    with _on_device(dev):
+        rc = fn(ctypes.byref(a), x.q_cell.element_size(), x.q_tx.element_size(),
+                int(p.pig_r > 0), ctypes.c_void_p(stream))
     _raise_on(rc, lib, "ingest_error_string")
     form = f"{8 * x.q_cell.element_size()}/{8 * x.q_tx.element_size()}"
     if m > limits[5] or m == 0:
@@ -560,17 +604,19 @@ def ingest_changes_fused(cfg, cst, live, m_origin, m_dbv, m_cell, m_ver,
 
 
 def local_write_fused(cfg, cst, write_mask, cell, val, clp=None, *, rand=None,
-                      carried=None):
+                      carried=None, ids=None):
     """The local write as a one-message batch through the ingest kernel
     (origin = site = self, dbv = next_dbv, ver = cell's clock + 1, full
     budget, no drift reject, enqueued even when its slot is contended).
-    With ``rand``/``carried`` it returns ``(cst, emitted)``, else ``cst``."""
+    With ``rand``/``carried`` it returns ``(cst, emitted)``, else ``cst``.
+    ``ids``: the global node ids of the rows (a mesh shard's), else
+    ``0..N-1``."""
     from corrosion_tpu_torch.sim.broadcast import _writers, hlc_tick
 
-    n = cfg.n_nodes
+    n = write_mask.shape[0]
     dev = write_mask.device
-    iarr = torch.arange(n, dtype=torch.int32, device=dev)
-    w = _writers(cfg, write_mask)
+    iarr = torch.arange(n, dtype=torch.int32, device=dev) if ids is None else ids
+    w = _writers(cfg, write_mask, ids)
     if clp is None:
         clp = torch.zeros(n, dtype=torch.int32, device=dev)
     dbv = cst.next_dbv

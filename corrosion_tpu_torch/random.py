@@ -16,6 +16,12 @@ The algorithms follow ``jax/_src/prng.py`` (``threefry2x32`` with
 and a multiply-mod). torch has no uint32 ``+``/``>>``/``<<`` on the CPU, so
 the tensor rounds run in int64 under ``& 0xFFFFFFFF``.
 
+A draw whose leading axis is the node axis can be made for one shard's rows
+only: ``row0`` names the first row of ``shape`` in the whole draw, and the
+result is bitwise that slice of the whole draw (element ``i`` hashes count
+``i``, so rows ``lo..hi`` of an ``[N, Q]`` draw are counts ``lo*Q ..
+hi*Q``).
+
 ``split``, ``fold_in``, ``bits``, ``uniform``, ``randint`` and ``top_k``
 are priced units (``_units.py``): an open cost counter prices each call
 from its shape as the JAX package's model prices the same call, whatever
@@ -95,23 +101,35 @@ def fold_in(k: torch.Tensor, data: int) -> torch.Tensor:
 
 
 @unit("bits")
-def bits(k: torch.Tensor, shape, device) -> torch.Tensor:
+def bits(k: torch.Tensor, shape, device, row0: int = 0) -> torch.Tensor:
     """32 random bits per element (int64 values in ``[0, 2**32)``): element
     ``i`` (row-major) hashes the 64-bit count ``i``; the two output words
-    are XOR-ed."""
+    are XOR-ed. ``row0 > 0``: ``shape`` is rows ``row0..`` of a larger
+    draw along its leading axis."""
     k1, k2 = _words(k)
     shape = tuple(int(s) for s in shape)
-    count = torch.arange(math.prod(shape), dtype=torch.int64, device=device)
+    if row0:
+        first = int(row0) * math.prod(shape[1:])
+        count = torch.arange(first, first + math.prod(shape), dtype=torch.int64,
+                             device=device)
+    else:
+        count = torch.arange(math.prod(shape), dtype=torch.int64, device=device)
     b0, b1 = _threefry(k1, k2, count >> 32, count & _M32)
     return (b0 ^ b1).reshape(shape)
 
 
+def _bits(k, shape, device, row0: int):
+    """:func:`bits` as the draws call it: the whole draw's call unchanged
+    (``row0`` only when a shard's rows are asked for)."""
+    return bits(k, shape, device, row0=row0) if row0 else bits(k, shape, device)
+
+
 @unit("uniform")
 def uniform(k: torch.Tensor, shape, device, minval: float = 0.0,
-            maxval: float = 1.0) -> torch.Tensor:
+            maxval: float = 1.0, row0: int = 0) -> torch.Tensor:
     """float32 uniforms in ``[minval, maxval)``, bit-equal to
-    ``jax.random.uniform``."""
-    f = ((bits(k, shape, device) >> 9) | 0x3F800000).to(torch.int32)
+    ``jax.random.uniform`` (``row0``: as :func:`bits`)."""
+    f = ((_bits(k, shape, device, row0) >> 9) | 0x3F800000).to(torch.int32)
     floats = f.view(torch.float32) - 1.0
     lo = torch.tensor(minval, dtype=torch.float32, device=device)
     hi = torch.tensor(maxval, dtype=torch.float32, device=device)
@@ -120,15 +138,16 @@ def uniform(k: torch.Tensor, shape, device, minval: float = 0.0,
 
 @unit("randint")
 def randint(k: torch.Tensor, shape, minval: int, maxval: int,
-            device) -> torch.Tensor:
+            device, row0: int = 0) -> torch.Tensor:
     """int32 draws in ``[minval, maxval)``, bit-equal to
-    ``jax.random.randint(..., dtype=int32)`` for bounds inside int32."""
+    ``jax.random.randint(..., dtype=int32)`` for bounds inside int32
+    (``row0``: as :func:`bits`)."""
     minval, maxval = int(minval), int(maxval)
     if not (-(1 << 31) <= minval < (1 << 31) and -(1 << 31) <= maxval < (1 << 31)):
         raise ValueError(f"randint bounds {minval}, {maxval} outside int32")
     k1, k2 = split(k)
-    higher = bits(k1, shape, device)
-    lower = bits(k2, shape, device)
+    higher = _bits(k1, shape, device, row0)
+    lower = _bits(k2, shape, device, row0)
     span = 1 if maxval <= minval else (maxval - minval) & _M32
     mult = (1 << 16) % span
     mult = (mult * mult & _M32) % span

@@ -4,8 +4,10 @@
 Split of work per segment boundary:
 
 - **hot loop (synchronous)**: ``.cpu()`` of every state leaf, into host
-  tensors the writer owns. This is the only stall; it is bounded by the
-  device-to-host transfer of the carry.
+  tensors the writer owns; under a mesh, each shard's own slices
+  (``parallel/mesh.host_shard_copy``), never a whole-state gather. This is
+  the only stall; it is bounded by the device-to-host transfer of the
+  carry.
 - **writer thread (overlapped)**: serialization, SHA-256, manifest
   write, ``LATEST`` pointer and retention pruning
   (:func:`write_segment_checkpoint`, crash-consistent), while the next
@@ -37,20 +39,25 @@ def write_segment_checkpoint(cfg, state, key_json: dict, completed: int,
                              root: str, keep_last: int, db=None) -> str:
     """Commit one segment checkpoint (crash-consistent ordering).
 
-    ``state`` is a state on any device (the soak runner's host copies).
+    ``state`` is a state on any device (the soak runner's host copies), or
+    a per-shard drain (``HostLeafShards`` leaves), written as one slice
+    file per shard.
     ``key_json`` is the serialized carried PRNG key
     (``segments._key_to_json``); ``db``, when given, is the host database
     the checkpoint carries (an agent's soak)."""
+    from corrosion_tpu_torch.parallel.mesh import HostLeafShards, tree_leaves
     from corrosion_tpu_torch.utils.tracing import span
 
+    shards = state if isinstance(tree_leaves(state)[0], HostLeafShards) else None
     name = f"seg-{completed:08d}"
     # on the async writer this span runs overlapped with the next
     # segment's soak.segment.dispatch
     with span("soak.ckpt.serialize", warn_seconds=30.0, round=completed):
         path = save_state_checkpoint(
-            cfg, state, completed, path=os.path.join(root, name),
+            cfg, None if shards is not None else state, completed,
+            path=os.path.join(root, name),
             extra={"soak": {"completed_rounds": completed, "key": key_json}},
-            db=db,
+            db=db, shards=shards,
         )
     # pointer moves only AFTER the directory is fully committed; pruning
     # runs last so the recovery point is never the one being deleted

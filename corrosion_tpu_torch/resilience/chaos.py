@@ -27,12 +27,16 @@ skew vector, in the JAX package's leaf order and dtypes) and
 package's strings for the same ``(script, seed)``, and so is the rest of
 the verdict.
 
-What the port cannot run yet is skipped (reported with ``ok: true`` and a
-reason, never failed): a scenario on a device mesh or with a ``remesh``
-injection (the node-axis sharding is ROADMAP Queue 1 item 14), and one
-that runs or flips to ``fused="off"``/``"interpret"`` (the port has no XLA
-or interpret path, ROADMAP, rules of the port). The host-plane
-``serve-overload`` scenario (:mod:`.serve_overload`) runs when named.
+A scenario on a mesh (``mesh_devices``) runs its chaos leg sharded over
+that many shards (``parallel/mesh.py``), placed on the run's device list:
+``[device] * k`` unless the caller passes devices (``mesh_devices=`` of
+:func:`run_scenario`); a list shorter than the mesh skips the scenario, as
+the JAX package does with too few devices. The oracles compare and settle
+on one device. What the port cannot run is skipped (reported with ``ok:
+true`` and a reason, never failed): a scenario that runs or flips to
+``fused="off"``/``"interpret"`` (the port has no XLA or interpret path,
+ROADMAP, rules of the port). The host-plane ``serve-overload`` scenario
+(:mod:`.serve_overload`) runs when named.
 
 Host-plane injections (``Injection.kind``):
 
@@ -45,7 +49,9 @@ Host-plane injections (``Injection.kind``):
 - ``corrupt_checkpoint``: flip a byte of the newest checkpoint's state
   file; the hash gate must refuse it and recovery falls back a segment;
 - ``quiet_flip``: resume under another ``quiet`` round variant;
-- ``remesh``, ``fused_flip``: see the skips above.
+- ``remesh``: resume the newest checkpoint onto a mesh of another shard
+  count (``mesh_devices``; 0 = one device), the elastic restore;
+- ``fused_flip``: see the skips above.
 """
 
 from __future__ import annotations
@@ -68,6 +74,7 @@ from corrosion_tpu_torch.checkpoint import (
     host_arrays,
     load_checkpoint,
 )
+from corrosion_tpu_torch.parallel.mesh import ShardedTree, make_mesh, shard_state
 from corrosion_tpu_torch.resilience.retention import latest_valid_checkpoint
 from corrosion_tpu_torch.resilience.segments import (
     _key_from_json,
@@ -259,9 +266,13 @@ def _run_straight(cfg, st, key, net, inputs):
 def _apply_skew(st, skew: np.ndarray):
     """Host-inject clock skew: bump the skewed nodes' HLCs by the
     pre-shifted amount (a wall clock running ahead; ``hlc_fold``'s
-    max-drift gate is what it sweeps against)."""
+    max-drift gate is what it sweeps against). A mesh-placed state takes
+    each shard's rows of the bump."""
     if not skew.any():
         return st
+    if isinstance(st, ShardedTree):
+        bounds = st.bounds
+        return st.map(lambda p, i: _apply_skew(p, skew[bounds[i][0]:bounds[i][1]]))
     hlc = st.crdt.hlc
     bump = torch.from_numpy(skew).to(hlc.device)
     return st._replace(crdt=st.crdt._replace(hlc=hlc + bump))
@@ -331,17 +342,36 @@ def corrupt_checkpoint(path: str) -> str:
 
 
 def _port_skip(script: ScenarioScript) -> Optional[str]:
-    """The reason the port cannot run ``script`` yet, or None."""
-    if script.mesh_devices > 0 or any(
-            inj.kind == "remesh" for inj in script.injections):
-        return ("needs a device mesh: the port's node-axis sharding is "
-                "ROADMAP Queue 1 item 14")
+    """The reason the port cannot run ``script``, or None."""
     if script.fused in _UNPORTED_FUSED or any(
             inj.kind == "fused_flip" and inj.fused in _UNPORTED_FUSED
             for inj in script.injections):
         return ("runs fused='off'/'interpret': the port has no XLA or "
                 "interpret path (ROADMAP, rules of the port)")
     return None
+
+
+def _make_mesh_or_skip(shards: int, devices):
+    """-> (mesh, skip reason): a mesh of ``shards`` shards on the first
+    ``shards`` of ``devices`` (None: no mesh for 0 shards)."""
+    if shards <= 0:
+        return None, None
+    if len(devices) < shards:
+        return None, f"needs {shards} devices, only {len(devices)} available"
+    return make_mesh(devices[:shards]), None
+
+
+def _resume_point(cfg, root: str, mesh, dev):
+    """The engine's restore path: the gates a production resume runs
+    (``segments.restore_soak_carry``), onto ``mesh`` or ``dev``.
+    -> (state, key, completed_rounds, path)."""
+    return restore_soak_carry(cfg, root, device=dev, mesh=mesh)
+
+
+def _on_one_device(st, dev):
+    """The state on one device (a mesh-placed one assembled): the oracles
+    compare and settle there."""
+    return st.assemble(dev) if isinstance(st, ShardedTree) else st
 
 
 def _injected_crash(exc) -> bool:
@@ -363,12 +393,15 @@ def _host_leaves(st) -> list:
     return [np.array(a, copy=True) for a in host_arrays(st)]
 
 
-def _run_chaos_leg(cfg, script, traces, key0, root, rec, problems, dev):
+def _run_chaos_leg(cfg, script, traces, key0, root, rec, problems, dev, devices):
     """Drive the scripted trace through the segmented runner, applying
-    the host-plane injections. -> (state, key) after the final scripted
-    round."""
+    the host-plane injections. -> (state, key, skip reason) after the
+    final scripted round (a mesh-placed state on a mesh scenario)."""
     from corrosion_tpu_torch.sim.scale_step import ScaleSimState
 
+    mesh, skip = _make_mesh_or_skip(script.mesh_devices, devices)
+    if skip:
+        return None, None, skip
     crash_by_phase = {
         inj.phase: inj for inj in script.injections
         if inj.kind in ("crash_slice", "crash_manifest")
@@ -381,6 +414,8 @@ def _run_chaos_leg(cfg, script, traces, key0, root, rec, problems, dev):
 
     run_cfg = cfg
     st = ScaleSimState.create(cfg, dev)
+    if mesh is not None:
+        st = shard_state(mesh, cfg.n_nodes, st)
     key = key0
     total = script.total_rounds
     pos = 0
@@ -391,13 +426,16 @@ def _run_chaos_leg(cfg, script, traces, key0, root, rec, problems, dev):
         if pos == tr.start:
             st = _apply_skew(st, tr.skew)
         inputs = _slice_inputs(tr.inputs, pos - tr.start, tr.rounds)
+        net = tr.net
+        if mesh is not None:
+            net, inputs = (shard_state(mesh, cfg.n_nodes, t) for t in (net, inputs))
         crash = crash_by_phase.get(phase_idx)
         seam = None
         if crash is not None and id(crash) not in applied:
             seam = _CrashSeam(crash.kind, tr.start + tr.rounds)
         try:
             res = run_segmented(
-                run_cfg, st, tr.net, key, inputs, script.segment_rounds,
+                run_cfg, st, net, key, inputs, script.segment_rounds,
                 checkpoint_root=root, keep_last=script.keep_last,
                 supervisor=Supervisor(), start_round=pos,
             )
@@ -411,7 +449,7 @@ def _run_chaos_leg(cfg, script, traces, key0, root, rec, problems, dev):
             rec["faults_injected"] += 1
             seam.restore()
             seam = None
-            st, key, pos, path = restore_soak_carry(run_cfg, root, device=dev)
+            st, key, pos, path = _resume_point(run_cfg, root, mesh, dev)
             rec["resumes"] += 1
             logger.info("chaos %s: crashed save recovered from %s",
                         script.name, path)
@@ -448,27 +486,34 @@ def _run_chaos_leg(cfg, script, traces, key0, root, rec, problems, dev):
                     )
                 except CheckpointIntegrityError:
                     rec["corruptions_detected"] += 1
-                st, key, pos, path = restore_soak_carry(run_cfg, root, device=dev)
+                st, key, pos, path = _resume_point(run_cfg, root, mesh, dev)
                 rec["resumes"] += 1
                 if path == newest:
                     problems.append(
                         "recovery resumed from the corrupted checkpoint"
                     )
             elif inj.kind == "preempt":
-                st, key, pos, _ = restore_soak_carry(run_cfg, root, device=dev)
+                st, key, pos, _ = _resume_point(run_cfg, root, mesh, dev)
                 rec["resumes"] += 1
+            elif inj.kind == "remesh":
+                mesh, skip = _make_mesh_or_skip(inj.mesh_devices, devices)
+                if skip:
+                    return None, None, skip
+                st, key, pos, _ = _resume_point(run_cfg, root, mesh, dev)
+                rec["resumes"] += 1
+                rec["remeshes"] += 1
             elif inj.kind == "quiet_flip":
                 # quiet <-> dense across a resume; replace from run_cfg so
                 # flips compose
                 run_cfg = dataclasses.replace(
                     run_cfg, quiet=inj.quiet).validate()
-                st, key, pos, _ = restore_soak_carry(run_cfg, root, device=dev)
+                st, key, pos, _ = _resume_point(run_cfg, root, mesh, dev)
                 rec["resumes"] += 1
                 rec["quiet_flips"].append(inj.quiet)
             elif inj.kind == "fused_flip":  # to a mode the port runs
                 run_cfg = dataclasses.replace(
                     run_cfg, fused=inj.fused).validate()
-                st, key, pos, _ = restore_soak_carry(run_cfg, root, device=dev)
+                st, key, pos, _ = _resume_point(run_cfg, root, mesh, dev)
                 rec["resumes"] += 1
                 rec["fused_flips"].append(inj.fused)
     rec["info_sums"] = {k: info_sums[k] for k in sorted(info_sums)}
@@ -477,7 +522,7 @@ def _run_chaos_leg(cfg, script, traces, key0, root, rec, problems, dev):
             problems.append(
                 f"injection {inj.kind!r} at phase {inj.phase} never applied"
             )
-    return st, key
+    return st, key, None
 
 
 def _settle(cfg, st, key, budget: int, dev, chunk: int = 8):
@@ -569,11 +614,17 @@ def _validate_lineage(cfg, script, traces, root, ref_leaves, rec, problems,
         problems.append("lineage: no checkpoint survived to validate")
 
 
-def run_scenario(script: ScenarioScript, seed: int = 0, device="cuda") -> dict:
+def run_scenario(script: ScenarioScript, seed: int = 0, device="cuda",
+                 mesh_devices=None) -> dict:
     """Run one scenario end to end on ``device``; -> the verdict record
     (deterministic in ``(script, seed)``; the oracles are in the module
-    docstring)."""
+    docstring). A mesh scenario's shards go on ``mesh_devices`` (default:
+    ``device`` repeated as often as the largest mesh of the script
+    needs)."""
     dev = resolve_device(device)
+    if mesh_devices is None:
+        need = max([script.mesh_devices] + [inj.mesh_devices for inj in script.injections])
+        mesh_devices = [dev] * need
     cfg, traces, digest = compile_scenario(script, seed, device=dev)
     rec = {
         "name": script.name,
@@ -622,8 +673,14 @@ def run_scenario(script: ScenarioScript, seed: int = 0, device="cuda") -> dict:
 
         # the chaos leg: the same trace through the segmented runner with
         # the faults
-        st, key = _run_chaos_leg(cfg, script, traces, key0, root, rec,
-                                 problems, dev)
+        st, key, skip = _run_chaos_leg(cfg, script, traces, key0, root, rec,
+                                       problems, dev, list(mesh_devices))
+        if skip:
+            rec["skipped"] = skip
+            rec["ok"] = True
+            rec.pop("state_digest", None)
+            return rec
+        st = _on_one_device(st, dev)
         mismatch = [
             i for i, (a, b) in enumerate(zip(host_arrays(st), ref_leaves))
             if not np.array_equal(a, b)
@@ -758,8 +815,8 @@ SCENARIOS = {
                 Injection(kind="corrupt_checkpoint", phase=0),
             ),
         ),
-        # elastic restore onto another mesh mid-scenario (skipped in the
-        # port until item 14)
+        # elastic restore onto another mesh mid-scenario: start sharded
+        # over 8, preempt, resume the same lineage on 4
         ScenarioScript(
             name="elastic-remesh",
             phases=(
@@ -799,8 +856,9 @@ SCENARIOS = {
             ),
             quiet="on",
         ),
-        # checkpoint corruption and an 8 -> 4 remesh in one lineage
-        # (skipped in the port until item 14)
+        # checkpoint corruption and an 8 -> 4 remesh in one lineage: the
+        # hash-gate fallback lands on a checkpoint that still restores
+        # elastically onto the smaller mesh
         ScenarioScript(
             name="corrupt-remesh",
             phases=(

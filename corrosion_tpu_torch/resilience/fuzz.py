@@ -12,7 +12,8 @@ Determinism: ``gen_script(seed, profile)`` is a pure function of its
 arguments (``random.Random(seed)`` drives every draw; the generator is the
 JAX package's, so a seed gives the same script in both packages), and the
 generated script runs under ``run_scenario(script, seed=seed)``, itself
-pure in ``(script, seed)``. A drawn remesh or a flip to
+pure in ``(script, seed)``. A drawn remesh runs its chaos leg on a mesh
+of that many shards (on the run's device, repeated); a flip to
 ``fused="off"``/``"interpret"`` is a skip in the port (``chaos._port_skip``).
 
 **Validity by construction.** Phase ``rounds`` are multiples of
@@ -123,7 +124,7 @@ _FUSED_FLIPS = (("interpret", "off"), ("off", "interpret"))
 _QUIET_FLIPS = (("on", "off"), ("off", "on"))
 
 #: remesh chains: (initial mesh, boundary target), descending (the JAX
-#: package's draws; skips in the port until its sharding exists)
+#: package's draws)
 _REMESH_CHAINS = ((8, 4), (8, 2), (4, 2))
 
 

@@ -20,6 +20,12 @@ carry for the first segment (held only when a supervisor may retry;
 without checkpoints a supervised run also holds each boundary carry). It
 never restarts from a carry that a failed attempt may have written into.
 
+Under a mesh (a state placed with ``parallel/mesh.shard_state``) every
+segment runs sharded, the checkpoint drain goes per shard (one slice file
+per shard, no whole-state gather), and a resume places the restored carry
+on whatever mesh it is given, bitwise the same run (``resume_segmented(...,
+mesh=)``).
+
 Segments dispatch through an optional
 :class:`~corrosion_tpu_torch.resilience.supervisor.Supervisor`; on retry
 exhaustion the run aborts gracefully with the last committed checkpoint as
@@ -58,6 +64,17 @@ class SoakResult(NamedTuple):
     stats: dict = {}  # pipeline facts: segments, checkpoint stall/IO
 
 
+def _mesh_run_carry(mode: str, mesh):
+    """The segment dispatch on a mesh: the sharded scale round loop."""
+    if mode != "scale":
+        raise ValueError("a mesh runs the scale round only (the full view's "
+                         "sharded_run is not ported, ROADMAP)")
+    from corrosion_tpu_torch.parallel.mesh import sharded_scale_run_carry
+
+    return lambda cfg, st, net, key, inputs: sharded_scale_run_carry(
+        cfg, mesh, st, net, key, inputs)
+
+
 def _run_carry_fn(mode: str):
     if mode == "scale":
         from corrosion_tpu_torch.sim.scale_step import scale_run_rounds_carry
@@ -86,8 +103,15 @@ def _key_from_json(d: dict):
     return prng.key_from_data(d["data"])
 
 
+def _parts(tree) -> list:
+    """A tree's per-shard trees (a tree not on a mesh is its own one)."""
+    from corrosion_tpu_torch.parallel.mesh import ShardedTree
+
+    return tree.parts if isinstance(tree, ShardedTree) else [tree]
+
+
 def _n_rounds(inputs) -> int:
-    return int(inputs.kill.shape[0])
+    return int(_parts(inputs)[0].kill.shape[0])
 
 
 def _pipeline_stats(quiet_mode: str = "off", async_checkpoint: bool = True,
@@ -115,8 +139,11 @@ def _pipeline_stats(quiet_mode: str = "off", async_checkpoint: bool = True,
         "ckpt_io_s": 0.0,
         "ckpt_written": 0,
         "ckpt_overlapped_segments": 0,
-        # bytes of the carry's host copies
+        # bytes of the carry's host copies; the slices it drained into
+        # (one per shard under a mesh) and the largest shard's bytes
         "ckpt_drain_bytes": 0,
+        "ckpt_shards": 0,
+        "ckpt_shard_bytes_max": 0,
     }
 
 
@@ -133,6 +160,10 @@ def _obs_hook(obs, name: str, **kwargs) -> None:
 
 
 def _slice_inputs(inputs, lo: int, hi: int):
+    from corrosion_tpu_torch.parallel.mesh import ShardedTree
+
+    if isinstance(inputs, ShardedTree):
+        return inputs.map(lambda p, _i: _slice_inputs(p, lo, hi))
     return type(inputs)(*(a[lo:hi] for a in inputs))
 
 
@@ -176,16 +207,44 @@ def _concat_infos(parts: list) -> dict:
 
 def _inputs_quiet(seg) -> bool:
     """True when the segment's inputs inject no kill, revive, write or
-    transaction (the input half of the quiet predicate, one device read)."""
-    return not bool(torch.stack([seg.kill.any(), seg.revive.any(),
-                                 seg.write_mask.any(), seg.tx_mask.any()]).any())
+    transaction (the input half of the quiet predicate, one device read a
+    shard)."""
+    return not any(bool(torch.stack([p.kill.any(), p.revive.any(),
+                                     p.write_mask.any(), p.tx_mask.any()]).any())
+                   for p in _parts(seg))
 
 
 def _carry_quiet(cfg, st) -> bool:
     """No alive node owes work (``scale_step._quiet_busy``)."""
     from corrosion_tpu_torch.sim.scale_step import _quiet_busy
 
-    return not bool(_quiet_busy(cfg, st).any())
+    return not any(bool(_quiet_busy(cfg, p).any()) for p in _parts(st))
+
+
+def _drain(st):
+    """The carry's host copy at a boundary: owned CPU tensors, or, on a
+    mesh, the per-shard drain (``parallel/mesh.host_shard_copy``).
+    -> (host carry, shards, total bytes, largest shard's bytes)."""
+    from corrosion_tpu_torch.parallel.mesh import ShardedTree, host_shard_copy, tree_leaves
+
+    if not isinstance(st, ShardedTree):
+        host = host_copy(st)
+        total = state_bytes(host)
+        return host, 1, total, total
+    host = host_shard_copy(st)
+    per_shard: dict = {}
+    for hs in tree_leaves(host):
+        for k, (_start, a) in enumerate(hs.parts):
+            per_shard[k] = per_shard.get(k, 0) + int(a.nbytes)
+    return host, len(per_shard), sum(per_shard.values()), max(per_shard.values())
+
+
+def _observed(st):
+    """What the observer's memory report reads: the state, or a mesh
+    state's whole shapes on the ``meta`` device."""
+    from corrosion_tpu_torch.parallel.mesh import ShardedTree
+
+    return st.meta_tree() if isinstance(st, ShardedTree) else st
 
 
 def run_segmented(
@@ -240,10 +299,14 @@ def run_segmented(
     """
     if segment_rounds <= 0:
         raise ValueError("segment_rounds must be positive")
+    from corrosion_tpu_torch.parallel.mesh import ShardedTree, device_put_shards
+
     mode = config_mode(cfg)
-    run_carry = _run_carry_fn(mode)
+    mesh = st.mesh if isinstance(st, ShardedTree) else None
+    run_carry = _run_carry_fn(mode) if mesh is None else _mesh_run_carry(mode, mesh)
     rounds = _n_rounds(inputs)
-    dev = st.swim.alive.device
+    devs = sorted({p.swim.alive.device for p in _parts(st)}, key=str)
+    dev = devs[0]
     quiet_auto = (mode == "scale" and cfg.quiet == "auto"
                   and getattr(cfg, "sync_cohort", False))
     quiet_cfg = (dataclasses.replace(cfg, quiet="on").validate()
@@ -257,7 +320,7 @@ def run_segmented(
     # writer thread
     _obs_hook(obs, "open_run", cfg=cfg, mode=mode, total_rounds=rounds,
               start_round=start_round, segment_rounds=segment_rounds,
-              stats=stats, state=st)
+              stats=stats, state=_observed(st))
     seg_box = {"index": 0}  # read by the async writer's overlap probe
     writer = None
     if checkpoint_root:
@@ -299,7 +362,9 @@ def run_segmented(
                 logger.warning(
                     "restarting soak segment at round %d from the host "
                     "copy of its boundary", start_round + completed)
-                return {"st": _upload(host_carry[0], dev),
+                host = host_carry[0]
+                return {"st": (device_put_shards(host) if mesh is not None
+                               else _upload(host, dev)),
                         "key": _key_from_json(host_carry[1])}
 
             def seg_dispatch():
@@ -307,10 +372,12 @@ def run_segmented(
                     box.update(restart())
                 # popped into the call: the loop owns the carry
                 out = run_carry(seg_cfg, box.pop("st"), net, box.pop("key"), seg)
-                if dev.type == "cuda":
-                    # completion inside the supervised call: a wedged card
-                    # shows up as a deadline miss here, not at the next read
-                    torch.cuda.synchronize(dev)
+                for d in devs:
+                    if d.type == "cuda":
+                        # completion inside the supervised call: a wedged
+                        # card shows up as a deadline miss here, not at the
+                        # next read
+                        torch.cuda.synchronize(d)
                 return out
 
             try:
@@ -349,8 +416,11 @@ def run_segmented(
                 t0 = time.perf_counter()
                 with pipeline_span("soak.ckpt.drain", jax_profile=prof,
                                    warn_seconds=30.0):
-                    host_carry = (host_copy(st2), _key_to_json(key2))
-                stats["ckpt_drain_bytes"] += state_bytes(host_carry[0])
+                    host, n_sh, total_b, max_b = _drain(st2)
+                    host_carry = (host, _key_to_json(key2))
+                stats["ckpt_drain_bytes"] += total_b
+                stats["ckpt_shards"] = max(stats["ckpt_shards"], n_sh)
+                stats["ckpt_shard_bytes_max"] = max(stats["ckpt_shard_bytes_max"], max_b)
                 writer.submit(host_carry[0], host_carry[1],
                               start_round + completed, seg_box["index"])
                 if not async_checkpoint:
@@ -365,7 +435,7 @@ def run_segmented(
             # segment's checkpoint facts
             _obs_hook(obs, "on_segment", seg_index=seg_no,
                       lo=start_round + lo, hi=start_round + completed,
-                      infos=infos, stats=stats, state=box["st"])
+                      infos=infos, stats=stats, state=_observed(box["st"]))
     except BaseException:
         # the run's own crash (a caller's enclosing except handler must
         # not mark a clean run crashed)
@@ -406,10 +476,11 @@ def run_segmented(
     )
 
 
-def restore_soak_carry(cfg, checkpoint_root: str, *, device="cuda"):
+def restore_soak_carry(cfg, checkpoint_root: str, *, device="cuda", mesh=None):
     """Restore the newest valid soak checkpoint under
-    ``checkpoint_root`` onto ``device`` without running anything: the
-    restore gate of :func:`resume_segmented`.
+    ``checkpoint_root`` onto ``device`` (or placed on ``mesh``, whatever
+    mesh saved it) without running anything: the restore gate of
+    :func:`resume_segmented`.
 
     -> ``(state, key, completed_rounds, path)``. Raises
     ``FileNotFoundError`` when no restorable checkpoint exists and
@@ -422,7 +493,7 @@ def restore_soak_carry(cfg, checkpoint_root: str, *, device="cuda"):
             f"no restorable checkpoint under {checkpoint_root!r}"
         )
     # latest_valid_checkpoint just ran the full hash pass on this path
-    manifest, state = load_checkpoint(path, verify=False, device=device)
+    manifest, state = load_checkpoint(path, verify=False, device=device, mesh=mesh)
     if manifest["mode"] != mode:
         raise ValueError(
             f"checkpoint mode {manifest['mode']!r} != run mode {mode!r}"
@@ -456,9 +527,13 @@ def resume_segmented(
     supervisor=None,
     async_checkpoint: bool = True,
     obs=None,
+    mesh=None,
 ) -> SoakResult:
     """Resume a segmented run from the newest valid checkpoint under
-    ``checkpoint_root``, on ``net``'s device.
+    ``checkpoint_root``, on ``net``'s device, or, with ``mesh``, placed on
+    that mesh whatever mesh saved it (8 shards to 4, 1-D to ``(dcn,
+    node)``, mesh to one device and back): the resumed run is bitwise the
+    uninterrupted one.
 
     ``inputs`` is the FULL run's input stack (the one the interrupted run
     was started with); the restored ``completed_rounds`` selects the
@@ -469,7 +544,8 @@ def resume_segmented(
     Raises ``FileNotFoundError`` when no restorable checkpoint exists
     and ``ValueError`` on config drift."""
     carry = list(restore_soak_carry(cfg, checkpoint_root,
-                                    device=net.partition.device))
+                                    device=_parts(net)[0].partition.device,
+                                    mesh=mesh))
     completed, path = carry[2], carry[3]
     rounds = _n_rounds(inputs)
     logger.info("resuming soak from %s at round %d/%d", path, completed,

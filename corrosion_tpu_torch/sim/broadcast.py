@@ -162,27 +162,32 @@ def _enqueue(cst: CrdtState, want, origin, dbv, cell, ver, val, site, clp,
     )
 
 
-def _writers(cfg, mask):
+def _writers(cfg, mask, ids=None):
     """The nodes whose writes commit: any node under ``any_writer``, else
-    the first ``n_origins``."""
+    the first ``n_origins`` (``ids``: the rows' global node ids, else
+    ``0..N-1``)."""
     if getattr(cfg, "any_writer", False):
         return mask
-    return mask & (torch.arange(cfg.n_nodes, device=mask.device) < cfg.n_origins)
+    if ids is None:
+        ids = torch.arange(cfg.n_nodes, device=mask.device)
+    return mask & (ids < cfg.n_origins)
 
 
-def local_write(cfg, cst: CrdtState, write_mask, cell, val, clp=None):
+def local_write(cfg, cst: CrdtState, write_mask, cell, val, clp=None, ids=None):
     """Commit one-cell write transactions at the writer nodes: assign the
     db_version, bump the cell's clock, apply locally, record, queue for
     broadcast. Through the ingest kernel where :func:`kernel_ingest`, else
-    the plain body."""
+    the plain body. ``ids``: the rows' global node ids (a mesh shard's),
+    else ``0..N-1``."""
     if kernel_ingest(cfg):
         from corrosion_tpu_torch.ops import megakernel
 
-        return megakernel.local_write_fused(cfg, cst, write_mask, cell, val, clp)
-    n = cfg.n_nodes
+        return megakernel.local_write_fused(cfg, cst, write_mask, cell, val, clp,
+                                            ids=ids)
+    n = write_mask.shape[0]
     dev = write_mask.device
-    iarr = torch.arange(n, dtype=torch.int32, device=dev)
-    w = _writers(cfg, write_mask)
+    iarr = torch.arange(n, dtype=torch.int32, device=dev) if ids is None else ids
+    w = _writers(cfg, write_mask, ids)
     if clp is None:
         clp = torch.zeros(n, dtype=torch.int32, device=dev)
     dbv = cst.next_dbv
@@ -201,24 +206,26 @@ def local_write(cfg, cst: CrdtState, write_mask, cell, val, clp=None):
                     ones * cfg.bcast_max_transmissions)
 
 
-def local_write_tx(cfg, cst: CrdtState, tx_mask, tx_cell, tx_val, tx_clp, tx_len):
+def local_write_tx(cfg, cst: CrdtState, tx_mask, tx_cell, tx_val, tx_clp, tx_len,
+                   ids=None):
     """Commit multi-cell write transactions: ``tx_cell``/``tx_val``/``tx_clp``
     int32 [N, K] (K <= ``tx_max_cells``), ``tx_len`` [N] real lanes. The
     cells share one db_version and one HLC stamp, carry seq 0..len-1, apply
     atomically to the writer's store (the batch's LWW max where a cell
-    repeats) and queue one chunk each."""
-    n, k = cfg.n_nodes, tx_cell.shape[1]
+    repeats) and queue one chunk each (``ids``: as :func:`local_write`)."""
+    n, k = tx_cell.shape
     if k > max(1, cfg.tx_max_cells):
         raise ValueError(
             f"tx_cell has {k} lanes > tx_max_cells {max(1, cfg.tx_max_cells)}")
     dev = tx_mask.device
     i32 = torch.int32
-    w = _writers(cfg, tx_mask)
+    w = _writers(cfg, tx_mask, ids)
     lane = torch.arange(k, dtype=i32, device=dev)[None, :].expand(n, k)
     lane_ok = w[:, None] & (lane < tx_len[:, None])
     dbv = cst.next_dbv
     ver = lookup_cols(cst.store[0], tx_cell) + 1
-    site = torch.arange(n, dtype=i32, device=dev)[:, None].expand(n, k)
+    site = (torch.arange(n, dtype=i32, device=dev) if ids is None
+            else ids)[:, None].expand(n, k)
     ts, hlc = hlc_tick(cst.hlc, cst.now, w)
     wide = lambda v: v[:, None].expand(n, k)  # noqa: E731
     store = apply_changes(cst.store, tx_cell, ver, tx_val, site, wide(dbv),
@@ -274,7 +281,7 @@ def ingest_changes(cfg, cst: CrdtState, live, m_origin, m_dbv, m_cell, m_ver,
     live, fields = _dead_column(live, fields)
     (m_origin, m_dbv, m_cell, m_ver, m_val, m_site, m_clp, m_seq, m_nseq,
      m_ts) = fields[:10]
-    n = cfg.n_nodes
+    n = live.shape[0]
     keep = cfg.org_keep_rounds
     re_max = max(1, cfg.bcast_max_transmissions - 1)
     rebudget = torch.full_like(m_origin, re_max)

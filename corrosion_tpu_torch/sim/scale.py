@@ -9,6 +9,12 @@ the sender's k freshest entries, each merged at its hash class. The round
 splits into a front half (churn, probe/indirect/announce legs, one sender
 elected per receiver) and a back half (row gathers, then the row-local
 table update that the swim kernel runs).
+
+Every function of the round takes ``axis``, the node axis as its rows see
+it (``parallel/exchange.NodeAxis``; None: the whole axis on one device). On
+a mesh shard the rows are ``[lo, hi)``, node ids stay global, draws led by
+the node axis take the shard's rows of the whole draw, and each cross-node
+access goes through one of the axis's exchanges.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from corrosion_tpu_torch.ops.lww import (
     pack_inc_state,
 )
 from corrosion_tpu_torch.ops.select import sample_k, sample_k_biased, sample_one
+from corrosion_tpu_torch.parallel.exchange import NodeAxis
 from corrosion_tpu_torch.sim.config import FUSED_MODES
 from corrosion_tpu_torch.sim.transport import (
     CARD_EXTRA,
@@ -196,17 +203,23 @@ def _election_pri_bits(n: int) -> int:
     return pri_bits
 
 
-def _one_sender_per_receiver(n, src_valid, tgt, key):
+def node_axis(cfg, axis, device) -> NodeAxis:
+    """``axis``, or the whole node axis of ``cfg`` on ``device``."""
+    return NodeAxis.whole(cfg.n_nodes, device) if axis is None else axis
+
+
+def _one_sender_per_receiver(ax: NodeAxis, src_valid, tgt, key, site: str):
     """One sender per receiver: a random priority packed above the sender
     id, resolved by one scatter-max. Returns ``(sender_of, has_sender)``."""
+    n = ax.n
     dev = src_valid.device
     bits = max(1, n - 1).bit_length()
-    pri = prng.randint(key, (n,), 0, 1 << _election_pri_bits(n), dev)
-    packed = torch.where(
-        src_valid, (pri << bits) | torch.arange(n, dtype=torch.int32, device=dev), -1
-    )
+    pri = prng.randint(key, (ax.rows,), 0, 1 << _election_pri_bits(n), dev,
+                       row0=ax.lo)
+    packed = torch.where(src_valid, (pri << bits) | ax.ids(), -1)
     best = torch.full((n,), -1, dtype=torch.int32, device=dev)
     best.scatter_reduce_(0, tgt.long(), packed, "amax", include_self=True)
+    best = ax.owner_max(best, site)
     return best & ((1 << bits) - 1), best >= 0
 
 
@@ -354,12 +367,14 @@ class _SwimFront(NamedTuple):
 
 
 def _swim_front(cfg, st: ScaleSwimState, net: NetModel, key, kill=None,
-                revive=None) -> _SwimFront:
+                revive=None, axis=None) -> _SwimFront:
     """Front half of the SWIM probe period: churn, self refresh, probe,
     indirect and announce legs, elections, delivered-packet counts."""
-    n, m = cfg.n_nodes, cfg.m_slots
+    m = cfg.m_slots
     dev = st.mem_id.device
-    iarr = torch.arange(n, dtype=torch.int32, device=dev)
+    ax = node_axis(cfg, axis, dev)
+    n, r0 = ax.rows, ax.lo
+    iarr = ax.ids()
     (k_tgt, k_p1, k_p2, k_help, k_ind, k_ann, k_annt, k_ann1, k_ann2,
      k_cp, k_ca, k_upd) = prng.split(key, 12)
 
@@ -380,29 +395,30 @@ def _swim_front(cfg, st: ScaleSwimState, net: NetModel, key, kill=None,
     bel_alive = occupied & not_self & (mem_view >= 0) & ((mem_view & 3) == STATE_ALIVE)
 
     card = link_card(net, alive, extra=(inc,))
+    cards = ax.all_gather(card, "swim.card")  # every node's card
 
     # --- probe target: one believed-alive table entry -------------------
-    probe_slot, has_slot = sample_one(bel_alive, k_tgt)
+    probe_slot, has_slot = sample_one(bel_alive, k_tgt, row0=r0)
     tgt = torch.clamp(select_cols(mem_id, probe_slot[:, None])[:, 0], min=0)
     has_tgt = alive & has_slot
-    tgt_card = card_at(card, tgt)
-    leg_out = has_tgt & datagram_ok_c(net, k_p1, card, tgt_card)
-    leg_back = datagram_ok_c(net, k_p2, tgt_card, card)
+    tgt_card = card_at(cards, tgt)
+    leg_out = has_tgt & datagram_ok_c(net, k_p1, card, tgt_card, row0=r0)
+    leg_back = datagram_ok_c(net, k_p2, tgt_card, card, row0=r0)
     probe_ok = leg_out & leg_back
 
     # --- indirect probes through helper entries -------------------------
     h_mask = bel_alive & (mem_id != tgt[:, None])
-    h_slots, h_valid = sample_k(h_mask, max(1, cfg.n_indirect), k_help)
+    h_slots, h_valid = sample_k(h_mask, max(1, cfg.n_indirect), k_help, row0=r0)
     helpers = torch.clamp(select_cols(mem_id, h_slots), min=0)
     k1, k2, k3, k4 = prng.split(k_ind, 4)
-    helper_card = card_at(card, helpers)
+    helper_card = card_at(cards, helpers)
     self_b = card[:, None, :]
     tgt_b = tgt_card[:, None, :]
     ind_leg = (
-        datagram_ok_c(net, k1, self_b, helper_card)
-        & datagram_ok_c(net, k2, helper_card, tgt_b)
-        & datagram_ok_c(net, k3, tgt_b, helper_card)
-        & datagram_ok_c(net, k4, helper_card, self_b)
+        datagram_ok_c(net, k1, self_b, helper_card, row0=r0)
+        & datagram_ok_c(net, k2, helper_card, tgt_b, row0=r0)
+        & datagram_ok_c(net, k3, tgt_b, helper_card, row0=r0)
+        & datagram_ok_c(net, k4, helper_card, self_b, row0=r0)
     )
     ind_ok = (h_valid & ind_leg).any(dim=1) & has_tgt
     acked = probe_ok | ind_ok
@@ -411,33 +427,38 @@ def _swim_front(cfg, st: ScaleSwimState, net: NetModel, key, kill=None,
     # --- failed probe: suspect the entry, notify the subject -------------
     cur = select_cols(mem_view, probe_slot[:, None])[:, 0]
     suspect_key = (cur >> 2) * 4 + STATE_SUSPECT
-    notify_ok = failed & datagram_ok_c(net, prng.fold_in(k_p1, 1), card, tgt_card)
-    sus_heard = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    notify_ok = failed & datagram_ok_c(net, prng.fold_in(k_p1, 1), card, tgt_card,
+                                       row0=r0)
+    sus_heard = torch.full((ax.n,), -1, dtype=torch.int32, device=dev)
     sus_heard.scatter_reduce_(0, tgt.long(), torch.where(notify_ok, suspect_key, -1),
                               "amax", include_self=True)
+    sus_heard = ax.owner_max(sus_heard, "swim.suspect")
 
     # --- announce to a random ever-known member (heal/rejoin path) ------
     announcing = alive & (
-        prng.uniform(k_ann, (n,), dev)
+        prng.uniform(k_ann, (n,), dev, row0=r0)
         < torch.tensor(1.0 / max(1, cfg.announce_interval), dtype=torch.float32,
                        device=dev)
     )
     known = occupied & not_self
-    ann_slot, has_known = sample_one(known, k_annt)
+    ann_slot, has_known = sample_one(known, k_annt, row0=r0)
     ann_tgt = torch.clamp(select_cols(mem_id, ann_slot[:, None])[:, 0], min=0)
     # bootstrap fallback: a node that knows nobody announces to a seed
-    seed_tgt = prng.randint(prng.fold_in(k_annt, 1), (n,), 0, min(cfg.n_seeds, n), dev)
+    seed_tgt = prng.randint(prng.fold_in(k_annt, 1), (n,), 0, min(cfg.n_seeds, ax.n),
+                            dev, row0=r0)
     lonely = alive & ~has_known & (seed_tgt != iarr)
     ann_tgt = torch.where(lonely, seed_tgt, ann_tgt)
     has_known = has_known | lonely
-    ann_card = card_at(card, ann_tgt)
+    ann_card = card_at(cards, ann_tgt)
     announcing = announcing & has_known
-    ann_out = announcing & datagram_ok_c(net, k_ann1, card, ann_card)
-    ann_back = ann_out & datagram_ok_c(net, k_ann2, ann_card, card)
+    ann_out = announcing & datagram_ok_c(net, k_ann1, card, ann_card, row0=r0)
+    ann_back = ann_out & datagram_ok_c(net, k_ann2, ann_card, card, row0=r0)
 
     # --- choose one prober / announcer per receiver ----------------------
-    prober_of, has_prober = _one_sender_per_receiver(n, leg_out, tgt, k_cp)
-    announcer_of, has_announcer = _one_sender_per_receiver(n, ann_out, ann_tgt, k_ca)
+    prober_of, has_prober = _one_sender_per_receiver(ax, leg_out, tgt, k_cp,
+                                                     "swim.prober")
+    announcer_of, has_announcer = _one_sender_per_receiver(ax, ann_out, ann_tgt,
+                                                           k_ca, "swim.announcer")
 
     sends = (
         has_tgt.to(torch.int32)
@@ -452,9 +473,9 @@ def _swim_front(cfg, st: ScaleSwimState, net: NetModel, key, kill=None,
         (ann_tgt, ann_back),
     ]
     ch_cards = [
-        card_at(card, channels[0][0]),
+        card_at(cards, channels[0][0]),
         tgt_card,
-        card_at(card, channels[2][0]),
+        card_at(cards, channels[2][0]),
         ann_card,
     ]
     ch_snd_inc = tuple(c[:, CARD_EXTRA] for c in ch_cards)
@@ -463,14 +484,15 @@ def _swim_front(cfg, st: ScaleSwimState, net: NetModel, key, kill=None,
     elect = torch.stack(
         [torch.clamp(prober_of, min=0), torch.clamp(announcer_of, min=0)], dim=1
     )
+    elect = ax.all_gather(elect, "swim.elect")
     g_tgt = card_at(elect, tgt)
     g_ann = card_at(elect, ann_tgt)
     probe_delivered = leg_out & (g_tgt[:, 0] == iarr)
     ann_delivered = ann_out & (g_ann[:, 1] == iarr)
-    ack_count = torch.zeros(n, dtype=torch.int32, device=dev).index_add_(
-        0, tgt.long(), probe_ok.to(torch.int32))
-    reply_count = torch.zeros(n, dtype=torch.int32, device=dev).index_add_(
-        0, ann_tgt.long(), ann_back.to(torch.int32))
+    ack_count = ax.owner_add(torch.zeros(ax.n, dtype=torch.int32, device=dev).index_add_(
+        0, tgt.long(), probe_ok.to(torch.int32)), "swim.acks")
+    reply_count = ax.owner_add(torch.zeros(ax.n, dtype=torch.int32, device=dev).index_add_(
+        0, ann_tgt.long(), ann_back.to(torch.int32)), "swim.replies")
     carried = (
         probe_delivered.to(torch.int32)
         + ann_delivered.to(torch.int32)
@@ -487,19 +509,23 @@ def _swim_front(cfg, st: ScaleSwimState, net: NetModel, key, kill=None,
     )
 
 
-def _swim_back(cfg, st: ScaleSwimState, front: _SwimFront):
+def _swim_back(cfg, st: ScaleSwimState, front: _SwimFront, axis=None):
     """Back half of the SWIM probe period: the cross-node row gathers, then
     the row-local table update through the swim kernel wrapper."""
     from corrosion_tpu_torch.ops import megakernel
 
-    n, m = cfg.n_nodes, cfg.m_slots
+    m = cfg.m_slots
     dev = st.mem_id.device
-    iarr = torch.arange(n, dtype=torch.int32, device=dev)
+    ax = node_axis(cfg, axis, dev)
+    n = ax.rows
+    iarr = ax.ids()
     old_id, old_view = st.mem_id, st.mem_view
+    all_id = ax.all_gather(old_id, "swim.mem_id")
+    all_view = ax.all_gather(old_view, "swim.mem_view")
 
     # down-notice: the announce receiver's belief about the announcer
-    peer_view_rows = take_rows(old_view, front.ann_tgt)
-    peer_id_rows = take_rows(old_id, front.ann_tgt)
+    peer_view_rows = take_rows(all_view, front.ann_tgt)
+    peer_id_rows = take_rows(all_id, front.ann_tgt)
     bel = select_cols(peer_view_rows, front.self_slot[:, None])[:, 0]
     bel_is_me = select_cols(peer_id_rows, front.self_slot[:, None])[:, 0] == iarr
     notice = torch.where(front.ann_back & bel_is_me, bel, -1)
@@ -516,9 +542,10 @@ def _swim_back(cfg, st: ScaleSwimState, front: _SwimFront):
         # row gather per channel
         upd_slots, upd_ok = sample_k_biased(
             sendable & (old_id >= 0), st.mem_tx.to(torch.float32), pig_k,
-            front.k_upd)
+            front.k_upd, row0=ax.lo)
         upd_id = torch.where(upd_ok, select_cols(old_id, upd_slots), FREE)
         pig_pack = torch.cat([upd_id, select_cols(old_view, upd_slots)], dim=1)
+        pig_pack = ax.all_gather(pig_pack, "swim.packets")
         got = [take_rows(pig_pack, src) for src in ch_snd]
         ch_in_id = [g[:, :pig_k].contiguous() for g in got]
         ch_in_view = [g[:, pig_k:].contiguous() for g in got]
@@ -529,9 +556,10 @@ def _swim_back(cfg, st: ScaleSwimState, front: _SwimFront):
             front.sends[:, None].expand(upd_slots.shape), upd_ok)
         mem_tx_in = torch.clamp(st.mem_tx - dec, min=0)
     else:
-        ch_in_id = [take_rows(old_id, src) for src in ch_snd]
-        ch_in_view = [take_rows(old_view, src) for src in ch_snd]
-        ch_in_send = [take_rows(sendable, src) for src in ch_snd]
+        all_send = ax.all_gather(sendable, "swim.sendable")
+        ch_in_id = [take_rows(all_id, src) for src in ch_snd]
+        ch_in_view = [take_rows(all_view, src) for src in ch_snd]
+        ch_in_send = [take_rows(all_send, src) for src in ch_snd]
 
     consts = (m, int(cfg.suspicion_rounds), int(cfg.down_purge_rounds),
               int(cfg.max_transmissions), pig_k)
@@ -569,11 +597,11 @@ def swim_front_disturbed(cfg, front: _SwimFront):
 
 
 def scale_swim_step(cfg, st: ScaleSwimState, net: NetModel, key, kill=None,
-                    revive=None):
-    """One SWIM probe period for the whole cluster. Returns ``(state, info,
-    channels, carried)``."""
-    front = _swim_front(cfg, st, net, key, kill=kill, revive=revive)
-    st2, info = _swim_back(cfg, st, front)
+                    revive=None, axis=None):
+    """One SWIM probe period for the whole cluster (``axis``: a mesh
+    shard's rows). Returns ``(state, info, channels, carried)``."""
+    front = _swim_front(cfg, st, net, key, kill=kill, revive=revive, axis=axis)
+    st2, info = _swim_back(cfg, st, front, axis=axis)
     return st2, info, list(front.channels), front.carried
 
 

@@ -17,6 +17,12 @@ host-side mirror of the round counter, so no round waits on the device.
 ``quiet="on"`` swaps in :func:`scale_sim_step_quiet`, which runs only the
 SWIM front on a round it proves to be a fixpoint.
 
+The round functions take ``axis`` (``parallel/exchange.NodeAxis``): on a
+mesh shard they run on its rows with global node ids, and every cross-node
+access is one of the axis's exchanges (``parallel/mesh.py`` runs one
+thread a shard); None is the whole axis, the round as it runs on one
+device. A round's info counts are summed over the axis once, at its end.
+
 Only ``fused="off"``/``"interpret"`` are refused (:func:`check_slice`): the
 port has no XLA or interpret path.
 """
@@ -58,6 +64,7 @@ from corrosion_tpu_torch.sim.scale import (
     ScaleSwimState,
     _swim_back,
     _swim_front,
+    node_axis,
     scale_config,
     scale_swim_metrics,
     scale_swim_step,
@@ -312,7 +319,7 @@ def flagship_workload(cfg: ScaleSimConfig, rounds: int, device="cuda"):
 
 
 def piggyback_bcast_step(cfg, cst: CrdtState, channels, key, carried=None,
-                         emitted=None):
+                         emitted=None, axis=None):
     """Disseminate queued changesets over the SWIM packet channels
     (``(src, valid)`` pairs, one sender per receiver). Each delivered packet
     carries its sender's ``pig_changes`` selected queue slots: the
@@ -323,15 +330,17 @@ def piggyback_bcast_step(cfg, cst: CrdtState, channels, key, carried=None,
     int32, with the remaining-budget lane under ``bcast_wire_budget``). The
     senders' budgets burn once per delivered packet; the receivers ingest.
     ``carried`` int32 [N] defaults to the delivered packets per sender."""
-    n, q, r = cfg.n_nodes, cfg.bcast_queue, cfg.pig_changes
+    q, r = cfg.bcast_queue, cfg.pig_changes
     dev = cst.q_origin.device
+    ax = node_axis(cfg, axis, dev)
+    n, big_n = ax.rows, ax.n
     i32 = torch.int32
     if carried is None:
-        carried = torch.zeros(n + 1, dtype=i32, device=dev)
+        carried = torch.zeros(big_n + 1, dtype=i32, device=dev)
         for src, valid in channels:
             src = torch.clamp(src, min=0).long()
-            carried.scatter_add_(0, torch.where(src < n, src, n), valid.to(i32))
-        carried = carried[:n]
+            carried.scatter_add_(0, torch.where(src < big_n, src, big_n), valid.to(i32))
+        carried = ax.owner_add(carried[:big_n], "bcast.carried")
     wire = bool(cfg.bcast_wire_budget)
     if emitted is not None:
         if wire:
@@ -344,7 +353,8 @@ def piggyback_bcast_step(cfg, cst: CrdtState, channels, key, carried=None,
         allowed = torch.clamp(
             cfg.bcast_budget_bytes // (CHANGE_WIRE_BYTES * torch.clamp(carried, min=1)),
             min=1).to(i32)
-        sel_slots, sel_ok = sample_k(budget_mask(live_slot, cst.q_tx, allowed), r, key)
+        sel_slots, sel_ok = sample_k(budget_mask(live_slot, cst.q_tx, allowed), r, key,
+                                     row0=ax.lo)
         fields = [cst.q_origin, cst.q_dbv, cst.q_cell, cst.q_ver, cst.q_val,
                   cst.q_site, cst.q_clp, cst.q_seq, cst.q_nseq, cst.q_ts]
         if wire:
@@ -352,6 +362,7 @@ def piggyback_bcast_step(cfg, cst: CrdtState, channels, key, carried=None,
         payload = torch.cat([select_cols(f, sel_slots).to(i32) for f in fields]
                             + [sel_ok.to(i32)], dim=1)
     n_fields = 11 if wire else 10
+    payload = ax.all_gather(payload, "bcast.payload")
     parts, valids = [], []
     for src, valid in channels:
         got = take_rows(payload, torch.clamp(src, min=0))
@@ -373,35 +384,37 @@ def piggyback_bcast_step(cfg, cst: CrdtState, channels, key, carried=None,
 
 
 def _post_swim(cfg, st, net, swim, swim_info, channels, carried, k_pig, k_sp,
-               k_sync, inp, now: int):
+               k_sync, inp, now: int, axis=None):
     """CRDT half of the round; ``now`` is the host mirror of the ticked
-    round counter."""
+    round counter. The info counts are this axis's rows' own."""
     from corrosion_tpu_torch.ops import megakernel
     from corrosion_tpu_torch.sim.sync import choose_sync_peers, sync_step
 
-    n, m = cfg.n_nodes, cfg.m_slots
+    m = cfg.m_slots
     dev = swim.mem_id.device
+    ax = node_axis(cfg, axis, dev)
+    n, r0 = ax.rows, ax.lo
     cst = st.crdt._replace(now=st.crdt.now + 1)
+    iarr = ax.ids()
 
     emitted = None
     if kernel_ingest(cfg) and cfg.pig_changes > 0:
         # the local-write kernel also emits the round's piggyback selection,
         # from the same draw the plain selection would make under k_pig
-        rand = prng.uniform(k_pig, (n, cfg.bcast_queue), dev)
+        rand = prng.uniform(k_pig, (n, cfg.bcast_queue), dev, row0=r0)
         cst, emitted = megakernel.local_write_fused(
             cfg, cst, inp.write_mask, inp.write_cell, inp.write_val,
-            inp.write_clp, rand=rand, carried=carried,
+            inp.write_clp, rand=rand, carried=carried, ids=iarr,
         )
     else:
         cst = local_write(cfg, cst, inp.write_mask, inp.write_cell,
-                          inp.write_val, inp.write_clp)
+                          inp.write_val, inp.write_clp, ids=iarr)
         if cfg.tx_max_cells > 1:
             cst = local_write_tx(cfg, cst, inp.tx_mask, inp.tx_cell, inp.tx_val,
-                                 inp.tx_clp, inp.tx_len)
+                                 inp.tx_clp, inp.tx_len, ids=iarr)
     cst, b_info = piggyback_bcast_step(cfg, cst, channels, k_pig, carried,
-                                       emitted=emitted)
+                                       emitted=emitted, axis=ax)
 
-    iarr = torch.arange(n, dtype=torch.int32, device=dev)
     bel_alive = (
         (swim.mem_id >= 0)
         & (swim.mem_id != iarr[:, None])
@@ -413,12 +426,15 @@ def _post_swim(cfg, st, net, swim, swim_info, channels, carried, k_pig, k_sp,
 
     def run_sync(cst):
         arm("sync")
-        cand_slots, cand_sok = sample_k(bel_alive, min(2 * cfg.sync_peers, m), k_sp)
+        cand_slots, cand_sok = sample_k(bel_alive, min(2 * cfg.sync_peers, m), k_sp,
+                                        row0=r0)
         cand_ids = select_cols(swim.mem_id, cand_slots)
         staleness = select_cols(cst.last_sync, cand_slots)
         card = link_card(net, swim.alive)
+        cards = ax.all_gather(card, "sync.ring_card")
         rings_c = ring_of_c(net, card[:, None, :],
-                            card_at(card, torch.clamp(cand_ids, min=0)))
+                            card_at(cards, torch.clamp(cand_ids, min=0)),
+                            axis=axis)
         peers, p_ok, c_idx = choose_sync_peers(
             cfg, cst.book, cand_ids, cand_sok, staleness, rings_c, p_cnt
         )
@@ -428,14 +444,15 @@ def _post_swim(cfg, st, net, swim, swim_info, channels, carried, k_pig, k_sp,
             if sweep:
                 arm("sweep")
                 # the sweep lane pairs uniformly over the whole id space
-                r_peer = prng.randint(prng.fold_in(k_sp, 1), (n,), 0, n, dev)
+                r_peer = prng.randint(prng.fold_in(k_sp, 1), (n,), 0, ax.n, dev,
+                                      row0=r0)
                 peers = peers.clone()
                 p_ok = p_ok.clone()
                 peers[:, 0] = r_peer
                 p_ok[:, 0] = r_peer != iarr
         cst, s_ok, s_info = sync_step(
             cfg, cst, peers, p_ok, swim.alive, net, k_sync,
-            go_all=cfg.sync_cohort, sweep=sweep,
+            go_all=cfg.sync_cohort, sweep=sweep, axis=axis,
         )
         if sweep:
             # lane 0 synced the random sweep peer, not the scored candidate
@@ -459,19 +476,21 @@ def _post_swim(cfg, st, net, swim, swim_info, channels, carried, k_pig, k_sp,
 
 
 def scale_sim_step(cfg: ScaleSimConfig, st: ScaleSimState, net: NetModel, key,
-                   inp: ScaleRoundInput, now: Optional[int] = None):
+                   inp: ScaleRoundInput, now: Optional[int] = None, axis=None):
     """One full protocol round at scale. ``now`` is the host mirror of
-    ``st.crdt.now`` (read from the device once when omitted). Returns
-    ``(state, info)``."""
+    ``st.crdt.now`` (read from the device once when omitted; a replicated
+    scalar on a mesh). Returns ``(state, info)``."""
     check_slice(cfg)
     if now is None:
         now = int(st.crdt.now)
     k_swim, k_pig, k_sp, k_sync = prng.split(key, 4)
     swim, swim_info, channels, carried = scale_swim_step(
-        cfg, st.swim, net, k_swim, kill=inp.kill, revive=inp.revive
+        cfg, st.swim, net, k_swim, kill=inp.kill, revive=inp.revive, axis=axis
     )
-    return _post_swim(cfg, st, net, swim, swim_info, channels, carried,
-                      k_pig, k_sp, k_sync, inp, now + 1)
+    st_out, info = _post_swim(cfg, st, net, swim, swim_info, channels, carried,
+                              k_pig, k_sp, k_sync, inp, now + 1, axis=axis)
+    ax = node_axis(cfg, axis, st_out.crdt.now.device)
+    return st_out, ax.sum_info(info, "info")
 
 
 def _pending(st: ScaleSimState):
@@ -500,22 +519,26 @@ def _quiet_busy(cfg: ScaleSimConfig, st: ScaleSimState):
 
 
 def _quiet_info(cfg: ScaleSimConfig, busy, quiet_ok, settled,
-                schedule_ok: bool) -> dict:
-    """The ``quiet_*`` round-info keys, shared by both branches."""
+                schedule_ok: bool, ax) -> dict:
+    """The ``quiet_*`` round-info keys, shared by both branches, over the
+    whole axis (``quiet_shards`` blocks of the node axis may span mesh
+    shards: each block's busy bit is or-ed over the mesh)."""
     i32 = torch.int32
     shards = max(1, int(cfg.quiet_shards))
-    shard_busy = busy.reshape(shards, -1).any(dim=1)
+    shard_busy = ax.any(ax.spread(busy, False).reshape(shards, -1).any(dim=1),
+                        "quiet.blocks")
     return {
         "quiet_round": quiet_ok.to(i32),
         "quiet_shards_quiet": (~shard_busy).sum().to(i32),
         "quiet_shards_skipped": quiet_ok.to(i32) * shards,
         "quiet_backstop": (settled & (not schedule_ok)).to(i32),
-        "quiet_nodes_active": busy.sum().to(i32),
+        "quiet_nodes_active": ax.sum(busy.sum(), "quiet.active").to(i32),
     }
 
 
 def scale_sim_step_quiet(cfg: ScaleSimConfig, st: ScaleSimState, net: NetModel,
-                         key, inp: ScaleRoundInput, now: Optional[int] = None):
+                         key, inp: ScaleRoundInput, now: Optional[int] = None,
+                         axis=None):
     """:func:`scale_sim_step` for ``quiet="on"``: run the SWIM front, then
     take a fixpoint branch (the counter tick and staleness aging, nothing
     else) when no alive node owes work, the round injects no event, its
@@ -523,12 +546,15 @@ def scale_sim_step_quiet(cfg: ScaleSimConfig, st: ScaleSimState, net: NetModel,
     nor a backstop round; else the dense round. The branch is taken on the
     host, on one device read of the predicate per round (none on a round
     the schedule already forces dense). Both branches give the same state
-    as the dense round, bit for bit."""
+    as the dense round, bit for bit. On a mesh the predicate is one
+    all-reduce, so every shard takes the same branch."""
     check_slice(cfg)
     if now is None:
         now = int(st.crdt.now)
+    ax = node_axis(cfg, axis, st.crdt.now.device)
     k_swim, k_pig, k_sp, k_sync = prng.split(key, 4)
-    front = _swim_front(cfg, st.swim, net, k_swim, kill=inp.kill, revive=inp.revive)
+    front = _swim_front(cfg, st.swim, net, k_swim, kill=inp.kill, revive=inp.revive,
+                        axis=axis)
 
     busy = _quiet_busy(cfg, st)
     input_quiet = ~(inp.kill.any() | inp.revive.any() | inp.write_mask.any()
@@ -536,7 +562,8 @@ def scale_sim_step_quiet(cfg: ScaleSimConfig, st: ScaleSimState, net: NetModel,
     now1 = now + 1  # the dense round gates sync after the tick
     bs = max(1, cfg.quiet_backstop_interval or cfg.sync_interval)
     schedule_ok = now1 % max(1, cfg.sync_interval) != 0 and now1 % bs != 0
-    settled = ~busy.any() & input_quiet & ~swim_front_disturbed(cfg, front)
+    settled = ax.all(~busy.any() & input_quiet & ~swim_front_disturbed(cfg, front),
+                     "quiet.settled")
     quiet_ok = settled & schedule_ok
 
     if schedule_ok and bool(quiet_ok):
@@ -557,11 +584,12 @@ def scale_sim_step_quiet(cfg: ScaleSimConfig, st: ScaleSimState, net: NetModel,
         }
     else:
         arm("dense")
-        swim, swim_info = _swim_back(cfg, st.swim, front)
+        swim, swim_info = _swim_back(cfg, st.swim, front, axis=axis)
         st_out, info = _post_swim(cfg, st, net, swim, swim_info,
                                   list(front.channels), front.carried, k_pig,
-                                  k_sp, k_sync, inp, now1)
-    return st_out, {**info, **_quiet_info(cfg, busy, quiet_ok, settled, schedule_ok)}
+                                  k_sp, k_sync, inp, now1, axis=axis)
+    return st_out, {**ax.sum_info(info, "info"),
+                    **_quiet_info(cfg, busy, quiet_ok, settled, schedule_ok, ax)}
 
 
 def activity_masks(cfg: ScaleSimConfig, st: ScaleSimState) -> dict:
@@ -603,11 +631,14 @@ def _round_input(inputs: ScaleRoundInput, r: int) -> ScaleRoundInput:
     return ScaleRoundInput(*(a[r] for a in inputs))
 
 
-def scale_run_rounds_carry(cfg: ScaleSimConfig, st, net: NetModel, key, inputs):
+def scale_run_rounds_carry(cfg: ScaleSimConfig, st, net: NetModel, key, inputs,
+                           axis=None):
     """Run the stacked rounds in a Python loop. Returns ``((state, key),
     infos)`` with every info key stacked over rounds; chaining carries
     reproduces one straight run bit for bit. ``cfg.quiet == "on"`` runs
-    :func:`scale_sim_step_quiet`; "auto" and "off" run the dense round."""
+    :func:`scale_sim_step_quiet`; "auto" and "off" run the dense round.
+    ``axis``: a mesh shard's view of the node axis (``parallel/mesh.py``);
+    None runs the whole axis on one device."""
     check_slice(cfg)
     step = scale_sim_step_quiet if cfg.quiet == "on" else scale_sim_step
     rounds = inputs.kill.shape[0]
@@ -615,16 +646,20 @@ def scale_run_rounds_carry(cfg: ScaleSimConfig, st, net: NetModel, key, inputs):
     infos = []
     for r in range(rounds):
         key, sub = prng.split(key)
-        st, info = step(cfg, st, net, sub, _round_input(inputs, r), now=now)
+        if axis is not None:
+            axis.next_round()
+        st, info = step(cfg, st, net, sub, _round_input(inputs, r), now=now,
+                        axis=axis)
         now += 1
         infos.append(info)
     stacked = {k: torch.stack([i[k] for i in infos]) for k in infos[0]} if infos else {}
     return (st, key), stacked
 
 
-def scale_run_rounds(cfg: ScaleSimConfig, st, net: NetModel, key, inputs):
+def scale_run_rounds(cfg: ScaleSimConfig, st, net: NetModel, key, inputs,
+                     axis=None):
     """The round loop over stacked per-round inputs: ``(state, infos)``."""
-    (st, _key), infos = scale_run_rounds_carry(cfg, st, net, key, inputs)
+    (st, _key), infos = scale_run_rounds_carry(cfg, st, net, key, inputs, axis=axis)
     return st, infos
 
 

@@ -5,7 +5,10 @@ A syncing node and its peer exchange head vectors; the need per origin is
 the interval ``(head_i, min(head_p, head_i + chunk)]`` and the "stream" is
 a masked LWW merge of the peer's store cells whose ``(site, dbv)`` fall in
 the granted range. Every k-th cohort round lane 0 merges its peer's whole
-store (the sweep lane).
+store (the sweep lane). ``axis`` (``parallel/exchange.NodeAxis``) runs the
+exchange on a mesh shard's rows: the peers' cards, load, book and store
+rows come through the axis's gathers, and the server-side load and the HLC
+fold reach their owners through its owner reductions.
 """
 
 from __future__ import annotations
@@ -59,13 +62,17 @@ def choose_sync_peers(cfg, book, cand_ids, cand_ok, staleness, rings, k):
 
 
 def sync_step(cfg, cst: CrdtState, peers, p_ok, alive, net: NetModel, key,
-              go_all: bool = False, sweep: Optional[bool] = None):
+              go_all: bool = False, sweep: Optional[bool] = None, axis=None):
     """One sync round over the caller-chosen ``peers`` lanes. ``sweep`` is
     None (no sweep lane configured) or this round's host-side bool.
     Returns ``(state, ok [N, P], info)``."""
-    n, n_org = cfg.n_nodes, cfg.n_origins
+    from corrosion_tpu_torch.sim.scale import node_axis
+
+    n_org = cfg.n_origins
     p_cnt = peers.shape[1]
     dev = peers.device
+    ax = node_axis(cfg, axis, dev)
+    n, big_n, r0 = ax.rows, ax.n, ax.lo
     k_go, k_bi = prng.split(key)
     if peers.shape[0] != n or p_ok.shape != peers.shape:
         raise ValueError(
@@ -76,20 +83,21 @@ def sync_step(cfg, cst: CrdtState, peers, p_ok, alive, net: NetModel, key,
         syncing = alive
     else:
         syncing = alive & (
-            prng.uniform(k_go, (n,), dev)
+            prng.uniform(k_go, (n,), dev, row0=r0)
             < torch.tensor(1.0 / max(1, cfg.sync_interval), dtype=torch.float32,
                            device=dev)
         )
     card = link_card(net, alive, extra=(cst.hlc,))
-    peer_card = card_at(card, peers)  # [N, P, C]
-    ok = syncing[:, None] & p_ok & bi_ok_c(net, k_bi, card[:, None, :], peer_card)
+    peer_card = card_at(ax.all_gather(card, "sync.card"), peers)  # [N, P, C]
+    ok = syncing[:, None] & p_ok & bi_ok_c(net, k_bi, card[:, None, :], peer_card,
+                                          row0=r0)
 
     # --- server-side load adaptation ------------------------------------
     serve_cap = max(1, cfg.serve_cap)
-    load = torch.zeros(n + 1, dtype=torch.int32, device=dev).index_add_(
-        0, torch.where(ok, peers, n).reshape(-1).long(),
-        torch.ones(ok.numel(), dtype=torch.int32, device=dev))[:n]
-    loadp = card_at(load[:, None], peers)[..., 0]  # [N, P]
+    load = ax.owner_add(torch.zeros(big_n + 1, dtype=torch.int32, device=dev).index_add_(
+        0, torch.where(ok, peers, big_n).reshape(-1).long(),
+        torch.ones(ok.numel(), dtype=torch.int32, device=dev))[:big_n], "sync.load")
+    loadp = card_at(ax.all_gather(load[:, None], "sync.loads"), peers)[..., 0]  # [N, P]
     k_adm = prng.fold_in(k_bi, 7)
     admit_p = torch.where(
         loadp > 4 * serve_cap,
@@ -99,7 +107,8 @@ def sync_step(cfg, cst: CrdtState, peers, p_ok, alive, net: NetModel, key,
     )
     defer_cap = max(1, cfg.sync_defer_cap)
     force = (cst.sync_defer >= defer_cap)[:, None]
-    admitted = ok & ((prng.uniform(k_adm, tuple(ok.shape), dev) < admit_p) | force)
+    admitted = ok & ((prng.uniform(k_adm, tuple(ok.shape), dev, row0=r0) < admit_p)
+                     | force)
     rejects = (ok & ~admitted).sum()
     admitted_any = admitted.any(dim=1)
     shed_all = ok.any(dim=1) & ~admitted_any
@@ -114,8 +123,8 @@ def sync_step(cfg, cst: CrdtState, peers, p_ok, alive, net: NetModel, key,
         min(cfg.sync_min_chunk, cfg.sync_chunk), cfg.sync_chunk,
     )  # [N, P]
 
-    head_p = take_rows(cst.book.head, peers)  # [N, P, O]
-    org_p = take_rows(cst.book.org_id, peers)  # [N, P, O]
+    head_p = take_rows(ax.all_gather(cst.book.head, "sync.head"), peers)  # [N, P, O]
+    org_p = take_rows(ax.all_gather(cst.book.org_id, "sync.org_id"), peers)  # [N, P, O]
     now = cst.now
     keep = cfg.org_keep_rounds
     evictable = (cst.book.org_id < 0) | (cst.book.org_last + keep < now)
@@ -143,10 +152,11 @@ def sync_step(cfg, cst: CrdtState, peers, p_ok, alive, net: NetModel, key,
     # (a lane that grants nothing selects no cell, so every lane is merged
     # unconditionally: the same result as the JAX package's cond)
     store = tuple(cst.store)
+    stores = tuple(ax.all_gather(pl, "sync.store") for pl in cst.store)
     pulled = torch.zeros((), dtype=torch.int64, device=dev)
     for j in range(p_cnt):
         pj = peers[:, j]
-        p_ver, p_val, p_site, p_dbv, p_clp = (take_rows(pl, pj) for pl in cst.store)
+        p_ver, p_val, p_site, p_dbv, p_clp = (take_rows(pl, pj) for pl in stores)
         slot_c = torch.where(p_site >= 0, p_site % n_org, 0)
         owned_c = (p_site >= 0) & (lookup_cols(org_id2, slot_c) == p_site)
         lo = lookup_cols(head_i, slot_c)
@@ -177,10 +187,11 @@ def sync_step(cfg, cst: CrdtState, peers, p_ok, alive, net: NetModel, key,
     hlc, _, _ = hlc_fold(cst.hlc, cst.now, peer_card[..., CARD_EXTRA], ok)
     client_ts = cst.hlc[:, None].expand(peers.shape)
     within = ok & ((client_ts >> HLC_ROUND_BITS) <= cst.now + HLC_MAX_DRIFT_ROUNDS)
-    flat = torch.where(within, peers, n).reshape(-1).long()
-    hlc = torch.cat([hlc, torch.zeros(1, dtype=torch.int32, device=dev)])
-    hlc = hlc.scatter_reduce_(0, flat, client_ts.reshape(-1), "amax",
-                              include_self=True)[:n]
+    flat = torch.where(within, peers, big_n).reshape(-1).long()
+    hlc = torch.cat([ax.spread(hlc, INT32_MIN),
+                     torch.zeros(1, dtype=torch.int32, device=dev)])
+    hlc = ax.owner_max(hlc.scatter_reduce_(0, flat, client_ts.reshape(-1), "amax",
+                                           include_self=True)[:big_n], "sync.hlc")
     cst = cst._replace(hlc=hlc)
 
     info = {

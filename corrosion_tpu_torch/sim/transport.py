@@ -68,30 +68,34 @@ def _link_ok_c(a, b):
     )
 
 
-def datagram_ok_c(net: NetModel, key, src_card, dst_card):
+def datagram_ok_c(net: NetModel, key, src_card, dst_card, row0: int = 0):
     """Lossy datagram delivery between pre-gathered card rows
-    (broadcastable against each other)."""
+    (broadcastable against each other; ``row0``: the first node row of
+    the draw, a mesh shard's)."""
     shape = torch.broadcast_shapes(src_card.shape[:-1], dst_card.shape[:-1])
-    drop = prng.uniform(key, shape, src_card.device) < net.drop_prob
+    drop = prng.uniform(key, shape, src_card.device, row0=row0) < net.drop_prob
     return _link_ok_c(src_card, dst_card) & ~drop
 
 
-def bi_ok_c(net: NetModel, key, src_card, dst_card):
+def bi_ok_c(net: NetModel, key, src_card, dst_card, row0: int = 0):
     """Sync bi-stream availability: fails on either of two loss draws."""
     k1, k2 = prng.split(key)
     shape = torch.broadcast_shapes(src_card.shape[:-1], dst_card.shape[:-1])
     dev = src_card.device
-    drop = (prng.uniform(k1, shape, dev) < net.drop_prob) | (
-        prng.uniform(k2, shape, dev) < net.drop_prob
+    drop = (prng.uniform(k1, shape, dev, row0=row0) < net.drop_prob) | (
+        prng.uniform(k2, shape, dev, row0=row0) < net.drop_prob
     )
     return _link_ok_c(src_card, dst_card) & ~drop
 
 
-def ring_of_c(net: NetModel, a_card, b_card):
+def ring_of_c(net: NetModel, a_card, b_card, axis=None):
     """RTT ring between card rows: circular region distance, clipped to the
-    six reference buckets."""
+    six reference buckets (the region count is the whole ``axis``'s)."""
     d = (a_card[..., CARD_REGION] - b_card[..., CARD_REGION]).abs()
-    n = torch.clamp(net.region.max() + 1, min=1)
+    top = net.region.max()
+    if axis is not None:
+        top = axis.max(top, "sync.regions")
+    n = torch.clamp(top + 1, min=1)
     circ = torch.minimum(d, n - d)
     return torch.clamp(circ, max=N_RINGS - 1).to(torch.int32)
 

@@ -364,9 +364,15 @@ def _recording(fn, seen):
 
 
 def test_agent_soak_names_its_roadmap_item():
-    """The soak is ported; its sharded form waits for item 14."""
-    with pytest.raises(NotImplementedError, match="item 14"):
-        Agent(small_config(Config), device="cpu").soak(8, mesh=object())
+    """The soak and its sharded form are ported: a mesh whose shard count
+    does not divide the node axis is refused as JAX's sharding refuses it,
+    before any round runs."""
+    from corrosion_tpu_torch.parallel import make_mesh
+
+    agent = Agent(small_config(Config), device="cpu")
+    with pytest.raises(ValueError, match="divisible by 3"):
+        agent.soak(8, mesh=make_mesh(["cpu"] * 3))
+    assert agent.round_no == 0
 
 
 def test_supervised_agent_binds_its_tripwire():

@@ -6,8 +6,11 @@ rounds to convergence and quiescence, info sums, counters, ``ok``) and
 equal ``tests/data/chaos_verdicts_jax.json``, the JAX package's verdicts of
 every registry scenario at seed 0 (made on the CPU, regenerated by the slow
 test below with ``CHAOS_VERDICTS_WRITE=1``, as is
-``tests/data/chaos_storm_jax.json``, preempt-storm at N=4096); what the port cannot run
-(a device mesh, ``fused="off"/"interpret"``) is a skip with its reason; a
+``tests/data/chaos_storm_jax.json``, preempt-storm at N=4096); the two
+remesh scenarios run sharded over eight ``cpu`` shards, then four, and
+equal JAX's committed verdicts (made on eight host devices) field for field,
+``state_digest`` included; what the port cannot run
+(``fused="off"/"interpret"``) is a skip with its reason; a
 crash before the first commit fails its verdict and not the sweep; a
 corrupt checkpoint is refused; scripts round-trip through JSON with their
 digest; and the ``chaos`` subcommand lists and replays on the CPU."""
@@ -43,8 +46,9 @@ DRAIN = ROOT / "tests" / "data" / "preempt_storm_4096.json"
 DRAIN_SETTLE = 14336
 QUIESCENCE_PROBLEM = "did not drain within 512 settle rounds (oracle 3)"
 #: the scenarios the port skips, with a word of each reason
-SKIPS = {"elastic-remesh": "item 14", "corrupt-remesh": "item 14",
-         "fused-flip": "rules of the port"}
+SKIPS = {"fused-flip": "rules of the port"}
+#: the scenarios that run on a mesh of cpu shards (8, then 4)
+REMESH = ("corrupt-remesh", "elastic-remesh")
 #: the verdict fields a skip shares with the JAX package's run
 SKIP_FIELDS = ("name", "seed", "n_nodes", "trace_digest", "rounds_scripted",
                "phases")
@@ -134,9 +138,22 @@ def test_unported_scenarios_skip_with_their_reason(name):
     assert "state_digest" not in rec and "problems" not in rec
 
 
+@pytest.mark.parametrize("name", REMESH)
+def test_remesh_verdict_equals_the_committed_jax_verdict(name):
+    """Sharded over eight shards, resumed onto four mid-lineage: JAX's
+    verdict field for field, the state digest included."""
+    rec = chaos.run_scenario(chaos.SCENARIOS[name], seed=0, device="cpu")
+    assert rec["ok"], rec.get("problems")
+    assert rec["remeshes"] == 1 and rec["bitwise_match"]
+    assert "skipped" not in rec and rec["state_digest"]
+    assert rec == committed_verdicts()["scenarios"][name]
+
+
 def test_only_mesh_and_fused_scenarios_skip():
+    """Mesh scenarios run now: the fused flip alone skips."""
     skipped = {n for n, s in chaos.SCENARIOS.items() if chaos._port_skip(s)}
     assert skipped == set(SKIPS)
+    assert set(REMESH) <= {n for n, s in chaos.SCENARIOS.items() if s.mesh_devices}
 
 
 def test_crash_before_first_commit_fails_the_verdict_not_the_sweep():

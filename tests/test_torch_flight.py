@@ -538,8 +538,9 @@ def test_soak_cli_sync_checkpoint_killed_and_resumed_equals_a_straight_run(tmp_p
 def test_soak_cli_refuses_what_the_port_lacks(tmp_path):
     from corrosion_tpu_torch import cli
 
-    for argv, item in ((["--shard", "4"], "item 14"),
-                       (["--mesh-hosts", "2"], "item 14"),
+    for argv, item in ((["--shard", "4"], "exceeds the 0 available devices"),
+                       (["--shard", "4", "--mesh-hosts", "2"],
+                        "exceeds the 0 available devices"),
                        (["--fused", "interpret"], "rules of the port")):
         with pytest.raises(SystemExit, match=item):
             cli.main(["soak", "--device", "cpu", *argv])

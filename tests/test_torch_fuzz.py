@@ -4,7 +4,7 @@ in both profiles, ``fuzz_ladder`` prices the same bytes rung for rung
 (from a state on the ``meta`` device), the shrinker takes the same steps to
 the same 1-minimal reproducer, the committed corpus reproducer fails under
 the blinded corruption injector and passes with the healthy engine, and a
-generated remesh is a skip in the port."""
+generated remesh runs on a mesh of ``cpu`` shards to JAX's verdict."""
 
 import dataclasses
 import json
@@ -141,12 +141,15 @@ def test_corpus_reproducer_fails_blinded_and_passes_healthy():
 
 
 def test_run_fuzz_record_and_the_remesh_skip(monkeypatch):
-    """Seed 2 draws a remesh: a skip in the port, with its reason, and no
-    round run; a failing case carries its script."""
+    """Seed 2 draws a remesh: it runs on a mesh of cpu shards, no longer a
+    skip, and its case equals JAX's field for field; a failing case
+    carries its script."""
     out = fuzz.run_fuzz([2], device="cpu")
     (case,) = out["cases"]
     assert out["ok"] and out["platform"] == "cpu" and case["ok"]
-    assert "remesh" in case["injections"] and "item 14" in case["skipped"]
+    assert "remesh" in case["injections"] and case["skipped"] is None
+    (jcase,) = jfuzz.run_fuzz([2])["cases"]
+    assert case == jcase
     assert case["trace_digest"] == jchaos.compile_scenario(
         jfuzz.gen_script(2), 2)[2]
     assert out["ladder"] == list(jfuzz.fuzz_ladder())

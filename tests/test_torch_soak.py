@@ -6,7 +6,7 @@ per-round infos; checkpoints cross between the packages in both
 directions (JAX writes and the port resumes, the port writes and JAX
 verifies and resumes), every dtype included, and the resumed runs equal
 the other package's straight runs; damaged, drifted, half-written,
-sharded and foreign-key checkpoints are refused; retries restart from the
+mis-sliced and foreign-key checkpoints are refused; retries restart from the
 host copy of the boundary. Tolerance 0."""
 
 import dataclasses
@@ -299,13 +299,18 @@ def test_crash_mid_save_leaves_no_manifest(two_segments, monkeypatch):
 @pytest.mark.parametrize("edit, exc, match", [
     (lambda m: m["extra"]["soak"]["key"].update(impl="rbg"), ValueError, "impl 'rbg'"),
     (lambda m: m.pop("extra"), ValueError, "not written by the segmented runner"),
-    # a sharded save fails verification, so no candidate is left
-    (lambda m: m.update(mesh={"axis_names": ["node"], "shape": [4]}),
+    # a save claiming a slice of leaf 0 over four shards that its file
+    # does not hold fails verification, so no candidate is left
+    (lambda m: (m.update(mesh={"axis_names": ["node"], "shape": [4]}),
+                m["leaves"][0].update(dim=0, axes=["node"]),
+                m["slices"]["shard-00000.npz"][0].update(
+                    stop=m["leaves"][0]["shape"][0] // 4)),
      FileNotFoundError, "no restorable checkpoint"),
 ], ids=["rbg_key", "not_a_soak", "sharded"])
 def test_foreign_checkpoints_refused(two_segments, edit, exc, match):
     """An rbg key, a checkpoint that is no soak's, or a save sharded over
-    four devices: each refused whole (the manifest itself is unhashed)."""
+    four devices whose slices do not match its manifest: each refused whole
+    (the manifest itself is unhashed)."""
     cfg, root, net, inputs = two_segments
     for seg in ("seg-00000004", "seg-00000008"):
         _edit_manifest(os.path.join(root, seg), edit)
@@ -315,7 +320,7 @@ def test_foreign_checkpoints_refused(two_segments, edit, exc, match):
         path = os.path.join(root, "seg-00000008")
         for load in (ckpt.verify_checkpoint,
                      lambda p: ckpt.load_checkpoint(p, device="cpu")):
-            with pytest.raises(ValueError, match="mesh of 4 devices"):
+            with pytest.raises(ckpt.CheckpointIntegrityError, match="manifest window"):
                 load(path)
 
 
