@@ -1187,6 +1187,9 @@ MESH_SHARDS = 4
 MESH_ROUNDS = 8  # flagship rounds on the mesh; the last is a sync-and-sweep round
 MESH_MILLION_ROUNDS = 3
 MESH_RESUME_ROUNDS = 2  # rounds run after each restore of the sharded checkpoint
+MESH_FULL_ROUNDS = 3  # full_view_config(FULL_NODES) rounds on the mesh
+MESH_FULL_TX_NODES = 1024  # the full view's plain route (tx 8) on the mesh
+MESH_FULL_TX_ROUNDS = 4
 
 
 def _mesh_devices(dev, k: int) -> tuple:
@@ -1220,15 +1223,20 @@ def _same_infos(label, want: dict, got: dict) -> None:
         raise AssertionError(f"mesh {label}: round infos differ from the unsharded run")
 
 
-def _mesh_launches(label, shards: int, rounds: int, want_forms: dict) -> dict:
-    """K1-K3 launched once a round on every shard, in the path's forms."""
+def _mesh_launches(label, shards: int, rounds: int, want_forms) -> dict:
+    """Each of the path's kernel forms launched once a round on every
+    shard, and no other (no form: the plain route launches nothing)."""
     from corrosion_tpu_torch.ops import megakernel as mk
 
-    want = {k: shards * rounds for k in mk.LAUNCHES}
+    want = {f: shards * rounds for f in want_forms}
+    names: dict = {}
+    for (name, _form), v in want.items():
+        names[name] = names.get(name, 0) + v
+    got = {k: v for k, v in mk.LAUNCHES.items() if v}
     forms = dict(mk.FORM_LAUNCHES)
-    if dict(mk.LAUNCHES) != want or forms != {f: shards * rounds for f in want_forms}:
-        raise AssertionError(f"mesh {label}: launches {dict(mk.LAUNCHES)} {forms}, "
-                             f"want {want}")
+    if got != names or forms != want:
+        raise AssertionError(f"mesh {label}: launches {got} {forms}, want {names} "
+                             f"{want}")
     return forms
 
 
@@ -1236,8 +1244,11 @@ def phase_mesh(dev, million_workload: dict) -> dict:
     """The node-axis sharding (``parallel/``) on the card: the flagship on
     a mesh of ``MESH_SHARDS`` (one card repeated, or that many cards), a
     ``(2, 2)`` carry chain, the 1M point on the mesh, a sharded checkpoint
-    restored onto 2 shards and onto one device; each bitwise equal to the
-    unsharded run, with K1-K3 launched on every shard every round."""
+    restored onto 2 shards and onto one device, the full view at
+    ``FULL_NODES`` (tx 1: K2 at m = recv_slots and K3 at m = 1) and at
+    ``wan_config(MESH_FULL_TX_NODES)`` (tx 8, the plain route); each
+    bitwise equal to the unsharded run, with the path's kernels launched
+    on every shard every round."""
     import os
     import shutil
     import tempfile
@@ -1252,6 +1263,7 @@ def phase_mesh(dev, million_workload: dict) -> dict:
         sharded_scale_run_carry,
     )
     from corrosion_tpu_torch.resilience import resume_segmented, run_segmented
+    from corrosion_tpu_torch.sim.config import full_view_config, wan_config
     from corrosion_tpu_torch.sim.scale_step import (
         ScaleRoundInput,
         ScaleSimState,
@@ -1260,6 +1272,7 @@ def phase_mesh(dev, million_workload: dict) -> dict:
         scale_run_rounds_carry,
         scale_sim_config,
     )
+    from corrosion_tpu_torch.sim.scenario import full_view_workload
 
     k = MESH_SHARDS
     devices, where = _mesh_devices(dev, k)
@@ -1287,6 +1300,7 @@ def phase_mesh(dev, million_workload: dict) -> dict:
     mk.reset_launches()
     exchanges: list = []
     t0 = time.perf_counter()
+    # corrolint: disable=shard-spec-drift -- the unsharded run's start; the call places it
     (out, out_key), infos = sharded_scale_run_carry(cfg, mesh, st0, net, key, inputs,
                                                     exchanges=exchanges)
     for d in set(devices):
@@ -1294,6 +1308,7 @@ def phase_mesh(dev, million_workload: dict) -> dict:
     mesh_rate = MESH_ROUNDS / (time.perf_counter() - t0)
     forms = _mesh_launches("flagship", k, MESH_ROUNDS, {
         ("swim_tables", "aligned/16/16"), ("ingest", "16/16"), ("ingest_emit", "16/16")})
+    # corrolint: disable=shard-gather -- the check: the whole state equals the unsharded run's
     _same_state("flagship", ref, out)
     _same_infos("flagship", ref_infos, infos)
     if not torch.equal(ref_key, out_key):
@@ -1312,9 +1327,12 @@ def phase_mesh(dev, million_workload: dict) -> dict:
     # --- the (2, 2) carry chain: 4 + 4 rounds ------------------------------
     mesh22 = make_multihost_mesh(2, devices)
     half = MESH_ROUNDS // 2
+    # corrolint: disable=shard-spec-drift -- the unsharded run's start; the call places it
     (carry, ck), _ = sharded_scale_run_carry(cfg, mesh22, st0, net, key, cut(inputs, 0, half))
+    # corrolint: disable=shard-spec-drift -- the unsharded run's start; the call places it
     (carry, ck), _ = sharded_scale_run_carry(cfg, mesh22, carry, net, ck,
                                              cut(inputs, half, MESH_ROUNDS))
+    # corrolint: disable=shard-gather -- the check: the whole state equals the unsharded run's
     _same_state("(2, 2) carry chain", ref, carry)
     if not torch.equal(ref_key, ck):
         raise AssertionError("mesh carry chain: the carried key differs")
@@ -1364,6 +1382,7 @@ def phase_mesh(dev, million_workload: dict) -> dict:
     torch.cuda.reset_peak_memory_stats()
     mk.reset_launches()
     t0 = time.perf_counter()
+    # corrolint: disable=shard-spec-drift -- the unsharded run's start; the call places it
     (mout, _), minfos = sharded_scale_run_carry(mcfg, mesh, mst, mnet, mkey, minputs)
     for d in set(devices):
         torch.cuda.synchronize(d)
@@ -1371,14 +1390,83 @@ def phase_mesh(dev, million_workload: dict) -> dict:
     peak = torch.cuda.max_memory_allocated()
     mforms = _mesh_launches("1M", k, MESH_MILLION_ROUNDS, {
         ("swim_tables", "packed/16/8"), ("ingest", "16/8"), ("ingest_emit", "16/8")})
+    # corrolint: disable=shard-gather -- the check: the whole state equals the unsharded run's
     _same_state("1M", mref, mout)
     _same_infos("1M", mref_infos, minfos)
     print(f"[mesh] 1M point ({MILLION_NODES} nodes, pig_members={mcfg.pig_members}, "
           f"int8 mem_tx/q_tx) {MESH_MILLION_ROUNDS} rounds on {k} shards: bitwise "
           f"equal to the unsharded run; launches {mforms}; {m_rate!r} rounds/s; "
           f"peak device memory {peak} bytes", flush=True)
+    del mref, mout, mst
+
+    # --- the full view on the mesh: K2 (m = recv_slots) and K3 (m = 1) on
+    # every shard, then the plain route (tx 8) --------------------------
+    fcfg = full_view_config(FULL_NODES)
+    full = _mesh_full_leg(
+        f"full view N={FULL_NODES} (tx 1)", fcfg,
+        full_view_workload(fcfg, MESH_FULL_ROUNDS, dev), MESH_FULL_ROUNDS, mesh, k,
+        {("ingest", "32/32"), ("ingest", f"32/32/m{fcfg.recv_slots}")})
+    tcfg = wan_config(MESH_FULL_TX_NODES)
+    full_tx = _mesh_full_leg(
+        f"full view wan_config({MESH_FULL_TX_NODES}), tx {tcfg.tx_max_cells}", tcfg,
+        _tx_workload(tcfg, MESH_FULL_TX_ROUNDS, dev), MESH_FULL_TX_ROUNDS, mesh, k, ())
     return {"flagship_rounds_per_s": mesh_rate, "unsharded_rounds_per_s": plain_rate,
-            "exchanges": exchanges, "million_rounds_per_s": m_rate, "peak_bytes": peak}
+            "exchanges": exchanges, "million_rounds_per_s": m_rate, "peak_bytes": peak,
+            "full": full, "full_tx": full_tx}
+
+
+def _mesh_full_leg(label, cfg, workload, rounds: int, mesh, k: int, want_forms) -> dict:
+    """One full-view leg: ``run_rounds`` unsharded (after a warm-up round),
+    then ``sharded_run`` on ``mesh`` from the same state, key and inputs:
+    bitwise equal, state and infos, with the path's kernel forms launched
+    once a round on every shard (the unsharded run once a round)."""
+    import torch
+
+    from corrosion_tpu_torch.ops import megakernel as mk
+    from corrosion_tpu_torch.parallel import sharded_run
+    from corrosion_tpu_torch.sim.step import RoundInput, run_rounds
+
+    st0, net, key, inputs = workload
+    # a warm-up round: the unsharded rate is not a first call's
+    run_rounds(cfg, st0, net, key, RoundInput(*(a[:1] for a in inputs)))
+    torch.cuda.synchronize()
+    mk.reset_launches()
+    t0 = time.perf_counter()
+    ref, ref_infos = run_rounds(cfg, st0, net, key, inputs)
+    torch.cuda.synchronize()
+    plain_rate = rounds / (time.perf_counter() - t0)
+    _mesh_launches(f"{label} unsharded", 1, rounds, want_forms)
+    sums = {kk: int(v.sum()) for kk, v in ref_infos.items()}
+    if sums["fresh"] <= 0 or sums["sent"] <= 0 or sums["syncs"] <= 0:
+        raise AssertionError(f"mesh {label}: the run moved nothing: {sums}")
+    torch.cuda.reset_peak_memory_stats()
+    mk.reset_launches()
+    exchanges: list = []
+    t0 = time.perf_counter()
+    # corrolint: disable=shard-spec-drift -- the unsharded run's start; the call places it
+    out, infos = sharded_run(cfg, mesh, st0, net, key, inputs, exchanges=exchanges)
+    for d in set(mesh.flat_devices()):
+        torch.cuda.synchronize(d)
+    rate = rounds / (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    forms = _mesh_launches(label, k, rounds, want_forms)
+    # corrolint: disable=shard-gather -- the check: the whole state equals the unsharded run's
+    _same_state(label, ref, out)
+    _same_infos(label, ref_infos, infos)
+    if len(exchanges) != rounds or any(e != exchanges[0] for e in exchanges):
+        raise AssertionError(f"mesh {label}: the rounds exchanged unequal bytes "
+                             f"{exchanges}")
+    launched = (f"launches {forms} ({k} a round each)" if forms
+                else "no kernel launch (the plain route), as unsharded")
+    print(f"[mesh] {label}: {rounds} rounds on {k} shards: bitwise equal to the "
+          f"unsharded run, state and infos; {launched}; {rate!r} rounds/s sharded "
+          f"vs {plain_rate!r} "
+          f"unsharded; exchange bytes a round by site {exchanges[0]}, total "
+          f"{sum(exchanges[0].values())} (every round the same); peak device memory "
+          f"{peak} bytes over the sharded run (the unsharded start and result held "
+          f"beside it)", flush=True)
+    return {"rounds_per_s": rate, "unsharded_rounds_per_s": plain_rate,
+            "exchanges": exchanges[0], "peak_bytes": peak, "forms": forms}
 
 
 
@@ -3275,9 +3363,30 @@ def _san_config():
     return cfg
 
 
+def _lint_port() -> tuple:
+    """corrolint over the port's package with every checker, the
+    sharding contract among them: -> (seconds, checker names); any
+    finding fails the phase."""
+    import os
+
+    import corrosion_tpu_torch
+    from corrosion_tpu_torch.analysis import ALL_CHECKERS, PROJECT_CHECKERS, run_paths
+
+    checkers = sorted(ALL_CHECKERS) + sorted(PROJECT_CHECKERS)
+    if "sharding-contract" not in checkers:
+        raise AssertionError(f"san: lint runs without the sharding contract: {checkers}")
+    t0 = time.perf_counter()
+    findings = run_paths([os.path.dirname(os.path.abspath(corrosion_tpu_torch.__file__))])
+    if findings:
+        raise AssertionError("san: corrolint findings in the port:\n"
+                             + "\n".join(f.render() for f in findings))
+    return time.perf_counter() - t0, checkers
+
+
 def phase_san(dev) -> dict:
-    """corrosan on the card, in this process: the nine seeded fixtures with
-    ``device`` (each ``ok``: every seeded bug found, every clean twin
+    """corrolint over the port (every checker, the sharding contract among
+    them: no finding), then corrosan on the card, in this process: the
+    nine seeded fixtures with ``device`` (each ``ok``: every seeded bug found, every clean twin
     clean), then the sanitized battery of the JAX package's
     ``tests/test_corrosan.py`` on an agent on ``device``: an empty gate,
     the ``SubsManager._mu -> Matcher._mu`` edge witnessed, witnessed edges
@@ -3297,6 +3406,7 @@ def phase_san(dev) -> dict:
     from corrosion_tpu_torch.analysis.sanitizer.allowlist import ALLOWED_LOCK_EDGES
     from corrosion_tpu_torch.ops import megakernel as mk
 
+    lint_s, checkers = _lint_port()
     t0 = time.perf_counter()
     fixtures = run_all_fixtures(device=dev)
     bad = [(r.name, r.expect, r.found, r.details) for r in fixtures if not r.ok]
@@ -3357,6 +3467,8 @@ def phase_san(dev) -> dict:
             f"edge witnessed {edge in named}, outside static + allowlist {extra}, "
             f"{threads} threads, launches in the window {launched}, health {health}")
     verdicts = ", ".join(f"{r.name}: {list(r.found) or 'clean'}" for r in fixtures)
+    print(f"[san] corrolint over corrosion_tpu_torch/ with {checkers}: no finding, "
+          f"{lint_s:.1f} s", flush=True)
     print(f"[san] corrosan on {dev}: {len(fixtures)} fixtures, each its verdict "
           f"({verdicts}) "
           f"in {fixtures_s:.1f} s; the battery (agent N=16 with Supervisor, "

@@ -16,6 +16,10 @@ classes a runtime test only catches on the path it happens to take:
   call graph of ``callgraph.py``) — ``lock-cycle`` /
   ``lock-inversion``: the cross-class lock-acquisition-order graph must
   stay acyclic.
+- **sharding-contract** (``sharding.py``, interprocedural over the same
+  call graph with ``dataflow.py``) — ``shard-gather`` / ``shard-spec-
+  drift``: node-sharded state is never materialized whole outside the
+  drain registry, and a sharded entry point gets placed state.
 
 ``python -m corrosion_tpu_torch.analysis [--format text|json] [paths]``
 (or ``python -m corrosion_tpu_torch lint``) runs them all and exits

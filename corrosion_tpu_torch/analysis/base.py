@@ -51,6 +51,15 @@ RULES: Dict[str, str] = {
         "two locks acquired in opposite orders on two code paths "
         "(ABBA deadlock across threads)"
     ),
+    "shard-gather": (
+        "node-sharded state materialized whole (np.asarray/.cpu()/.numpy()/"
+        "ShardedTree.assemble/whole-tree drain) outside the sharding drain "
+        "registry"
+    ),
+    "shard-spec-drift": (
+        "freshly-built state passed into a sharded entry point without "
+        "`shard_state` placement"
+    ),
 }
 
 

@@ -23,9 +23,12 @@ Two checker shapes:
   abstain. The full walk is the gate of record; ``--changed`` is the
   fast pre-commit approximation.
 
-The JAX package's jit, donation, sharding, dtype, shape and cost tiers
-have no counterpart here: the port has no jit, no donation and (yet) no
-mesh.
+The sharding contract (``sharding.py``) holds over the port's mesh
+surfaces (``parallel/mesh.py``). The JAX package's jit, donation and
+collective tiers have no counterpart here: the port has no jit, no
+donation, and writes its cross-shard exchanges out (``parallel/
+exchange.py`` counts their bytes); its dtype and shape-interpreter tiers
+are still to come (ROADMAP).
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ import ast
 import os
 from typing import Callable, Dict, Iterable, Iterator, List, Optional, Tuple
 
-from corrosion_tpu_torch.analysis import asserts, locks, lockorder
+from corrosion_tpu_torch.analysis import asserts, locks, lockorder, sharding
 from corrosion_tpu_torch.analysis.base import Finding, parse_suppressions
 from corrosion_tpu_torch.analysis.callgraph import (
     ModuleInfo,
@@ -51,6 +54,7 @@ ALL_CHECKERS: Dict[str, Callable] = {
 #: project checker name -> callable(Project) -> [Finding]
 PROJECT_CHECKERS: Dict[str, Callable] = {
     "lock-order": lockorder.check_project,
+    "sharding-contract": sharding.check_project,
 }
 
 _SKIP_DIRS = {"__pycache__", ".git", "node_modules"}

@@ -1,4 +1,4 @@
-"""Mesh parallelism for the scale round (port of ``corrosion_tpu/parallel``).
+"""Mesh parallelism for the simulator's rounds (port of ``corrosion_tpu/parallel``).
 
 The JAX package shards the simulated nodes axis over a ``jax.sharding.Mesh``
 and lets XLA insert the collectives; the port runs one thread per shard in
@@ -22,6 +22,8 @@ from corrosion_tpu_torch.parallel.mesh import (  # noqa: F401
     make_multihost_mesh,
     node_sharding,
     shard_state,
+    sharded_run,
     sharded_scale_run,
     sharded_scale_run_carry,
+    sharded_step,
 )

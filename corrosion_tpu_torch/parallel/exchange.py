@@ -14,6 +14,10 @@ in the same order):
   keeps its own rows of the sum (max) over the shards. Integer sums and
   maxima are exact in any order, so the result is bitwise the
   single-device scatter's;
+- :meth:`NodeAxis.all_to_all`: every shard builds whole-axis ``[N, ...]``
+  planes, and each owner gets its own rows of every shard's, in shard
+  order (the full view's mailboxes: a receiver's messages from each
+  sender block, kept apart so that their order survives);
 - :meth:`NodeAxis.sum` / :meth:`any` / :meth:`all` / :meth:`max` and
   :meth:`sum_info`: reductions of scalars over the whole axis.
 
@@ -220,6 +224,14 @@ class NodeAxis:
             return torch.arange(self.n, dtype=dtype, device=self.device)
         return torch.arange(self.lo, self.hi, dtype=dtype, device=self.device)
 
+    def eye(self) -> torch.Tensor:
+        """This shard's rows of the bool ``[N, N]`` identity (row i is
+        true at column ``lo + i``)."""
+        if self.is_whole:
+            return torch.eye(self.n, dtype=torch.bool, device=self.device)
+        cols = torch.arange(self.n, dtype=torch.int32, device=self.device)
+        return self.ids()[:, None] == cols[None, :]
+
     def next_round(self) -> None:
         if not self.is_whole:
             self.group.next_round(self.rank)
@@ -265,6 +277,19 @@ class NodeAxis:
     def owner_max(self, partial: torch.Tensor, site: str = "owner_max") -> torch.Tensor:
         """:meth:`owner_add` with the maximum."""
         return self._owner(partial, site, torch.maximum)
+
+    def all_to_all(self, planes: tuple, site: str = "all_to_all") -> list:
+        """Each shard's tuple of whole-axis ``[N, ...]`` planes -> this
+        shard's rows of every shard's tuple, in shard order (a list of
+        tuples on this shard's device); the whole axis returns
+        ``[planes]``."""
+        if self.is_whole:
+            return [tuple(planes)]
+        lo, hi = self.lo, self.hi
+        parts = self.group.exchange(
+            self.rank, tuple(planes), site,
+            lambda v: sum(_nbytes(p[lo:hi]) for p in v))
+        return [tuple(p[lo:hi].to(self.device) for p in v) for v in parts]
 
     # --- scalars -----------------------------------------------------------
 

@@ -1,5 +1,5 @@
-"""Shard the scale round over a mesh of devices along the node axis (port of
-``corrosion_tpu/parallel/mesh.py``).
+"""Shard the simulator's rounds over a mesh of devices along the node axis
+(port of ``corrosion_tpu/parallel/mesh.py``).
 
 The JAX package annotates the node axis of every state plane with a
 ``NamedSharding`` and lets XLA insert the collectives. The port is
@@ -23,8 +23,11 @@ The checkpoint pipeline drains a placed carry per shard
 :func:`drained_mesh_meta`), and restores the slices onto whatever mesh the
 resuming process has (:func:`elastic_sharding`).
 
-Not here: ``buffers_donated`` (the port donates nothing), and the full
-view's ``sharded_step``/``sharded_run`` (ROADMAP).
+The full view's round (``sharded_step``, ``sharded_run``) runs on the mesh
+the same way: ``sim.step.sim_step(..., axis=)`` on every shard, its
+``[N, N]`` planes sharded by rows.
+
+Not here: ``buffers_donated`` (the port donates nothing).
 """
 
 from __future__ import annotations
@@ -245,31 +248,53 @@ def _scale_run_carry(cfg, st, net, key, inputs, axis):
     return scale_run_rounds_carry(cfg, st, net, key, inputs, axis=axis)
 
 
+def _full_step(cfg, st, net, key, inp, axis):
+    from corrosion_tpu_torch.sim.step import sim_step
+
+    axis.next_round()
+    return sim_step(cfg, st, net, key, inp, axis=axis)
+
+
+def _full_run_carry(cfg, st, net, key, inputs, axis):
+    from corrosion_tpu_torch.sim.step import run_rounds_carry
+
+    return run_rounds_carry(cfg, st, net, key, inputs, axis=axis)
+
+
 #: public sharded entry name -> the body every shard runs. The cost model
 #: prices ``sharded_scale_run`` as the single-device program
 #: (``analysis/cost.py``): the work is placement-independent.
 SHARDED_ENTRY_POINTS = {
+    "sharded_step": _full_step,
+    "sharded_run": _full_run_carry,
     "sharded_scale_run": _scale_run_carry,
     "sharded_scale_run_carry": _scale_run_carry,
 }
 
 
-def _run_on_mesh(cfg, mesh: Mesh, st, net, key, inputs, exchanges=None):
+def _run_on_mesh(body, cfg, mesh: Mesh, st, net, key, inputs, exchanges=None):
+    """``body(cfg, st, net, key, inputs, axis)`` on every shard of
+    ``mesh`` (trees not yet placed are placed first): -> ``(placed state,
+    every shard's result in shard order)``."""
     n = cfg.n_nodes
     st, net, inputs = (shard_state(mesh, n, t) for t in (st, net, inputs))
     group = ShardGroup(mesh.flat_devices(), n)
 
     def work(ax):
         i = ax.rank
-        return _scale_run_carry(cfg, st.parts[i], net.parts[i], key,
-                                inputs.parts[i], ax)
+        return body(cfg, st.parts[i], net.parts[i], key, inputs.parts[i], ax)
 
     results = group.run(work)
     if exchanges is not None:
         exchanges.extend(group.bytes_by_round())
+    return st, results
+
+
+def _carry_out(mesh: Mesh, n: int, st: ShardedTree, results: list):
+    """Every shard's ``((state, key), infos)`` -> ``((ShardedTree, key),
+    infos)`` (the key and the summed infos are the same on every shard)."""
     (_, key_out), infos = results[0]
-    out = ShardedTree(mesh, n, [r[0][0] for r in results], st.dims)
-    return (out, key_out), infos
+    return (ShardedTree(mesh, n, [r[0][0] for r in results], st.dims), key_out), infos
 
 
 def sharded_scale_run_carry(cfg, mesh: Mesh, st, net, key, inputs,
@@ -280,13 +305,40 @@ def sharded_scale_run_carry(cfg, mesh: Mesh, st, net, key, inputs,
     the straight run bit for bit, and every shard's rows equal the
     single-device run's. ``exchanges``, when given, gets each round's
     ``{site: bytes}`` moved between shards, summed over them."""
-    return _run_on_mesh(cfg, mesh, st, net, key, inputs, exchanges)
+    st, results = _run_on_mesh(_scale_run_carry, cfg, mesh, st, net, key, inputs,
+                               exchanges)
+    return _carry_out(mesh, cfg.n_nodes, st, results)
 
 
 def sharded_scale_run(cfg, mesh: Mesh, st, net, key, inputs,
                       exchanges: Optional[list] = None):
     """``scale_run_rounds`` over ``mesh``: -> ``(state, infos)``."""
-    (out, _key), infos = _run_on_mesh(cfg, mesh, st, net, key, inputs, exchanges)
+    (out, _key), infos = sharded_scale_run_carry(cfg, mesh, st, net, key, inputs,
+                                                 exchanges)
+    return out, infos
+
+
+def sharded_step(cfg, mesh: Mesh, st, net, key, inp,
+                 exchanges: Optional[list] = None):
+    """One full-view round (``sim.step.sim_step``) over ``mesh``: -> ``(state,
+    info)`` with the state a :class:`ShardedTree` on ``mesh`` and the
+    info the whole axis's (trees not yet placed are placed first; every
+    shard's rows equal the single-device round's). ``exchanges``: as
+    :func:`sharded_scale_run_carry`."""
+    st, results = _run_on_mesh(_full_step, cfg, mesh, st, net, key, inp, exchanges)
+    return ShardedTree(mesh, cfg.n_nodes, [r[0] for r in results], st.dims), results[0][1]
+
+
+def sharded_run(cfg, mesh: Mesh, st, net, key, inputs,
+                exchanges: Optional[list] = None):
+    """The full-view round loop (``sim.step.run_rounds``) over stacked
+    ``inputs`` on ``mesh``: -> ``(state, infos)``, as :func:`sharded_step`
+    for each round. A returned state fed back in on the same mesh, with
+    the key the straight run would carry, continues that run bit for
+    bit."""
+    st, results = _run_on_mesh(_full_run_carry, cfg, mesh, st, net, key, inputs,
+                               exchanges)
+    (out, _key), infos = _carry_out(mesh, cfg.n_nodes, st, results)
     return out, infos
 
 

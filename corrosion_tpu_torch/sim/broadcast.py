@@ -38,6 +38,7 @@ from corrosion_tpu_torch.ops.versions import (
     record_versions,
     seen_versions,
 )
+from corrosion_tpu_torch.parallel.exchange import NodeAxis
 from corrosion_tpu_torch.sim.transport import NetModel, uni_ok
 
 NO_Q = -1
@@ -346,20 +347,43 @@ def ingest_changes(cfg, cst: CrdtState, live, m_origin, m_dbv, m_cell, m_ver,
     return cst, info
 
 
-def bcast_step(cfg, cst: CrdtState, targets, t_ok, alive, net: NetModel, key):
+def _route_mailboxes(ax, dst, m_ok, capacity: int, fields):
+    """:func:`mailbox_pack` across a mesh. Each shard packs its own
+    senders' messages into whole-axis mailboxes, every owner gets its rows
+    of each shard's (the all-to-all), in shard order, and keeps each
+    receiver's first ``capacity`` live messages. The shards are contiguous
+    sender blocks in rank order, so that is the whole axis's flat (sender,
+    slot, target) order: the packing is the single-device one bit for
+    bit (an empty slot is zero in every field either way)."""
+    live, packed = mailbox_pack(dst.reshape(-1), m_ok.reshape(-1), n_rows=ax.n,
+                                capacity=capacity, fields=fields)
+    planes = [torch.cat(p, dim=1) for p in zip(*ax.all_to_all((live,) + packed,
+                                                              "bcast.mail"))]
+    keep = torch.argsort((~planes[0]).to(torch.int32), dim=1, stable=True)[:, :capacity]
+    return (torch.gather(planes[0], 1, keep),
+            tuple(torch.gather(p, 1, keep) for p in planes[1:]))
+
+
+def bcast_step(cfg, cst: CrdtState, targets, t_ok, alive, net: NetModel, key,
+               axis=None):
     """One broadcast flush + ingest round of the full view: every node fires
     its sendable queue slots at its ``bcast_fanout`` targets over the lossy
     uni channel, the sender x slot x target messages are packed into
     ``recv_slots``-wide mailboxes per receiver, the senders' budgets burn
-    once per flush, and the receivers ingest their mailboxes. Returns
-    ``(cst, info)``."""
+    once per flush, and the receivers ingest their mailboxes. ``axis``: a
+    mesh shard's view of the node axis (its rows send and receive; the
+    mailboxes reach their owners by the axis's all-to-all; ``alive`` and
+    ``net`` are every node's, indexed by node id), None the whole axis.
+    Returns ``(cst, info)``."""
     n, q, f = cfg.n_nodes, cfg.bcast_queue, cfg.bcast_fanout
-    if tuple(targets.shape) != (n, f):
-        raise ValueError(
-            f"targets shape {tuple(targets.shape)} != ({n}, {f}) "
-            f"(n_nodes, bcast_fanout)"
-        )
     dev = targets.device
+    ax = NodeAxis.whole(n, dev) if axis is None else axis
+    rows = ax.rows
+    if tuple(targets.shape) != (rows, f):
+        raise ValueError(
+            f"targets shape {tuple(targets.shape)} != ({rows}, {f}) "
+            f"(node rows, bcast_fanout)"
+        )
 
     # sendable slots: queued with budget left, then the per-round send budget
     live_slot = (cst.q_origin != NO_Q) & (cst.q_tx > 0)
@@ -367,19 +391,22 @@ def bcast_step(cfg, cst: CrdtState, targets, t_ok, alive, net: NetModel, key):
     live_slot = budget_mask(live_slot, cst.q_tx, allowed)
 
     # messages: sender x slot x target
-    src = torch.arange(n, dtype=torch.int32, device=dev)[:, None, None].expand(n, q, f)
-    dst = targets[:, None, :].expand(n, q, f)
-    m_ok = live_slot[:, :, None] & t_ok[:, None, :] & uni_ok(net, key, alive, src, dst)
+    src = ax.ids()[:, None, None].expand(rows, q, f)
+    dst = targets[:, None, :].expand(rows, q, f)
+    m_ok = live_slot[:, :, None] & t_ok[:, None, :] & uni_ok(net, key, alive, src, dst,
+                                                            row0=ax.lo)
 
     def flat(a):
-        return a[:, :, None].expand(n, q, f).reshape(-1)
+        return a[:, :, None].expand(rows, q, f).reshape(-1)
 
-    live, packed = mailbox_pack(
-        dst.reshape(-1), m_ok.reshape(-1), n_rows=n, capacity=cfg.recv_slots,
-        fields=tuple(flat(a) for a in (
-            cst.q_origin, cst.q_dbv, cst.q_cell, cst.q_ver, cst.q_val,
-            cst.q_site, cst.q_clp, cst.q_seq, cst.q_nseq, cst.q_ts)),
-    )
+    fields = tuple(flat(a) for a in (
+        cst.q_origin, cst.q_dbv, cst.q_cell, cst.q_ver, cst.q_val,
+        cst.q_site, cst.q_clp, cst.q_seq, cst.q_nseq, cst.q_ts))
+    if ax.is_whole:
+        live, packed = mailbox_pack(dst.reshape(-1), m_ok.reshape(-1), n_rows=n,
+                                    capacity=cfg.recv_slots, fields=fields)
+    else:
+        live, packed = _route_mailboxes(ax, dst, m_ok, cfg.recv_slots, fields)
 
     # sender-side budget decrement on the attempt, in the plane dtype; free
     # exhausted slots

@@ -15,6 +15,11 @@ transactions (``local_write_tx``, chunked delivery through the partial
 buffer) on the plain route, as the JAX package does. It reads nothing back from
 the device except once per ``run_rounds_carry`` call, for the host mirror
 of the round counter that the sweep predicate needs.
+
+The round also runs on one shard of a mesh (``axis=``, as the scale round
+does): ``parallel/mesh.py``'s ``sharded_step`` and ``sharded_run`` run it
+on every shard's rows, one thread a shard, and each shard's round launches
+its own kernels.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from corrosion_tpu_torch._units import arm
 from corrosion_tpu_torch.ops.lww import STATE_ALIVE
 from corrosion_tpu_torch.ops.select import sample_k, sample_k_biased
 from corrosion_tpu_torch.ops.versions import needs_count
+from corrosion_tpu_torch.parallel.exchange import NodeAxis
 from corrosion_tpu_torch.sim.broadcast import (
     LAST_SYNC_CAP,
     CrdtState,
@@ -39,7 +45,7 @@ from corrosion_tpu_torch.sim.broadcast import (
 from corrosion_tpu_torch.sim.config import SimConfig, check_full_slice
 from corrosion_tpu_torch.sim.swim import SwimState, swim_metrics, swim_step
 from corrosion_tpu_torch.sim.sync import choose_sync_peers, sync_step
-from corrosion_tpu_torch.sim.transport import NetModel, ring_of, same_region
+from corrosion_tpu_torch.sim.transport import NetModel, ring_of, same_region, whole_nodes
 
 
 class SimState(NamedTuple):
@@ -86,40 +92,48 @@ class RoundInput(NamedTuple):
 
 
 def sim_step(cfg: SimConfig, st: SimState, net: NetModel, key, inp: RoundInput,
-             now: Optional[int] = None):
+             now: Optional[int] = None, axis=None):
     """One full protocol round for the whole cluster. ``now`` is the host
     mirror of ``st.crdt.now``; it is read (once) only when a sweep is
-    configured and it is not given. Returns ``(state, info)``."""
+    configured and it is not given. ``axis``: a mesh shard's view of the
+    node axis (``parallel/mesh.py``): ``st``, ``net`` and ``inp`` hold its
+    rows, node ids stay global, and the round's info counts are summed
+    over the axis at its end; None runs the whole axis on one device.
+    Returns ``(state, info)``."""
     check_full_slice(cfg)
     n = cfg.n_nodes
     dev = st.swim.view.device
+    ax = NodeAxis.whole(n, dev) if axis is None else axis
+    ids = None if ax.is_whole else ax.ids()
     k_swim, k_bcast, k_sync, k_bt, k_sp = prng.split(key, 5)
     swim, swim_info = swim_step(cfg, st.swim, net, k_swim,
-                                kill=inp.kill, revive=inp.revive)
+                                kill=inp.kill, revive=inp.revive, axis=axis)
     believed = (swim.view >= 0) & ((swim.view & 3) == STATE_ALIVE)
-    cand = believed & ~torch.eye(n, dtype=torch.bool, device=dev)
+    cand = believed & ~ax.eye()
 
     # tick the round counter (the HLC's physical time axis), then write
     cst = st.crdt._replace(now=st.crdt.now + 1)
     cst = local_write(cfg, cst, inp.write_mask, inp.write_cell, inp.write_val,
-                      inp.write_clp)
+                      inp.write_clp, ids=ids)
     if cfg.tx_max_cells > 1:
         cst = local_write_tx(cfg, cst, inp.tx_mask, inp.tx_cell, inp.tx_val,
-                             inp.tx_clp, inp.tx_len)
+                             inp.tx_clp, inp.tx_len, ids=ids)
 
     # broadcast fanout: same-region members take strict priority
+    net_all, alive_all = whole_nodes(ax, net, swim.alive, "step.card")
     targets, t_ok = sample_k_biased(
-        cand & swim.alive[:, None], same_region(net).to(torch.float32),
-        cfg.bcast_fanout, k_bt)
-    cst, b_info = bcast_step(cfg, cst, targets, t_ok, swim.alive, net, k_bcast)
+        cand & swim.alive[:, None], same_region(net_all, net.region).to(torch.float32),
+        cfg.bcast_fanout, k_bt, row0=ax.lo)
+    cst, b_info = bcast_step(cfg, cst, targets, t_ok, alive_all, net_all, k_bcast,
+                             axis=axis)
 
     # need-driven sync peer choice from a 2x random sample; last_sync
     # tracks are peer node ids
-    iarr = torch.arange(n, dtype=torch.int32, device=dev)
+    iarr = ax.ids()
     p_cnt = cfg.sync_peers
-    cand_ids, cand_sok = sample_k(cand, min(2 * p_cnt, n), k_sp)
+    cand_ids, cand_sok = sample_k(cand, min(2 * p_cnt, n), k_sp, row0=ax.lo)
     staleness = torch.gather(cst.last_sync, 1, cand_ids.long())
-    rings_c = ring_of(net, iarr[:, None].expand(cand_ids.shape), cand_ids)
+    rings_c = ring_of(net_all, iarr[:, None].expand(cand_ids.shape), cand_ids)
     peers, p_ok, _ = choose_sync_peers(cfg, cst.book, cand_ids, cand_sok,
                                        staleness, rings_c, p_cnt)
     sweep = None
@@ -131,14 +145,15 @@ def sim_step(cfg: SimConfig, st: SimState, net: NetModel, key, inp: RoundInput,
             arm("sweep")
     arm("sync")
     cst, s_ok, s_info = sync_step(cfg, cst, peers, p_ok, swim.alive, net, k_sync,
-                                  sweep=sweep)
+                                  sweep=sweep, axis=axis)
+    rows = iarr if ax.is_whole else torch.arange(ax.rows, dtype=torch.int32, device=dev)
     ls = torch.clamp(cst.last_sync + 1, max=LAST_SYNC_CAP)
-    flat = torch.where(s_ok, iarr[:, None].long() * n + peers.long(), n * n)
+    flat = torch.where(s_ok, rows[:, None].long() * n + peers.long(), ax.rows * n)
     ls = torch.cat([ls.reshape(-1), ls.new_zeros(1)])
     ls[flat.reshape(-1)] = 0
-    cst = cst._replace(last_sync=ls[: n * n].reshape(n, n))
+    cst = cst._replace(last_sync=ls[: ax.rows * n].reshape(ax.rows, n))
 
-    return SimState(swim, cst), {**swim_info, **b_info, **s_info}
+    return SimState(swim, cst), ax.sum_info({**swim_info, **b_info, **s_info}, "info")
 
 
 def _round(inputs: RoundInput, r: int) -> RoundInput:
@@ -146,17 +161,20 @@ def _round(inputs: RoundInput, r: int) -> RoundInput:
 
 
 def run_rounds_carry(cfg: SimConfig, st: SimState, net: NetModel, key,
-                     inputs: RoundInput):
+                     inputs: RoundInput, axis=None):
     """The rounds of stacked ``inputs`` (leading axis = rounds) in a loop.
     Returns ``((state, key), infos)`` with every info value stacked over
-    rounds; feeding the carry back in reproduces a straight run."""
+    rounds; feeding the carry back in reproduces a straight run. ``axis``:
+    as :func:`sim_step`."""
     check_full_slice(cfg)
     rounds = inputs.kill.shape[0]
     now = int(st.crdt.now) if cfg.sync_sweep_every > 0 else None
     infos = []
     for r in range(rounds):
         key, sub = prng.split(key)
-        st, info = sim_step(cfg, st, net, sub, _round(inputs, r), now=now)
+        if axis is not None:
+            axis.next_round()
+        st, info = sim_step(cfg, st, net, sub, _round(inputs, r), now=now, axis=axis)
         if now is not None:
             now += 1
         infos.append(info)

@@ -103,6 +103,21 @@ def ring_of_c(net: NetModel, a_card, b_card, axis=None):
 # --- node-id predicates of the full-view round ---------------------------
 # The full view gathers each per-node field by node id (the JAX package's
 # non-card forms); every draw is made with the same key and shape as there.
+# On a mesh shard the fields come from :func:`whole_nodes` and the draws
+# take the shard's rows (``row0``).
+
+
+def whole_nodes(axis, net: NetModel, alive, site: str):
+    """The whole node axis's ``(net, alive)`` for the node-id predicates:
+    on a mesh shard its rows' liveness, partition, cluster id and region
+    are gathered in one exchange (``site``); the whole axis returns them
+    as they are."""
+    if axis.is_whole:
+        return net, alive
+    card = axis.all_gather(link_card(net, alive), site)
+    return (net._replace(partition=card[:, CARD_PART], region=card[:, CARD_REGION],
+                         cluster_id=card[:, CARD_CLUSTER]),
+            card[:, CARD_ALIVE] != 0)
 
 
 def _at(t, idx):
@@ -117,9 +132,12 @@ def ring_of(net: NetModel, src, dst):
     return torch.clamp(circ, max=N_RINGS - 1).to(torch.int32)
 
 
-def same_region(net: NetModel):
-    """[N, N] ring-0 adjacency (full-view rounds only)."""
-    return net.region[:, None] == net.region[None, :]
+def same_region(net: NetModel, rows=None):
+    """[N, N] ring-0 adjacency (full-view rounds only); ``rows``: the
+    regions of the viewing rows (a mesh shard's, against the whole
+    ``net``), else every node's."""
+    rows = net.region if rows is None else rows
+    return rows[:, None] == net.region[None, :]
 
 
 def _link_ok(net: NetModel, alive, src, dst):
@@ -132,10 +150,11 @@ def _link_ok(net: NetModel, alive, src, dst):
     )
 
 
-def datagram_ok(net: NetModel, key, alive, src, dst):
+def datagram_ok(net: NetModel, key, alive, src, dst, row0: int = 0):
     """Lossy datagram delivery between node ids (``src``/``dst`` of one
-    shape; one uniform draw of that shape)."""
-    drop = prng.uniform(key, src.shape, src.device) < net.drop_prob
+    shape; one uniform draw of that shape, ``row0``: as
+    :func:`datagram_ok_c`)."""
+    drop = prng.uniform(key, src.shape, src.device, row0=row0) < net.drop_prob
     return _link_ok(net, alive, src, dst) & ~drop
 
 

@@ -1,16 +1,23 @@
 // A host stand-in for the parts of the CUDA runtime that the port's kernels
 // use, so that a kernel's lane logic runs on the CPU in the tests
 // (tests/test_torch_ingest_host.py, tests/test_torch_swim_host.py; built by
-// host_build.py here). Each warp runs after the one before,
-// its 32 lanes at once as std::threads, and its collectives
+// host_build.py here). Each warp runs after the one before, its 32 lanes as
+// fibers of one thread (ucontext): a lane runs until it reaches a collective
 // (__shfl_sync, __ballot_sync, __match_any_sync, __reduce_*_sync,
-// __syncwarp) meet at a barrier of its 32 lanes. A collective that the lanes
-// of a warp reach from different source lines (a divergent collective,
-// undefined on the card) aborts with both lines, and a warp that waits
-// longer than a minute aborts too.
+// __syncwarp), posts its value there and yields; once every lane has posted,
+// each in turn reads what the others posted, and they meet a second time
+// before any runs on. The lanes run in rising order between two meetings and
+// in falling order between the next two, so a lane that reads another's
+// shared memory before a collective orders the two sees it both ways. A
+// collective that the lanes of a warp reach from different source lines (a
+// divergent collective, undefined on the card) aborts with both lines, as
+// does a lane that returns while others wait at a collective, and a warp
+// still running after a minute. One thread a warp, where a thread a lane
+// met at a barrier slowed to a crawl when the tests ran beside others.
 #pragma once
+#include <ucontext.h>
+
 #include <algorithm>
-#include <barrier>
 #include <chrono>
 #include <condition_variable>
 #include <climits>
@@ -18,6 +25,8 @@
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <functional>
+#include <memory>
 #include <mutex>
 #include <thread>
 #include <vector>
@@ -41,30 +50,38 @@ using std::max;
 using std::min;
 
 struct HostWarp {
-  std::barrier<> bar{32};
   uint64_t slot[32];
   int line[32];
+  bool done[32];
+  ucontext_t lane[32];
+  ucontext_t sched;  // the warp's scheduler, where a lane yields to
 };
 inline thread_local dim3 threadIdx, blockIdx;
 inline thread_local HostWarp* host_warp;
 inline thread_local int host_lane;
 inline thread_local int host_line;
+inline thread_local const std::function<void()>* host_body;
 inline std::mutex host_atomic_mu;
+
+// a meeting of the warp's lanes: back to the scheduler until every lane is
+// here (it restores this lane's threadIdx and host_lane before resuming)
+inline void host_meet() { swapcontext(&host_warp->lane[host_lane], &host_warp->sched); }
 
 // every lane posts a value, and all check that they came from one line
 inline void host_post(uint64_t v) {
   host_warp->slot[host_lane] = v;
   host_warp->line[host_lane] = host_line;
-  host_warp->bar.arrive_and_wait();
+  host_meet();
+  const int mine = host_warp->line[host_lane];
   for (int i = 0; i < 32; ++i) {
-    if (host_warp->line[i] != host_line) {
+    if (host_warp->line[i] != mine) {
       std::fprintf(stderr, "divergent collective: lane %d at line %d, lane %d at line %d\n",
-                   host_lane, host_line, i, host_warp->line[i]);
+                   host_lane, mine, i, host_warp->line[i]);
       std::abort();
     }
   }
 }
-inline void host_done() { host_warp->bar.arrive_and_wait(); }
+inline void host_done() { host_meet(); }
 template <class T>
 inline uint64_t host_bits(T v) {
   uint64_t b = 0;
@@ -152,15 +169,24 @@ inline unsigned atomicOr(unsigned* p, unsigned v) {
   return old;
 }
 
+// a lane's fiber: the kernel, then back to the scheduler for good
+inline void host_lane_main() {
+  (*host_body)();
+  host_warp->done[host_lane] = true;
+}
+
 // the launch: `kernel<<<grid, threads, 0, stream>>>(args)` is rewritten to
 // `host_launch(kernel, grid, threads, args)` before the source is compiled.
-// Warps run one after another (no __syncthreads here), so 32 threads at a
-// time; a watchdog aborts a warp that has not finished within a minute.
+// Warps run one after another (no __syncthreads here); a watchdog aborts a
+// warp that has not finished within a minute.
 template <class K, class A>
 inline void host_launch(K kernel, dim3 grid, int threads, const A& args) {
+  constexpr size_t kStack = size_t(1) << 19;
+  std::unique_ptr<char[]> stacks(new char[32 * kStack]);
+  const std::function<void()> body = [&] { kernel(args); };
   for (unsigned b = 0; b < grid.x; ++b) {
     for (int w = 0; w < threads / 32; ++w) {
-      HostWarp warp;
+      auto warp = std::make_unique<HostWarp>();
       std::mutex mu;
       std::condition_variable cv;
       bool finished = false;
@@ -171,17 +197,36 @@ inline void host_launch(K kernel, dim3 grid, int threads, const A& args) {
           std::abort();
         }
       });
-      std::vector<std::thread> lanes;
       for (int l = 0; l < 32; ++l) {
-        lanes.emplace_back([&, l] {
-          blockIdx = dim3(b);
-          threadIdx = dim3(32 * w + l);
-          host_warp = &warp;
-          host_lane = l;
-          kernel(args);
-        });
+        warp->done[l] = false;
+        getcontext(&warp->lane[l]);
+        warp->lane[l].uc_stack.ss_sp = stacks.get() + l * kStack;
+        warp->lane[l].uc_stack.ss_size = kStack;
+        warp->lane[l].uc_link = &warp->sched;
+        makecontext(&warp->lane[l], host_lane_main, 0);
       }
-      for (auto& x : lanes) x.join();
+      blockIdx = dim3(b);
+      host_warp = warp.get();
+      host_body = &body;
+      for (int meeting = 0;; ++meeting) {
+        for (int i = 0; i < 32; ++i) {
+          const int l = (meeting & 1) ? 31 - i : i;
+          if (warp->done[l]) continue;
+          threadIdx = dim3(32 * w + l);
+          host_lane = l;
+          swapcontext(&warp->sched, &warp->lane[l]);
+        }
+        const int returned = static_cast<int>(std::count(warp->done, warp->done + 32, true));
+        if (returned == 32) break;
+        if (returned > 0) {
+          const int waiting = static_cast<int>(std::find(warp->done, warp->done + 32, false) -
+                                               warp->done);
+          std::fprintf(stderr, "block %u warp %d: lane %d waits at a collective (line %d) "
+                       "that %d lanes returned without reaching\n",
+                       b, w, waiting, warp->line[waiting], returned);
+          std::abort();
+        }
+      }
       {
         std::lock_guard<std::mutex> lock(mu);
         finished = true;

@@ -13,6 +13,10 @@ package's, on the CPU.
 - ``module_name_for`` names port paths by their last
   ``corrosion_tpu_torch`` component, and every out-of-package file
   (``chip_smoke.py``) by a name of its own.
+- JAX's nine sharding-contract fixtures fire the same rules on the same
+  lines through the port's rule, which also flags the torch idioms
+  (``.cpu()``, ``.to("cpu")``, ``.numpy()``, ``ShardedTree.assemble``)
+  and passes a registered drain.
 - The port tree and ``chip_smoke.py`` lint clean, and the ``lint``
   subcommand exits 0, 1 and 2 as JAX's does."""
 
@@ -53,9 +57,9 @@ ROOT = Path(__file__).resolve().parent.parent
 PORTABLE = ("lock-discipline", "strippable-assert", "lock-order")
 
 
-def _fixture_cases():
+def _fixture_cases(tiers=PORTABLE):
     """``(id, source, checkers)`` for every ``lint(src, [checkers])`` call of
-    the JAX lint tests whose checkers are all portable tiers."""
+    the JAX lint tests whose checkers are all among ``tiers``."""
     def strings(body):
         return {t.id: node.value.value for node in body
                 if isinstance(node, ast.Assign) and isinstance(node.value, ast.Constant)
@@ -77,7 +81,7 @@ def _fixture_cases():
                 src = (src.value if isinstance(src, ast.Constant)
                        else consts.get(getattr(src, "id", None)))
                 checkers = [e.value for e in call.args[1].elts]
-                if src is None or not set(checkers) <= set(PORTABLE):
+                if src is None or not set(checkers) <= set(tiers):
                     continue
                 cases.append(pytest.param(src, checkers,
                                           id=f"{name[5:-3]}-{fn.name[5:]}-{i}"))
@@ -85,6 +89,8 @@ def _fixture_cases():
 
 
 FIXTURES = _fixture_cases()
+#: JAX's sharding-contract fixtures (``tests/test_analysis_v2.py``)
+SHARDING_FIXTURES = _fixture_cases(("sharding-contract",))
 
 
 def _ported(findings):
@@ -270,16 +276,86 @@ def test_module_name_for_port_paths():
 
 
 def test_rules_are_jax_rules_and_documented():
-    """The port emits a subset of JAX's rules, each described as JAX's is
-    and so listed in ``docs/corrolint.md``."""
+    """The port emits a subset of JAX's rules, each listed in
+    ``docs/corrolint.md`` and described as JAX's is, but for the sharding
+    contract's two, which name the port's materializers."""
+    sharding = {"shard-gather", "shard-spec-drift"}
     assert set(RULES) == {"unlocked-mutation", "blocking-under-lock", "bare-assert",
-                          "suppression-missing-reason", "lock-cycle", "lock-inversion"}
+                          "suppression-missing-reason", "lock-cycle",
+                          "lock-inversion"} | sharding
     for rule, text in RULES.items():
-        assert J_RULES[rule] == text
+        if rule not in sharding:
+            assert J_RULES[rule] == text
+    assert all(w in RULES["shard-gather"]
+               for w in (".cpu()", ".numpy()", "ShardedTree.assemble"))
+    assert "`shard_state`" in RULES["shard-spec-drift"]
     doc = (ROOT / "docs" / "corrolint.md").read_text(encoding="utf-8")
     assert [r for r in RULES if f"`{r}`" not in doc] == []
     assert set(ALL_CHECKERS) == {"lock-discipline", "strippable-assert"}
-    assert set(PROJECT_CHECKERS) == {"lock-order"}
+    assert set(PROJECT_CHECKERS) == {"lock-order", "sharding-contract"}
+
+
+def _sharding(src):
+    return check_source(textwrap.dedent(src), "fixture.py",
+                        {"sharding-contract": PROJECT_CHECKERS["sharding-contract"]})
+
+
+def test_sharding_fixtures_are_jax_nine():
+    assert len(SHARDING_FIXTURES) == 9
+
+
+@pytest.mark.parametrize("src,checkers", SHARDING_FIXTURES)
+def test_sharding_fixture_rules_equal_jax(src, checkers):
+    """One of JAX's sharding-contract fixtures through both rules: the same
+    rules fire on the same lines."""
+    want = j_check_source(textwrap.dedent(src), "fixture.py",
+                          {"sharding-contract": J_PROJECT["sharding-contract"]})
+    assert [(f.line, f.rule) for f in _sharding(src)] == [(f.line, f.rule) for f in want]
+
+
+TORCH_IDIOMS = {
+    "cpu": ("""
+        def drive(cfg, mesh, st, net, key, inputs):
+            st, infos = sharded_run(cfg, mesh, st, net, key, inputs)
+            hlc = st.crdt.hlc.cpu()
+            view = st.swim.view.to("cpu")
+            return hlc, view, infos["fresh"].cpu()  # the summed infos: fine
+    """, [(4, "shard-gather"), (5, "shard-gather")]),
+    "numpy_through_a_helper": ("""
+        def host(t):
+            return t.detach().numpy()
+
+        def drive(cfg, mesh, st, net, key, inputs):
+            st, infos = sharded_run(cfg, mesh, st, net, key, inputs)
+            return host(st.swim.view)
+    """, [(7, "shard-gather")]),
+    "assemble": ("""
+        def drive(cfg, mesh, st, net, key, inp):
+            out, info = sharded_step(cfg, mesh, st, net, key, inp)
+            return out.assemble("cpu"), info["acked"].item()
+    """, [(4, "shard-gather")]),
+    "registered_drain": ("""
+        import numpy as np
+
+        def host_shard_copy(tree):
+            return [np.asarray(x) for x in tree_leaves(tree)]
+
+        def drive(cfg, mesh, st, net, key, inputs):
+            (st, key), infos = sharded_scale_run_carry(cfg, mesh, st, net, key, inputs)
+            return host_shard_copy(st), key.tolist()
+    """, []),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TORCH_IDIOMS))
+def test_sharding_contract_on_torch_idioms(case):
+    src, want = TORCH_IDIOMS[case]
+    assert [(f.line, f.rule) for f in _sharding(src)] == want
+
+
+def test_port_is_clean_under_the_sharding_contract():
+    findings = run_paths([str(ROOT / "corrosion_tpu_torch")], ["sharding-contract"])
+    assert findings == [], "\n" + "\n".join(f.render() for f in findings)
 
 
 def test_torch_device_sync_under_lock_is_blocking():

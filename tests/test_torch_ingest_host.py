@@ -1,6 +1,7 @@
 """The ingest kernel's CUDA source (corrosion_tpu_torch/csrc/ingest.cu) run
 on the CPU: compiled with the host compiler against the stand-in runtime in
-tests/cuda_host/ (a warp's lanes as threads, its collectives at a barrier),
+tests/cuda_host/ (a warp's lanes as fibers of one thread that meet at its
+collectives),
 launched through the wrapper's own argument packing, and held bitwise
 against the plain version, ``ingest_plain``, in every form the paths run,
 on the random and the tie-heavy inputs that ``chip_smoke.py`` holds the

@@ -31,6 +31,7 @@ from corrosion_tpu_torch.parallel import (
     sharded_scale_run,
     sharded_scale_run_carry,
 )
+from corrosion_tpu_torch.parallel import exchange
 from corrosion_tpu_torch.parallel.exchange import shard_bounds
 from corrosion_tpu_torch.sim import scale_step
 
@@ -46,6 +47,14 @@ CASES = {
 }
 MESHES = ("flat", "dcn2x4")
 _JAX: dict = {}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _short_turn_timeout():
+    """A deadlocked shard fails its wait within a minute."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(exchange, "TURN_TIMEOUT_S", 60.0)
+        yield
 
 
 def _port_mesh(kind):

@@ -35,6 +35,7 @@ from corrosion_tpu_torch.parallel import (
     make_multihost_mesh,
     shard_state,
 )
+from corrosion_tpu_torch.parallel import exchange
 from corrosion_tpu_torch.parallel.mesh import ShardedTree, tree_leaves
 from corrosion_tpu_torch.resilience import (
     Supervisor,
@@ -50,6 +51,14 @@ from corrosion_tpu_torch.utils.backoff import Backoff
 
 N, ROUNDS = 24, 16
 SCALE = dict(m_slots=8, n_origins=4, n_rows=4, n_cols=2, sync_interval=4)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _short_turn_timeout():
+    """A deadlocked shard fails its wait within a minute."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(exchange, "TURN_TIMEOUT_S", 60.0)
+        yield
 
 
 def mesh8():

@@ -1,7 +1,7 @@
 """The swim kernel's CUDA source (corrosion_tpu_torch/csrc/swim_tables.cu)
 run on the CPU: compiled with the host compiler against the stand-in
-runtime in tests/cuda_host/ (a warp's lanes as threads, its collectives at
-a barrier), launched through the wrapper's own argument packing, and held
+runtime in tests/cuda_host/ (a warp's lanes as fibers of one thread that
+meet at its collectives), launched through the wrapper's own argument packing, and held
 bitwise against the plain version, ``swim_tables_plain``, in every timer /
 budget dtype pair of both channel forms at the configurations' m = 64 and
 k = 16, at m = 16, 32 and 128 (masked lanes, 1 and 4 columns a lane,
