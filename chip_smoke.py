@@ -39,7 +39,9 @@ Phases (any failure raises and the script exits non-zero):
    piggyback, int8 budget and queue-counter planes) with the same workload,
    2 warm-up rounds, then three timed batches of 4 rounds. Each kernel must
    launch once a round, in that configuration's forms; prints rounds/s,
-   peak device memory and the carried state's bytes.
+   peak device memory and the carried state's bytes; then one ``[dtype]``
+   line: every ``NARROW_LEAVES`` name of ``analysis/dtypes.py`` is in the
+   carry, on the card, at exactly its declared width.
 6. cost: the static memory projection and the per-round cost model
    (``analysis/shapes.py``, ``analysis/cost.py``) on the card. ``mem-report
    --n-nodes 100000`` (the CLI, in this process, on the card by default)
@@ -205,7 +207,9 @@ Phases (any failure raises and the script exits non-zero):
     three forms at both serving rigs' shapes (16x4 cells at N=100,000;
     36x4 = 144 cells at N=16).
 24. san: the runtime sanitizer (``analysis/sanitizer``) on the card. (a)
-    In this process, while the overload bench finishes: corrosan's nine
+    In this process, while the overload bench finishes: corrolint over the
+    port with every checker (the sharding contract, dtype-flow and densify
+    among them; no finding; each checker's seconds printed), corrosan's nine
     seeded fixtures with ``device="cuda"``, each with its expected verdict;
     then one sanitized window over an agent on the card at a small config
     (N=16) with a ``Supervisor``, a ``SubsManager`` with a persist
@@ -1179,8 +1183,35 @@ def phase_million(dev) -> dict:
           f"memory {peak} bytes; carried state {state_bytes} bytes "
           f"({state_bytes / n!r} B/node); launches {forms}; info sums {sums}",
           flush=True)
+    _check_narrow_widths(st, "1M point")
     return {"rounds_per_s": median, "peak_bytes": peak, "forms": forms, "audit": audit,
             "workload": kept}
+
+
+def _check_narrow_widths(st, label: str) -> None:
+    """The card's counterpart of dtype-flow's registry check: every
+    ``NARROW_LEAVES`` name is in the carry ``st``, on the card, at exactly
+    its declared width (the 1M point runs every narrow tier)."""
+    import torch
+
+    from corrosion_tpu_torch.analysis.dtypes import NARROW_LEAVES
+    from corrosion_tpu_torch.obs.memory import _walk_leaves
+
+    leaves: dict = {}
+    _walk_leaves(st, "", leaves)
+    found = {name: t for name, t in leaves.items() if name.rsplit(".", 1)[-1] in NARROW_LEAVES}
+    seen = {name.rsplit(".", 1)[-1] for name in found}
+    bad = {name: (str(t.dtype), str(t.device)) for name, t in found.items()
+           if t.element_size() * 8 != NARROW_LEAVES[name.rsplit(".", 1)[-1]]
+           or t.device.type != "cuda" or t.dtype.is_floating_point or t.dtype == torch.bool}
+    if seen != set(NARROW_LEAVES) or bad:
+        raise AssertionError(f"[dtype] {label}: missing {sorted(set(NARROW_LEAVES) - seen)}, "
+                             f"off their declared width or off the card {bad}")
+    print(f"[dtype] {label}'s carry on {next(iter(found.values())).device}: "
+          + ", ".join(f"{name} {str(t.dtype).removeprefix('torch.')}"
+                      for name, t in sorted(found.items()))
+          + f": all {len(NARROW_LEAVES)} NARROW_LEAVES names at their declared widths",
+          flush=True)
 
 
 MESH_SHARDS = 4
@@ -3364,23 +3395,30 @@ def _san_config():
 
 
 def _lint_port() -> tuple:
-    """corrolint over the port's package with every checker, the
-    sharding contract among them: -> (seconds, checker names); any
-    finding fails the phase."""
+    """corrolint over the port's package with every checker, the sharding
+    contract, dtype-flow and densify among them: -> (seconds, checker
+    names); prints each checker's seconds; any finding fails the phase."""
     import os
 
     import corrosion_tpu_torch
-    from corrosion_tpu_torch.analysis import ALL_CHECKERS, PROJECT_CHECKERS, run_paths
+    from corrosion_tpu_torch.analysis import ALL_CHECKERS, PROJECT_CHECKERS, lint_report
 
     checkers = sorted(ALL_CHECKERS) + sorted(PROJECT_CHECKERS)
-    if "sharding-contract" not in checkers:
-        raise AssertionError(f"san: lint runs without the sharding contract: {checkers}")
+    missing = {"sharding-contract", "dtype-flow", "densify"} - set(checkers)
+    if missing:
+        raise AssertionError(f"san: lint runs without {sorted(missing)}: {checkers}")
+    seconds: dict = {}
     t0 = time.perf_counter()
-    findings = run_paths([os.path.dirname(os.path.abspath(corrosion_tpu_torch.__file__))])
+    findings, files = lint_report(
+        [os.path.dirname(os.path.abspath(corrosion_tpu_torch.__file__))], seconds=seconds)
     if findings:
         raise AssertionError("san: corrolint findings in the port:\n"
                              + "\n".join(f.render() for f in findings))
-    return time.perf_counter() - t0, checkers
+    total = time.perf_counter() - t0
+    print(f"[san] corrolint seconds by checker over {files} files: "
+          + ", ".join(f"{k} {seconds[k]!r}" for k in checkers) + f"; whole walk {total!r}",
+          flush=True)
+    return total, checkers
 
 
 def phase_san(dev) -> dict:

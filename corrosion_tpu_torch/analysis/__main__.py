@@ -76,8 +76,9 @@ def _write_report(path: str, findings, n_files: int) -> None:
 def main(argv: Optional[Sequence[str]] = None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m corrosion_tpu_torch.analysis",
-        description="corrolint: lock-discipline, strippable-assert and "
-                    "the interprocedural lock-order check",
+        description="corrolint: lock-discipline, strippable-assert, the "
+                    "interprocedural lock-order check, the sharding "
+                    "contract, dtype-flow and densify",
     )
     parser.add_argument(
         "paths", nargs="*", default=None,

@@ -60,6 +60,16 @@ RULES: Dict[str, str] = {
         "freshly-built state passed into a sharded entry point without "
         "`shard_state` placement"
     ),
+    "dtype-widen": (
+        "declared-narrow (int16/int8) state leaf receives a silently "
+        "promotion-widened value at a carry/kernel boundary (torch's "
+        "promotion) — multiplies the plane's bytes and fails the kernel "
+        "wrappers' dtype check on the card"
+    ),
+    "densify": (
+        "intermediate tensor whose N-degree exceeds every input's "
+        "(an N x N pairwise broadcast: fits at 100k, OOMs at 1M)"
+    ),
 }
 
 

@@ -24,20 +24,23 @@ Two checker shapes:
   fast pre-commit approximation.
 
 The sharding contract (``sharding.py``) holds over the port's mesh
-surfaces (``parallel/mesh.py``). The JAX package's jit, donation and
-collective tiers have no counterpart here: the port has no jit, no
+surfaces (``parallel/mesh.py``); ``dtype-flow`` (``dtypes.py``) and
+``densify`` (``shapes.py``'s interpreter) read the port's ``sim/`` and
+``ops/`` source with torch's semantics. The JAX package's jit, donation
+and collective tiers have no counterpart here: the port has no jit, no
 donation, and writes its cross-shard exchanges out (``parallel/
-exchange.py`` counts their bytes); its dtype and shape-interpreter tiers
-are still to come (ROADMAP).
+exchange.py`` counts their bytes). Its ``mem-budget`` and ``cost-drift``
+gates run as tests (``shapes.check_budget``, ``cost.check_degrees``).
 """
 
 from __future__ import annotations
 
 import ast
 import os
+import time
 from typing import Callable, Dict, Iterable, Iterator, List, Optional, Tuple
 
-from corrosion_tpu_torch.analysis import asserts, locks, lockorder, sharding
+from corrosion_tpu_torch.analysis import asserts, dtypes, locks, lockorder, shapes, sharding
 from corrosion_tpu_torch.analysis.base import Finding, parse_suppressions
 from corrosion_tpu_torch.analysis.callgraph import (
     ModuleInfo,
@@ -55,6 +58,8 @@ ALL_CHECKERS: Dict[str, Callable] = {
 PROJECT_CHECKERS: Dict[str, Callable] = {
     "lock-order": lockorder.check_project,
     "sharding-contract": sharding.check_project,
+    "dtype-flow": dtypes.check_project,
+    "densify": shapes.check_densify,
 }
 
 _SKIP_DIRS = {"__pycache__", ".git", "node_modules"}
@@ -101,8 +106,11 @@ def _lint_sources(
     sources: List[Tuple[str, str]],
     per_file: Dict[str, Callable],
     project_checkers: Dict[str, Callable],
+    seconds: Optional[Dict[str, float]] = None,
 ) -> List[Finding]:
-    """The shared engine body over parsed (path, source) pairs."""
+    """The shared engine body over parsed (path, source) pairs;
+    ``seconds`` (when given) gathers each checker's time by name."""
+    seconds = {} if seconds is None else seconds
     findings: List[Finding] = []
     suppressions: Dict[str, Dict[int, set]] = {}
     modules = []
@@ -118,16 +126,20 @@ def _lint_sources(
                 message=f"not parseable: {e.msg}",
             ))
             continue
-        for _, checker in sorted(per_file.items()):
+        for name, checker in sorted(per_file.items()):
+            t0 = time.perf_counter()
             findings.extend(checker(tree, source, path))
+            seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
         modules.append(ModuleInfo(
             path=path, name=module_name_for(path), tree=tree,
             source=source, suppressions=by_line, bad_suppressions=bad,
         ))
     if project_checkers and modules:
         project = Project(modules)
-        for _, checker in sorted(project_checkers.items()):
+        for name, checker in sorted(project_checkers.items()):
+            t0 = time.perf_counter()
             findings.extend(checker(project))
+            seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
     kept = [
         f for f in findings
         if f.rule not in suppressions.get(f.path, {}).get(f.line, ())
@@ -158,9 +170,10 @@ def check_source(
 def lint_report(
     paths: Iterable[str],
     checkers: Optional[Iterable[str]] = None,
+    seconds: Optional[Dict[str, float]] = None,
 ) -> Tuple[List[Finding], int]:
     """(findings, files walked) over ``paths`` — the machine-readable
-    artifact's data source."""
+    artifact's data source (``seconds``: as :func:`_lint_sources`)."""
     per_file, project_checkers = _select(checkers)
     sources: List[Tuple[str, str]] = []
     for file_path in iter_python_files(paths):
@@ -171,7 +184,8 @@ def lint_report(
             f"no Python files under {list(paths)!r} — refusing to "
             f"report a clean result for an empty walk"
         )
-    return _lint_sources(sources, per_file, project_checkers), len(sources)
+    return (_lint_sources(sources, per_file, project_checkers, seconds),
+            len(sources))
 
 
 def run_paths(

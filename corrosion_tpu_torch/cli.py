@@ -31,7 +31,8 @@ Mirrors the reference binary's command surface (``Command`` enum,
 - ``load`` — the seeded concurrent-client load harness over HTTP,
   subscriptions and PG wire (``--overload``: the two-arm overload bench);
 - ``lint`` — corrolint over the port (lock discipline, strippable
-  asserts, lock order); ``san`` — replay corrosan's seeded race/leak
+  asserts, lock order, the sharding contract, dtype-flow, densify;
+  ``--checkers``, ``--list-rules``); ``san`` — replay corrosan's seeded race/leak
   fixtures;
 - ``mem-report`` — the per-table bytes audit of the configured state
   (``--project N[,M]``: the static projection, built on ``meta``).
@@ -667,6 +668,10 @@ def cmd_lint(args) -> int:
         argv = ["--changed", args.changed] + argv
     if args.output_json is not None:
         argv = ["--output-json", args.output_json] + argv
+    if args.checkers is not None:
+        argv = ["--checkers", args.checkers] + argv
+    if args.list_rules:
+        argv = ["--list-rules"] + argv
     return lint_main(argv)
 
 
@@ -1067,8 +1072,8 @@ def build_parser() -> argparse.ArgumentParser:
 
     lint = sub.add_parser(
         "lint", help="corrolint static analysis: lock discipline, "
-                     "strippable asserts and the interprocedural lock "
-                     "order")
+                     "strippable asserts, the interprocedural lock order, "
+                     "the sharding contract, dtype-flow and densify")
     lint.add_argument("paths", nargs="*", default=None,
                       help="files/dirs (default: corrosion_tpu_torch)")
     lint.add_argument("--format", choices=("text", "json"), default="text")
@@ -1077,6 +1082,10 @@ def build_parser() -> argparse.ArgumentParser:
                            "(fast pre-commit mode)")
     lint.add_argument("--output-json", metavar="PATH", default=None,
                       help="write a machine-readable findings report")
+    lint.add_argument("--checkers", default=None,
+                      help="comma-separated subset of the checkers")
+    lint.add_argument("--list-rules", action="store_true",
+                      help="print the rule catalog and exit")
     lint.set_defaults(fn=cmd_lint)
 
     san = sub.add_parser(

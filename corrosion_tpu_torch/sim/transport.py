@@ -137,6 +137,7 @@ def same_region(net: NetModel, rows=None):
     regions of the viewing rows (a mesh shard's, against the whole
     ``net``), else every node's."""
     rows = net.region if rows is None else rows
+    # corrolint: disable=densify -- full-view broadcast fanout only (sim/step.py); the scale path pairs via cards and never calls this
     return rows[:, None] == net.region[None, :]
 
 

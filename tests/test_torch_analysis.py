@@ -278,21 +278,26 @@ def test_module_name_for_port_paths():
 def test_rules_are_jax_rules_and_documented():
     """The port emits a subset of JAX's rules, each listed in
     ``docs/corrolint.md`` and described as JAX's is, but for the sharding
-    contract's two, which name the port's materializers."""
+    contract's two, which name the port's materializers, and dtype-widen
+    and densify, which speak of torch (no trace, no retrace)."""
     sharding = {"shard-gather", "shard-spec-drift"}
+    torch_worded = {"dtype-widen", "densify"}
     assert set(RULES) == {"unlocked-mutation", "blocking-under-lock", "bare-assert",
                           "suppression-missing-reason", "lock-cycle",
-                          "lock-inversion"} | sharding
+                          "lock-inversion"} | sharding | torch_worded
     for rule, text in RULES.items():
-        if rule not in sharding:
+        if rule not in sharding | torch_worded:
             assert J_RULES[rule] == text
     assert all(w in RULES["shard-gather"]
                for w in (".cpu()", ".numpy()", "ShardedTree.assemble"))
     assert "`shard_state`" in RULES["shard-spec-drift"]
+    assert "torch's promotion" in RULES["dtype-widen"]
+    assert "N x N pairwise broadcast" in RULES["densify"]
     doc = (ROOT / "docs" / "corrolint.md").read_text(encoding="utf-8")
     assert [r for r in RULES if f"`{r}`" not in doc] == []
     assert set(ALL_CHECKERS) == {"lock-discipline", "strippable-assert"}
-    assert set(PROJECT_CHECKERS) == {"lock-order", "sharding-contract"}
+    assert set(PROJECT_CHECKERS) == {"lock-order", "sharding-contract", "dtype-flow",
+                                     "densify"}
 
 
 def _sharding(src):
