@@ -7,8 +7,8 @@ Phases (any failure raises and the script exits non-zero):
 
 1. Build every kernel from ``corrosion_tpu_torch/csrc`` (one ``nvcc`` per
    source, started together) and print ptxas' register and stack report;
-   each of the swim kernel's 18 instantiations is named, and any stack
-   frame or spill in one of them fails the run.
+   each of the swim kernel's 18 and the ingest kernel's 54 instantiations
+   is named, and any stack frame or spill in one of them fails the run.
 2. Hold every kernel form against its plain PyTorch version on the card on
    random valid inputs drawn from the port's PRNG, and again, untimed, on
    tie-heavy inputs at N three past the configuration's (``_ingest_inputs``
@@ -23,18 +23,32 @@ Phases (any failure raises and the script exits non-zero):
    batch (m = 0) of ``pig_changes=0`` at N = 100,000; and the forms no
    path here runs (int32 planes at N = 100,000, the non-emitting local write
    at int16/int16 and int16/int8, the swim kernel's other budget tiers at
-   N = 1,000,000).
-3. Run 16 rounds of ``scale_sim_config(4096, sync_interval=2,
+   N = 1,000,000). The ingest kernel's wide book (more than 32 origins):
+   the many-writer flagship's receive, emitting and non-emitting write
+   (256 origins, 64x4 cells) at N = 100,000, the full view's mailbox at
+   64 origins (N = 8192) and a receive at 48 origins (int16/int8), each on
+   inputs whose origins cover every book slot and meet on slots under
+   ``% O``; each prints the rows that took, evicted and recorded on a slot
+   past 32, and fails if any count is 0.
+3. Run 12 rounds of ``scale_sim_config(4096, sync_interval=2,
    sync_sweep_every=2)`` with writes, churn and 5 % message loss once on
    the card (kernels) and once on the CPU (plain versions); every state leaf
    and round-info value must be bitwise equal after every round. The same
-   for the 1M point's configuration at 4096 nodes. (The CPU route is held
+   for the 1M point's configuration and the many-writer configuration
+   (256 origins, 64x4 cells: the ingest kernel's wide book, once a round
+   in each of its two forms) at 4096 nodes. (The CPU route is held
    bitwise to the JAX package by ``tests/test_torch_*.py``.)
 4. The flagship: ``scale_sim_config(100_000)`` with bench.py's workload
    (``sim.scale_step.flagship_workload``), 2 warm-up rounds, then three
    timed batches of 8 rounds. Each kernel's launch count over the timed
    rounds must equal the number of rounds; prints each batch's rounds/s,
    their median and peak device memory.
+4b. writers: the many-writer flagship, ``scale_sim_config(100_000,
+   n_origins=256, n_rows=64)`` (bench.py's heavier mix) with bench.py's
+   workload, 2 warm-up rounds, then ten timed batches of 2 rounds; each
+   kernel once a round, K2 and K3 under their ``/o256`` form keys; fresh,
+   delivered and syncs above 0 and book slots past 32 owned at the end;
+   prints the median and quartiles of rounds/s and peak device memory.
 5. The 1M point: ``sim.scale_step.million_config()`` (bounded member
    piggyback, int8 budget and queue-counter planes) with the same workload,
    2 warm-up rounds, then three timed batches of 4 rounds. Each kernel must
@@ -152,7 +166,7 @@ Phases (any failure raises and the script exits non-zero):
     exit 0. Then, in this process at the same config, the hand-driven
     agent round, the snapshot copy and ``scale_run_rounds`` are timed.
 19. soak-cli: ``python -m corrosion_tpu_torch soak`` as a process at
-    N=100,000 (the ``Config`` defaults otherwise), 16 rounds in segments of
+    N=100,000 (the ``Config`` defaults otherwise), 12 rounds in segments of
     4 with a flight record, an OTLP file and ``--prom-port 0``: ``/metrics``
     is scraped once after the first commit (the soak's rounds and the
     launch gauges), the process is SIGKILLed after its second commit, and
@@ -251,8 +265,13 @@ H100_INT32_OPS_PER_S = 67e12 / 4
 FLAGSHIP_NODES = 100_000
 MILLION_NODES = 1_000_000
 TRAJECTORY_NODES = 4096  # small enough for the CPU route to keep pace
+TRAJECTORY_ROUNDS = 12  # the workload's kill (round 4) and revive (round 10) inside
 FULL_NODES = 8192  # the full view's measured point (sim.config.full_view_config)
 FULL_TRAJECTORY_NODES = 1024  # the full view, card vs CPU: float ties are common
+# the many-writer flagship: 256 tracked origins (the ingest kernel's wide
+# book) and 64x4 cells, bench.py's heavier mix (BENCH_ORIGINS=256,
+# BENCH_ROWS=64)
+WRITERS = dict(n_origins=256, n_rows=64)
 # BASELINE's correctness size: a 256-node cluster, 16 origins, 64 cells
 PARITY_NODES, PARITY_ORIGINS, PARITY_CELLS, PARITY_ROUNDS = 256, 16, 64, 24
 # empty rounds after the single writer's script for the quiet check: the
@@ -273,7 +292,7 @@ AGENT_QUERY_POLL_S = 0.01  # seconds between /v1/health reads while pacing
 AGENT_PG_QUERIES = 20  # timed PG-wire simple queries at the last node
 # the soak subcommand as a process at the flagship's width (the Config
 # defaults with n_nodes = SOAK_CLI_NODES), killed after its second commit
-SOAK_CLI_NODES, SOAK_CLI_ROUNDS, SOAK_CLI_SEGMENT = 100_000, 16, 4
+SOAK_CLI_NODES, SOAK_CLI_ROUNDS, SOAK_CLI_SEGMENT = 100_000, 12, 4
 SOAK_CLI_WAIT_S = 300  # seconds for the two commits, and for the resume
 # chaos: every registry scenario at its N=24 against the JAX package's
 # verdicts; preempt-storm at the ladder's top rung against the JAX package's
@@ -627,6 +646,10 @@ def _swim_bytes(args, out, pig_k: int = 0) -> int:
     return total + _nbytes(_flat(out))
 
 
+# book slots of the ingest kernel's register book (a slot a lane); past them
+# its wide-book instantiation keeps the book in shared memory
+NARROW_BOOK = 32
+
 # The ingest kernel's forms: (messages per row from cfg, emit, enqueue_all,
 # no drift reject, the messages' origin and version ranges and live share).
 # "receive" is the scale round's piggyback batch, "receive_full" the full
@@ -673,6 +696,14 @@ def _ingest_inputs(cfg, n: int, form: str, seed: int, dev, ties: bool = False):
         return prng.uniform(next(ks), shape, dev) < p
 
     o, c, q = cfg.n_origins, cfg.n_cells, cfg.bcast_queue
+    org_hi = 64
+    if o > NARROW_BOOK:
+        # the wide book: message origins and owners over every slot, with ids
+        # a book apart (s and s + O) that meet on one slot; the full view's
+        # mailbox keeps its origins below O (they meet the owners drawn past
+        # O), so that most are owned and rows still record more messages
+        # than the queue holds
+        o_hi, org_hi = (o if form == "receive_full" else 2 * o), 2 * o
     cdt, qdt = plane_dtypes(cfg)
     w = max(1, -(-cfg.buf_slots // 32))
     now = 50
@@ -698,7 +729,7 @@ def _ingest_inputs(cfg, n: int, form: str, seed: int, dev, ties: bool = False):
         head=head, km=head + ri((n, o), 0, 10), seen=seen_bits,
         org_id=torch.where(coin((n, o), 0.8),
                            torch.arange(o, dtype=torch.int32, device=dev).expand(n, o),
-                           ri((n, o), -1, 64)),
+                           ri((n, o), -1, org_hi)),
         org_last=ri((n, o), 0, 60),
         q_origin=torch.where(coin((n, q), 0.5), -1, ri((n, q), 0, 64)),
         q_dbv=ri((n, q), 0, 40), q_cell=ri((n, q), 0, c).to(cdt),
@@ -843,6 +874,33 @@ def _owned(p, x, out):
     return (x.origin >= 0) & (torch.gather(out.org_id, 1, slot) == x.origin)
 
 
+def _wide_slot_rows(p, x, out) -> dict:
+    """Rows that, on a book slot past the register book's 32, took the slot
+    (its owner changed), evicted an owner (took it from an origin >= 0) and
+    recorded a message (fresh and owned after the claim)."""
+    import torch
+
+    wide = slice(NARROW_BOOK, None)
+    took = out.org_id[:, wide] != x.org_id[:, wide]
+    slot = torch.clamp(x.origin, min=0) % p.n_origins
+    rec = out.fresh & _owned(p, x, out) & (slot >= NARROW_BOOK)
+    return {"took": int(took.any(dim=1).sum()),
+            "evicted": int((took & (x.org_id[:, wide] >= 0)).any(dim=1).sum()),
+            "recorded": int(rec.any(dim=1).sum())}
+
+
+def _require_wide_slots(name, p, x, out) -> None:
+    """With more than 32 origins, rows must take, evict and record on the
+    wide book's slots past 32."""
+    if p.n_origins <= NARROW_BOOK:
+        return
+    rows = _wide_slot_rows(p, x, out)
+    print(f"[kernels] {name}: rows on slots >= {NARROW_BOOK} of {p.n_origins}: "
+          f"{rows}", flush=True)
+    if min(rows.values()) <= 0:
+        raise AssertionError(f"{name}: the inputs miss the wide book's slots: {rows}")
+
+
 def _recorded_past_queue(p, x, out) -> int:
     """Rows whose recorded messages (fresh and owned) outnumber the queue's
     slots."""
@@ -859,8 +917,12 @@ def _ingest_form(name, cfg, form, seed, dev) -> dict:
         lambda: mk.ingest(p, x), lambda: mk.ingest_plain(p, x),
         lambda got: _ingest_bytes(x, got), lambda got: _ingest_ops(p, x, got))
     r["replaces"] = "corrosion_tpu/ops/megakernel.py:" + ("960" if form.startswith("write") else "795")
-    if form == "receive_full":
-        _require_past_queue(name, p, x, mk.ingest_plain(p, x))
+    if form == "receive_full" or p.n_origins > NARROW_BOOK:
+        want = mk.ingest_plain(p, x)
+        if form == "receive_full":
+            _require_past_queue(name, p, x, want)
+        _require_wide_slots(name, p, x, want)
+        del want
     _hold_ties(name, cfg, form, seed, dev)
     return r
 
@@ -888,6 +950,7 @@ def _hold_ties(name, cfg, form, seed, dev) -> None:
     _hold(f"{name} (tie-heavy)", got, want)
     if form == "receive_full":
         _require_past_queue(f"{name} (tie-heavy)", p, x, want)
+    _require_wide_slots(f"{name} (tie-heavy)", p, x, want)
     print(f"[kernels] {name}: tie-heavy inputs at N={n} bitwise equal "
           f"({_count(want.fresh)} fresh messages)", flush=True)
 
@@ -919,6 +982,7 @@ def phase_kernels(dev) -> dict:
     serve = cluster_config(n_nodes=LOAD_NODES, n_rows=16).sim_config()
     overload = cluster_config(n_rows=36).sim_config()
     flag = scale_sim_config(FLAGSHIP_NODES)
+    writers = scale_sim_config(FLAGSHIP_NODES, **WRITERS)
     wide = scale_sim_config(FLAGSHIP_NODES, narrow_dtypes=False)
     big = million_config(MILLION_NODES)
     full = full_view_config(FULL_NODES)
@@ -962,6 +1026,22 @@ def phase_kernels(dev) -> dict:
          lambda n: _ingest_form(n, overload, "receive", 58, dev)),
         ("ingest_emit_overload", "overload", ("ingest_emit", "16/16"),
          lambda n: _ingest_form(n, overload, "write_emit", 59, dev)),
+        # the wide book (more than 32 origins): the many-writer flagship's
+        # two forms, its non-emitting write, the full view's mailbox at 64
+        # origins, and 48 origins (not a multiple of 32) at int16/int8
+        ("ingest_writers", "writers", ("ingest", "16/16/o256"),
+         lambda n: _ingest_form(n, writers, "receive", 60, dev)),
+        ("ingest_emit_writers", "writers", ("ingest_emit", "16/16/o256"),
+         lambda n: _ingest_form(n, writers, "write_emit", 61, dev)),
+        ("ingest_write_16_16_o256_n100000", None, None,
+         lambda n: _ingest_form(n, writers, "write", 62, dev)),
+        ("ingest_full_o64", None, None,
+         lambda n: _ingest_form(n, full_view_config(FULL_NODES, n_origins=64),
+                                "receive_full", 63, dev)),
+        ("ingest_16_8_o48_n100000", None, None,
+         lambda n: _ingest_form(n, scale_sim_config(FLAGSHIP_NODES, n_origins=48,
+                                                    narrow_q_int8=True),
+                                "receive", 64, dev)),
     ]
     for c, form, seed in ((wide, "receive", 36), (wide, "write", 37),
                           (wide, "write_emit", 38), (flag, "write", 39),
@@ -1010,7 +1090,8 @@ def _trajectory_setup(cfg, rounds: int, dev):
     return st, net, prng.key(3), inputs
 
 
-def phase_trajectory(dev, label, make_cfg, rounds: int = 16, tag: str = "trajectory"):
+def phase_trajectory(dev, label, make_cfg, rounds: int = TRAJECTORY_ROUNDS,
+                     tag: str = "trajectory"):
     """The card == the CPU, for ``make_cfg(TRAJECTORY_NODES, ...)``: the
     kernel route on the card against the plain versions on the CPU (and the
     plain route on both where the config takes it). Returns the card's
@@ -1676,6 +1757,84 @@ def phase_scale_point(dev, name: str, **over) -> dict:
           f"peak device memory {peak} bytes; launches {forms}; info sums {sums}",
           flush=True)
     return {"rounds_per_s": med, "peak_bytes": peak, "forms": forms}
+
+
+def phase_writers(dev) -> dict:
+    """The many-writer flagship, ``scale_sim_config(FLAGSHIP_NODES,
+    **WRITERS)``, with bench.py's workload (its 256 origin nodes write):
+    ten timed batches of 2 rounds after 2 warm-up rounds; K1, K2 and K3
+    once a round each, K2 and K3 in the wide book's forms; book slots past
+    32 owned at the end."""
+    import torch
+
+    from corrosion_tpu_torch.ops import megakernel as mk
+    from corrosion_tpu_torch.sim.broadcast import plane_dtypes
+    from corrosion_tpu_torch.sim.scale_step import (
+        ScaleRoundInput,
+        flagship_workload,
+        scale_run_rounds_carry,
+        scale_sim_config,
+    )
+
+    cfg = scale_sim_config(FLAGSHIP_NODES, **WRITERS)
+    n, warm, batch, reps = cfg.n_nodes, 2, 2, 10
+    total = warm + batch * reps
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mk.reset_launches()
+    st, state_bytes, rates, infos = _timed_batches(
+        lambda: flagship_workload(cfg, total, dev),
+        lambda s, net, k, i: scale_run_rounds_carry(cfg, s, net, k, i),
+        lambda inputs, lo, hi: ScaleRoundInput(*(a[lo:hi] for a in inputs)),
+        warm, batch, reps)
+    forms = dict(mk.FORM_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    cdt, qdt = plane_dtypes(cfg)
+    book = f"{_bits(cdt)}/{_bits(qdt)}/o{cfg.n_origins}"
+    want = {("swim_tables", "aligned/16/16"): total, ("ingest", book): total,
+            ("ingest_emit", book): total}
+    if forms != want:
+        raise AssertionError(f"writers launch counts {forms} != {want}")
+    sums = {k: sum(int(i[k].sum()) for i in infos) for k in infos[0]}
+    if sums["fresh"] <= 0 or sums["delivered"] <= 0 or sums["syncs"] <= 0:
+        raise AssertionError(f"writers run moved nothing: {sums}")
+    org_id = st.crdt.book.org_id
+    owned_wide = int((org_id[:, NARROW_BOOK:] >= 0).sum())
+    if (int(st.crdt.now) != total or org_id.shape != (n, cfg.n_origins)
+            or owned_wide <= 0):
+        raise AssertionError(f"writers state: round {int(st.crdt.now)}, book "
+                             f"{tuple(org_id.shape)}, {owned_wide} slots past "
+                             f"{NARROW_BOOK} owned")
+    med, q1, q3 = _spread(rates)
+    print(f"[writers] N={n} {WRITERS}: {reps} batches of {batch} rounds at "
+          f"{[repr(x) for x in rates]} rounds/s, median {med!r} (quartiles {q1!r}-{q3!r}); "
+          f"peak device memory {peak} bytes, state {state_bytes} bytes; "
+          f"{owned_wide} book slots past {NARROW_BOOK} owned "
+          f"({int((org_id >= 0).sum())} of {org_id.numel()} in all); launches {forms}; "
+          f"info sums {sums}", flush=True)
+    return {"rounds_per_s": med, "peak_bytes": peak, "forms": forms}
+
+
+def phase_writers_trajectory(dev) -> None:
+    """Phase 3's trajectory for the many-writer configuration: card and
+    CPU bitwise equal every round, K2 and K3 in the wide book's forms once
+    a round each and K1 once a round."""
+    from corrosion_tpu_torch.sim.broadcast import plane_dtypes
+    from corrosion_tpu_torch.sim.scale_step import scale_sim_config
+
+    rounds = TRAJECTORY_ROUNDS
+    forms, sums = phase_trajectory(
+        dev, "many writers", lambda n, **kw: scale_sim_config(n, **WRITERS, **kw), rounds)
+    cdt, qdt = plane_dtypes(scale_sim_config(TRAJECTORY_NODES, **WRITERS))
+    book = f"{_bits(cdt)}/{_bits(qdt)}/o{WRITERS['n_origins']}"
+    swim = sum(v for (k, _), v in forms.items() if k == "swim_tables")
+    ingest = {kf: v for kf, v in forms.items() if kf[0] != "swim_tables"}
+    want = {("ingest", book): rounds, ("ingest_emit", book): rounds}
+    if swim != rounds or ingest != want:
+        raise AssertionError(f"many writers: swim launches {swim} != {rounds} or ingest "
+                             f"launches {ingest} != {want}")
+    if sums["fresh"] <= 0:
+        raise AssertionError(f"many writers: nothing fresh ({sums})")
 
 
 def phase_full_tx(dev) -> dict:
@@ -3702,6 +3861,39 @@ def _check_swim_ptxas(log: str) -> None:
         raise AssertionError(f"swim ptxas report lacks {sorted(want - seen)}")
 
 
+def _check_ingest_ptxas(log: str) -> None:
+    """Print ptxas' report for every ingest kernel instantiation by name
+    (three plane-dtype pairs x the emitting, the narrow and the wide batch x
+    one or two queue slots a lane x the register book at 2 or 8 cells a lane
+    and the wide book at 8); each must have no stack frame and no spills."""
+    import re
+
+    seen, bad = set(), []
+    for mangled, (frame, st, ld, regs) in sorted(_ptxas_functions(log).items()):
+        got = re.search(r"ingest_kernelI([asi])([asi])Lb([01])ELi(\d+)ELi(\d+)ELi(\d+)ELb([01])E",
+                        mangled)
+        if not got:
+            continue
+        ct, xt, emit, km, qh, ch, wo = got.groups()
+        form = (_PTX_TYPES[ct], _PTX_TYPES[xt], "EMIT" if emit == "1" else "no EMIT",
+                f"KM={km}", f"QH={qh}", f"CH={ch}", "wide book" if wo == "1" else "book a lane")
+        name = f"ingest_kernel<{', '.join(form)}>"
+        print(f"[ptxas] {name}: {frame} bytes stack frame, {st} bytes spill stores, "
+              f"{ld} bytes spill loads; {regs}", flush=True)
+        if frame or st or ld:
+            bad.append(name)
+        seen.add(form)
+    want = {(_PTX_TYPES[ct], _PTX_TYPES[xt], e, f"KM={km}", f"QH={qh}", f"CH={ch}", b)
+            for ct, xt in (("s", "a"), ("s", "s"), ("i", "i"))
+            for e, km in (("EMIT", "1"), ("no EMIT", "1"), ("no EMIT", "4"))
+            for qh in ("1", "2")
+            for ch, b in (("2", "book a lane"), ("8", "book a lane"), ("8", "wide book"))}
+    if bad:
+        raise AssertionError(f"stack frame or spills in ptxas' report: {bad}")
+    if seen != want:
+        raise AssertionError(f"ingest ptxas report lacks {sorted(want - seen)}")
+
+
 def main() -> int:
     import torch
 
@@ -3721,9 +3913,7 @@ def main() -> int:
     cuda_lib.build_all()
     print(f"[build] {len(cuda_lib.SOURCES)} kernels built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    for line in cuda_lib.build_log("ingest").splitlines():
-        if "registers" in line or "spill" in line or "Function properties" in line:
-            print(f"[ptxas] ingest: {line.strip()}", flush=True)
+    _check_ingest_ptxas(cuda_lib.build_log("ingest"))
     _check_swim_ptxas(cuda_lib.build_log("swim_tables"))
 
     t_phase = time.perf_counter()
@@ -3737,9 +3927,12 @@ def main() -> int:
     done("kernels")
     phase_trajectory(dev, "flagship", scale_sim_config)
     phase_trajectory(dev, "1M point's tiers", million_config)
+    phase_writers_trajectory(dev)
     done("trajectory")
     flag = phase_flagship(dev)
     done("flagship")
+    writers = phase_writers(dev)
+    done("writers")
     million = phase_million(dev)
     done("million")
     phase_cost(dev, million.pop("audit"))
@@ -3799,7 +3992,7 @@ def main() -> int:
     serve_forms = dict(load["forms"])
     for k, v in chaos["serve_overload_forms"].items():
         serve_forms[k] = serve_forms.get(k, 0) + v
-    paths = {"flagship": flag, "million": million, "full": full, "pig0": tx_paths["pig0"],
+    paths = {"flagship": flag, "writers": writers, "million": million, "full": full, "pig0": tx_paths["pig0"],
              "chaos": chaos, "load": {"forms": serve_forms},
              "overload": overload}
     source = {

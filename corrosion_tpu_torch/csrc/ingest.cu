@@ -28,7 +28,13 @@
 //     m <= 32, 4 for the full view's m = 96), as registers and, for the
 //     per-message flags (live, fresh, recorded, enqueued), as warp ballots;
 //   - its origins: lane c < O holds book slot c (head, known_max, org_id,
-//     org_last and its W seen words);
+//     org_last and its W seen words) when O <= 32; past 32 origins (the
+//     wide book, WO, up to 256) the whole book row is copied to shared
+//     memory with cp.async, slot s at index s, and lane l looks after
+//     slots l + 32g (g < ceil(O / 32), a runtime loop) where a step is
+//     per slot (the claim's take or keep, the head advance and the
+//     write-out); a message reads its slot's fields there directly, since
+//     its slot is data;
 //   - its queue slots: slot lane + 32h, h < QH (1 for Q <= 32, else 2), all
 //     nine planes in registers;
 //   - its cells: cell lane + 32h, h < CH (2 for C <= 64, else 8: up to 256
@@ -40,7 +46,11 @@
 // per warp, the staged store row, the claim's per-slot candidate, the
 // record step's seen words and known_max (set with shared atomicOr/atomicMax,
 // which are order-free), and the message index of each enqueue rank: 2,304
-// bytes a warp at CH = 2, 6,144 at CH = 8. No array is indexed by data in
+// bytes a warp at CH = 2, 6,144 at CH = 8. The wide book adds head, org_id
+// and org_last and sizes the per-slot arrays for 256 slots of up to 4 words:
+// 14,592 bytes a warp, always at CH = 8 (a row of up to 256 cells), so its
+// blocks hold 2 rows (29,184 bytes, under the 48 KB of static shared
+// memory) where the others hold 4. No array is indexed by data in
 // registers: every register array is indexed by an unrolled loop counter,
 // so nothing goes to the stack.
 //
@@ -56,7 +66,9 @@
 //     shared atomicMax per slot; lane c takes it when the slot is evictable
 //     (owner < 0 || org_last + keep_rounds < now, wrapping add). org_last =
 //     now on a take or when the slot is active (a recorded message on it,
-//     an OR-reduced bitmask). Seen bits are set with shared atomicOr; known
+//     an OR-reduced bitmask; in the wide book each recorded message stores
+//     now into its slot's org_last, the same value from every lane, after
+//     the takes and before the head advance reads it). Seen bits are set with shared atomicOr; known
 //     max takes live && owned; the head advance keeps the explicit branches
 //     for shift counts of 0 and of 32 or more, which C leaves undefined.
 //   - LWW: a fresh message on a valid cell is its cell's batch winner under
@@ -104,18 +116,25 @@
 // narrow_dtypes, else (int32, int32).
 //
 // Instantiations: 3 type pairs x {EMIT with m <= 32, non-emitting m <= 32,
-// non-emitting m <= 128} x QH {1, 2} x CH {2, 8} = 36. ptxas (-Xptxas -v,
-// printed by chip_smoke.py's build phase) reports 0 bytes of stack frame
-// and 0 bytes of spill for all 18 at CH = 2, 9,216 bytes of shared memory a
-// block (4 rows), and registers: m <= 32 non-emitting 56 (Q <= 32) / 70
-// (Q = 64), emitting 61-62 / 72, m <= 128 109 / 113-122; at CH = 8, 24,576
-// bytes a block and at most 3 registers more (emitting 64).
+// non-emitting m <= 128} x QH {1, 2} x {the register book at CH 2 and 8,
+// the wide book at CH 8} = 54. ptxas (-Xptxas -v, printed and checked by
+// chip_smoke.py's build phase) reports 0 bytes of stack frame and 0 bytes
+// of spill for all 18 at CH = 2, 9,216 bytes of shared memory a block (4
+// rows), and registers: m <= 32 non-emitting 56 (Q <= 32) / 70 (Q = 64),
+// emitting 61-62 / 72, m <= 128 109 / 113-122; at CH = 8, 24,576 bytes a
+// block and at most 3 registers more (emitting 64); the wide book 29,184
+// bytes a block (2 rows) and m <= 32 non-emitting 74 / 82, emitting 76 /
+// 89-91, m <= 128 112 / 126-128 registers.
 // Times on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit (kernel device
 // time from torch.profiler; chip_smoke.py, random inputs): the 1M point's
 // receive 2.11 ms and emitting write 2.02 ms against bounds of 1.68 and
 // 1.66 ms by bytes; the flagship's (N = 100,000) 0.22 and 0.21 ms against
 // 0.17; the full view's m = 96 receive at N = 8192 0.152 ms against 0.027,
 // held back by its O(m) broadcast loops at 2,048 blocks, a few waves deep.
+// The wide book at the many-writer flagship (N = 100,000, 256 origins,
+// 64x4 cells): receive 0.809 ms and emitting write 0.792 ms against bounds
+// of 0.685 and 0.683 ms by bytes (the book's five planes, 5 KB a row, are
+// most of them).
 
 #include <cstdint>
 #include <cuda_pipeline.h>
@@ -126,9 +145,13 @@ namespace {
 // warps (node rows) a block: 2 and 4 measured within 1 %, 8 and 16 4-14 %
 // slower on the 1M point's forms (PERF.md, Findings)
 constexpr int kRowsPerBlock = 4;
+// the wide book's form: 2 rows a block keep its shared rows (14,592 bytes a
+// warp) under the 48 KB of static shared memory a block
+constexpr int kRowsPerBlockWide = 2;
 constexpr int kMaxMsgs = 32;  // scale batches, and every emitting form
 constexpr int kMaxMsgsWide = 128;  // the full view's recv_slots mailboxes
-constexpr int kMaxOrigins = 32;
+constexpr int kMaxOrigins = 32;  // a book slot a lane, in registers
+constexpr int kMaxOriginsWide = 256;  // the book in shared memory
 constexpr int kMaxWords = 4;
 constexpr int kMaxQueue = 64;
 constexpr int kMaxPig = 16;
@@ -227,8 +250,9 @@ __device__ __forceinline__ int32_t float_order(float f) {
   return i >= 0 ? i : i ^ 0x7FFFFFFF;
 }
 
-// One warp's slice of the block's shared memory (CH cells a lane).
-template <int CH>
+// One warp's slice of the block's shared memory (CH cells a lane). With WO
+// (more than 32 origins) the whole book lives here, slot s at index s.
+template <int CH, bool WO>
 struct WarpSmem {
   int32_t store[5][32 * CH];  // the LWW store row: ver, val, site, dbv, clp
   int32_t cand[kMaxOrigins];  // claim: largest fresh candidate origin a slot
@@ -236,6 +260,44 @@ struct WarpSmem {
   uint32_t seen[kMaxOrigins * kMaxWords];
   int32_t msg_of_rank[kMaxQueue];  // enqueue: message index of each rank
 };
+
+template <int CH>
+struct WarpSmem<CH, true> {
+  int32_t store[5][32 * CH];
+  int32_t cand[kMaxOriginsWide];
+  int32_t km[kMaxOriginsWide];
+  uint32_t seen[kMaxOriginsWide * kMaxWords];
+  int32_t msg_of_rank[kMaxQueue];
+  int32_t head[kMaxOriginsWide];
+  int32_t org_id[kMaxOriginsWide];
+  int32_t org_last[kMaxOriginsWide];
+};
+
+// the head advance of one slot: the trailing ones of its W seen words
+// (returned), and the words shifted down past them
+__device__ __forceinline__ int32_t advance_window(const uint32_t (&sw)[kMaxWords], int W,
+                                                  uint32_t (&shifted)[kMaxWords]) {
+  int32_t total = 0;
+  bool carry = true;
+#pragma unroll
+  for (int w = 0; w < kMaxWords; ++w) {
+    if (w < W) {
+      const uint32_t x = sw[w];
+      const int32_t t = x == 0xFFFFFFFFu ? 32 : __popc(x ^ (x + 1u)) - 1;
+      if (carry) total += t;
+      carry = carry && t == 32;
+    }
+  }
+  const int s_words = total >> 5;
+  const int s_bits = total & 31;
+#pragma unroll
+  for (int w = 0; w < kMaxWords; ++w) {
+    const uint32_t lo = pick(sw, w + s_words, W);
+    const uint32_t hi = pick(sw, w + s_words + 1, W);
+    shifted[w] = s_bits > 0 ? (lo >> s_bits) | (hi << (32 - s_bits)) : lo;
+  }
+  return total;
+}
 
 }  // namespace
 
@@ -310,18 +372,35 @@ struct IngestArgs {
   int32_t enqueue_all;
 };
 
-template <typename CT, typename XT, bool EMIT, int KM, int QH, int CH>
-__global__ void __launch_bounds__(32 * kRowsPerBlock) ingest_kernel(const IngestArgs a) {
-  __shared__ WarpSmem<CH> smem[kRowsPerBlock];
+template <typename CT, typename XT, bool EMIT, int KM, int QH, int CH, bool WO>
+__global__ void __launch_bounds__(32 * (WO ? kRowsPerBlockWide : kRowsPerBlock))
+    ingest_kernel(const IngestArgs a) {
+  constexpr int kRows = WO ? kRowsPerBlockWide : kRowsPerBlock;
+  __shared__ WarpSmem<CH, WO> smem[kRows];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int64_t r = static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + warp;
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * kRows + warp;
   if (r >= a.n) return;  // the whole warp: rows past n are masked
-  WarpSmem<CH>& sm = smem[warp];
+  WarpSmem<CH, WO>& sm = smem[warp];
   const int m = a.m, O = a.n_origins, W = a.seen_words, C = a.n_cells, Q = a.q_slots;
   const int kn = (m + 31) >> 5;  // chunks in use
   const unsigned below = (1u << lane) - 1u;  // lanes below this one
   const int32_t now = *a.now;
+  const int64_t ob = r * O;
+
+  // --- WO: stage the book in shared memory (waited for at the seen check) --
+  if constexpr (WO) {
+    for (int s = lane; s < O; s += 32) {
+      __pipeline_memcpy_async(&sm.head[s], a.head + ob + s, 4);
+      __pipeline_memcpy_async(&sm.km[s], a.km + ob + s, 4);
+      __pipeline_memcpy_async(&sm.org_id[s], a.org_id + ob + s, 4);
+      __pipeline_memcpy_async(&sm.org_last[s], a.org_last + ob + s, 4);
+    }
+    for (int i = lane; i < O * W; i += 32) {
+      __pipeline_memcpy_async(&sm.seen[i], a.seen + ob * W + i, 4);
+    }
+    __pipeline_commit();
+  }
 
   // --- stage the store row in shared memory (waited for at the LWW step) --
   const int64_t cb = r * C;
@@ -348,8 +427,8 @@ __global__ void __launch_bounds__(32 * kRowsPerBlock) ingest_kernel(const Ingest
     ts[k] = in ? a.ts[mb + j] : 0;
     live_b[k] = __ballot_sync(kFull, in && a.live[mb + j] != 0);
   }
-  const bool has_o = lane < O;
-  const int64_t ob = r * O;
+  // a book slot a lane (O <= 32); with WO the book is in shared memory
+  const bool has_o = !WO && lane < O;
   int32_t head = has_o ? a.head[ob + lane] : 0;
   int32_t km = has_o ? a.km[ob + lane] : 0;
   int32_t org_id = has_o ? a.org_id[ob + lane] : -1;
@@ -409,6 +488,10 @@ __global__ void __launch_bounds__(32 * kRowsPerBlock) ingest_kernel(const Ingest
   }
 
   // --- seen check + in-batch dedupe ---------------------------------------
+  if constexpr (WO) {
+    __pipeline_wait_prior(1);  // the book's copies, not the store row's
+    __syncwarp();
+  }
   unsigned fresh_b[KM];
   bool dup[KM];
 #pragma unroll
@@ -436,17 +519,27 @@ __global__ void __launch_bounds__(32 * kRowsPerBlock) ingest_kernel(const Ingest
   for (int k = 0; k < KM; ++k) {
     const int32_t o_j = origin[k];
     const int sl = o_j >= 0 ? o_j % O : 0;
-    const int32_t owner = __shfl_sync(kFull, org_id, sl);
-    const int32_t h = __shfl_sync(kFull, head, sl);
+    int32_t owner, h;
+    if constexpr (WO) {
+      owner = sm.org_id[sl];
+      h = sm.head[sl];
+    } else {
+      owner = __shfl_sync(kFull, org_id, sl);
+      h = __shfl_sync(kFull, head, sl);
+    }
     const int32_t off = wrap_sub(wrap_sub(dbv[k], h), 1);
     const bool in_win = off >= 0 && off < 32 * W;
     const int wi = in_win ? (off >> 5) : 0;
     uint32_t word = 0u;
+    if constexpr (WO) {
+      word = sm.seen[sl * W + wi];
+    } else {
 #pragma unroll
-    for (int w = 0; w < kMaxWords; ++w) {
-      if (w < W) {
-        const uint32_t x = __shfl_sync(kFull, sw[w], sl);
-        if (w == wi) word = x;
+      for (int w = 0; w < kMaxWords; ++w) {
+        if (w < W) {
+          const uint32_t x = __shfl_sync(kFull, sw[w], sl);
+          if (w == wi) word = x;
+        }
       }
     }
     const bool hit = ((word >> (off & 31)) & 1u) == 1u;
@@ -471,39 +564,73 @@ __global__ void __launch_bounds__(32 * kRowsPerBlock) ingest_kernel(const Ingest
   }
 
   // --- slot claim/evict (monotone in the actor id) -------------------------
-  if (has_o) sm.cand[lane] = -1;
+  if constexpr (WO) {
+    for (int s = lane; s < O; s += 32) sm.cand[s] = -1;
+  } else {
+    if (has_o) sm.cand[lane] = -1;
+  }
   __syncwarp();
 #pragma unroll
   for (int k = 0; k < KM; ++k) {
     const int32_t o_j = origin[k];
     const int sl = o_j >= 0 ? o_j % O : 0;
-    const int32_t owner = __shfl_sync(kFull, org_id, sl);
+    int32_t owner;
+    if constexpr (WO) {
+      owner = sm.org_id[sl];
+    } else {
+      owner = __shfl_sync(kFull, org_id, sl);
+    }
     if (bit(fresh_b[k], lane) && o_j >= 0 && o_j > owner) atomicMax(&sm.cand[sl], o_j);
   }
   __syncwarp();
   bool take = false;
-  if (has_o) {
+  if constexpr (WO) {
+    // each lane takes or keeps its slots s = lane + 32g; a take starts the
+    // slot anew (head, known max and seen words 0) and marks it now
+    for (int s = lane; s < O; s += 32) {
+      const int32_t cand = sm.cand[s];
+      const bool evictable = sm.org_id[s] < 0 || wrap_add(sm.org_last[s], a.keep_rounds) < now;
+      if (cand >= 0 && evictable) {
+        sm.org_id[s] = cand;
+        sm.org_last[s] = now;
+        sm.head[s] = 0;
+        sm.km[s] = 0;
+        for (int w = 0; w < W; ++w) sm.seen[s * W + w] = 0u;
+      }
+    }
+    __syncwarp();
+  } else if (has_o) {
     const int32_t cand = sm.cand[lane];
     const bool evictable = org_id < 0 || wrap_add(org_last, a.keep_rounds) < now;
     take = cand >= 0 && evictable;  // a candidate's origin is >= 0
     if (take) org_id = cand;
   }
   // recorded messages: fresh and owned after the claim; a slot is active
-  // when one of them lies on it
+  // when one of them lies on it (with WO its recorded messages mark it now:
+  // every lane stores the same value)
   unsigned rec_b[KM], owned_b[KM];
   unsigned active = 0u;
 #pragma unroll
   for (int k = 0; k < KM; ++k) {
     const int32_t o_j = origin[k];
     const int sl = o_j >= 0 ? o_j % O : 0;
-    const int32_t owner = __shfl_sync(kFull, org_id, sl);  // every lane shuffles
+    int32_t owner;
+    if constexpr (WO) {
+      owner = sm.org_id[sl];
+    } else {
+      owner = __shfl_sync(kFull, org_id, sl);  // every lane shuffles
+    }
     const bool owned = o_j >= 0 && owner == o_j;
     const bool rec = bit(fresh_b[k], lane) && owned;
     owned_b[k] = __ballot_sync(kFull, owned);
     rec_b[k] = __ballot_sync(kFull, rec);
-    active |= rec ? (1u << sl) : 0u;
+    if constexpr (WO) {
+      if (rec) sm.org_last[sl] = now;
+    } else {
+      active |= rec ? (1u << sl) : 0u;
+    }
   }
-  active = __reduce_or_sync(kFull, active);
+  if constexpr (!WO) active = __reduce_or_sync(kFull, active);
   if (has_o) {
     if (take || bit(active, lane)) org_last = now;
     if (take) {
@@ -525,7 +652,12 @@ __global__ void __launch_bounds__(32 * kRowsPerBlock) ingest_kernel(const Ingest
   for (int k = 0; k < KM; ++k) {
     const int32_t o_j = origin[k];
     const int sl = o_j >= 0 ? o_j % O : 0;
-    const int32_t h = __shfl_sync(kFull, head, sl);
+    int32_t h;
+    if constexpr (WO) {
+      h = sm.head[sl];
+    } else {
+      h = __shfl_sync(kFull, head, sl);
+    }
     const int32_t off = wrap_sub(wrap_sub(dbv[k], h), 1);
     const bool in_win = off >= 0 && off < 32 * W;
     if (bit(rec_b[k], lane) && in_win) atomicOr(&sm.seen[sl * W + (off >> 5)], 1u << (off & 31));
@@ -534,33 +666,30 @@ __global__ void __launch_bounds__(32 * kRowsPerBlock) ingest_kernel(const Ingest
   __syncwarp();
 
   // --- head advance: trailing ones, then shift the window down ------------
+  if constexpr (WO) {
+    for (int s = lane; s < O; s += 32) {
+      uint32_t ws[kMaxWords], shifted[kMaxWords];
+#pragma unroll
+      for (int w = 0; w < kMaxWords; ++w) ws[w] = w < W ? sm.seen[s * W + w] : 0u;
+      const int32_t hd = wrap_add(sm.head[s], advance_window(ws, W, shifted));
+      a.o_head[ob + s] = hd;
+      a.o_km[ob + s] = max(sm.km[s], hd);
+      a.o_org_id[ob + s] = sm.org_id[s];
+      a.o_org_last[ob + s] = sm.org_last[s];
+#pragma unroll
+      for (int w = 0; w < kMaxWords; ++w) {
+        if (w < W) a.o_seen[ob * W + s * W + w] = static_cast<int32_t>(shifted[w]);
+      }
+    }
+  }
   if (has_o) {
     km = sm.km[lane];
 #pragma unroll
     for (int w = 0; w < kMaxWords; ++w) {
       if (w < W) sw[w] = sm.seen[lane * W + w];
     }
-    int32_t total = 0;
-    bool carry = true;
-#pragma unroll
-    for (int w = 0; w < kMaxWords; ++w) {
-      if (w < W) {
-        const uint32_t x = sw[w];
-        const int32_t t = x == 0xFFFFFFFFu ? 32 : __popc(x ^ (x + 1u)) - 1;
-        if (carry) total += t;
-        carry = carry && t == 32;
-      }
-    }
-    head = wrap_add(head, total);
-    const int s_words = total >> 5;
-    const int s_bits = total & 31;
     uint32_t shifted[kMaxWords];
-#pragma unroll
-    for (int w = 0; w < kMaxWords; ++w) {
-      const uint32_t lo = pick(sw, w + s_words, W);
-      const uint32_t hi = pick(sw, w + s_words + 1, W);
-      shifted[w] = s_bits > 0 ? (lo >> s_bits) | (hi << (32 - s_bits)) : lo;
-    }
+    head = wrap_add(head, advance_window(sw, W, shifted));
     km = max(km, head);
     a.o_head[ob + lane] = head;
     a.o_km[ob + lane] = km;
@@ -795,48 +924,60 @@ __global__ void __launch_bounds__(32 * kRowsPerBlock) ingest_kernel(const Ingest
 
 // out: the widest batch (m) of any form, origins, seen words, queue slots,
 // payload entries, the widest batch of the narrow (and every emitting)
-// instantiation, and cells.
+// instantiation, cells, and the most origins of the register book (past
+// them the wide book's instantiation runs).
 extern "C" int ingest_limits(int* out) {
   out[0] = kMaxMsgsWide;
-  out[1] = kMaxOrigins;
+  out[1] = kMaxOriginsWide;
   out[2] = kMaxWords;
   out[3] = kMaxQueue;
   out[4] = kMaxPig;
   out[5] = kMaxMsgs;
   out[6] = kMaxCells;
+  out[7] = kMaxOrigins;
   return 0;
+}
+
+template <typename CT, typename XT, bool EMIT, int KM, int QH, int CH, bool WO>
+static void launch_rows(const IngestArgs* a, cudaStream_t s) {
+  constexpr int rows = WO ? kRowsPerBlockWide : kRowsPerBlock;
+  const int threads = 32 * rows;
+  const dim3 grid((a->n + rows - 1) / rows);
+  ingest_kernel<CT, XT, EMIT, KM, QH, CH, WO><<<grid, threads, 0, s>>>(*a);
 }
 
 // the queue's slots a lane (QH) and the cells a lane (CH) are template
 // parameters, so that a queue of 32 slots carries no second half and a row
-// of up to 64 cells keeps the smaller shared-memory row
-template <typename CT, typename XT, bool EMIT, int KM, int CH>
-static void launch_queue(const IngestArgs* a, dim3 grid, int threads, cudaStream_t s) {
+// of up to 64 cells keeps the smaller shared-memory row; the wide book (WO)
+// is instantiated at 8 cells a lane only, which holds any row up to 256
+template <typename CT, typename XT, bool EMIT, int KM, int CH, bool WO>
+static void launch_queue(const IngestArgs* a, cudaStream_t s) {
   if (a->q_slots <= 32) {
-    ingest_kernel<CT, XT, EMIT, KM, 1, CH><<<grid, threads, 0, s>>>(*a);
+    launch_rows<CT, XT, EMIT, KM, 1, CH, WO>(a, s);
   } else {
-    ingest_kernel<CT, XT, EMIT, KM, kMaxQueue / 32, CH><<<grid, threads, 0, s>>>(*a);
+    launch_rows<CT, XT, EMIT, KM, kMaxQueue / 32, CH, WO>(a, s);
   }
 }
 
 template <typename CT, typename XT, bool EMIT, int KM>
-static void launch_cells(const IngestArgs* a, dim3 grid, int threads, cudaStream_t s) {
-  if (a->n_cells <= 64) {
-    launch_queue<CT, XT, EMIT, KM, 2>(a, grid, threads, s);
+static void launch_cells(const IngestArgs* a, cudaStream_t s) {
+  if (a->n_origins > kMaxOrigins) {
+    launch_queue<CT, XT, EMIT, KM, kMaxCells / 32, true>(a, s);
+  } else if (a->n_cells <= 64) {
+    launch_queue<CT, XT, EMIT, KM, 2, false>(a, s);
   } else {
-    launch_queue<CT, XT, EMIT, KM, kMaxCells / 32>(a, grid, threads, s);
+    launch_queue<CT, XT, EMIT, KM, kMaxCells / 32, false>(a, s);
   }
 }
 
 template <typename CT, typename XT>
-static void launch_form(const IngestArgs* a, int emit, dim3 grid, int threads,
-                        cudaStream_t s) {
+static void launch_form(const IngestArgs* a, int emit, cudaStream_t s) {
   if (emit) {
-    launch_cells<CT, XT, true, kMaxMsgs / 32>(a, grid, threads, s);
+    launch_cells<CT, XT, true, kMaxMsgs / 32>(a, s);
   } else if (a->m <= kMaxMsgs) {
-    launch_cells<CT, XT, false, kMaxMsgs / 32>(a, grid, threads, s);
+    launch_cells<CT, XT, false, kMaxMsgs / 32>(a, s);
   } else {
-    launch_cells<CT, XT, false, kMaxMsgsWide / 32>(a, grid, threads, s);
+    launch_cells<CT, XT, false, kMaxMsgsWide / 32>(a, s);
   }
 }
 
@@ -846,20 +987,18 @@ static void launch_form(const IngestArgs* a, int emit, dim3 grid, int threads,
 extern "C" int ingest_launch(const IngestArgs* a, int cell_bytes, int tx_bytes,
                              int emit, void* stream) {
   if (a->m < 0 || a->m > (emit ? kMaxMsgs : kMaxMsgsWide) || a->n_origins < 1 ||
-      a->n_origins > kMaxOrigins || a->seen_words > kMaxWords || a->q_slots > kMaxQueue ||
+      a->n_origins > kMaxOriginsWide || a->seen_words > kMaxWords || a->q_slots > kMaxQueue ||
       a->n_cells > kMaxCells || a->pig_r > kMaxPig) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (a->n == 0) return 0;
-  const int threads = 32 * kRowsPerBlock;
-  const dim3 grid((a->n + kRowsPerBlock - 1) / kRowsPerBlock);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cell_bytes == 2 && tx_bytes == 1) {
-    launch_form<int16_t, int8_t>(a, emit, grid, threads, s);
+    launch_form<int16_t, int8_t>(a, emit, s);
   } else if (cell_bytes == 2 && tx_bytes == 2) {
-    launch_form<int16_t, int16_t>(a, emit, grid, threads, s);
+    launch_form<int16_t, int16_t>(a, emit, s);
   } else if (cell_bytes == 4 && tx_bytes == 4) {
-    launch_form<int32_t, int32_t>(a, emit, grid, threads, s);
+    launch_form<int32_t, int32_t>(a, emit, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

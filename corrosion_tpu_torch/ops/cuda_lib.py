@@ -21,9 +21,12 @@ from pathlib import Path
 SRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 SOURCES = ("swim_tables", "ingest")
+# --split-compile=0 runs the device optimizer on every core: on an 8-core
+# host the ingest source's 54 instantiations built in 21.9 s instead of 40.8,
+# with the same ptxas report for every kernel
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--split-compile=0",
 )
 
 _loaded: dict = {}

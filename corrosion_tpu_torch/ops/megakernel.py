@@ -54,8 +54,9 @@ LAUNCHES = {"swim_tables": 0, "ingest": 0, "ingest_emit": 0}
 #: the same launches per (wrapper, form): the swim kernel's form is
 #: "aligned" or "packed" with its timer and budget bits, e.g.
 #: "packed/16/8"; the ingest kernel's its q_cell and q_tx bits, e.g. "16/8",
-#: and the batch width where it takes the wide instantiation, e.g.
-#: "32/32/m96", or where the batch is empty, e.g. "16/16/m0"
+#: the batch width where it takes the wide instantiation, e.g.
+#: "32/32/m96", or where the batch is empty, e.g. "16/16/m0", and the
+#: origins where they take the wide book (more than 32), e.g. "16/16/o256"
 FORM_LAUNCHES: dict = {}
 
 
@@ -446,12 +447,12 @@ _Q_FIELDS = ("q_origin", "q_dbv", "q_cell", "q_ver", "q_val", "q_site",
 
 def _ingest_cuda(p: IngestParams, x: IngestInputs) -> IngestOutputs:
     lib = cuda_lib.library("ingest")
-    limits = (ctypes.c_int * 7)()
+    limits = (ctypes.c_int * 8)()
     lib.ingest_limits(limits)
     n, m = x.origin.shape
     c_cnt, o, w, q = p.n_cells, p.n_origins, p.seen_words, p.q_slots
     # limits: widest m, O, W, Q, R, the widest m of the narrow (and every
-    # emitting) instantiation, C
+    # emitting) instantiation, C, the most O of the register book
     max_m = limits[5] if p.pig_r else limits[0]
     if (m > max_m or o > limits[1] or w > limits[2] or q > limits[3]
             or p.pig_r > limits[4] or c_cnt > limits[6]):
@@ -532,6 +533,8 @@ def _ingest_cuda(p: IngestParams, x: IngestInputs) -> IngestOutputs:
         # the wide instantiation (the full view's mailboxes), or the empty
         # batch (the scale round at pig_changes == 0)
         form += f"/m{m}"
+    if o > limits[7]:
+        form += f"/o{o}"  # the wide book's instantiation
     _count_launch("ingest_emit" if p.pig_r else "ingest", form)
     return out
 

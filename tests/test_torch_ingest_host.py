@@ -14,6 +14,7 @@ per-warp shared memory) and that no collective diverges; it says nothing
 of the card's speed, and only ``chip_smoke.py`` runs the kernel on the card.
 """
 
+import ctypes
 import dataclasses
 from types import SimpleNamespace
 
@@ -58,6 +59,13 @@ CONFIGS = {
     "wide8_q64": lambda: _wide(64, narrow_q_int8=True),
     "wide32_q32": lambda: _wide(32, narrow_dtypes=False),
     "wide32_q64": lambda: _wide(64, narrow_dtypes=False),
+    # the wide book (more than 32 origins, the book in shared memory): the
+    # many-writer flagship (256 origins, 64x4 cells, int16/int16), 48 origins
+    # (not a multiple of 32) at int16/int8 and the full view's mailbox at 64
+    # origins (int32/int32)
+    "writers": lambda: scale_sim_config(100_000, n_origins=256, n_rows=64),
+    "writers48_q8": lambda: scale_sim_config(100_000, n_origins=48, narrow_q_int8=True),
+    "full_o64": lambda: full_view_config(8192, n_origins=64),
 }
 # (configuration, form): every form of chip_smoke.py's kernels phase
 FORMS = [("flagship", "receive"), ("flagship", "write_emit"), ("flagship", "write"),
@@ -70,7 +78,10 @@ WIDE_FORMS = [("wide16_q32", "receive_full"),
               *[(c, f) for c in ("wide16_q64", "wide8_q32", "wide8_q64", "wide32_q32",
                                  "wide32_q64")
                 for f in ("receive", "write_emit", "receive_full")]]
-CASES = [(c, f, ties) for c, f in FORMS for ties in (False, True)] + [
+# the wide book's forms, on the random and the tie-heavy inputs
+WIDE_BOOK_FORMS = [(c, f) for c in ("writers", "writers48_q8")
+                   for f in ("receive", "write", "write_emit")] + [("full_o64", "receive_full")]
+CASES = [(c, f, ties) for c, f in FORMS + WIDE_BOOK_FORMS for ties in (False, True)] + [
     (c, f, True) for c, f in WIDE_FORMS]
 
 
@@ -91,3 +102,28 @@ def test_ingest_source_on_host_matches_plain(host_ingest, monkeypatch, config, f
         for u, v in zip(chip_smoke._flat(a), chip_smoke._flat(b)):
             assert u.dtype == v.dtype and torch.equal(u, v), name
     assert int(want.fresh.sum()) > 0
+    if p.n_origins > chip_smoke.NARROW_BOOK:
+        rows = chip_smoke._wide_slot_rows(p, x, want)
+        assert min(rows.values()) > 0, rows
+
+
+def test_host_library_reports_256_origins(host_ingest):
+    limits = (ctypes.c_int * 8)()
+    assert host_ingest.ingest_limits(limits) == 0
+    # origins of any form, and of the register book (one slot a lane)
+    assert (limits[1], limits[7]) == (256, 32)
+
+
+def test_257_origins_raise_with_the_widths(host_ingest, monkeypatch):
+    host_build.route_launches(monkeypatch, host_ingest)
+    cfg = scale_sim_config(100_000, n_origins=257, n_rows=64)
+    p, x = chip_smoke._ingest_inputs(cfg, N_ROWS, "receive", 5, "cpu")
+    with pytest.raises(ValueError, match=r"ingest widths m=16 O=257 W=1 Q=32 R=0 C=256 "
+                                         r"exceed the kernel's limits \[128, 256,"):
+        mk._ingest_cuda(p, x)
+    # the launcher itself refuses the widths before it looks at the rows
+    a = mk._IngestArgs(m=16, n_origins=257, n_cells=256, q_slots=32, seen_words=1)
+    invalid_value = 1
+    assert host_ingest.ingest_launch(ctypes.byref(a), 2, 2, 0, None) == invalid_value
+    a.n_origins = 256
+    assert host_ingest.ingest_launch(ctypes.byref(a), 2, 2, 0, None) == 0

@@ -191,12 +191,12 @@ def random_state(seed, n=N_INGEST, ties=False, **over):
     return cfg, st, tcfg, tst
 
 
-def random_messages(seed, n, m, now=20, n_cells=16):
+def random_messages(seed, n, m, now=20, n_cells=16, o_hi=64):
     rng = np.random.default_rng(seed)
     i32 = np.int32
     live = rng.random((n, m)) < 0.7
     fields = [
-        rng.integers(-1, 64, (n, m)), rng.integers(0, 40, (n, m)),
+        rng.integers(-1, o_hi, (n, m)), rng.integers(0, 40, (n, m)),
         rng.integers(-1, n_cells + 1, (n, m)), rng.integers(0, 8, (n, m)),
         rng.integers(0, 4, (n, m)), rng.integers(0, 4, (n, m)),
         rng.integers(0, 2, (n, m)),
@@ -213,14 +213,14 @@ def two_cells(rng, n, m, n_cells):
     return np.where(rng.random((n, m)) < 0.05, -1, cell).astype(np.int32)
 
 
-def tie_messages(seed, n, m, now=20, n_cells=16):
+def tie_messages(seed, n, m, now=20, n_cells=16, o_hi=12):
     """Messages where a lane-parallel rank can part from a sequential loop:
     two cells a row with equal (ver, val, site, clp), repeated (origin, dbv)
     pairs and versions repeated across origins in a row, live and dead."""
     rng = np.random.default_rng(seed)
     i32 = np.int32
     live = rng.random((n, m)) < 0.6
-    origin = rng.integers(-1, 12, (n, m))
+    origin = rng.integers(-1, o_hi, (n, m))
     dbv = rng.integers(0, 40, (n, m))
     idx = np.arange(m)
     back = np.maximum(idx - rng.integers(1, 9, (n, m)), 0)
@@ -277,6 +277,62 @@ def test_local_write_emit_plain_matches_pallas_kernel_interpret(ties):
     leaves_equal(want_cst, got_cst)
     for a, b in zip(want_emit, got_emit):
         assert np.array_equal(np.asarray(a), b.numpy())
+
+
+# past the CUDA kernel's register book of 32 slots, and not a multiple of 32
+WIDE_BOOK = dict(n_origins=48)
+
+
+def _wide_slots_moved(before, after):
+    """Some book slot past 32 changed: claimed, recorded or advanced."""
+    return any(not torch.equal(getattr(before, f)[:, 32:], getattr(after, f)[:, 32:])
+               for f in ("head", "known_max", "seen", "org_id", "org_last"))
+
+
+@pytest.mark.parametrize("ties", [False, True], ids=["random", "tie_heavy"])
+def test_ingest_plain_matches_pallas_kernel_interpret_48_origins(ties):
+    """Origins over all 48 slots and ids 48 apart that meet on one slot."""
+    cfg, st, tcfg, tst = random_state(8, ties=ties, **WIDE_BOOK)
+    make = tie_messages if ties else random_messages
+    live, msgs = make(9, N_INGEST, 4 * cfg.pig_changes, o_hi=96)
+    want_cst, want_info = jmk.ingest_changes_fused(
+        cfg, st.crdt, jnp.asarray(live), *map(jnp.asarray, msgs), interpret=True)
+    got_cst, got_info = mk.ingest_changes_fused(tcfg, tst.crdt, T(live), *map(T, msgs))
+    leaves_equal(want_cst, got_cst)
+    for k in want_info:
+        assert int(want_info[k]) == int(got_info[k]), k
+    assert _wide_slots_moved(tst.crdt.book, got_cst.book)
+
+
+@pytest.mark.parametrize("ties", [False, True], ids=["random", "tie_heavy"])
+def test_local_write_emit_plain_matches_pallas_kernel_interpret_48_origins(ties):
+    """Rows 48..63 write on the slots of rows 0..15. Both cases take the
+    tie case's payload budget of three changes, so that they share one
+    compile of the interpret-mode kernel."""
+    budget = {"bcast_budget_bytes": 3 * broadcast.CHANGE_WIRE_BYTES}
+    cfg, st, tcfg, tst = random_state(10, ties=ties, **WIDE_BOOK, **budget)
+    rng = np.random.default_rng(11)
+    n, q = N_INGEST, cfg.bcast_queue
+    wm = rng.random(n) < 0.6
+    cell = rng.integers(0, cfg.n_cells, n).astype(np.int32)
+    val = rng.integers(0, 1 << 20, n).astype(np.int32)
+    clp = rng.integers(0, 2, n).astype(np.int32)
+    rand = rng.random((n, q)).astype(np.float32)
+    if ties:
+        cell = two_cells(rng, 1, n, cfg.n_cells)[0].clip(min=0)
+        val = np.full(n, TIE_KEYS[1], np.int32)
+        clp = np.full(n, TIE_KEYS[3], np.int32)
+        rand = np.floor(rand * 4) / 4
+    carried = rng.integers(0, 5, n).astype(np.int32)
+    want_cst, want_emit = jmk.local_write_fused(
+        cfg, st.crdt, *map(jnp.asarray, (wm, cell, val, clp)),
+        rand=jnp.asarray(rand), carried=jnp.asarray(carried), interpret=True)
+    got_cst, got_emit = mk.local_write_fused(
+        tcfg, tst.crdt, *map(T, (wm, cell, val, clp)), rand=T(rand), carried=T(carried))
+    leaves_equal(want_cst, got_cst)
+    for a, b in zip(want_emit, got_emit):
+        assert np.array_equal(np.asarray(a), b.numpy())
+    assert _wide_slots_moved(tst.crdt.book, got_cst.book)
 
 
 def test_ingest_chain_matches_xla_path():
