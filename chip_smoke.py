@@ -7,7 +7,7 @@ Phases (any failure raises and the script exits non-zero):
 
 1. Build every kernel from ``corrosion_tpu_torch/csrc`` (one ``nvcc`` per
    source, started together) and print ptxas' register and stack report;
-   each of the swim kernel's 18 and the ingest kernel's 54 instantiations
+   each of the swim kernel's 18 and the ingest kernel's 90 instantiations
    is named, and any stack frame or spill in one of them fails the run.
 2. Hold every kernel form against its plain PyTorch version on the card on
    random valid inputs drawn from the port's PRNG, and again, untimed, on
@@ -29,14 +29,21 @@ Phases (any failure raises and the script exits non-zero):
    64 origins (N = 8192) and a receive at 48 origins (int16/int8), each on
    inputs whose origins cover every book slot and meet on slots under
    ``% O``; each prints the rows that took, evicted and recorded on a slot
-   past 32, and fails if any count is 0.
-3. Run 12 rounds of ``scale_sim_config(4096, sync_interval=2,
+   past 32, and fails if any count is 0. The row kept in global memory
+   (more than 256 cells): the large table's receive, emitting and
+   non-emitting write (1024x4 = 4,096 cells, int16/int16) at N = 100,000,
+   the full view's mailbox at 4,096 cells (N = 8192, int32/int32), the
+   wide book (256 origins) at 4,096 cells and int16/int8 at 4,100 cells (a
+   partial last group of 32); each prints the rows whose batch winners
+   wrote a cell past 256, and fails if there are none.
+3. Run 11 rounds of ``scale_sim_config(4096, sync_interval=2,
    sync_sweep_every=2)`` with writes, churn and 5 % message loss once on
    the card (kernels) and once on the CPU (plain versions); every state leaf
    and round-info value must be bitwise equal after every round. The same
    for the 1M point's configuration and the many-writer configuration
    (256 origins, 64x4 cells: the ingest kernel's wide book, once a round
-   in each of its two forms) at 4096 nodes. (The CPU route is held
+   in each of its two forms) and the large table (1024x4 cells: the row in
+   global memory, likewise) at 4096 nodes. (The CPU route is held
    bitwise to the JAX package by ``tests/test_torch_*.py``.)
 4. The flagship: ``scale_sim_config(100_000)`` with bench.py's workload
    (``sim.scale_step.flagship_workload``), 2 warm-up rounds, then three
@@ -49,6 +56,12 @@ Phases (any failure raises and the script exits non-zero):
    kernel once a round, K2 and K3 under their ``/o256`` form keys; fresh,
    delivered and syncs above 0 and book slots past 32 owned at the end;
    prints the median and quartiles of rounds/s and peak device memory.
+4c. tables: the large table, ``scale_sim_config(100_000, n_rows=1024,
+   n_cols=4)`` (4,096 cells a row, the flagship's other knobs), the same
+   way: K2 and K3 under their ``/c4096`` form keys, cells past 256 written
+   at the end; prints rounds/s, peak device memory, and the state's bytes
+   beside the static projection (``obs.memory.projected_bytes``), which
+   must be equal.
 5. The 1M point: ``sim.scale_step.million_config()`` (bounded member
    piggyback, int8 budget and queue-counter planes) with the same workload,
    2 warm-up rounds, then three timed batches of 4 rounds. Each kernel must
@@ -151,8 +164,8 @@ Phases (any failure raises and the script exits non-zero):
     N=100,000 (the ``Config`` defaults otherwise), a schema file, an
     ephemeral API port and ``pg.enabled`` on an ephemeral port: a row
     written at node 0 through the HTTP client is
-    polled at node 99,999 until it is there (at most 400 rounds); 50
-    queries are timed; the live loop's rounds/s is read from
+    polled at node 99,999 until it is there (at most 400 rounds); 25
+    pairs of queries are timed; the live loop's rounds/s is read from
     ``/v1/health``, quiet and under back-to-back queries; over PG wire
     (the load harness's ``_PgClient``) the row is read at node 99,999
     selected by database name, a PG-wire INSERT is read back over HTTP at
@@ -265,13 +278,17 @@ H100_INT32_OPS_PER_S = 67e12 / 4
 FLAGSHIP_NODES = 100_000
 MILLION_NODES = 1_000_000
 TRAJECTORY_NODES = 4096  # small enough for the CPU route to keep pace
-TRAJECTORY_ROUNDS = 12  # the workload's kill (round 4) and revive (round 10) inside
+TRAJECTORY_ROUNDS = 11  # the workload's kill (round 4) and revive (round 10) inside
 FULL_NODES = 8192  # the full view's measured point (sim.config.full_view_config)
 FULL_TRAJECTORY_NODES = 1024  # the full view, card vs CPU: float ties are common
 # the many-writer flagship: 256 tracked origins (the ingest kernel's wide
 # book) and 64x4 cells, bench.py's heavier mix (BENCH_ORIGINS=256,
 # BENCH_ROWS=64)
 WRITERS = dict(n_origins=256, n_rows=64)
+# the large table: a 1024x4 = 4,096-cell store row (a service-discovery
+# table of a thousand rows), past the ingest kernel's staged 256 cells, at
+# the flagship's other knobs (16 origins, int16 planes)
+TABLES = dict(n_rows=1024, n_cols=4)
 # BASELINE's correctness size: a 256-node cluster, 16 origins, 64 cells
 PARITY_NODES, PARITY_ORIGINS, PARITY_CELLS, PARITY_ROUNDS = 256, 16, 64, 24
 # empty rounds after the single writer's script for the quiet check: the
@@ -286,7 +303,7 @@ AGENT_VISIBLE_ROUNDS = 400  # rounds a write may take to reach the last node
 AGENT_RATE_S = 5.0  # seconds of /v1/health rounds for the live loop's rate
 AGENT_POLL_S = 0.05  # seconds between the reader's polls
 AGENT_STOP_S = 60  # seconds for exit 0 after SIGTERM
-AGENT_QUERIES = 50  # rounds with a pair of timed queries each
+AGENT_QUERIES = 25  # rounds with a pair of timed queries each
 AGENT_QUERY_S = 120  # seconds the paced queries may take
 AGENT_QUERY_POLL_S = 0.01  # seconds between /v1/health reads while pacing
 AGENT_PG_QUERIES = 20  # timed PG-wire simple queries at the last node
@@ -649,6 +666,9 @@ def _swim_bytes(args, out, pig_k: int = 0) -> int:
 # book slots of the ingest kernel's register book (a slot a lane); past them
 # its wide-book instantiation keeps the book in shared memory
 NARROW_BOOK = 32
+# cells of the ingest kernel's staged store row (8 a lane in shared memory);
+# past them its row stays in global memory
+STAGED_CELLS = 256
 
 # The ingest kernel's forms: (messages per row from cfg, emit, enqueue_all,
 # no drift reject, the messages' origin and version ranges and live share).
@@ -695,6 +715,13 @@ def _ingest_inputs(cfg, n: int, form: str, seed: int, dev, ties: bool = False):
     def coin(shape, p):
         return prng.uniform(next(ks), shape, dev) < p
 
+    def planes(shape, fields):
+        """int32 planes in [0, hi) for each (bit shift, hi) of ``fields``,
+        all sliced from one draw of 32 bits an element: past the staged
+        row's cells a draw a plane would dominate the phase's time."""
+        drawn = prng.bits(next(ks), shape, dev)
+        return tuple(((drawn >> sh) % hi).to(torch.int32) for sh, hi in fields)
+
     o, c, q = cfg.n_origins, cfg.n_cells, cfg.bcast_queue
     org_hi = 64
     if o > NARROW_BOOK:
@@ -724,8 +751,9 @@ def _ingest_inputs(cfg, n: int, form: str, seed: int, dev, ties: bool = False):
         site=ri((n, m), 0, 4), clp=ri((n, m), 0, 2),
         ts=ri((n, m), (now - 3) << HLC_ROUND_BITS, (now + 4) << HLC_ROUND_BITS),
         budget=torch.full((n, m), 2, dtype=torch.int32, device=dev),
-        store=(ri((n, c), 0, 8), ri((n, c), 0, 4), ri((n, c), 0, 4),
-               ri((n, c), 0, 40), ri((n, c), 0, 2)),
+        store=(planes((n, c), ((0, 8), (3, 4), (5, 4), (8, 40), (7, 2))) if c > STAGED_CELLS
+               else (ri((n, c), 0, 8), ri((n, c), 0, 4), ri((n, c), 0, 4),
+                     ri((n, c), 0, 40), ri((n, c), 0, 2))),
         head=head, km=head + ri((n, o), 0, 10), seen=seen_bits,
         org_id=torch.where(coin((n, o), 0.8),
                            torch.arange(o, dtype=torch.int32, device=dev).expand(n, o),
@@ -744,12 +772,14 @@ def _ingest_inputs(cfg, n: int, form: str, seed: int, dev, ties: bool = False):
     if ties:
         # a budget that lets 1 to 3 live slots through the payload mask
         p = p._replace(budget_bytes=3 * CHANGE_WIRE_BYTES)
-        x = _tie_heavy(x, c, ri, coin)
+        x = _tie_heavy(x, c, ri, coin, planes)
     return p, x
 
 
-def _tie_heavy(x, c: int, ri, coin):
-    """``x`` with the tie-heavy distributions of ``_ingest_inputs``."""
+def _tie_heavy(x, c: int, ri, coin, planes):
+    """``x`` with the tie-heavy distributions of ``_ingest_inputs``
+    (``planes`` as there: past the staged row's cells the store's coins
+    come from one draw)."""
     import torch
 
     n, m = x.origin.shape
@@ -774,8 +804,12 @@ def _tie_heavy(x, c: int, ri, coin):
         return torch.full_like(t, v)
 
     store = list(x.store)
-    for i, v in zip((0, 1, 2, 4), keys):
-        store[i] = torch.where(coin(store[i].shape, 0.5), const(store[i], v), store[i])
+    shape = store[0].shape
+    coins = ([b == 1 for b in planes(shape, ((0, 2), (1, 2), (2, 2), (3, 2)))]
+             if c > STAGED_CELLS else None)
+    for k, (i, v) in enumerate(zip((0, 1, 2, 4), keys)):
+        heads = coins[k] if coins else coin(shape, 0.5)
+        store[i] = torch.where(heads, const(store[i], v), store[i])
     rand = None if x.rand is None else torch.floor(x.rand * 4) / 4
     return x._replace(
         origin=origin, dbv=dbv, cell=cell, ver=const(x.ver, keys[0]),
@@ -901,6 +935,28 @@ def _require_wide_slots(name, p, x, out) -> None:
         raise AssertionError(f"{name}: the inputs miss the wide book's slots: {rows}")
 
 
+def _past_staged_rows(x, out) -> int:
+    """Rows where a batch winner wrote a cell past the staged row's 256
+    (the store changed there: a winner beats its incumbent on (clp, ver,
+    val, site), so it changes at least one of them)."""
+    import torch
+
+    past = slice(STAGED_CELLS, None)
+    moved = [a[:, past] != b[:, past] for a, b in zip(x.store, out.store)]
+    return int(torch.stack(moved).any(dim=0).any(dim=1).sum())
+
+
+def _require_past_staged(name, p, x, out) -> None:
+    """With more than 256 cells, rows must write cells past 256."""
+    if p.n_cells <= STAGED_CELLS:
+        return
+    rows = _past_staged_rows(x, out)
+    print(f"[kernels] {name}: {rows} of {x.origin.shape[0]} rows wrote cells >= "
+          f"{STAGED_CELLS} of {p.n_cells}", flush=True)
+    if rows <= 0:
+        raise AssertionError(f"{name}: no row wrote a cell past {STAGED_CELLS}")
+
+
 def _recorded_past_queue(p, x, out) -> int:
     """Rows whose recorded messages (fresh and owned) outnumber the queue's
     slots."""
@@ -917,11 +973,12 @@ def _ingest_form(name, cfg, form, seed, dev) -> dict:
         lambda: mk.ingest(p, x), lambda: mk.ingest_plain(p, x),
         lambda got: _ingest_bytes(x, got), lambda got: _ingest_ops(p, x, got))
     r["replaces"] = "corrosion_tpu/ops/megakernel.py:" + ("960" if form.startswith("write") else "795")
-    if form == "receive_full" or p.n_origins > NARROW_BOOK:
+    if form == "receive_full" or p.n_origins > NARROW_BOOK or p.n_cells > STAGED_CELLS:
         want = mk.ingest_plain(p, x)
         if form == "receive_full":
             _require_past_queue(name, p, x, want)
         _require_wide_slots(name, p, x, want)
+        _require_past_staged(name, p, x, want)
         del want
     _hold_ties(name, cfg, form, seed, dev)
     return r
@@ -951,6 +1008,7 @@ def _hold_ties(name, cfg, form, seed, dev) -> None:
     if form == "receive_full":
         _require_past_queue(f"{name} (tie-heavy)", p, x, want)
     _require_wide_slots(f"{name} (tie-heavy)", p, x, want)
+    _require_past_staged(f"{name} (tie-heavy)", p, x, want)
     print(f"[kernels] {name}: tie-heavy inputs at N={n} bitwise equal "
           f"({_count(want.fresh)} fresh messages)", flush=True)
 
@@ -983,6 +1041,7 @@ def phase_kernels(dev) -> dict:
     overload = cluster_config(n_rows=36).sim_config()
     flag = scale_sim_config(FLAGSHIP_NODES)
     writers = scale_sim_config(FLAGSHIP_NODES, **WRITERS)
+    tables = scale_sim_config(FLAGSHIP_NODES, **TABLES)
     wide = scale_sim_config(FLAGSHIP_NODES, narrow_dtypes=False)
     big = million_config(MILLION_NODES)
     full = full_view_config(FULL_NODES)
@@ -1042,6 +1101,26 @@ def phase_kernels(dev) -> dict:
          lambda n: _ingest_form(n, scale_sim_config(FLAGSHIP_NODES, n_origins=48,
                                                     narrow_q_int8=True),
                                 "receive", 64, dev)),
+        # the row in global memory (more than 256 cells): the large table's
+        # two forms and its non-emitting write, the full view's mailbox at
+        # 4,096 cells, the wide book at 4,096 cells and int16/int8 at 4,100
+        ("ingest_tables", "tables", ("ingest", "16/16/c4096"),
+         lambda n: _ingest_form(n, tables, "receive", 65, dev)),
+        ("ingest_emit_tables", "tables", ("ingest_emit", "16/16/c4096"),
+         lambda n: _ingest_form(n, tables, "write_emit", 66, dev)),
+        ("ingest_write_16_16_c4096_n100000", None, None,
+         lambda n: _ingest_form(n, tables, "write", 67, dev)),
+        ("ingest_full_c4096", None, None,
+         lambda n: _ingest_form(n, full_view_config(FULL_NODES, **TABLES),
+                                "receive_full", 68, dev)),
+        ("ingest_16_16_o256_c4096_n100000", None, None,
+         lambda n: _ingest_form(n, scale_sim_config(FLAGSHIP_NODES, n_origins=256,
+                                                    **TABLES),
+                                "receive", 69, dev)),
+        ("ingest_16_8_c4100_n100000", None, None,
+         lambda n: _ingest_form(n, scale_sim_config(FLAGSHIP_NODES, n_rows=1025, n_cols=4,
+                                                    narrow_q_int8=True),
+                                "receive", 70, dev)),
     ]
     for c, form, seed in ((wide, "receive", 36), (wide, "write", 37),
                           (wide, "write_emit", 38), (flag, "write", 39),
@@ -1759,12 +1838,13 @@ def phase_scale_point(dev, name: str, **over) -> dict:
     return {"rounds_per_s": med, "peak_bytes": peak, "forms": forms}
 
 
-def phase_writers(dev) -> dict:
-    """The many-writer flagship, ``scale_sim_config(FLAGSHIP_NODES,
-    **WRITERS)``, with bench.py's workload (its 256 origin nodes write):
-    ten timed batches of 2 rounds after 2 warm-up rounds; K1, K2 and K3
-    once a round each, K2 and K3 in the wide book's forms; book slots past
-    32 owned at the end."""
+def _kernel_point(dev, cfg, suffix: str) -> tuple:
+    """``cfg`` at the flagship's size with bench.py's workload
+    (``flagship_workload``): ten timed batches of 2 rounds after 2 warm-up
+    rounds; K1 once a round and K2 and K3 once a round each under the form
+    keys ending in ``suffix``; fresh, delivered and syncs above 0. Returns
+    (final state, its initial bytes, the batch rates, the info sums, the
+    form launches, the peak device bytes)."""
     import torch
 
     from corrosion_tpu_torch.ops import megakernel as mk
@@ -1773,11 +1853,9 @@ def phase_writers(dev) -> dict:
         ScaleRoundInput,
         flagship_workload,
         scale_run_rounds_carry,
-        scale_sim_config,
     )
 
-    cfg = scale_sim_config(FLAGSHIP_NODES, **WRITERS)
-    n, warm, batch, reps = cfg.n_nodes, 2, 2, 10
+    warm, batch, reps = 2, 2, 10
     total = warm + batch * reps
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1790,28 +1868,71 @@ def phase_writers(dev) -> dict:
     forms = dict(mk.FORM_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     cdt, qdt = plane_dtypes(cfg)
-    book = f"{_bits(cdt)}/{_bits(qdt)}/o{cfg.n_origins}"
-    want = {("swim_tables", "aligned/16/16"): total, ("ingest", book): total,
-            ("ingest_emit", book): total}
+    key = f"{_bits(cdt)}/{_bits(qdt)}{suffix}"
+    want = {("swim_tables", "aligned/16/16"): total, ("ingest", key): total,
+            ("ingest_emit", key): total}
     if forms != want:
-        raise AssertionError(f"writers launch counts {forms} != {want}")
+        raise AssertionError(f"{suffix} launch counts {forms} != {want}")
     sums = {k: sum(int(i[k].sum()) for i in infos) for k in infos[0]}
     if sums["fresh"] <= 0 or sums["delivered"] <= 0 or sums["syncs"] <= 0:
-        raise AssertionError(f"writers run moved nothing: {sums}")
+        raise AssertionError(f"{suffix} run moved nothing: {sums}")
+    if int(st.crdt.now) != total:
+        raise AssertionError(f"{suffix} state at round {int(st.crdt.now)}, not {total}")
+    return st, state_bytes, rates, sums, forms, peak
+
+
+def phase_writers(dev) -> dict:
+    """The many-writer flagship, ``scale_sim_config(FLAGSHIP_NODES,
+    **WRITERS)``, with bench.py's workload (its 256 origin nodes write):
+    ``_kernel_point`` with K2 and K3 in the wide book's forms; book slots
+    past 32 owned at the end."""
+    from corrosion_tpu_torch.sim.scale_step import scale_sim_config
+
+    cfg = scale_sim_config(FLAGSHIP_NODES, **WRITERS)
+    n = cfg.n_nodes
+    st, state_bytes, rates, sums, forms, peak = _kernel_point(
+        dev, cfg, f"/o{cfg.n_origins}")
     org_id = st.crdt.book.org_id
     owned_wide = int((org_id[:, NARROW_BOOK:] >= 0).sum())
-    if (int(st.crdt.now) != total or org_id.shape != (n, cfg.n_origins)
-            or owned_wide <= 0):
-        raise AssertionError(f"writers state: round {int(st.crdt.now)}, book "
-                             f"{tuple(org_id.shape)}, {owned_wide} slots past "
-                             f"{NARROW_BOOK} owned")
+    if org_id.shape != (n, cfg.n_origins) or owned_wide <= 0:
+        raise AssertionError(f"writers state: book {tuple(org_id.shape)}, {owned_wide} "
+                             f"slots past {NARROW_BOOK} owned")
     med, q1, q3 = _spread(rates)
-    print(f"[writers] N={n} {WRITERS}: {reps} batches of {batch} rounds at "
+    print(f"[writers] N={n} {WRITERS}: {len(rates)} batches of 2 rounds at "
           f"{[repr(x) for x in rates]} rounds/s, median {med!r} (quartiles {q1!r}-{q3!r}); "
           f"peak device memory {peak} bytes, state {state_bytes} bytes; "
           f"{owned_wide} book slots past {NARROW_BOOK} owned "
           f"({int((org_id >= 0).sum())} of {org_id.numel()} in all); launches {forms}; "
           f"info sums {sums}", flush=True)
+    return {"rounds_per_s": med, "peak_bytes": peak, "forms": forms}
+
+
+def phase_tables(dev) -> dict:
+    """The large table, ``scale_sim_config(FLAGSHIP_NODES, **TABLES)``
+    (4,096 cells a row), with bench.py's workload: ``_kernel_point`` with K2
+    and K3 in the form that keeps the row in global memory; cells past 256
+    written at the end; the state's bytes equal to the static projection
+    (``obs.memory.projected_bytes``)."""
+    from corrosion_tpu_torch.obs.memory import projected_bytes
+    from corrosion_tpu_torch.sim.scale_step import scale_sim_config
+
+    cfg = scale_sim_config(FLAGSHIP_NODES, **TABLES)
+    n = cfg.n_nodes
+    st, state_bytes, rates, sums, forms, peak = _kernel_point(
+        dev, cfg, f"/c{cfg.n_cells}")
+    written = int((st.crdt.store[0][:, STAGED_CELLS:] > 0).sum())
+    projected = projected_bytes(cfg, n)
+    if st.crdt.store[0].shape != (n, cfg.n_cells) or written <= 0:
+        raise AssertionError(f"tables state: store {tuple(st.crdt.store[0].shape)}, "
+                             f"{written} cells past {STAGED_CELLS} written")
+    if projected != state_bytes:
+        raise AssertionError(f"tables: state {state_bytes} bytes != projected {projected}")
+    med, q1, q3 = _spread(rates)
+    print(f"[tables] N={n} {TABLES} ({cfg.n_cells} cells a row): {len(rates)} batches of "
+          f"2 rounds at {[repr(x) for x in rates]} rounds/s, median {med!r} (quartiles "
+          f"{q1!r}-{q3!r}); peak device memory {peak} bytes, state {state_bytes} bytes, "
+          f"projected {projected} bytes; {written} cells past {STAGED_CELLS} written; "
+          f"launches {forms}; info sums {sums}", flush=True)
     return {"rounds_per_s": med, "peak_bytes": peak, "forms": forms}
 
 
@@ -1835,6 +1956,29 @@ def phase_writers_trajectory(dev) -> None:
                              f"launches {ingest} != {want}")
     if sums["fresh"] <= 0:
         raise AssertionError(f"many writers: nothing fresh ({sums})")
+
+
+def phase_tables_trajectory(dev) -> None:
+    """Phase 3's trajectory for the large table (4,096 cells a row): card
+    and CPU bitwise equal every round, K2 and K3 in the row-in-global-memory
+    forms once a round each and K1 once a round, cells past 256 written."""
+    from corrosion_tpu_torch.sim.broadcast import plane_dtypes
+    from corrosion_tpu_torch.sim.scale_step import scale_sim_config
+
+    rounds = TRAJECTORY_ROUNDS
+    forms, sums = phase_trajectory(
+        dev, "large table", lambda n, **kw: scale_sim_config(n, **TABLES, **kw), rounds)
+    cfg = scale_sim_config(TRAJECTORY_NODES, **TABLES)
+    cdt, qdt = plane_dtypes(cfg)
+    row = f"{_bits(cdt)}/{_bits(qdt)}/c{cfg.n_cells}"
+    swim = sum(v for (k, _), v in forms.items() if k == "swim_tables")
+    ingest = {kf: v for kf, v in forms.items() if kf[0] != "swim_tables"}
+    want = {("ingest", row): rounds, ("ingest_emit", row): rounds}
+    if swim != rounds or ingest != want:
+        raise AssertionError(f"large table: swim launches {swim} != {rounds} or ingest "
+                             f"launches {ingest} != {want}")
+    if sums["fresh"] <= 0:
+        raise AssertionError(f"large table: nothing fresh ({sums})")
 
 
 def phase_full_tx(dev) -> dict:
@@ -3865,7 +4009,8 @@ def _check_ingest_ptxas(log: str) -> None:
     """Print ptxas' report for every ingest kernel instantiation by name
     (three plane-dtype pairs x the emitting, the narrow and the wide batch x
     one or two queue slots a lane x the register book at 2 or 8 cells a lane
-    and the wide book at 8); each must have no stack frame and no spills."""
+    and the wide book at 8, and both books with the row in global memory,
+    CH = 0); each must have no stack frame and no spills."""
     import re
 
     seen, bad = set(), []
@@ -3887,7 +4032,8 @@ def _check_ingest_ptxas(log: str) -> None:
             for ct, xt in (("s", "a"), ("s", "s"), ("i", "i"))
             for e, km in (("EMIT", "1"), ("no EMIT", "1"), ("no EMIT", "4"))
             for qh in ("1", "2")
-            for ch, b in (("2", "book a lane"), ("8", "book a lane"), ("8", "wide book"))}
+            for ch, b in (("2", "book a lane"), ("8", "book a lane"), ("8", "wide book"),
+                          ("0", "book a lane"), ("0", "wide book"))}
     if bad:
         raise AssertionError(f"stack frame or spills in ptxas' report: {bad}")
     if seen != want:
@@ -3928,11 +4074,14 @@ def main() -> int:
     phase_trajectory(dev, "flagship", scale_sim_config)
     phase_trajectory(dev, "1M point's tiers", million_config)
     phase_writers_trajectory(dev)
+    phase_tables_trajectory(dev)
     done("trajectory")
     flag = phase_flagship(dev)
     done("flagship")
     writers = phase_writers(dev)
     done("writers")
+    tables = phase_tables(dev)
+    done("tables")
     million = phase_million(dev)
     done("million")
     phase_cost(dev, million.pop("audit"))
@@ -3992,7 +4141,7 @@ def main() -> int:
     serve_forms = dict(load["forms"])
     for k, v in chaos["serve_overload_forms"].items():
         serve_forms[k] = serve_forms.get(k, 0) + v
-    paths = {"flagship": flag, "writers": writers, "million": million, "full": full, "pig0": tx_paths["pig0"],
+    paths = {"flagship": flag, "writers": writers, "tables": tables, "million": million, "full": full, "pig0": tx_paths["pig0"],
              "chaos": chaos, "load": {"forms": serve_forms},
              "overload": overload}
     source = {

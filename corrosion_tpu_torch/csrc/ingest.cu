@@ -41,18 +41,28 @@
 //     cells, a template parameter, so that the narrower rows keep the
 //     smaller shared-memory row); the LWW store row is copied to shared
 //     memory with cp.async while the messages are checked, updated there
-//     by the batch winners and written out from there.
+//     by the batch winners and written out from there. Past 256 cells
+//     (CH = 0, the row in global memory: any width the configuration
+//     allows) nothing of the row is staged: the warp first copies the
+//     input row's five planes to the output row, lane l taking cells
+//     l + 32i, kCopy = 4 of them a step with every load before any store
+//     (a runtime loop of ceil(C / 128) steps, coalesced, 20 loads in
+//     flight a lane: 8.68 -> 6.28 ms at N = 100,000 and 4,096 cells, one
+//     cell a step against four, scripts/ingest_ab.py --tables), and each
+//     batch winner later reads its cell's incumbent from the input planes
+//     and writes the output planes, behind a __syncwarp() that orders its
+//     write after the copy of that cell by another lane.
 // A lane reads another lane's element with __shfl_sync. Shared memory holds,
 // per warp, the staged store row, the claim's per-slot candidate, the
 // record step's seen words and known_max (set with shared atomicOr/atomicMax,
 // which are order-free), and the message index of each enqueue rank: 2,304
-// bytes a warp at CH = 2, 6,144 at CH = 8. The wide book adds head, org_id
-// and org_last and sizes the per-slot arrays for 256 slots of up to 4 words:
-// 14,592 bytes a warp, always at CH = 8 (a row of up to 256 cells), so its
-// blocks hold 2 rows (29,184 bytes, under the 48 KB of static shared
-// memory) where the others hold 4. No array is indexed by data in
-// registers: every register array is indexed by an unrolled loop counter,
-// so nothing goes to the stack.
+// bytes a warp at CH = 2, 6,144 at CH = 8, 1,024 at CH = 0. The wide book
+// adds head, org_id and org_last and sizes the per-slot arrays for 256
+// slots of up to 4 words: 14,592 bytes a warp at CH = 8 (a row of up to
+// 256 cells), 9,472 at CH = 0, so its blocks hold 2 rows (29,184 bytes at
+// CH = 8, under the 48 KB of static shared memory) where the others hold
+// 4. No array is indexed by data in registers: every register array is
+// indexed by an unrolled loop counter, so nothing goes to the stack.
 //
 // The pallas body's sequential steps, made lane-parallel, with its tie rules:
 //   - HLC fold: a warp max of (ok ? ts : 0) over the batch (not clamped at 0
@@ -75,8 +85,8 @@
 //     (clp, ver, val, site, dbv), the lower index winning a full tie; each
 //     lane checks its own messages against the row's fresh ones, broadcast
 //     one at a time (O(m) each). At most one winner per cell, so winners
-//     update the staged store without a race, unless the incumbent wins the
-//     four keys (it also wins an exact tie).
+//     update the staged store (at CH = 0 the output row) without a race,
+//     unless the incumbent wins the four keys (it also wins an exact tie).
 //   - Enqueue: the pallas body places messages in order, each into the slot
 //     of least (evict key, column), where a kNoQ slot's key is INT32_MIN,
 //     marks the taken slot INT32_MAX, and stops placing once the least key
@@ -116,15 +126,19 @@
 // narrow_dtypes, else (int32, int32).
 //
 // Instantiations: 3 type pairs x {EMIT with m <= 32, non-emitting m <= 32,
-// non-emitting m <= 128} x QH {1, 2} x {the register book at CH 2 and 8,
-// the wide book at CH 8} = 54. ptxas (-Xptxas -v, printed and checked by
-// chip_smoke.py's build phase) reports 0 bytes of stack frame and 0 bytes
+// non-emitting m <= 128} x QH {1, 2} x {the register book at CH 2, 8 and 0,
+// the wide book at CH 8 and 0} = 90. ptxas (-Xptxas -v, printed and checked
+// by chip_smoke.py's build phase) reports 0 bytes of stack frame and 0 bytes
 // of spill for all 18 at CH = 2, 9,216 bytes of shared memory a block (4
 // rows), and registers: m <= 32 non-emitting 56 (Q <= 32) / 70 (Q = 64),
 // emitting 61-62 / 72, m <= 128 109 / 113-122; at CH = 8, 24,576 bytes a
 // block and at most 3 registers more (emitting 64); the wide book 29,184
 // bytes a block (2 rows) and m <= 32 non-emitting 74 / 82, emitting 76 /
-// 89-91, m <= 128 112 / 126-128 registers.
+// 89-91, m <= 128 112 / 126-128 registers. At CH = 0 (the CH 2 and 8
+// reports unchanged by it): 4,096 bytes a block with the register book and
+// m <= 32 non-emitting 56 / 64, emitting 64 / 64, m <= 128 108 / 112
+// registers; 18,944 bytes a block (2 rows) with the wide book and 76 / 80,
+// 80 / 80, 96 / 96-106.
 // Times on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit (kernel device
 // time from torch.profiler; chip_smoke.py, random inputs): the 1M point's
 // receive 2.11 ms and emitting write 2.02 ms against bounds of 1.68 and
@@ -134,7 +148,11 @@
 // The wide book at the many-writer flagship (N = 100,000, 256 origins,
 // 64x4 cells): receive 0.809 ms and emitting write 0.792 ms against bounds
 // of 0.685 and 0.683 ms by bytes (the book's five planes, 5 KB a row, are
-// most of them).
+// most of them). The row in global memory at N = 100,000 and 4,096 cells
+// (int16/int16, 16 origins): receive 5.93 ms and emitting write 5.75 ms
+// against bounds of 4.98 ms by bytes (the store's ten planes, 16.4 GB of
+// the 16.7, are most of them: every launch rewrites the whole row); at
+// 4,100 cells (int16/int8) 7.17 ms, its rows off the 128-byte grid.
 
 #include <cstdint>
 #include <cuda_pipeline.h>
@@ -155,7 +173,12 @@ constexpr int kMaxOriginsWide = 256;  // the book in shared memory
 constexpr int kMaxWords = 4;
 constexpr int kMaxQueue = 64;
 constexpr int kMaxPig = 16;
-constexpr int kMaxCells = 256;  // CH = 8 cells a lane
+constexpr int kMaxStagedCells = 256;  // CH = 8 cells a lane in shared memory
+// past kMaxStagedCells the row stays in global memory (CH = 0): its copy
+// takes kCopy cells a lane a step, and any width whose copy loop (c0 + 32
+// kCopy) stays in int32
+constexpr int kCopy = 4;
+constexpr int kMaxCells = INT32_MAX - 32 * kCopy + 1;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int32_t kNoQ = -1;
 constexpr int32_t kIntMin = INT32_MIN;
@@ -250,11 +273,19 @@ __device__ __forceinline__ int32_t float_order(float f) {
   return i >= 0 ? i : i ^ 0x7FFFFFFF;
 }
 
+// The staged LWW store row (CH cells a lane): ver, val, site, dbv, clp;
+// none at CH = 0, where the row stays in global memory.
+template <int CH>
+struct StoreRow {
+  int32_t store[5][32 * CH];
+};
+template <>
+struct StoreRow<0> {};
+
 // One warp's slice of the block's shared memory (CH cells a lane). With WO
 // (more than 32 origins) the whole book lives here, slot s at index s.
 template <int CH, bool WO>
-struct WarpSmem {
-  int32_t store[5][32 * CH];  // the LWW store row: ver, val, site, dbv, clp
+struct WarpSmem : StoreRow<CH> {
   int32_t cand[kMaxOrigins];  // claim: largest fresh candidate origin a slot
   int32_t km[kMaxOrigins];
   uint32_t seen[kMaxOrigins * kMaxWords];
@@ -262,8 +293,7 @@ struct WarpSmem {
 };
 
 template <int CH>
-struct WarpSmem<CH, true> {
-  int32_t store[5][32 * CH];
+struct WarpSmem<CH, true> : StoreRow<CH> {
   int32_t cand[kMaxOriginsWide];
   int32_t km[kMaxOriginsWide];
   uint32_t seen[kMaxOriginsWide * kMaxWords];
@@ -402,17 +432,41 @@ __global__ void __launch_bounds__(32 * (WO ? kRowsPerBlockWide : kRowsPerBlock))
     __pipeline_commit();
   }
 
-  // --- stage the store row in shared memory (waited for at the LWW step) --
+  // --- stage the store row in shared memory (waited for at the LWW step);
+  // at CH = 0 copy it to the output row instead ---------------------------
   const int64_t cb = r * C;
+  if constexpr (CH > 0) {
 #pragma unroll
-  for (int h = 0; h < CH; ++h) {
-    const int c = lane + 32 * h;
-    if (c < C) {
+    for (int h = 0; h < CH; ++h) {
+      const int c = lane + 32 * h;
+      if (c < C) {
 #pragma unroll
-      for (int s = 0; s < 5; ++s) __pipeline_memcpy_async(&sm.store[s][c], a.store[s] + cb + c, 4);
+        for (int s = 0; s < 5; ++s) __pipeline_memcpy_async(&sm.store[s][c], a.store[s] + cb + c, 4);
+      }
+    }
+  } else {
+    // kCopy cells a lane a step, every load before any store, so that 5 x
+    // kCopy loads are in flight (the compiler may not hoist a load above a
+    // store that could alias it)
+    for (int c0 = lane; c0 < C; c0 += 32 * kCopy) {
+      int32_t v[kCopy][5];
+#pragma unroll
+      for (int u = 0; u < kCopy; ++u) {
+        const int c = c0 + 32 * u;
+#pragma unroll
+        for (int s = 0; s < 5; ++s) v[u][s] = c < C ? a.store[s][cb + c] : 0;
+      }
+#pragma unroll
+      for (int u = 0; u < kCopy; ++u) {
+        const int c = c0 + 32 * u;
+        if (c < C) {
+#pragma unroll
+          for (int s = 0; s < 5; ++s) a.o_store[s][cb + c] = v[u][s];
+        }
+      }
     }
   }
-  __pipeline_commit();
+  __pipeline_commit();  // an empty group at CH = 0: the WO wait counts groups
 
   // --- loads: messages, book, queue -----------------------------------------
   const int64_t mb = r * m;
@@ -738,30 +792,46 @@ __global__ void __launch_bounds__(32 * (WO ? kRowsPerBlockWide : kRowsPerBlock))
     }
   }
   __pipeline_wait_prior(0);
-  __syncwarp();
+  __syncwarp();  // at CH = 0: every lane's copy of the row before any winner
 #pragma unroll
   for (int k = 0; k < KM; ++k) {
     if (best[k]) {
       const int c = cell[k];
-      // the incumbent (clp, ver, val, site) wins ties
-      const int cmp = lex_cmp5(sm.store[4][c], sm.store[0][c], sm.store[1][c], sm.store[2][c], 0,
-                               clp[k], ver[k], val[k], site[k], 0);
-      if (cmp < 0) {
-        sm.store[0][c] = ver[k];
-        sm.store[1][c] = val[k];
-        sm.store[2][c] = site[k];
-        sm.store[3][c] = dbv[k];
-        sm.store[4][c] = clp[k];
+      if constexpr (CH > 0) {
+        // the incumbent (clp, ver, val, site) wins ties
+        const int cmp = lex_cmp5(sm.store[4][c], sm.store[0][c], sm.store[1][c], sm.store[2][c], 0,
+                                 clp[k], ver[k], val[k], site[k], 0);
+        if (cmp < 0) {
+          sm.store[0][c] = ver[k];
+          sm.store[1][c] = val[k];
+          sm.store[2][c] = site[k];
+          sm.store[3][c] = dbv[k];
+          sm.store[4][c] = clp[k];
+        }
+      } else {
+        // the incumbent from the input row; the winner over the copy
+        const int64_t i = cb + c;
+        const int cmp = lex_cmp5(a.store[4][i], a.store[0][i], a.store[1][i], a.store[2][i], 0,
+                                 clp[k], ver[k], val[k], site[k], 0);
+        if (cmp < 0) {
+          a.o_store[0][i] = ver[k];
+          a.o_store[1][i] = val[k];
+          a.o_store[2][i] = site[k];
+          a.o_store[3][i] = dbv[k];
+          a.o_store[4][i] = clp[k];
+        }
       }
     }
   }
   __syncwarp();
+  if constexpr (CH > 0) {
 #pragma unroll
-  for (int h = 0; h < CH; ++h) {
-    const int c = lane + 32 * h;
-    if (c < C) {
+    for (int h = 0; h < CH; ++h) {
+      const int c = lane + 32 * h;
+      if (c < C) {
 #pragma unroll
-      for (int s = 0; s < 5; ++s) a.o_store[s][cb + c] = sm.store[s][c];
+        for (int s = 0; s < 5; ++s) a.o_store[s][cb + c] = sm.store[s][c];
+      }
     }
   }
 
@@ -924,8 +994,9 @@ __global__ void __launch_bounds__(32 * (WO ? kRowsPerBlockWide : kRowsPerBlock))
 
 // out: the widest batch (m) of any form, origins, seen words, queue slots,
 // payload entries, the widest batch of the narrow (and every emitting)
-// instantiation, cells, and the most origins of the register book (past
-// them the wide book's instantiation runs).
+// instantiation, cells (any form: past ingest_staged_cells() the row stays
+// in global memory), and the most origins of the register book (past them
+// the wide book's instantiation runs).
 extern "C" int ingest_limits(int* out) {
   out[0] = kMaxMsgsWide;
   out[1] = kMaxOriginsWide;
@@ -938,6 +1009,10 @@ extern "C" int ingest_limits(int* out) {
   return 0;
 }
 
+// the most cells of a row staged in shared memory (CH = 2 or 8); wider rows
+// run the form that keeps the row in global memory (CH = 0)
+extern "C" int ingest_staged_cells() { return kMaxStagedCells; }
+
 template <typename CT, typename XT, bool EMIT, int KM, int QH, int CH, bool WO>
 static void launch_rows(const IngestArgs* a, cudaStream_t s) {
   constexpr int rows = WO ? kRowsPerBlockWide : kRowsPerBlock;
@@ -949,7 +1024,8 @@ static void launch_rows(const IngestArgs* a, cudaStream_t s) {
 // the queue's slots a lane (QH) and the cells a lane (CH) are template
 // parameters, so that a queue of 32 slots carries no second half and a row
 // of up to 64 cells keeps the smaller shared-memory row; the wide book (WO)
-// is instantiated at 8 cells a lane only, which holds any row up to 256
+// is instantiated at 8 cells a lane, which holds any row up to 256, and
+// both books at CH = 0 (the row in global memory) for any wider row
 template <typename CT, typename XT, bool EMIT, int KM, int CH, bool WO>
 static void launch_queue(const IngestArgs* a, cudaStream_t s) {
   if (a->q_slots <= 32) {
@@ -961,12 +1037,18 @@ static void launch_queue(const IngestArgs* a, cudaStream_t s) {
 
 template <typename CT, typename XT, bool EMIT, int KM>
 static void launch_cells(const IngestArgs* a, cudaStream_t s) {
-  if (a->n_origins > kMaxOrigins) {
-    launch_queue<CT, XT, EMIT, KM, kMaxCells / 32, true>(a, s);
+  if (a->n_cells > kMaxStagedCells) {
+    if (a->n_origins > kMaxOrigins) {
+      launch_queue<CT, XT, EMIT, KM, 0, true>(a, s);
+    } else {
+      launch_queue<CT, XT, EMIT, KM, 0, false>(a, s);
+    }
+  } else if (a->n_origins > kMaxOrigins) {
+    launch_queue<CT, XT, EMIT, KM, kMaxStagedCells / 32, true>(a, s);
   } else if (a->n_cells <= 64) {
     launch_queue<CT, XT, EMIT, KM, 2, false>(a, s);
   } else {
-    launch_queue<CT, XT, EMIT, KM, kMaxCells / 32, false>(a, s);
+    launch_queue<CT, XT, EMIT, KM, kMaxStagedCells / 32, false>(a, s);
   }
 }
 

@@ -452,7 +452,8 @@ def _ingest_cuda(p: IngestParams, x: IngestInputs) -> IngestOutputs:
     n, m = x.origin.shape
     c_cnt, o, w, q = p.n_cells, p.n_origins, p.seen_words, p.q_slots
     # limits: widest m, O, W, Q, R, the widest m of the narrow (and every
-    # emitting) instantiation, C, the most O of the register book
+    # emitting) instantiation, C (any form: past the staged row's cells the
+    # row stays in global memory), the most O of the register book
     max_m = limits[5] if p.pig_r else limits[0]
     if (m > max_m or o > limits[1] or w > limits[2] or q > limits[3]
             or p.pig_r > limits[4] or c_cnt > limits[6]):
@@ -535,6 +536,8 @@ def _ingest_cuda(p: IngestParams, x: IngestInputs) -> IngestOutputs:
         form += f"/m{m}"
     if o > limits[7]:
         form += f"/o{o}"  # the wide book's instantiation
+    if c_cnt > lib.ingest_staged_cells():
+        form += f"/c{c_cnt}"  # the row in global memory
     _count_launch("ingest_emit" if p.pig_r else "ingest", form)
     return out
 

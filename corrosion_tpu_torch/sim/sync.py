@@ -162,15 +162,21 @@ def sync_step(cfg, cst: CrdtState, peers, p_ok, alive, net: NetModel, key,
         lo = lookup_cols(head_i, slot_c)
         hi = lookup_cols(granted[:, j, :], slot_c)
         sel = ok[:, j:j + 1] & owned_c & (p_dbv > lo) & (p_dbv <= hi) & (p_ver > 0)
+        # each [N, C] plane goes once it is spent (1.64 GB at N = 100,000
+        # and 4,096 cells), not when the next peer's replaces it
+        del slot_c, owned_c, lo, hi
         if sweep and j == 0:
             sel = sel | (ok[:, 0:1] & (p_ver > 0))
         b = tuple(torch.where(sel, v, INT32_MIN) for v in (p_clp, p_ver, p_val, p_site))
+        del p_clp, p_ver, p_val, p_site
         m_clp, m_ver, m_val, m_site, m_dbv = lex_max(
             (store[4], store[0], store[1], store[2]), b, (store[3], p_dbv)
         )
+        del b, p_dbv
         merged = (m_ver, m_val, m_site, m_dbv, m_clp)
         store = tuple(torch.where(sel, mv, s) for mv, s in zip(merged, store))
         pulled = pulled + sel.sum()
+        del sel, merged, m_clp, m_ver, m_val, m_site, m_dbv
 
     # --- head jump (the window rebases with it) -------------------------
     new_head = torch.maximum(head_i, granted.amax(dim=1))

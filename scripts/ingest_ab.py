@@ -6,7 +6,9 @@ one card: the checkout's ``csrc/ingest.cu`` (A) and a baseline copy of it
 
 It reads ``chip_smoke.py``'s input builder from the repository root. For
 the ingest forms that the flagship, the 1M point and the full view run,
-on ``chip_smoke.py``'s kernels-phase inputs, it holds both builds bitwise to
+and, where the baseline takes rows past 256 cells (it exports
+``ingest_staged_cells``), the large table's receive and emitting write at
+4,096 cells a row and N = 100,000, on ``chip_smoke.py``'s kernels-phase inputs, it holds both builds bitwise to
 the plain version, then times each through the wrapper with CUDA events
 over 20 calls, ``--reps`` times in ABBA order, and prints the card's name
 and power limit, each time, and the medians. Needs one CUDA device.
@@ -22,7 +24,8 @@ import sys
 from pathlib import Path
 
 
-def _build_baseline(src: Path) -> ctypes.CDLL:
+def _build_baseline(src: Path) -> tuple[ctypes.CDLL, bool]:
+    """The baseline's library, and whether it takes rows past 256 cells."""
     from corrosion_tpu_torch.ops import cuda_lib
 
     digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
@@ -33,7 +36,13 @@ def _build_baseline(src: Path) -> ctypes.CDLL:
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed: {' '.join(cmd)}\n{res.stdout}{res.stderr}")
-    return ctypes.CDLL(str(out))
+    lib = ctypes.CDLL(str(out))
+    tables = hasattr(lib, "ingest_staged_cells")
+    if not tables:
+        # a source from before the row in global memory stages every row it
+        # takes (at most 256 cells), which the wrapper's form label asks
+        lib.ingest_staged_cells = lambda: 256
+    return lib, tables
 
 
 def main(argv=None) -> int:
@@ -58,13 +67,18 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
     dev = torch.device("cuda")
-    libs = {"A": cuda_lib.library("ingest"), "B": _build_baseline(args.baseline)}
+    baseline, tables_too = _build_baseline(args.baseline)
+    libs = {"A": cuda_lib.library("ingest"), "B": baseline}
     flag, big, full = (scale_sim_config(100_000), million_config(1_000_000),
                        full_view_config(8192))
     forms = (("ingest", flag, "receive", 27), ("ingest_emit", flag, "write_emit", 32),
              ("ingest_q_i8", big, "receive", 41), ("ingest_emit_q_i8", big, "write_emit", 42),
              ("ingest_full", full, "receive_full", 51),
              ("ingest_write_full", full, "write", 52))
+    if tables_too:
+        tables = scale_sim_config(100_000, **cs.TABLES)
+        forms += (("ingest_tables", tables, "receive", 65),
+                  ("ingest_emit_tables", tables, "write_emit", 66))
     for name, cfg, form, seed in forms:
         p, x = cs._ingest_inputs(cfg, cfg.n_nodes, form, seed, dev)
         want = mk.ingest_plain(p, x)

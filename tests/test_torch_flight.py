@@ -474,11 +474,16 @@ def _soak_cli_kill_resume(tmp_path, *mode):
                             text=True, cwd=ROOT, env=env)
     try:
         port = json.loads(proc.stdout.readline())["prometheus_port"]
+        # two commits and the second segment's flight line: a segment's
+        # manifest can land before its flight line (the writer commits it,
+        # then the loop appends the line), so a kill between the two would
+        # leave one segment on record with two committed
         deadline = time.time() + 120
         while time.time() < deadline:
             done = [d for d in (os.listdir(ck) if os.path.isdir(ck) else [])
                     if os.path.exists(os.path.join(ck, d, "manifest.json"))]
-            if len(done) >= 2:
+            if (len(done) >= 2 and os.path.exists(flight)
+                    and replay_flight_record(flight)["segments"] >= 2):
                 break
             time.sleep(0.01)
         text = urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",

@@ -5,9 +5,10 @@ collectives),
 launched through the wrapper's own argument packing, and held bitwise
 against the plain version, ``ingest_plain``, in every form the paths run,
 on the random and the tie-heavy inputs that ``chip_smoke.py`` holds the
-card to (fewer rows: N = 61, a partial last block of rows), and in every
+card to (fewer rows: N = 61, a partial last block of rows), in every
 other instantiation of the wide rows (8 cells a lane) on the tie-heavy
-inputs.
+inputs, and in every instantiation of the row kept in global memory (more
+than 256 cells: 4,096, 4,100 and 32,767).
 
 This checks the kernel's lane logic (ranks, ties, chunked batches, the
 per-warp shared memory) and that no collective diverges; it says nothing
@@ -29,17 +30,34 @@ from corrosion_tpu_torch.testing import cluster_config
 from cuda_host import host_build
 
 N_ROWS = 61
+# the full view's 96-message mailbox past 256 cells, in every instantiation:
+# fewer rows (still a partial last block at 4 and at 2 rows a block), since
+# its O(m) lane loops are the stand-in's slowest form
+N_ROWS_TABLE_MAILBOX = 13
 
 
 
-def _wide(q_slots: int, **dtypes):
-    """The widths ``_ingest_inputs`` reads, for a 144-cell row (36x4, the
-    kernel's 8 cells a lane) at the scale round's other widths, ``q_slots``
-    queue slots (32: one slot a lane, 64: two) and the full view's 96
-    mailboxes, so that one shape runs every form."""
-    cfg = scale_sim_config(100_000, n_rows=36, bcast_queue=q_slots, **dtypes)
+def _wide(q_slots: int, n_rows: int = 36, **over):
+    """The widths ``_ingest_inputs`` reads, for an ``n_rows`` x 4 row (36:
+    144 cells, the kernel's 8 cells a lane; 1024 and 1025: 4,096 and 4,100
+    cells, past its staged 256, the latter a partial last group of 32) at
+    the scale round's other widths, ``q_slots`` queue slots (32: one slot a
+    lane, 64: two), ``over`` (plane dtypes, ``n_origins``) and the full
+    view's 96 mailboxes, so that one shape runs every form."""
+    cfg = scale_sim_config(100_000, n_rows=n_rows, bcast_queue=q_slots, **over)
     widths = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
     return SimpleNamespace(**widths, n_cells=cfg.n_cells, recv_slots=96)
+
+
+# the row in global memory (more than 256 cells): each plane-dtype pair x
+# one or two queue slots a lane x the register book and 256 origins, at
+# 4,096 or 4,100 cells; (name, q_slots, n_rows, n_origins, dtype overrides)
+TABLES = [
+    (f"table{bits}_q{q}_o{o}", q, 1025 if (q == 64) != (o == 256) else 1024, o, over)
+    for bits, over in (("16", {}), ("8", dict(narrow_q_int8=True)),
+                       ("32", dict(narrow_dtypes=False)))
+    for q in (32, 64) for o in (16, 256)
+]
 
 
 CONFIGS = {
@@ -66,6 +84,8 @@ CONFIGS = {
     "writers": lambda: scale_sim_config(100_000, n_origins=256, n_rows=64),
     "writers48_q8": lambda: scale_sim_config(100_000, n_origins=48, narrow_q_int8=True),
     "full_o64": lambda: full_view_config(8192, n_origins=64),
+    **{name: (lambda q=q, r=r, o=o, over=over: _wide(q, r, n_origins=o, **over))
+       for name, q, r, o, over in TABLES},
 }
 # (configuration, form): every form of chip_smoke.py's kernels phase
 FORMS = [("flagship", "receive"), ("flagship", "write_emit"), ("flagship", "write"),
@@ -81,8 +101,18 @@ WIDE_FORMS = [("wide16_q32", "receive_full"),
 # the wide book's forms, on the random and the tie-heavy inputs
 WIDE_BOOK_FORMS = [(c, f) for c in ("writers", "writers48_q8")
                    for f in ("receive", "write", "write_emit")] + [("full_o64", "receive_full")]
-CASES = [(c, f, ties) for c, f in FORMS + WIDE_BOOK_FORMS for ties in (False, True)] + [
-    (c, f, True) for c, f in WIDE_FORMS]
+# the row in global memory: on the tie-heavy inputs every instantiation
+# (receive, emitting write and the full view's 96-message mailbox in each
+# of TABLES); on the random inputs as well, a set that takes each dtype
+# pair, queue width and book at least once; and two non-emitting writes
+TABLE_RANDOM = ("table16_q32_o16", "table8_q64_o256", "table32_q32_o256")
+TABLE_FORMS = [(name, f) for name in TABLE_RANDOM for f in ("receive", "write_emit")] + [
+    ("table16_q32_o16", "write"), ("table8_q64_o256", "write"),
+    ("table16_q32_o16", "receive_full"), ("table32_q64_o256", "receive_full")]
+CASES = [(c, f, ties) for c, f in FORMS + WIDE_BOOK_FORMS + TABLE_FORMS
+         for ties in (False, True)] + [(c, f, True) for c, f in WIDE_FORMS] + [
+    (name, f, True) for name, *_ in TABLES for f in ("receive", "write_emit", "receive_full")
+    if (name, f) not in TABLE_FORMS]
 
 
 @pytest.fixture(scope="module")
@@ -91,12 +121,26 @@ def host_ingest(tmp_path_factory):
     return host_build.build("ingest", tmp_path_factory.mktemp("ingest_host"))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Draw and check the inputs on one thread: the wide rows' planes are
+    big enough for torch to split an op over every core, and beside other
+    busy processes those threads wait on each other (3.7 s against 0.34 s
+    a 4,096-cell input on one thread, with every core busy)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("config,form,ties", CASES, ids=[
     f"{c}-{f}-{'tie_heavy' if t else 'random'}" for c, f, t in CASES])
 def test_ingest_source_on_host_matches_plain(host_ingest, monkeypatch, config, form, ties):
     host_build.route_launches(monkeypatch, host_ingest)
     cfg = CONFIGS[config]()
-    p, x = chip_smoke._ingest_inputs(cfg, N_ROWS, form, 3 + 7 * ties, "cpu", ties=ties)
+    n = (N_ROWS_TABLE_MAILBOX if form == "receive_full" and config.startswith("table")
+         else N_ROWS)
+    p, x = chip_smoke._ingest_inputs(cfg, n, form, 3 + 7 * ties, "cpu", ties=ties)
     got, want = mk._ingest_cuda(p, x), mk.ingest_plain(p, x)
     for name, a, b in zip(want._fields, got, want):
         for u, v in zip(chip_smoke._flat(a), chip_smoke._flat(b)):
@@ -105,6 +149,8 @@ def test_ingest_source_on_host_matches_plain(host_ingest, monkeypatch, config, f
     if p.n_origins > chip_smoke.NARROW_BOOK:
         rows = chip_smoke._wide_slot_rows(p, x, want)
         assert min(rows.values()) > 0, rows
+    if p.n_cells > chip_smoke.STAGED_CELLS:
+        assert chip_smoke._past_staged_rows(x, want) > 0
 
 
 def test_host_library_reports_256_origins(host_ingest):
@@ -127,3 +173,29 @@ def test_257_origins_raise_with_the_widths(host_ingest, monkeypatch):
     assert host_ingest.ingest_launch(ctypes.byref(a), 2, 2, 0, None) == invalid_value
     a.n_origins = 256
     assert host_ingest.ingest_launch(ctypes.byref(a), 2, 2, 0, None) == 0
+
+
+def test_staged_cells_and_the_cell_limit(host_ingest):
+    """Rows of up to 256 cells are staged in shared memory; the kernel takes
+    any wider row (the configuration's own bound is the limit)."""
+    limits = (ctypes.c_int * 8)()
+    assert host_ingest.ingest_limits(limits) == 0
+    assert host_ingest.ingest_staged_cells() == 256
+    assert limits[6] >= 2**31 - 128
+
+
+def test_int16_cell_ceiling_runs_bitwise(host_ingest, monkeypatch):
+    """A row of 32,767 cells, the most an int16 ``q_cell`` plane holds
+    (``ScaleSimConfig.validate``), through the wrapper: bitwise equal to the
+    plain version, with winners past cell 256, under the row's own form key."""
+    host_build.route_launches(monkeypatch, host_ingest)
+    cfg = scale_sim_config(100_000, n_rows=32767, n_cols=1)
+    assert cfg.n_cells == 32767
+    p, x = chip_smoke._ingest_inputs(cfg, N_ROWS, "receive", 17, "cpu")
+    mk.reset_launches()
+    got, want = mk._ingest_cuda(p, x), mk.ingest_plain(p, x)
+    for name, a, b in zip(want._fields, got, want):
+        for u, v in zip(chip_smoke._flat(a), chip_smoke._flat(b)):
+            assert u.dtype == v.dtype and torch.equal(u, v), name
+    assert chip_smoke._past_staged_rows(x, want) > 0
+    assert mk.FORM_LAUNCHES == {("ingest", "16/16/c32767"): 1}

@@ -369,3 +369,51 @@ def test_kernel_wrappers_count_only_cuda_launches():
     live, msgs = random_messages(7, N_INGEST, 4)
     mk.ingest_changes_fused(tcfg, tst.crdt, T(live), *map(T, msgs))
     assert mk.LAUNCHES == {"swim_tables": 0, "ingest": 0, "ingest_emit": 0}
+
+
+# past the CUDA kernel's 256 staged cells (its row-in-global-memory form),
+# and not a multiple of 32: 1025 x 4 = 4,100 cells
+LARGE_TABLE = dict(n_rows=1025, fused="off")
+
+
+@pytest.mark.parametrize("contended", [False, True], ids=["random", "two_cells"])
+def test_ingest_plain_matches_xla_path_4100_cells(contended):
+    """Local writes then a receive batch a round, two rounds, against the
+    JAX XLA path (its kernels' plain reference; the pallas body unrolls over
+    the cells, too slow to compile at this width in interpret mode). With
+    ``contended`` each row's writes and messages land on two cells, ranked
+    by their keys; their values are drawn wide so that no two tie on all
+    four keys with different versions, where the XLA path's CPU form keeps
+    the first message and its column form and the kernels the largest
+    version (tied keys name one change, ``corrosion_tpu/ops/lww.py``).
+    Cells past 256 are written."""
+    cfg, st, tcfg, tst = random_state(12, **LARGE_TABLE)
+    cst, tcst = st.crdt, tst.crdt
+    rng = np.random.default_rng(13)
+    n, m, c = N_INGEST, 4 * cfg.pig_changes, cfg.n_cells
+    lw = jax.jit(lambda s, *a: jbroadcast.local_write(cfg, s, *a))
+    ing = jax.jit(lambda s, *a: jbroadcast.ingest_changes(cfg, s, *a))
+    for r in range(2):
+        cst = cst._replace(now=cst.now + 1)
+        tcst = tcst._replace(now=tcst.now + 1)
+        wm = rng.random(n) < 0.5
+        cell = (two_cells(rng, 1, n, c)[0].clip(min=0) if contended
+                else rng.integers(0, c, n).astype(np.int32))
+        val = rng.integers(0, 1 << 20, n).astype(np.int32)
+        clp = np.zeros(n, np.int32)
+        cst = lw(cst, *map(jnp.asarray, (wm, cell, val, clp)))
+        tcst = broadcast.local_write(tcfg, tcst, *map(T, (wm, cell, val, clp)))
+        live, msgs = random_messages(14 + r, n, m, now=21 + r, n_cells=c)
+        if contended:
+            msgs[2] = two_cells(rng, n, m, c)
+            msgs[4] = rng.integers(0, 1 << 20, (n, m)).astype(np.int32)
+        jm = list(map(jnp.asarray, msgs))
+        cst, info = ing(cst, jnp.asarray(live), *jm[:7], None, None, jm[7])
+        tm = list(map(T, msgs))
+        tcst, tinfo = broadcast.ingest_changes(tcfg, tcst, T(live), *tm[:7], None, None, tm[7])
+        leaves_equal(cst, tcst)
+        for k in info:
+            assert int(info[k]) == int(tinfo[k]), (r, k)
+    assert c == 4100
+    moved = [not torch.equal(a[:, 256:], b[:, 256:]) for a, b in zip(tst.crdt.store, tcst.store)]
+    assert any(moved)
