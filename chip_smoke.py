@@ -7,7 +7,7 @@ Phases (any failure raises and the script exits non-zero):
 
 1. Build every kernel from ``corrosion_tpu_torch/csrc`` (one ``nvcc`` per
    source, started together) and print ptxas' register and stack report;
-   each of the swim kernel's 18 and the ingest kernel's 90 instantiations
+   each of the swim kernel's 18 and the ingest kernel's 135 instantiations
    is named, and any stack frame or spill in one of them fails the run.
 2. Hold every kernel form against its plain PyTorch version on the card on
    random valid inputs drawn from the port's PRNG, and again, untimed, on
@@ -35,7 +35,16 @@ Phases (any failure raises and the script exits non-zero):
    the full view's mailbox at 4,096 cells (N = 8192, int32/int32), the
    wide book (256 origins) at 4,096 cells and int16/int8 at 4,100 cells (a
    partial last group of 32); each prints the rows whose batch winners
-   wrote a cell past 256, and fails if there are none.
+   wrote a cell past 256, and fails if there are none. The deep form (more
+   than 64 queue slots or 4 seen words): the deep queue's receive (m =
+   128), emitting write (32 picks) and non-emitting write (256 origins,
+   128 slots, 8 words) at N = 100,000, the full view's mailbox at 128 slots
+   and 8 words (N = 8192, int32/int32) and a receive at 128 slots and 8
+   words with the register book (int16/int8), on inputs with few empty
+   queue slots and versions over the whole window; each prints the rows
+   that placed a message into a slot past 64, recorded a seen bit past
+   word 4 and (emitting) made more than 16 live picks, and fails if a
+   count its widths and payload budget can reach is 0.
 3. Run 11 rounds of ``scale_sim_config(4096, sync_interval=2,
    sync_sweep_every=2)`` with writes, churn and 5 % message loss once on
    the card (kernels) and once on the CPU (plain versions); every state leaf
@@ -43,8 +52,12 @@ Phases (any failure raises and the script exits non-zero):
    for the 1M point's configuration and the many-writer configuration
    (256 origins, 64x4 cells: the ingest kernel's wide book, once a round
    in each of its two forms) and the large table (1024x4 cells: the row in
-   global memory, likewise) at 4096 nodes. (The CPU route is held
-   bitwise to the JAX package by ``tests/test_torch_*.py``.)
+   global memory, likewise) at 4096 nodes; and the deep queue (``QUEUES``:
+   the deep form, likewise) at 1024 nodes for 14 rounds with a quarter of
+   the nodes writing each round (the CPU route at 4096 nodes takes ~10 s a
+   round at these widths), queue slots past 64 occupied on both sides at
+   the end. (The CPU route is held bitwise to the JAX package by
+   ``tests/test_torch_*.py``.)
 4. The flagship: ``scale_sim_config(100_000)`` with bench.py's workload
    (``sim.scale_step.flagship_workload``), 2 warm-up rounds, then three
    timed batches of 8 rounds. Each kernel's launch count over the timed
@@ -62,6 +75,13 @@ Phases (any failure raises and the script exits non-zero):
    at the end; prints rounds/s, peak device memory, and the state's bytes
    beside the static projection (``obs.memory.projected_bytes``), which
    must be equal.
+4d. queues: the deep queue, ``scale_sim_config(100_000, **QUEUES)`` (128
+   queue slots, a 256-version window, 32 changes a packet, the many-writer
+   flagship's other knobs), under a write burst (``queues_workload``: every
+   node writes with probability 0.25 a round, 1 % loss), the same way: K2
+   and K3 under their ``/o256/q128/w8`` form keys (the receive's with
+   ``/m128``), rows holding more than 64 occupied queue slots at the end,
+   the state's bytes equal to the projection.
 5. The 1M point: ``sim.scale_step.million_config()`` (bounded member
    piggyback, int8 budget and queue-counter planes) with the same workload,
    2 warm-up rounds, then three timed batches of 4 rounds. Each kernel must
@@ -289,6 +309,13 @@ WRITERS = dict(n_origins=256, n_rows=64)
 # table of a thousand rows), past the ingest kernel's staged 256 cells, at
 # the flagship's other knobs (16 origins, int16 planes)
 TABLES = dict(n_rows=1024, n_cols=4)
+# the deep queue: the many-writer flagship with a 128-slot broadcast queue, a
+# 256-version seen window (8 words) and 32 changes a packet (a receive batch
+# of 4 x 32 = 128 messages), the ingest kernel's deep form (4 queue slots a
+# lane), under a write burst (``queues_workload``)
+QUEUES = dict(n_origins=256, n_rows=64, buf_slots=256, bcast_queue=128, pig_changes=32)
+QUEUES_TRAJECTORY_NODES = 1024  # the deep queue, card vs CPU (its CPU route's pace)
+QUEUES_TRAJECTORY_ROUNDS = 14  # rows pass 64 queue slots from round ~10 at 1024 nodes
 # BASELINE's correctness size: a 256-node cluster, 16 origins, 64 cells
 PARITY_NODES, PARITY_ORIGINS, PARITY_CELLS, PARITY_ROUNDS = 256, 16, 64, 24
 # empty rounds after the single writer's script for the quiet check: the
@@ -669,6 +696,11 @@ NARROW_BOOK = 32
 # cells of the ingest kernel's staged store row (8 a lane in shared memory);
 # past them its row stays in global memory
 STAGED_CELLS = 256
+# queue slots and seen words of the ingest kernel's shallow forms (one or
+# two slots a lane); past either its deep form runs (4 slots a lane, up to 8
+# words). A payload of more than SHALLOW_PICKS picks fills lanes past a half
+# warp
+SHALLOW_QUEUE, SHALLOW_WORDS, SHALLOW_PICKS = 64, 4, 16
 
 # The ingest kernel's forms: (messages per row from cfg, emit, enqueue_all,
 # no drift reject, the messages' origin and version ranges and live share).
@@ -723,7 +755,14 @@ def _ingest_inputs(cfg, n: int, form: str, seed: int, dev, ties: bool = False):
         return tuple(((drawn >> sh) % hi).to(torch.int32) for sh, hi in fields)
 
     o, c, q = cfg.n_origins, cfg.n_cells, cfg.bcast_queue
+    w = max(1, -(-cfg.buf_slots // 32))
     org_hi = 64
+    # the deep form: versions over the whole window of more than 4 words and
+    # past it (the mailbox's already reach past it), and a fuller queue, so
+    # that rows record bits past word 4 and place messages past slot 64
+    if w > SHALLOW_WORDS and form != "receive_full":
+        dbv_hi = 32 * w + 50
+    q_empty = 0.02 if q > SHALLOW_QUEUE else 0.5
     if o > NARROW_BOOK:
         # the wide book: message origins and owners over every slot, with ids
         # a book apart (s and s + O) that meet on one slot; the full view's
@@ -732,7 +771,6 @@ def _ingest_inputs(cfg, n: int, form: str, seed: int, dev, ties: bool = False):
         # than the queue holds
         o_hi, org_hi = (o if form == "receive_full" else 2 * o), 2 * o
     cdt, qdt = plane_dtypes(cfg)
-    w = max(1, -(-cfg.buf_slots // 32))
     now = 50
     head = ri((n, o), 0, 30)
     seen_bits = torch.where(coin((n, o * w), 0.3), ri((n, o * w), 0, 8),
@@ -759,7 +797,7 @@ def _ingest_inputs(cfg, n: int, form: str, seed: int, dev, ties: bool = False):
                            torch.arange(o, dtype=torch.int32, device=dev).expand(n, o),
                            ri((n, o), -1, org_hi)),
         org_last=ri((n, o), 0, 60),
-        q_origin=torch.where(coin((n, q), 0.5), -1, ri((n, q), 0, 64)),
+        q_origin=torch.where(coin((n, q), q_empty), -1, ri((n, q), 0, 64)),
         q_dbv=ri((n, q), 0, 40), q_cell=ri((n, q), 0, c).to(cdt),
         q_ver=ri((n, q), 0, 8), q_val=ri((n, q), 0, 4), q_site=ri((n, q), 0, 4),
         q_clp=ri((n, q), 0, 2), q_ts=ri((n, q), 0, now << HLC_ROUND_BITS),
@@ -957,6 +995,52 @@ def _require_past_staged(name, p, x, out) -> None:
         raise AssertionError(f"{name}: no row wrote a cell past {STAGED_CELLS}")
 
 
+def _deep_rows(p, x, out) -> dict:
+    """Rows that placed a message into a queue slot past SHALLOW_QUEUE (a
+    queue plane changed there), made more than SHALLOW_PICKS live picks
+    (emitting forms), and recorded a message whose seen bit lies past word
+    SHALLOW_WORDS of the window (fresh and owned after the claim, at an
+    offset from its slot's head, 0 where the slot was taken, of 32 *
+    SHALLOW_WORDS or more and inside the window)."""
+    import torch
+
+    past = slice(SHALLOW_QUEUE, None)
+    placed = torch.zeros(x.origin.shape[0], dtype=torch.bool, device=x.origin.device)
+    for f in ("q_origin", "q_dbv", "q_cell", "q_ver", "q_val", "q_site", "q_clp",
+              "q_ts", "q_tx"):
+        placed |= (getattr(x, f)[:, past] != getattr(out, f)[:, past]).any(dim=1)
+    slot = (torch.clamp(x.origin, min=0) % p.n_origins).long()
+    taken = torch.gather(out.org_id != x.org_id, 1, slot)
+    head = torch.where(taken, 0, torch.gather(x.head, 1, slot))
+    off = x.dbv.to(torch.int64) - head - 1
+    rec = out.fresh & _owned(p, x, out)
+    far = rec & (off >= 32 * SHALLOW_WORDS) & (off < 32 * p.seen_words)
+    rows = {"placed": int(placed.sum()), "far_bits": int(far.any(dim=1).sum())}
+    if p.pig_r:
+        rows["picks"] = int((out.sel_ok.sum(dim=1) > SHALLOW_PICKS).sum())
+    return rows
+
+
+def _require_deep(name, p, x, out) -> None:
+    """In the deep form (more than 64 queue slots or 4 seen words), print
+    ``_deep_rows`` and require each count that these widths and this
+    payload budget can reach to be above 0."""
+    from corrosion_tpu_torch.sim.broadcast import CHANGE_WIRE_BYTES
+
+    if p.q_slots <= SHALLOW_QUEUE and p.seen_words <= SHALLOW_WORDS:
+        return
+    rows = _deep_rows(p, x, out)
+    reach = {"placed": p.q_slots > SHALLOW_QUEUE, "far_bits": p.seen_words > SHALLOW_WORDS,
+             "picks": p.pig_r > SHALLOW_PICKS
+             and p.budget_bytes // (CHANGE_WIRE_BYTES * 4) > SHALLOW_PICKS}
+    print(f"[kernels] {name}: rows past slot {SHALLOW_QUEUE} of {p.q_slots}, past word "
+          f"{SHALLOW_WORDS} of {p.seen_words}, over {SHALLOW_PICKS} picks of {p.pig_r}: "
+          f"{rows}", flush=True)
+    missed = [k for k, v in rows.items() if reach[k] and v <= 0]
+    if missed:
+        raise AssertionError(f"{name}: the inputs miss the deep form's {missed}: {rows}")
+
+
 def _recorded_past_queue(p, x, out) -> int:
     """Rows whose recorded messages (fresh and owned) outnumber the queue's
     slots."""
@@ -973,18 +1057,24 @@ def _ingest_form(name, cfg, form, seed, dev) -> dict:
         lambda: mk.ingest(p, x), lambda: mk.ingest_plain(p, x),
         lambda got: _ingest_bytes(x, got), lambda got: _ingest_ops(p, x, got))
     r["replaces"] = "corrosion_tpu/ops/megakernel.py:" + ("960" if form.startswith("write") else "795")
-    if form == "receive_full" or p.n_origins > NARROW_BOOK or p.n_cells > STAGED_CELLS:
+    if (form == "receive_full" or p.n_origins > NARROW_BOOK or p.n_cells > STAGED_CELLS
+            or p.q_slots > SHALLOW_QUEUE or p.seen_words > SHALLOW_WORDS):
         want = mk.ingest_plain(p, x)
         if form == "receive_full":
             _require_past_queue(name, p, x, want)
         _require_wide_slots(name, p, x, want)
         _require_past_staged(name, p, x, want)
+        _require_deep(name, p, x, want)
         del want
     _hold_ties(name, cfg, form, seed, dev)
     return r
 
 
 def _require_past_queue(name, p, x, out) -> None:
+    """The full view's mailbox must give rows that record more messages than
+    the queue holds, where it is wider than the queue."""
+    if x.origin.shape[1] <= p.q_slots:
+        return
     rows = _recorded_past_queue(p, x, out)
     print(f"[kernels] {name}: {rows} of {x.origin.shape[0]} rows recorded more "
           f"messages than the queue's {p.q_slots} slots", flush=True)
@@ -1009,6 +1099,7 @@ def _hold_ties(name, cfg, form, seed, dev) -> None:
         _require_past_queue(f"{name} (tie-heavy)", p, x, want)
     _require_wide_slots(f"{name} (tie-heavy)", p, x, want)
     _require_past_staged(f"{name} (tie-heavy)", p, x, want)
+    _require_deep(f"{name} (tie-heavy)", p, x, want)
     print(f"[kernels] {name}: tie-heavy inputs at N={n} bitwise equal "
           f"({_count(want.fresh)} fresh messages)", flush=True)
 
@@ -1042,6 +1133,7 @@ def phase_kernels(dev) -> dict:
     flag = scale_sim_config(FLAGSHIP_NODES)
     writers = scale_sim_config(FLAGSHIP_NODES, **WRITERS)
     tables = scale_sim_config(FLAGSHIP_NODES, **TABLES)
+    queues = scale_sim_config(FLAGSHIP_NODES, **QUEUES)
     wide = scale_sim_config(FLAGSHIP_NODES, narrow_dtypes=False)
     big = million_config(MILLION_NODES)
     full = full_view_config(FULL_NODES)
@@ -1121,6 +1213,24 @@ def phase_kernels(dev) -> dict:
          lambda n: _ingest_form(n, scale_sim_config(FLAGSHIP_NODES, n_rows=1025, n_cols=4,
                                                     narrow_q_int8=True),
                                 "receive", 70, dev)),
+        # the deep form (more than 64 queue slots or 4 seen words): the deep
+        # queue's two forms (the receive at m = 128) and its non-emitting
+        # write, the full view's mailbox at 128 slots and 8 words (int32),
+        # and int16/int8 at 128 slots and 8 words with the register book
+        ("ingest_queues", "queues", ("ingest", "16/16/m128/o256/q128/w8"),
+         lambda n: _ingest_form(n, queues, "receive", 71, dev)),
+        ("ingest_emit_queues", "queues", ("ingest_emit", "16/16/o256/q128/w8"),
+         lambda n: _ingest_form(n, queues, "write_emit", 72, dev)),
+        ("ingest_write_16_16_o256_q128_n100000", None, None,
+         lambda n: _ingest_form(n, queues, "write", 73, dev)),
+        ("ingest_full_q128", None, None,
+         lambda n: _ingest_form(n, full_view_config(FULL_NODES, bcast_queue=128,
+                                                    buf_slots=256),
+                                "receive_full", 74, dev)),
+        ("ingest_16_8_q128_n100000", None, None,
+         lambda n: _ingest_form(n, scale_sim_config(FLAGSHIP_NODES, bcast_queue=128,
+                                                    buf_slots=256, narrow_q_int8=True),
+                                "receive", 75, dev)),
     ]
     for c, form, seed in ((wide, "receive", 36), (wide, "write", 37),
                           (wide, "write_emit", 38), (flag, "write", 39),
@@ -1147,7 +1257,7 @@ def phase_kernels(dev) -> dict:
     return out
 
 
-def _trajectory_setup(cfg, rounds: int, dev):
+def _trajectory_setup(cfg, rounds: int, dev, write_p: float = 0.02):
     import torch
 
     from corrosion_tpu_torch import random as prng
@@ -1157,7 +1267,7 @@ def _trajectory_setup(cfg, rounds: int, dev):
     n = cfg.n_nodes
     k_w, k_in = prng.split(prng.key(7))
     inputs = make_write_inputs(
-        cfg, k_in, rounds, prng.uniform(k_w, (rounds, n), "cpu") < 0.02, "cpu")
+        cfg, k_in, rounds, prng.uniform(k_w, (rounds, n), "cpu") < write_p, "cpu")
     kill = torch.zeros((rounds, n), dtype=torch.bool)
     revive = torch.zeros((rounds, n), dtype=torch.bool)
     kill[4, 100:132] = True
@@ -1170,16 +1280,18 @@ def _trajectory_setup(cfg, rounds: int, dev):
 
 
 def phase_trajectory(dev, label, make_cfg, rounds: int = TRAJECTORY_ROUNDS,
-                     tag: str = "trajectory"):
-    """The card == the CPU, for ``make_cfg(TRAJECTORY_NODES, ...)``: the
-    kernel route on the card against the plain versions on the CPU (and the
-    plain route on both where the config takes it). Returns the card's
-    launch counts per form, and the info sums."""
+                     tag: str = "trajectory", n_nodes: int = TRAJECTORY_NODES,
+                     write_p: float = 0.02, final=None):
+    """The card == the CPU, for ``make_cfg(n_nodes, ...)``: the kernel route
+    on the card against the plain versions on the CPU (and the plain route
+    on both where the config takes it), a share ``write_p`` of the nodes
+    writing each round. Returns the card's launch counts per form, the info
+    sums, and ``final(cpu state, card state)`` when given."""
     from corrosion_tpu_torch.ops import megakernel as mk
     from corrosion_tpu_torch.sim.scale_step import ScaleRoundInput, scale_run_rounds_carry
 
-    cfg = make_cfg(TRAJECTORY_NODES, sync_interval=2, sync_sweep_every=2)
-    runs = {d: _trajectory_setup(cfg, rounds, d) for d in ("cpu", dev)}
+    cfg = make_cfg(n_nodes, sync_interval=2, sync_sweep_every=2)
+    runs = {d: _trajectory_setup(cfg, rounds, d, write_p) for d in ("cpu", dev)}
     carry = {d: (runs[d][0], runs[d][2]) for d in runs}
     t0 = time.perf_counter()
     mk.reset_launches()
@@ -1201,6 +1313,8 @@ def phase_trajectory(dev, label, make_cfg, rounds: int = TRAJECTORY_ROUNDS,
     print(f"[{tag}] N={cfg.n_nodes} {label}: {rounds} rounds, "
           f"every leaf and info bitwise equal cuda vs cpu "
           f"({time.perf_counter() - t0:.1f} s); card launches {forms}", flush=True)
+    if final is not None:
+        return forms, sums, final(carry["cpu"][0], carry[dev][0])
     return forms, sums
 
 
@@ -1838,13 +1952,32 @@ def phase_scale_point(dev, name: str, **over) -> dict:
     return {"rounds_per_s": med, "peak_bytes": peak, "forms": forms}
 
 
-def _kernel_point(dev, cfg, suffix: str) -> tuple:
-    """``cfg`` at the flagship's size with bench.py's workload
-    (``flagship_workload``): ten timed batches of 2 rounds after 2 warm-up
-    rounds; K1 once a round and K2 and K3 once a round each under the form
-    keys ending in ``suffix``; fresh, delivered and syncs above 0. Returns
-    (final state, its initial bytes, the batch rates, the info sums, the
-    form launches, the peak device bytes)."""
+def queues_workload(cfg, rounds: int, device="cuda"):
+    """The deep queue's write burst: every node writes with probability 0.25
+    a round (a fleet-wide deploy, most machines updating their service
+    records within a few seconds), through ``make_write_inputs``, with the
+    flagship's net (1 % datagram loss) and round key 0. Returns ``(state,
+    net, key, inputs)`` for ``rounds`` stacked rounds."""
+    from corrosion_tpu_torch import random as prng
+    from corrosion_tpu_torch.sim.scale_step import ScaleSimState, make_write_inputs
+    from corrosion_tpu_torch.sim.transport import NetModel
+
+    n = cfg.n_nodes
+    k_w, k_in, _ = prng.split(prng.key(1), 3)
+    w = prng.uniform(k_w, (rounds, n), device) < 0.25
+    return (ScaleSimState.create(cfg, device),
+            NetModel.create(n, drop_prob=0.01, device=device),
+            prng.key(0), make_write_inputs(cfg, k_in, rounds, w, device))
+
+
+def _kernel_point(dev, cfg, suffix: str, workload=None) -> tuple:
+    """``cfg`` at the flagship's size with ``workload`` (default bench.py's,
+    ``flagship_workload``): ten timed batches of 2 rounds after 2 warm-up
+    rounds; K1 once a round and K2 and K3 once a round each under
+    the form keys ending in ``suffix`` (the receive's after ``/m{m}`` when
+    its batch is wider than 32); fresh, delivered and syncs above 0.
+    Returns (final state, its initial bytes, the batch rates, the info
+    sums, the form launches, the peak device bytes)."""
     import torch
 
     from corrosion_tpu_torch.ops import megakernel as mk
@@ -1855,13 +1988,14 @@ def _kernel_point(dev, cfg, suffix: str) -> tuple:
         scale_run_rounds_carry,
     )
 
+    workload = workload or flagship_workload
     warm, batch, reps = 2, 2, 10
     total = warm + batch * reps
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     mk.reset_launches()
     st, state_bytes, rates, infos = _timed_batches(
-        lambda: flagship_workload(cfg, total, dev),
+        lambda: workload(cfg, total, dev),
         lambda s, net, k, i: scale_run_rounds_carry(cfg, s, net, k, i),
         lambda inputs, lo, hi: ScaleRoundInput(*(a[lo:hi] for a in inputs)),
         warm, batch, reps)
@@ -1869,7 +2003,9 @@ def _kernel_point(dev, cfg, suffix: str) -> tuple:
     peak = torch.cuda.max_memory_allocated()
     cdt, qdt = plane_dtypes(cfg)
     key = f"{_bits(cdt)}/{_bits(qdt)}{suffix}"
-    want = {("swim_tables", "aligned/16/16"): total, ("ingest", key): total,
+    m = 4 * cfg.pig_changes
+    recv = f"{_bits(cdt)}/{_bits(qdt)}/m{m}{suffix}" if m > 32 else key
+    want = {("swim_tables", "aligned/16/16"): total, ("ingest", recv): total,
             ("ingest_emit", key): total}
     if forms != want:
         raise AssertionError(f"{suffix} launch counts {forms} != {want}")
@@ -1934,6 +2070,77 @@ def phase_tables(dev) -> dict:
           f"projected {projected} bytes; {written} cells past {STAGED_CELLS} written; "
           f"launches {forms}; info sums {sums}", flush=True)
     return {"rounds_per_s": med, "peak_bytes": peak, "forms": forms}
+
+
+def _deep_queue_rows(st) -> tuple:
+    """(rows with a queue slot past SHALLOW_QUEUE occupied, rows holding more
+    than SHALLOW_QUEUE occupied slots)."""
+    live = st.crdt.q_origin != -1
+    return (int(live[:, SHALLOW_QUEUE:].any(dim=1).sum()),
+            int((live.sum(dim=1) > SHALLOW_QUEUE).sum()))
+
+
+def phase_queues(dev) -> dict:
+    """The deep queue, ``scale_sim_config(FLAGSHIP_NODES, **QUEUES)``, under
+    its write burst (``queues_workload``): ``_kernel_point`` with K2 and K3
+    in the deep form's keys; rows holding more than 64 occupied queue slots
+    at the end (on the H100 they pass 64 from round ~18 of the 22); the
+    state's bytes equal to the static projection."""
+    from corrosion_tpu_torch.obs.memory import projected_bytes
+    from corrosion_tpu_torch.sim.scale_step import scale_sim_config
+
+    cfg = scale_sim_config(FLAGSHIP_NODES, **QUEUES)
+    n = cfg.n_nodes
+    suffix = f"/o{cfg.n_origins}/q{cfg.bcast_queue}/w{cfg.buf_slots // 32}"
+    st, state_bytes, rates, sums, forms, peak = _kernel_point(
+        dev, cfg, suffix, workload=queues_workload)
+    past, deep = _deep_queue_rows(st)
+    projected = projected_bytes(cfg, n)
+    if st.crdt.q_origin.shape != (n, cfg.bcast_queue) or deep <= 0:
+        raise AssertionError(f"queues state: queue {tuple(st.crdt.q_origin.shape)}, {deep} "
+                             f"rows with more than {SHALLOW_QUEUE} slots occupied")
+    if projected != state_bytes:
+        raise AssertionError(f"queues: state {state_bytes} bytes != projected {projected}")
+    med, q1, q3 = _spread(rates)
+    print(f"[queues] N={n} {QUEUES}: {len(rates)} batches of 2 rounds at "
+          f"{[repr(x) for x in rates]} rounds/s, median {med!r} (quartiles {q1!r}-{q3!r}); "
+          f"peak device memory {peak} bytes, state {state_bytes} bytes, projected "
+          f"{projected} bytes; {past} rows with a slot past {SHALLOW_QUEUE} occupied, "
+          f"{deep} holding more than {SHALLOW_QUEUE}; launches {forms}; info sums {sums}",
+          flush=True)
+    return {"rounds_per_s": med, "peak_bytes": peak, "forms": forms}
+
+
+def phase_queues_trajectory(dev) -> None:
+    """Phase 3's trajectory for the deep queue at QUEUES_TRAJECTORY_NODES
+    (the CPU route's pace at these widths), a quarter of the nodes writing
+    each round: card and CPU bitwise equal every round, K2 and K3 in the
+    deep form's keys once a round each and K1 once a round, queue slots
+    past 64 occupied on both sides at the end."""
+    from corrosion_tpu_torch.sim.broadcast import plane_dtypes
+    from corrosion_tpu_torch.sim.scale_step import scale_sim_config
+
+    rounds = QUEUES_TRAJECTORY_ROUNDS
+    forms, sums, rows = phase_trajectory(
+        dev, "deep queue", lambda n, **kw: scale_sim_config(n, **QUEUES, **kw), rounds,
+        n_nodes=QUEUES_TRAJECTORY_NODES, write_p=0.25,
+        final=lambda a, b: (_deep_queue_rows(a), _deep_queue_rows(b)))
+    cfg = scale_sim_config(QUEUES_TRAJECTORY_NODES, **QUEUES)
+    cdt, qdt = plane_dtypes(cfg)
+    deep = f"/o{cfg.n_origins}/q{cfg.bcast_queue}/w{cfg.buf_slots // 32}"
+    bits = f"{_bits(cdt)}/{_bits(qdt)}"
+    swim = sum(v for (k, _), v in forms.items() if k == "swim_tables")
+    ingest = {kf: v for kf, v in forms.items() if kf[0] != "swim_tables"}
+    want = {("ingest", f"{bits}/m{4 * cfg.pig_changes}{deep}"): rounds,
+            ("ingest_emit", f"{bits}{deep}"): rounds}
+    if swim != rounds or ingest != want:
+        raise AssertionError(f"deep queue: swim launches {swim} != {rounds} or ingest "
+                             f"launches {ingest} != {want}")
+    print(f"[trajectory] deep queue: rows with a slot past {SHALLOW_QUEUE} occupied, and "
+          f"holding more than {SHALLOW_QUEUE}: cpu {rows[0]}, card {rows[1]}", flush=True)
+    if sums["fresh"] <= 0 or min(rows[0]) <= 0 or rows[0] != rows[1]:
+        raise AssertionError(f"deep queue: fresh {sums['fresh']}, rows past "
+                             f"{SHALLOW_QUEUE} cpu {rows[0]} card {rows[1]}")
 
 
 def phase_writers_trajectory(dev) -> None:
@@ -4008,9 +4215,10 @@ def _check_swim_ptxas(log: str) -> None:
 def _check_ingest_ptxas(log: str) -> None:
     """Print ptxas' report for every ingest kernel instantiation by name
     (three plane-dtype pairs x the emitting, the narrow and the wide batch x
-    one or two queue slots a lane x the register book at 2 or 8 cells a lane
-    and the wide book at 8, and both books with the row in global memory,
-    CH = 0); each must have no stack frame and no spills."""
+    one, two or four queue slots a lane (four: the deep form, up to 8 seen
+    words) x the register book at 2 or 8 cells a lane and the wide book at
+    8, and both books with the row in global memory, CH = 0); each must have
+    no stack frame and no spills."""
     import re
 
     seen, bad = set(), []
@@ -4031,7 +4239,7 @@ def _check_ingest_ptxas(log: str) -> None:
     want = {(_PTX_TYPES[ct], _PTX_TYPES[xt], e, f"KM={km}", f"QH={qh}", f"CH={ch}", b)
             for ct, xt in (("s", "a"), ("s", "s"), ("i", "i"))
             for e, km in (("EMIT", "1"), ("no EMIT", "1"), ("no EMIT", "4"))
-            for qh in ("1", "2")
+            for qh in ("1", "2", "4")
             for ch, b in (("2", "book a lane"), ("8", "book a lane"), ("8", "wide book"),
                           ("0", "book a lane"), ("0", "wide book"))}
     if bad:
@@ -4075,6 +4283,7 @@ def main() -> int:
     phase_trajectory(dev, "1M point's tiers", million_config)
     phase_writers_trajectory(dev)
     phase_tables_trajectory(dev)
+    phase_queues_trajectory(dev)
     done("trajectory")
     flag = phase_flagship(dev)
     done("flagship")
@@ -4082,6 +4291,8 @@ def main() -> int:
     done("writers")
     tables = phase_tables(dev)
     done("tables")
+    queues = phase_queues(dev)
+    done("queues")
     million = phase_million(dev)
     done("million")
     phase_cost(dev, million.pop("audit"))
@@ -4141,7 +4352,8 @@ def main() -> int:
     serve_forms = dict(load["forms"])
     for k, v in chaos["serve_overload_forms"].items():
         serve_forms[k] = serve_forms.get(k, 0) + v
-    paths = {"flagship": flag, "writers": writers, "tables": tables, "million": million, "full": full, "pig0": tx_paths["pig0"],
+    paths = {"flagship": flag, "writers": writers, "tables": tables, "queues": queues,
+             "million": million, "full": full, "pig0": tx_paths["pig0"],
              "chaos": chaos, "load": {"forms": serve_forms},
              "overload": overload}
     source = {

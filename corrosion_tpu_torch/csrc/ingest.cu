@@ -35,8 +35,9 @@
 //     per slot (the claim's take or keep, the head advance and the
 //     write-out); a message reads its slot's fields there directly, since
 //     its slot is data;
-//   - its queue slots: slot lane + 32h, h < QH (1 for Q <= 32, else 2), all
-//     nine planes in registers;
+//   - its queue slots: slot lane + 32h, h < QH (1 for Q <= 32, 2 for Q <=
+//     64, and 4, the deep form, for Q <= 128 or a window of more than 4
+//     seen words), all nine planes in registers;
 //   - its cells: cell lane + 32h, h < CH (2 for C <= 64, else 8: up to 256
 //     cells, a template parameter, so that the narrower rows keep the
 //     smaller shared-memory row); the LWW store row is copied to shared
@@ -61,8 +62,12 @@
 // slots of up to 4 words: 14,592 bytes a warp at CH = 8 (a row of up to
 // 256 cells), 9,472 at CH = 0, so its blocks hold 2 rows (29,184 bytes at
 // CH = 8, under the 48 KB of static shared memory) where the others hold
-// 4. No array is indexed by data in registers: every register array is
-// indexed by an unrolled loop counter, so nothing goes to the stack.
+// 4. The deep form (QH = 4) sizes the seen words for 8 a slot and the
+// enqueue's ranks for 128: 3,072 bytes a warp at CH = 2, 6,912 at CH = 8,
+// 1,792 at CH = 0; the wide book 18,944 at CH = 8 (37,888 a block of 2
+// rows) and 13,824 at CH = 0. No array is indexed by data in registers:
+// every register array is indexed by an unrolled loop counter, so nothing
+// goes to the stack.
 //
 // The pallas body's sequential steps, made lane-parallel, with its tie rules:
 //   - HLC fold: a warp max of (ok ? ts : 0) over the batch (not clamped at 0
@@ -108,6 +113,8 @@
 //     holding it by ballot), which marks its slot taken: E rounds of a few
 //     instructions, not a rank count of O(Q) per slot. Each slot of rank
 //     r < E gathers its message's fields by shuffle.
+//     At Q = 128 and m = 128 the same rule holds: a message of rank r >=
+//     128 is dropped, and the rounds stop at the first INT32_MAX key.
 //   - EMIT: keep = the first `allowed` live slots (q_origin != kNoQ and
 //     tx > 0) ranked by (q_tx descending, column ascending): all live slots
 //     when they are no more than `allowed` (the usual case), else an O(Q)
@@ -117,8 +124,8 @@
 //     which compare equal as floats), the first index among equal draws, a
 //     taken slot dropped below every other (a pick past Q is slot 0, as the
 //     pallas body's argmax over all-taken slots gives); sel_ok is value >= 0.
-//     The payload is [N, 11 R], field-major in each row, with q_seq = 0 and
-//     q_nseq = 1.
+//     Lane i < R keeps pick i, so R is at most 32. The payload is [N, 11 R],
+//     field-major in each row, with q_seq = 0 and q_nseq = 1.
 //
 // Wrapping int32 arithmetic goes through uint32. q_cell (CT) and q_tx (XT)
 // have types of their own, widened to int32 in registers and cast at the
@@ -126,19 +133,28 @@
 // narrow_dtypes, else (int32, int32).
 //
 // Instantiations: 3 type pairs x {EMIT with m <= 32, non-emitting m <= 32,
-// non-emitting m <= 128} x QH {1, 2} x {the register book at CH 2, 8 and 0,
-// the wide book at CH 8 and 0} = 90. ptxas (-Xptxas -v, printed and checked
-// by chip_smoke.py's build phase) reports 0 bytes of stack frame and 0 bytes
-// of spill for all 18 at CH = 2, 9,216 bytes of shared memory a block (4
-// rows), and registers: m <= 32 non-emitting 56 (Q <= 32) / 70 (Q = 64),
-// emitting 61-62 / 72, m <= 128 109 / 113-122; at CH = 8, 24,576 bytes a
+// non-emitting m <= 128} x QH {1, 2, 4} x {the register book at CH 2, 8 and
+// 0, the wide book at CH 8 and 0} = 135. The shallow forms (QH 1 and 2) hold
+// up to 4 seen words; the deep form (QH 4) up to 8, in registers for the
+// register book (the seen check's shuffles and the head advance's selects
+// run over 8 words) and in shared memory for the wide book. ptxas
+// (-Xptxas -v, printed and checked by chip_smoke.py's build phase) reports
+// 0 bytes of stack frame and 0 bytes of spill for all 135. The shallow
+// forms: all 18 at CH = 2, 9,216 bytes of shared memory a block (4 rows),
+// and registers: m <= 32 non-emitting 56 (Q <= 32) / 70 (Q = 64), emitting
+// 61-62 / 72, m <= 128 109 / 113-122; at CH = 8, 24,576 bytes a
 // block and at most 3 registers more (emitting 64); the wide book 29,184
 // bytes a block (2 rows) and m <= 32 non-emitting 74 / 82, emitting 76 /
 // 89-91, m <= 128 112 / 126-128 registers. At CH = 0 (the CH 2 and 8
 // reports unchanged by it): 4,096 bytes a block with the register book and
 // m <= 32 non-emitting 56 / 64, emitting 64 / 64, m <= 128 108 / 112
 // registers; 18,944 bytes a block (2 rows) with the wide book and 76 / 80,
-// 80 / 80, 96 / 96-106.
+// 80 / 80, 96 / 96-106. The deep form, registers a thread by type pair,
+// EMIT / m <= 32 / m <= 128: register book at CH = 2 (12,288 bytes a
+// block) 115-119 / 101-102 / 136-138; at CH = 8 (27,648 bytes) 115-127 /
+// 96-102 / 128-143; at CH = 0 (7,168 bytes) 112-120 / 96 / 128-145; wide
+// book at CH = 8 (37,888 bytes, 2 rows) 126-127 / 121-122 / 152-154; at
+// CH = 0 (27,648 bytes) 126 / 113 / 128.
 // Times on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit (kernel device
 // time from torch.profiler; chip_smoke.py, random inputs): the 1M point's
 // receive 2.11 ms and emitting write 2.02 ms against bounds of 1.68 and
@@ -152,7 +168,12 @@
 // (int16/int16, 16 origins): receive 5.93 ms and emitting write 5.75 ms
 // against bounds of 4.98 ms by bytes (the store's ten planes, 16.4 GB of
 // the 16.7, are most of them: every launch rewrites the whole row); at
-// 4,100 cells (int16/int8) 7.17 ms, its rows off the 128-byte grid.
+// 4,100 cells (int16/int8) 7.17 ms, its rows off the 128-byte grid. The
+// deep form at the deep queue (N = 100,000, 256 origins, 64x4 cells, 128
+// queue slots, 8 seen words, int16/int16): the receive of 128 messages 2.95
+// ms against a bound of 1.38 ms by bytes, held back by its O(m) broadcast
+// loops (the dedupe across chunks and the LWW winner check); the emitting
+// write (32 picks) 1.78 ms against 1.35.
 
 #include <cstdint>
 #include <cuda_pipeline.h>
@@ -170,9 +191,13 @@ constexpr int kMaxMsgs = 32;  // scale batches, and every emitting form
 constexpr int kMaxMsgsWide = 128;  // the full view's recv_slots mailboxes
 constexpr int kMaxOrigins = 32;  // a book slot a lane, in registers
 constexpr int kMaxOriginsWide = 256;  // the book in shared memory
+// the shallow forms (QH 1 and 2) hold up to 4 seen words and 64 queue
+// slots; past either the deep form (QH 4) runs, with up to 8 and 128
 constexpr int kMaxWords = 4;
 constexpr int kMaxQueue = 64;
-constexpr int kMaxPig = 16;
+constexpr int kMaxWordsDeep = 8;
+constexpr int kMaxQueueDeep = 128;
+constexpr int kMaxPig = 32;  // a pick a lane
 constexpr int kMaxStagedCells = 256;  // CH = 8 cells a lane in shared memory
 // past kMaxStagedCells the row stays in global memory (CH = 0): its copy
 // takes kCopy cells a lane a step, and any width whose copy loop (c0 + 32
@@ -183,6 +208,13 @@ constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int32_t kNoQ = -1;
 constexpr int32_t kIntMin = INT32_MIN;
 constexpr int32_t kIntMax = INT32_MAX;
+
+// seen words and queue slots (the enqueue's ranks) a form with QH queue
+// slots a lane holds
+template <int QH>
+constexpr int kWordsOf = QH * 32 > kMaxQueue ? kMaxWordsDeep : kMaxWords;
+template <int QH>
+constexpr int kRanksOf = QH * 32 > kMaxQueue ? kMaxQueueDeep : kMaxQueue;
 
 __device__ __forceinline__ int32_t wrap_add(int32_t a, int32_t b) {
   return static_cast<int32_t>(static_cast<uint32_t>(a) + static_cast<uint32_t>(b));
@@ -282,22 +314,23 @@ struct StoreRow {
 template <>
 struct StoreRow<0> {};
 
-// One warp's slice of the block's shared memory (CH cells a lane). With WO
-// (more than 32 origins) the whole book lives here, slot s at index s.
-template <int CH, bool WO>
+// One warp's slice of the block's shared memory (CH cells a lane, QH queue
+// slots a lane). With WO (more than 32 origins) the whole book lives here,
+// slot s at index s.
+template <int CH, bool WO, int QH>
 struct WarpSmem : StoreRow<CH> {
   int32_t cand[kMaxOrigins];  // claim: largest fresh candidate origin a slot
   int32_t km[kMaxOrigins];
-  uint32_t seen[kMaxOrigins * kMaxWords];
-  int32_t msg_of_rank[kMaxQueue];  // enqueue: message index of each rank
+  uint32_t seen[kMaxOrigins * kWordsOf<QH>];
+  int32_t msg_of_rank[kRanksOf<QH>];  // enqueue: message index of each rank
 };
 
-template <int CH>
-struct WarpSmem<CH, true> : StoreRow<CH> {
+template <int CH, int QH>
+struct WarpSmem<CH, true, QH> : StoreRow<CH> {
   int32_t cand[kMaxOriginsWide];
   int32_t km[kMaxOriginsWide];
-  uint32_t seen[kMaxOriginsWide * kMaxWords];
-  int32_t msg_of_rank[kMaxQueue];
+  uint32_t seen[kMaxOriginsWide * kWordsOf<QH>];
+  int32_t msg_of_rank[kRanksOf<QH>];
   int32_t head[kMaxOriginsWide];
   int32_t org_id[kMaxOriginsWide];
   int32_t org_last[kMaxOriginsWide];
@@ -305,12 +338,13 @@ struct WarpSmem<CH, true> : StoreRow<CH> {
 
 // the head advance of one slot: the trailing ones of its W seen words
 // (returned), and the words shifted down past them
-__device__ __forceinline__ int32_t advance_window(const uint32_t (&sw)[kMaxWords], int W,
-                                                  uint32_t (&shifted)[kMaxWords]) {
+template <int WM>
+__device__ __forceinline__ int32_t advance_window(const uint32_t (&sw)[WM], int W,
+                                                  uint32_t (&shifted)[WM]) {
   int32_t total = 0;
   bool carry = true;
 #pragma unroll
-  for (int w = 0; w < kMaxWords; ++w) {
+  for (int w = 0; w < WM; ++w) {
     if (w < W) {
       const uint32_t x = sw[w];
       const int32_t t = x == 0xFFFFFFFFu ? 32 : __popc(x ^ (x + 1u)) - 1;
@@ -321,7 +355,7 @@ __device__ __forceinline__ int32_t advance_window(const uint32_t (&sw)[kMaxWords
   const int s_words = total >> 5;
   const int s_bits = total & 31;
 #pragma unroll
-  for (int w = 0; w < kMaxWords; ++w) {
+  for (int w = 0; w < WM; ++w) {
     const uint32_t lo = pick(sw, w + s_words, W);
     const uint32_t hi = pick(sw, w + s_words + 1, W);
     shifted[w] = s_bits > 0 ? (lo >> s_bits) | (hi << (32 - s_bits)) : lo;
@@ -406,12 +440,13 @@ template <typename CT, typename XT, bool EMIT, int KM, int QH, int CH, bool WO>
 __global__ void __launch_bounds__(32 * (WO ? kRowsPerBlockWide : kRowsPerBlock))
     ingest_kernel(const IngestArgs a) {
   constexpr int kRows = WO ? kRowsPerBlockWide : kRowsPerBlock;
-  __shared__ WarpSmem<CH, WO> smem[kRows];
+  constexpr int WM = kWordsOf<QH>;  // seen words this form holds
+  __shared__ WarpSmem<CH, WO, QH> smem[kRows];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int64_t r = static_cast<int64_t>(blockIdx.x) * kRows + warp;
   if (r >= a.n) return;  // the whole warp: rows past n are masked
-  WarpSmem<CH, WO>& sm = smem[warp];
+  WarpSmem<CH, WO, QH>& sm = smem[warp];
   const int m = a.m, O = a.n_origins, W = a.seen_words, C = a.n_cells, Q = a.q_slots;
   const int kn = (m + 31) >> 5;  // chunks in use
   const unsigned below = (1u << lane) - 1u;  // lanes below this one
@@ -487,10 +522,10 @@ __global__ void __launch_bounds__(32 * (WO ? kRowsPerBlockWide : kRowsPerBlock))
   int32_t km = has_o ? a.km[ob + lane] : 0;
   int32_t org_id = has_o ? a.org_id[ob + lane] : -1;
   int32_t org_last = has_o ? a.org_last[ob + lane] : 0;
-  uint32_t sw[kMaxWords];
+  uint32_t sw[WM];
   const int64_t sb = r * O * W + lane * W;
 #pragma unroll
-  for (int w = 0; w < kMaxWords; ++w) {
+  for (int w = 0; w < WM; ++w) {
     sw[w] = (has_o && w < W) ? static_cast<uint32_t>(a.seen[sb + w]) : 0u;
   }
   const int64_t qb = r * Q;
@@ -589,7 +624,7 @@ __global__ void __launch_bounds__(32 * (WO ? kRowsPerBlockWide : kRowsPerBlock))
       word = sm.seen[sl * W + wi];
     } else {
 #pragma unroll
-      for (int w = 0; w < kMaxWords; ++w) {
+      for (int w = 0; w < WM; ++w) {
         if (w < W) {
           const uint32_t x = __shfl_sync(kFull, sw[w], sl);
           if (w == wi) word = x;
@@ -691,11 +726,11 @@ __global__ void __launch_bounds__(32 * (WO ? kRowsPerBlockWide : kRowsPerBlock))
       head = 0;
       km = 0;
 #pragma unroll
-      for (int w = 0; w < kMaxWords; ++w) sw[w] = 0u;
+      for (int w = 0; w < WM; ++w) sw[w] = 0u;
     }
     sm.km[lane] = km;
 #pragma unroll
-    for (int w = 0; w < kMaxWords; ++w) {
+    for (int w = 0; w < WM; ++w) {
       if (w < W) sm.seen[lane * W + w] = sw[w];
     }
   }
@@ -722,16 +757,16 @@ __global__ void __launch_bounds__(32 * (WO ? kRowsPerBlockWide : kRowsPerBlock))
   // --- head advance: trailing ones, then shift the window down ------------
   if constexpr (WO) {
     for (int s = lane; s < O; s += 32) {
-      uint32_t ws[kMaxWords], shifted[kMaxWords];
+      uint32_t ws[WM], shifted[WM];
 #pragma unroll
-      for (int w = 0; w < kMaxWords; ++w) ws[w] = w < W ? sm.seen[s * W + w] : 0u;
+      for (int w = 0; w < WM; ++w) ws[w] = w < W ? sm.seen[s * W + w] : 0u;
       const int32_t hd = wrap_add(sm.head[s], advance_window(ws, W, shifted));
       a.o_head[ob + s] = hd;
       a.o_km[ob + s] = max(sm.km[s], hd);
       a.o_org_id[ob + s] = sm.org_id[s];
       a.o_org_last[ob + s] = sm.org_last[s];
 #pragma unroll
-      for (int w = 0; w < kMaxWords; ++w) {
+      for (int w = 0; w < WM; ++w) {
         if (w < W) a.o_seen[ob * W + s * W + w] = static_cast<int32_t>(shifted[w]);
       }
     }
@@ -739,10 +774,10 @@ __global__ void __launch_bounds__(32 * (WO ? kRowsPerBlockWide : kRowsPerBlock))
   if (has_o) {
     km = sm.km[lane];
 #pragma unroll
-    for (int w = 0; w < kMaxWords; ++w) {
+    for (int w = 0; w < WM; ++w) {
       if (w < W) sw[w] = sm.seen[lane * W + w];
     }
-    uint32_t shifted[kMaxWords];
+    uint32_t shifted[WM];
     head = wrap_add(head, advance_window(sw, W, shifted));
     km = max(km, head);
     a.o_head[ob + lane] = head;
@@ -750,7 +785,7 @@ __global__ void __launch_bounds__(32 * (WO ? kRowsPerBlockWide : kRowsPerBlock))
     a.o_org_id[ob + lane] = org_id;
     a.o_org_last[ob + lane] = org_last;
 #pragma unroll
-    for (int w = 0; w < kMaxWords; ++w) {
+    for (int w = 0; w < WM; ++w) {
       if (w < W) a.o_seen[sb + w] = static_cast<int32_t>(shifted[w]);
     }
   }
@@ -1000,8 +1035,8 @@ __global__ void __launch_bounds__(32 * (WO ? kRowsPerBlockWide : kRowsPerBlock))
 extern "C" int ingest_limits(int* out) {
   out[0] = kMaxMsgsWide;
   out[1] = kMaxOriginsWide;
-  out[2] = kMaxWords;
-  out[3] = kMaxQueue;
+  out[2] = kMaxWordsDeep;
+  out[3] = kMaxQueueDeep;
   out[4] = kMaxPig;
   out[5] = kMaxMsgs;
   out[6] = kMaxCells;
@@ -1012,6 +1047,14 @@ extern "C" int ingest_limits(int* out) {
 // the most cells of a row staged in shared memory (CH = 2 or 8); wider rows
 // run the form that keeps the row in global memory (CH = 0)
 extern "C" int ingest_staged_cells() { return kMaxStagedCells; }
+
+// out: the most seen words and queue slots of the shallow forms (QH 1 and
+// 2); past either the deep form (QH 4) runs
+extern "C" int ingest_shallow_limits(int* out) {
+  out[0] = kMaxWords;
+  out[1] = kMaxQueue;
+  return 0;
+}
 
 template <typename CT, typename XT, bool EMIT, int KM, int QH, int CH, bool WO>
 static void launch_rows(const IngestArgs* a, cudaStream_t s) {
@@ -1025,10 +1068,14 @@ static void launch_rows(const IngestArgs* a, cudaStream_t s) {
 // parameters, so that a queue of 32 slots carries no second half and a row
 // of up to 64 cells keeps the smaller shared-memory row; the wide book (WO)
 // is instantiated at 8 cells a lane, which holds any row up to 256, and
-// both books at CH = 0 (the row in global memory) for any wider row
+// both books at CH = 0 (the row in global memory) for any wider row. A
+// window of more than 4 seen words or a queue of more than 64 slots runs
+// the deep form (QH = 4, up to 8 words), whatever the other width is
 template <typename CT, typename XT, bool EMIT, int KM, int CH, bool WO>
 static void launch_queue(const IngestArgs* a, cudaStream_t s) {
-  if (a->q_slots <= 32) {
+  if (a->seen_words > kMaxWords || a->q_slots > kMaxQueue) {
+    launch_rows<CT, XT, EMIT, KM, kMaxQueueDeep / 32, CH, WO>(a, s);
+  } else if (a->q_slots <= 32) {
     launch_rows<CT, XT, EMIT, KM, 1, CH, WO>(a, s);
   } else {
     launch_rows<CT, XT, EMIT, KM, kMaxQueue / 32, CH, WO>(a, s);
@@ -1069,7 +1116,8 @@ static void launch_form(const IngestArgs* a, int emit, cudaStream_t s) {
 extern "C" int ingest_launch(const IngestArgs* a, int cell_bytes, int tx_bytes,
                              int emit, void* stream) {
   if (a->m < 0 || a->m > (emit ? kMaxMsgs : kMaxMsgsWide) || a->n_origins < 1 ||
-      a->n_origins > kMaxOriginsWide || a->seen_words > kMaxWords || a->q_slots > kMaxQueue ||
+      a->n_origins > kMaxOriginsWide || a->seen_words > kMaxWordsDeep ||
+      a->q_slots > kMaxQueueDeep ||
       a->n_cells > kMaxCells || a->pig_r > kMaxPig) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -538,6 +538,13 @@ def _ingest_cuda(p: IngestParams, x: IngestInputs) -> IngestOutputs:
         form += f"/o{o}"  # the wide book's instantiation
     if c_cnt > lib.ingest_staged_cells():
         form += f"/c{c_cnt}"  # the row in global memory
+    shallow = (ctypes.c_int * 2)()
+    lib.ingest_shallow_limits(shallow)
+    # the deep form (4 queue slots a lane, up to 8 seen words)
+    if q > shallow[1]:
+        form += f"/q{q}"
+    if w > shallow[0]:
+        form += f"/w{w}"
     _count_launch("ingest_emit" if p.pig_r else "ingest", form)
     return out
 

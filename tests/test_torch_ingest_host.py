@@ -7,8 +7,10 @@ against the plain version, ``ingest_plain``, in every form the paths run,
 on the random and the tie-heavy inputs that ``chip_smoke.py`` holds the
 card to (fewer rows: N = 61, a partial last block of rows), in every
 other instantiation of the wide rows (8 cells a lane) on the tie-heavy
-inputs, and in every instantiation of the row kept in global memory (more
-than 256 cells: 4,096, 4,100 and 32,767).
+inputs, in every instantiation of the row kept in global memory (more
+than 256 cells: 4,096, 4,100 and 32,767), and in every instantiation of
+the deep form (more than 64 queue slots or 4 seen words, up to 128 and 8,
+and up to 32 payload picks).
 
 This checks the kernel's lane logic (ranks, ties, chunked batches, the
 per-warp shared memory) and that no collective diverges; it says nothing
@@ -60,6 +62,40 @@ TABLES = [
 ]
 
 
+# the deep form (4 queue slots a lane, up to 8 seen words): each plane-dtype
+# pair x the register book at 64, 144 and 4,096 (or 4,100) cells and the
+# wide book at 256 (256 or 48 origins) and 4,096 cells; at the full widths
+# (Q = 128, W = 8, R = 32: buf_slots 256, 32 changes a packet, a receive
+# of 128 messages) or partial ones (Q = 100, W = 7, R = 17: a receive of
+# 68), and where the deep form runs for one axis alone, Q = 48 with W = 8
+# or Q = 128 with W = 1. (name, n_rows, n_origins, q_slots, buf_slots,
+# pig_changes, dtype overrides)
+FULL_DEEP, PART_DEEP = (128, 256, 32), (100, 200, 17)
+DEEP = [
+    (f"deep{bits}_{book}", rows, o, *widths, over)
+    for bits, over in (("16", {}), ("8", dict(narrow_q_int8=True)),
+                       ("32", dict(narrow_dtypes=False)))
+    for book, rows, o, widths in (
+        ("c64", 16, 16, (48, 256, 32) if bits == "32" else FULL_DEEP),
+        ("c144", 36, 16, PART_DEEP),
+        ("c4096", 1025 if bits == "8" else 1024, 16,
+         (128, 32, 32) if bits == "16" else FULL_DEEP),
+        ("wide_c256", 64, 48 if bits == "8" else 256, FULL_DEEP),
+        ("wide_c4096", 1024, 256, PART_DEEP))
+]
+# fewer rows than N_ROWS (still a partial last block at 4 and at 2 rows a
+# block): the deep form's 128-message receive is the stand-in's slowest
+N_ROWS_DEEP = 13
+# the deep cases held on the random inputs as well: one a dtype pair
+DEEP_RANDOM = ("deep16_c64", "deep8_wide_c4096", "deep32_c144")
+
+
+def _deep(n_rows, n_origins, q_slots, buf_slots, pig_changes, **over):
+    return scale_sim_config(100_000, n_rows=n_rows, n_cols=4, n_origins=n_origins,
+                            bcast_queue=q_slots, buf_slots=buf_slots,
+                            pig_changes=pig_changes, **over)
+
+
 CONFIGS = {
     "flagship": lambda: scale_sim_config(100_000),
     "wide": lambda: scale_sim_config(100_000, narrow_dtypes=False),
@@ -86,6 +122,8 @@ CONFIGS = {
     "full_o64": lambda: full_view_config(8192, n_origins=64),
     **{name: (lambda q=q, r=r, o=o, over=over: _wide(q, r, n_origins=o, **over))
        for name, q, r, o, over in TABLES},
+    **{name: (lambda a=(r, o, q, b, pig), over=over: _deep(*a, **over))
+       for name, r, o, q, b, pig, over in DEEP},
 }
 # (configuration, form): every form of chip_smoke.py's kernels phase
 FORMS = [("flagship", "receive"), ("flagship", "write_emit"), ("flagship", "write"),
@@ -109,10 +147,16 @@ TABLE_RANDOM = ("table16_q32_o16", "table8_q64_o256", "table32_q32_o256")
 TABLE_FORMS = [(name, f) for name in TABLE_RANDOM for f in ("receive", "write_emit")] + [
     ("table16_q32_o16", "write"), ("table8_q64_o256", "write"),
     ("table16_q32_o16", "receive_full"), ("table32_q64_o256", "receive_full")]
+# the deep form: every instantiation (the receive of more than 32 messages,
+# the emitting and the non-emitting write in each of DEEP) on the tie-heavy
+# inputs, DEEP_RANDOM's on the random ones too
+DEEP_FORMS = [(name, f) for name, *_ in DEEP for f in ("receive", "write_emit", "write")]
 CASES = [(c, f, ties) for c, f in FORMS + WIDE_BOOK_FORMS + TABLE_FORMS
          for ties in (False, True)] + [(c, f, True) for c, f in WIDE_FORMS] + [
     (name, f, True) for name, *_ in TABLES for f in ("receive", "write_emit", "receive_full")
-    if (name, f) not in TABLE_FORMS]
+    if (name, f) not in TABLE_FORMS] + [
+    (c, f, ties) for c, f in DEEP_FORMS for ties in (False, True)
+    if ties or c in DEEP_RANDOM]
 
 
 @pytest.fixture(scope="module")
@@ -139,8 +183,9 @@ def test_ingest_source_on_host_matches_plain(host_ingest, monkeypatch, config, f
     host_build.route_launches(monkeypatch, host_ingest)
     cfg = CONFIGS[config]()
     n = (N_ROWS_TABLE_MAILBOX if form == "receive_full" and config.startswith("table")
-         else N_ROWS)
+         else N_ROWS_DEEP if config.startswith("deep") else N_ROWS)
     p, x = chip_smoke._ingest_inputs(cfg, n, form, 3 + 7 * ties, "cpu", ties=ties)
+    mk.reset_launches()
     got, want = mk._ingest_cuda(p, x), mk.ingest_plain(p, x)
     for name, a, b in zip(want._fields, got, want):
         for u, v in zip(chip_smoke._flat(a), chip_smoke._flat(b)):
@@ -151,6 +196,25 @@ def test_ingest_source_on_host_matches_plain(host_ingest, monkeypatch, config, f
         assert min(rows.values()) > 0, rows
     if p.n_cells > chip_smoke.STAGED_CELLS:
         assert chip_smoke._past_staged_rows(x, want) > 0
+    if config.startswith("deep"):
+        _check_deep(p, x, want, form, ties)
+
+
+def _check_deep(p, x, want, form, ties):
+    """The deep form's launch under its form key, and its axes reached:
+    the receive places messages past slot 64 and records seen bits past
+    word 4 where its widths have them; the random emitting write picks more
+    than 16 live slots."""
+    (key, label), = mk.FORM_LAUNCHES
+    assert key == ("ingest_emit" if p.pig_r else "ingest")
+    assert ((f"/q{p.q_slots}" in label) == (p.q_slots > chip_smoke.SHALLOW_QUEUE)
+            and (f"/w{p.seen_words}" in label) == (p.seen_words > chip_smoke.SHALLOW_WORDS))
+    rows = chip_smoke._deep_rows(p, x, want)
+    if form == "receive":
+        assert rows["placed"] > 0 or p.q_slots <= chip_smoke.SHALLOW_QUEUE, rows
+        assert rows["far_bits"] > 0 or p.seen_words <= chip_smoke.SHALLOW_WORDS, rows
+    if form == "write_emit" and not ties:
+        assert rows["picks"] > 0, rows
 
 
 def test_host_library_reports_256_origins(host_ingest):
@@ -173,6 +237,45 @@ def test_257_origins_raise_with_the_widths(host_ingest, monkeypatch):
     assert host_ingest.ingest_launch(ctypes.byref(a), 2, 2, 0, None) == invalid_value
     a.n_origins = 256
     assert host_ingest.ingest_launch(ctypes.byref(a), 2, 2, 0, None) == 0
+
+
+def test_host_library_reports_the_deep_limits(host_ingest):
+    """Seen words, queue slots and payload picks: up to 8, 128 and 32 in
+    all; the shallow forms hold up to 4 words and 64 slots."""
+    limits = (ctypes.c_int * 8)()
+    assert host_ingest.ingest_limits(limits) == 0
+    assert (limits[2], limits[3], limits[4]) == (8, 128, 32)
+    shallow = (ctypes.c_int * 2)()
+    assert host_ingest.ingest_shallow_limits(shallow) == 0
+    assert tuple(shallow) == (chip_smoke.SHALLOW_WORDS, chip_smoke.SHALLOW_QUEUE)
+
+
+# widths past the deep form: (overrides, form, the wrapper's message)
+PAST_DEEP = [
+    (dict(pig_changes=33, bcast_queue=33), "receive", "m=132 O=16 W=1 Q=33 R=0 C=64"),
+    (dict(pig_changes=33, bcast_queue=33), "write_emit", "m=1 O=16 W=1 Q=33 R=33 C=64"),
+    (dict(bcast_queue=129), "receive", "m=16 O=16 W=1 Q=129 R=0 C=64"),
+    (dict(buf_slots=288), "write_emit", "m=1 O=16 W=9 Q=32 R=4 C=64"),
+]
+
+
+@pytest.mark.parametrize("over,form,widths", PAST_DEEP,
+                         ids=["m132", "r33", "q129", "w9"])
+def test_widths_past_the_deep_form_raise(host_ingest, monkeypatch, over, form, widths):
+    """A receive of 132 messages (33 changes a packet), a payload of 33
+    picks, 129 queue slots or 9 seen words: the wrapper raises with the
+    widths named, and the launcher refuses them too."""
+    host_build.route_launches(monkeypatch, host_ingest)
+    cfg = scale_sim_config(100_000, **over)
+    p, x = chip_smoke._ingest_inputs(cfg, N_ROWS_DEEP, form, 19, "cpu")
+    with pytest.raises(ValueError, match=rf"ingest widths {widths} exceed the kernel's "
+                                         rf"limits \[128, 256, 8, 128, 32, 32,"):
+        mk._ingest_cuda(p, x)
+    a = mk._IngestArgs(m=x.origin.shape[1], n_origins=p.n_origins, n_cells=p.n_cells,
+                       q_slots=p.q_slots, seen_words=p.seen_words, pig_r=p.pig_r)
+    invalid_value = 1
+    assert host_ingest.ingest_launch(ctypes.byref(a), 2, 2, int(p.pig_r > 0), None) == \
+        invalid_value
 
 
 def test_staged_cells_and_the_cell_limit(host_ingest):

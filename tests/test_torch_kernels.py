@@ -137,20 +137,27 @@ SMALL = dict(n_rows=4, n_cols=4, n_origins=8, bcast_queue=16)
 TIE_KEYS = (5, 1, 2, 1)
 
 
-def random_state(seed, n=N_INGEST, ties=False, **over):
+def random_state(seed, n=N_INGEST, ties=False, next_hi=100, full_p=0.0, q_empty=0.5,
+                 **over):
     """A JAX ScaleSimState with a random (valid) CRDT half, and the port's
-    copy of it. With ``ties``: queue counters from {1, 2}, and store cells
+    copy of it: seen bits in every word of the window (a share ``full_p``
+    of the words all ones, so that heads advance across words), a writer's
+    next version in [70, ``next_hi``), a share ``q_empty`` of the queue
+    slots empty. With ``ties``: queue counters from {1, 2}, and store cells
     that tie the tie-heavy messages' keys."""
     over = {**SMALL, **over}
     cfg = jstep.scale_sim_config(n, **over)
     st = jstep.ScaleSimState.create(cfg)
     rng = np.random.default_rng(seed)
     c, o, q = cfg.n_cells, cfg.n_origins, cfg.bcast_queue
+    w = max(1, -(-cfg.buf_slots // 32))
     i32 = np.int32
     now = 20
     head = rng.integers(0, 30, (n, o)).astype(i32)
-    seen = np.where(rng.random((n, o, 1)) < 0.3, rng.integers(0, 8, (n, o, 1)),
-                    rng.integers(0, 2**32, (n, o, 1))).astype(np.uint32)
+    seen = np.where(rng.random((n, o, w)) < 0.3, rng.integers(0, 8, (n, o, w)),
+                    rng.integers(0, 2**32, (n, o, w))).astype(np.uint32)
+    if full_p:
+        seen = np.where(rng.random((n, o, w)) < full_p, np.uint32(0xFFFFFFFF), seen)
     store = [rng.integers(0, hi, (n, c)).astype(i32) for hi in (8, 4, 4, 40, 2)]
     book = st.crdt.book._replace(
         head=jnp.asarray(head),
@@ -161,9 +168,9 @@ def random_state(seed, n=N_INGEST, ties=False, **over):
         org_last=jnp.asarray(rng.integers(0, now, (n, o)).astype(i32)),
     )
     # a writer's next version lies past its own head and window
-    next_dbv = rng.integers(70, 100, n).astype(i32)
+    next_dbv = rng.integers(70, next_hi, n).astype(i32)
     queue = dict(
-        q_origin=np.where(rng.random((n, q)) < 0.5, -1,
+        q_origin=np.where(rng.random((n, q)) < q_empty, -1,
                           rng.integers(0, 64, (n, q))).astype(i32),
         q_cell=rng.integers(0, c, (n, q)).astype(np.int16),
         q_dbv=rng.integers(0, 40, (n, q)).astype(i32),
@@ -191,12 +198,12 @@ def random_state(seed, n=N_INGEST, ties=False, **over):
     return cfg, st, tcfg, tst
 
 
-def random_messages(seed, n, m, now=20, n_cells=16, o_hi=64):
+def random_messages(seed, n, m, now=20, n_cells=16, o_hi=64, dbv_hi=40):
     rng = np.random.default_rng(seed)
     i32 = np.int32
     live = rng.random((n, m)) < 0.7
     fields = [
-        rng.integers(-1, o_hi, (n, m)), rng.integers(0, 40, (n, m)),
+        rng.integers(-1, o_hi, (n, m)), rng.integers(0, dbv_hi, (n, m)),
         rng.integers(-1, n_cells + 1, (n, m)), rng.integers(0, 8, (n, m)),
         rng.integers(0, 4, (n, m)), rng.integers(0, 4, (n, m)),
         rng.integers(0, 2, (n, m)),
@@ -213,7 +220,7 @@ def two_cells(rng, n, m, n_cells):
     return np.where(rng.random((n, m)) < 0.05, -1, cell).astype(np.int32)
 
 
-def tie_messages(seed, n, m, now=20, n_cells=16, o_hi=12):
+def tie_messages(seed, n, m, now=20, n_cells=16, o_hi=12, dbv_hi=40):
     """Messages where a lane-parallel rank can part from a sequential loop:
     two cells a row with equal (ver, val, site, clp), repeated (origin, dbv)
     pairs and versions repeated across origins in a row, live and dead."""
@@ -221,7 +228,7 @@ def tie_messages(seed, n, m, now=20, n_cells=16, o_hi=12):
     i32 = np.int32
     live = rng.random((n, m)) < 0.6
     origin = rng.integers(-1, o_hi, (n, m))
-    dbv = rng.integers(0, 40, (n, m))
+    dbv = rng.integers(0, dbv_hi, (n, m))
     idx = np.arange(m)
     back = np.maximum(idx - rng.integers(1, 9, (n, m)), 0)
     rep = (rng.random((n, m)) < 0.3) & (idx > 0)
@@ -333,6 +340,85 @@ def test_local_write_emit_plain_matches_pallas_kernel_interpret_48_origins(ties)
     for a, b in zip(want_emit, got_emit):
         assert np.array_equal(np.asarray(a), b.numpy())
     assert _wide_slots_moved(tst.crdt.book, got_cst.book)
+
+
+# the deep queue's widths (the ingest kernel's deep form on the card): 128
+# queue slots, a 256-version window (8 seen words) and 32 changes a packet,
+# so a receive batch of 4 x 32 = 128 messages and a payload of 32 picks
+DEEP = dict(buf_slots=256, bcast_queue=128, pig_changes=32)
+# message and next versions up to ~300 past the heads (0..29): offsets over
+# every word of the window and past it
+DEEP_DBV = 330
+
+
+def _deep_moved(before, after):
+    """(a slot kept its owner and head and gained a seen bit past word 4,
+    a slot kept its owner and its head moved 32 or more: across a word)."""
+    kept = before.org_id == after.org_id
+    new = (after.seen[:, :, 4:] & ~before.seen[:, :, 4:]) != 0
+    same = kept & (after.head == before.head)
+    return (bool((same[:, :, None] & new).any()),
+            bool((kept & (after.head - before.head >= 32)).any()))
+
+
+@pytest.mark.parametrize("ties", [False, True], ids=["random", "tie_heavy"])
+def test_ingest_plain_matches_pallas_kernel_interpret_deep_queue(ties):
+    """The receive at m = 128 into a 128-slot queue with an 8-word window:
+    seen bits set in every word, a fifth of the words all ones, versions up
+    to ~300 past the heads, a queue with few empty slots and origins mostly
+    on their own slots, so that rows place messages past slot 64. JAX's
+    interpret compile at these widths takes about 30 s on the CPU."""
+    cfg, st, tcfg, tst = random_state(20, ties=ties, full_p=0.2, q_empty=0.02, **DEEP)
+    make = tie_messages if ties else random_messages
+    live, msgs = make(21, N_INGEST, 4 * cfg.pig_changes, o_hi=12, dbv_hi=DEEP_DBV)
+    assert live.shape[1] == 128 and cfg.bcast_queue == 128
+    want_cst, want_info = jmk.ingest_changes_fused(
+        cfg, st.crdt, jnp.asarray(live), *map(jnp.asarray, msgs), interpret=True)
+    got_cst, got_info = mk.ingest_changes_fused(tcfg, tst.crdt, T(live), *map(T, msgs))
+    leaves_equal(want_cst, got_cst)
+    for k in want_info:
+        assert int(want_info[k]) == int(got_info[k]), k
+    assert _deep_moved(tst.crdt.book, got_cst.book) == (True, True)
+    # messages placed past slot 64
+    assert not torch.equal(tst.crdt.q_origin[:, 64:], got_cst.q_origin[:, 64:])
+
+
+@pytest.mark.parametrize("ties", [False, True], ids=["random", "tie_heavy"])
+def test_local_write_emit_plain_matches_pallas_kernel_interpret_deep_queue(ties):
+    """The emitting write at Q = 128 and R = 32 with an 8-word window; next
+    versions up to ~300 past the heads. The random case takes the default
+    payload budget, so rows pick more than 16 live slots; the tie case a
+    budget of three changes, so that the budget mask ranks."""
+    budget = {"bcast_budget_bytes": 3 * broadcast.CHANGE_WIRE_BYTES} if ties else {}
+    cfg, st, tcfg, tst = random_state(22, ties=ties, next_hi=DEEP_DBV, full_p=0.2,
+                                      q_empty=0.02, **DEEP, **budget)
+    rng = np.random.default_rng(23)
+    n, q = N_INGEST, cfg.bcast_queue
+    wm = rng.random(n) < 0.6
+    cell = rng.integers(0, cfg.n_cells, n).astype(np.int32)
+    val = rng.integers(0, 1 << 20, n).astype(np.int32)
+    clp = rng.integers(0, 2, n).astype(np.int32)
+    rand = rng.random((n, q)).astype(np.float32)
+    if ties:
+        cell = two_cells(rng, 1, n, cfg.n_cells)[0].clip(min=0)
+        val = np.full(n, TIE_KEYS[1], np.int32)
+        clp = np.full(n, TIE_KEYS[3], np.int32)
+        rand = np.floor(rand * 4) / 4
+    carried = rng.integers(0, 5, n).astype(np.int32)
+    want_cst, want_emit = jmk.local_write_fused(
+        cfg, st.crdt, *map(jnp.asarray, (wm, cell, val, clp)),
+        rand=jnp.asarray(rand), carried=jnp.asarray(carried), interpret=True)
+    got_cst, got_emit = mk.local_write_fused(
+        tcfg, tst.crdt, *map(T, (wm, cell, val, clp)), rand=T(rand), carried=T(carried))
+    leaves_equal(want_cst, got_cst)
+    for a, b in zip(want_emit, got_emit):
+        assert np.array_equal(np.asarray(a), b.numpy())
+    payload, sel, sel_ok = got_emit
+    assert sel.shape == (n, 32) and payload.shape == (n, 11 * 32)
+    if not ties:
+        assert int((sel_ok.sum(dim=1) > 16).sum()) > 0
+    assert _deep_moved(tst.crdt.book, got_cst.book)[0]
+    assert not torch.equal(tst.crdt.q_origin[:, 64:], got_cst.q_origin[:, 64:])
 
 
 def test_ingest_chain_matches_xla_path():
