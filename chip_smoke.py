@@ -6,8 +6,9 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. Build every kernel from ``corrosion_tpu_torch/csrc`` (one ``nvcc`` per
-   source, started together) and print ptxas' register and stack report;
-   each of the swim kernel's 18 and the ingest kernel's 135 instantiations
+   source, started together, while the parity phase's CPU half runs:
+   ``parity_references``) and print ptxas' register and stack report;
+   each of the swim kernel's 18 and the ingest kernel's 150 instantiations
    is named, and any stack frame or spill in one of them fails the run.
 2. Hold every kernel form against its plain PyTorch version on the card on
    random valid inputs drawn from the port's PRNG, and again, untimed, on
@@ -44,19 +45,30 @@ Phases (any failure raises and the script exits non-zero):
    queue slots and versions over the whole window; each prints the rows
    that placed a message into a slot past 64, recorded a seen bit past
    word 4 and (emitting) made more than 16 live picks, and fails if a
-   count its widths and payload budget can reach is 0.
+   count its widths and payload budget can reach is 0. The long form (more
+   than 128 messages or 32 picks): the wide packet's receive (m = 256)
+   and emitting write (64 picks) at N = 100,000, the widest the 128-slot
+   queue allows (a receive of 512 messages, an emitting write of 128
+   picks) at N = 100,000, the full view's mailbox at recv_slots = 256 (N =
+   8192, int32/int32) and an int16/int8 receive of 256 messages with the
+   register book; each prints the rows with a fresh message past message
+   128, a duplicate whose first occurrence lies in an earlier 128-message
+   chunk and a cell won past message 128 and (emitting) more than 32 live
+   picks, and fails if a count the payload budget can reach is 0.
 3. Run 11 rounds of ``scale_sim_config(4096, sync_interval=2,
    sync_sweep_every=2)`` with writes, churn and 5 % message loss once on
    the card (kernels) and once on the CPU (plain versions); every state leaf
    and round-info value must be bitwise equal after every round. The same
    for the 1M point's configuration and the many-writer configuration
    (256 origins, 64x4 cells: the ingest kernel's wide book, once a round
-   in each of its two forms) and the large table (1024x4 cells: the row in
-   global memory, likewise) at 4096 nodes; and the deep queue (``QUEUES``:
+   in each of its two forms) at 4096 nodes, the large table (1024x4 cells:
+   the row in global memory, likewise) at 2048; and the deep queue (``QUEUES``:
    the deep form, likewise) at 1024 nodes for 14 rounds with a quarter of
    the nodes writing each round (the CPU route at 4096 nodes takes ~10 s a
    round at these widths), queue slots past 64 occupied on both sides at
-   the end. (The CPU route is held bitwise to the JAX package by
+   the end; and the wide packet (``PACKETS``: the long form) at 1024 nodes
+   for 11 rounds likewise, with rows that made more than 32 live picks on
+   both sides. (The CPU route is held bitwise to the JAX package by
    ``tests/test_torch_*.py``.)
 4. The flagship: ``scale_sim_config(100_000)`` with bench.py's workload
    (``sim.scale_step.flagship_workload``), 2 warm-up rounds, then three
@@ -82,6 +94,13 @@ Phases (any failure raises and the script exits non-zero):
    and K3 under their ``/o256/q128/w8`` form keys (the receive's with
    ``/m128``), rows holding more than 64 occupied queue slots at the end,
    the state's bytes equal to the projection.
+4e. packets: the wide packet, ``scale_sim_config(100_000, **PACKETS)`` (the
+   deep queue with 64 changes a packet: a receive of 256 messages, 64
+   picks), under the same write burst, the same way: K2 and K3 under
+   their long-form keys (``/m256/o256/q128/w8`` and ``/o256/q128/w8/r64``),
+   rows holding more than 32 live queue slots at the end, the state's
+   bytes equal to the projection, its rounds/s printed beside the
+   flagship's of phase 4.
 5. The 1M point: ``sim.scale_step.million_config()`` (bounded member
    piggyback, int8 budget and queue-counter planes) with the same workload,
    2 warm-up rounds, then three timed batches of 4 rounds. Each kernel must
@@ -120,7 +139,7 @@ Phases (any failure raises and the script exits non-zero):
    leaf and info value must be bitwise equal, the fixpoint branch must run,
    and each kernel must launch once in every dense round of the card's
    ``quiet="on"`` run and in no fixpoint round.
-8. The full view, card vs CPU: 16 rounds of ``scenario.full_mix`` (churn,
+8. The full view, card vs CPU: 11 rounds of ``scenario.full_mix`` (churn,
    conflict-heavy writes, 1 % loss) at ``full_view_config(1024)``; every
    state leaf and info value bitwise equal after every round.
 9. The full view at ``full_view_config(8192)`` (O(N^2) membership view,
@@ -129,7 +148,7 @@ Phases (any failure raises and the script exits non-zero):
    the local write (m = 1) and once as the receive batch (m = 96), and the
    swim kernel never; prints rounds/s, peak device memory and the carried
    state's bytes.
-10. tx-trajectory: phase 3's trajectory for the configurations whose CRDT
+10. tx-trajectory: phase 3's trajectory (11 rounds) for the configurations whose CRDT
    half takes the plain route or the empty batch: multi-cell transactions
    (``tx_max_cells=4``), the wire-budget lane (``bcast_wire_budget``), and
    ``pig_changes=0``. Card and CPU bitwise equal after every round; the
@@ -163,7 +182,8 @@ Phases (any failure raises and the script exits non-zero):
     whose stores equal the card's planes bitwise. Every script converges on
     both sides, the card equals the CPU route bitwise, and each kernel
     launches once a round (the swim kernel alone at tx 4); the single writer
-    also runs ``quiet="on"`` to the same result.
+    also runs ``quiet="on"`` to the same result. The oracles and the CPU
+    route run while the kernels build (phase 1), the card here.
 15. soak: the flagship for 16 rounds straight, as ``run_segmented`` in 2
     segments of 8 with the async writer (keep_last 2), and as its first
     8 rounds segmented then ``resume_segmented`` from disk: every leaf
@@ -237,8 +257,8 @@ Phases (any failure raises and the script exits non-zero):
     another, the launch gauges show each kernel once a round, SIGTERM ends
     it with exit 0.
 22. overload: ``python -m corrosion_tpu_torch load --overload`` as a
-    process, started before the chaos phase and run beside it and
-    devcluster, at its default ramp and rig (N=16) with its time constants
+    process, started before the soak-cli phase and run beside it, chaos
+    and devcluster, at its default ramp and rig (N=16) with its time constants
     scaled to the port's pace (``LOAD_OVERLOAD_FLAGS``: a slower slow
     consumer, the lag bound to match, a longer closed-loop retry window):
     exit 0, so the guard holds the degradation contract and the unguarded
@@ -285,6 +305,8 @@ there is none.
 
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import json
 import subprocess
 import sys
@@ -301,6 +323,7 @@ TRAJECTORY_NODES = 4096  # small enough for the CPU route to keep pace
 TRAJECTORY_ROUNDS = 11  # the workload's kill (round 4) and revive (round 10) inside
 FULL_NODES = 8192  # the full view's measured point (sim.config.full_view_config)
 FULL_TRAJECTORY_NODES = 1024  # the full view, card vs CPU: float ties are common
+FULL_TRAJECTORY_ROUNDS = 11  # full_mix and the seeded transactions sync and complete by then
 # the many-writer flagship: 256 tracked origins (the ingest kernel's wide
 # book) and 64x4 cells, bench.py's heavier mix (BENCH_ORIGINS=256,
 # BENCH_ROWS=64)
@@ -314,8 +337,18 @@ TABLES = dict(n_rows=1024, n_cols=4)
 # of 4 x 32 = 128 messages), the ingest kernel's deep form (4 queue slots a
 # lane), under a write burst (``queues_workload``)
 QUEUES = dict(n_origins=256, n_rows=64, buf_slots=256, bcast_queue=128, pig_changes=32)
+# the large table, card vs CPU: its CPU route's pace at 4,096 cells a row
+TABLES_TRAJECTORY_NODES = 2048
 QUEUES_TRAJECTORY_NODES = 1024  # the deep queue, card vs CPU (its CPU route's pace)
 QUEUES_TRAJECTORY_ROUNDS = 14  # rows pass 64 queue slots from round ~10 at 1024 nodes
+# the wide packet: the deep queue with 64 changes a packet (4 KiB of
+# changes at 64 bytes each; a receive batch of 4 x 64 = 256 messages and 64
+# picks), the ingest kernel's long form (the batch in global memory, up to
+# 4 picks a lane), under the deep queue's write burst
+PACKETS = dict(QUEUES, pig_changes=64)
+# the wide packet, card vs CPU: the trajectory's kill (round 4) and revive
+# (round 10) inside
+PACKETS_TRAJECTORY_NODES, PACKETS_TRAJECTORY_ROUNDS = 1024, 11
 # BASELINE's correctness size: a 256-node cluster, 16 origins, 64 cells
 PARITY_NODES, PARITY_ORIGINS, PARITY_CELLS, PARITY_ROUNDS = 256, 16, 64, 24
 # empty rounds after the single writer's script for the quiet check: the
@@ -701,6 +734,10 @@ STAGED_CELLS = 256
 # words). A payload of more than SHALLOW_PICKS picks fills lanes past a half
 # warp
 SHALLOW_QUEUE, SHALLOW_WORDS, SHALLOW_PICKS = 64, 4, 16
+# messages of the ingest kernel's register batch (KM 1 and 4) and picks of
+# its one pick a lane; past either its long form runs (the batch in global
+# memory, up to 4 picks a lane)
+REGISTER_MSGS, ONE_PICK = 128, 32
 
 # The ingest kernel's forms: (messages per row from cfg, emit, enqueue_all,
 # no drift reject, the messages' origin and version ranges and live share).
@@ -1041,6 +1078,72 @@ def _require_deep(name, p, x, out) -> None:
         raise AssertionError(f"{name}: the inputs miss the deep form's {missed}: {rows}")
 
 
+def _long_rows(p, x, out) -> dict:
+    """Rows that reach the long form's axes. With more than REGISTER_MSGS
+    messages: a fresh message at an index of REGISTER_MSGS or more; a live
+    duplicate (origin, dbv) whose first live occurrence lies in an earlier
+    REGISTER_MSGS-message chunk; a cell whose batch winner (the least index
+    among the fresh messages on it with the five keys the store took) lies
+    at such an index. With more than ONE_PICK picks, more than ONE_PICK
+    live picks. (Origins are at least -1 and versions at least 0 in every
+    input here, so no live message has the dead messages' key, -1.)"""
+    import torch
+
+    from corrosion_tpu_torch.ops.lww import INT32_MAX
+
+    n, m = x.origin.shape
+    rows = {}
+    if m > REGISTER_MSGS:
+        chunk = REGISTER_MSGS
+        rows["fresh_past"] = int(out.fresh[:, chunk:].any(dim=1).sum())
+        live = x.live & ((x.ts >> p.hlc_round_bits) <= x.now + p.hlc_max_drift)
+        key = torch.where(live, (x.origin.to(torch.int64) + 1) * (1 << 32) + x.dbv.to(torch.int64),
+                          -1)
+        cross = torch.zeros(n, dtype=torch.bool, device=key.device)
+        for lo in range(chunk, m, chunk):
+            earlier = torch.sort(key[:, :lo], dim=1).values
+            later = key[:, lo:lo + chunk].contiguous()
+            at = torch.clamp(torch.searchsorted(earlier, later), max=lo - 1)
+            cross |= ((earlier.gather(1, at) == later) & (later >= 0)).any(dim=1)
+        rows["cross_dups"] = int(cross.sum())
+        c = p.n_cells
+        cell = torch.where(out.fresh & (x.cell >= 0) & (x.cell < c), x.cell, c).long()
+        took = torch.ones_like(out.fresh)
+        for plane, f in zip(out.store, (x.ver, x.val, x.site, x.dbv, x.clp)):
+            padded = torch.cat([plane, plane[:, :1]], dim=1)
+            took &= padded.gather(1, cell) == f
+        changed = torch.stack([a != b for a, b in zip(x.store, out.store)]).any(dim=0)
+        took &= (cell < c) & torch.cat([changed, changed[:, :1]], dim=1).gather(1, cell)
+        idx = torch.arange(m, dtype=torch.int32, device=key.device).expand(n, m)
+        first = torch.full((n, c + 1), INT32_MAX, dtype=torch.int32, device=key.device)
+        first.scatter_reduce_(1, cell, torch.where(took, idx, INT32_MAX), "amin")
+        rows["late_winners"] = int(((first[:, :c] >= chunk) & (first[:, :c] < m))
+                                   .any(dim=1).sum())
+    if p.pig_r > ONE_PICK:
+        rows["picks"] = int((out.sel_ok.sum(dim=1) > ONE_PICK).sum())
+    return rows
+
+
+def _require_long(name, p, x, out) -> None:
+    """In the long form (more than REGISTER_MSGS messages, or more than
+    ONE_PICK picks), print ``_long_rows`` and require each count that the
+    payload budget can reach to be above 0."""
+    from corrosion_tpu_torch.sim.broadcast import CHANGE_WIRE_BYTES
+
+    if x.origin.shape[1] <= REGISTER_MSGS and p.pig_r <= ONE_PICK:
+        return
+    rows = _long_rows(p, x, out)
+    # carried is at most 4 in these inputs
+    reach = dict.fromkeys(rows, True)
+    reach["picks"] = p.budget_bytes // (CHANGE_WIRE_BYTES * 4) > ONE_PICK
+    print(f"[kernels] {name}: rows with fresh messages, first occurrences of duplicates and "
+          f"winners past message {REGISTER_MSGS} of {x.origin.shape[1]}, over {ONE_PICK} "
+          f"picks of {p.pig_r}: {rows}", flush=True)
+    missed = [k for k, v in rows.items() if reach[k] and v <= 0]
+    if missed:
+        raise AssertionError(f"{name}: the inputs miss the long form's {missed}: {rows}")
+
+
 def _recorded_past_queue(p, x, out) -> int:
     """Rows whose recorded messages (fresh and owned) outnumber the queue's
     slots."""
@@ -1058,13 +1161,15 @@ def _ingest_form(name, cfg, form, seed, dev) -> dict:
         lambda got: _ingest_bytes(x, got), lambda got: _ingest_ops(p, x, got))
     r["replaces"] = "corrosion_tpu/ops/megakernel.py:" + ("960" if form.startswith("write") else "795")
     if (form == "receive_full" or p.n_origins > NARROW_BOOK or p.n_cells > STAGED_CELLS
-            or p.q_slots > SHALLOW_QUEUE or p.seen_words > SHALLOW_WORDS):
+            or p.q_slots > SHALLOW_QUEUE or p.seen_words > SHALLOW_WORDS
+            or x.origin.shape[1] > REGISTER_MSGS or p.pig_r > ONE_PICK):
         want = mk.ingest_plain(p, x)
         if form == "receive_full":
             _require_past_queue(name, p, x, want)
         _require_wide_slots(name, p, x, want)
         _require_past_staged(name, p, x, want)
         _require_deep(name, p, x, want)
+        _require_long(name, p, x, want)
         del want
     _hold_ties(name, cfg, form, seed, dev)
     return r
@@ -1100,6 +1205,7 @@ def _hold_ties(name, cfg, form, seed, dev) -> None:
     _require_wide_slots(f"{name} (tie-heavy)", p, x, want)
     _require_past_staged(f"{name} (tie-heavy)", p, x, want)
     _require_deep(f"{name} (tie-heavy)", p, x, want)
+    _require_long(f"{name} (tie-heavy)", p, x, want)
     print(f"[kernels] {name}: tie-heavy inputs at N={n} bitwise equal "
           f"({_count(want.fresh)} fresh messages)", flush=True)
 
@@ -1134,6 +1240,8 @@ def phase_kernels(dev) -> dict:
     writers = scale_sim_config(FLAGSHIP_NODES, **WRITERS)
     tables = scale_sim_config(FLAGSHIP_NODES, **TABLES)
     queues = scale_sim_config(FLAGSHIP_NODES, **QUEUES)
+    packets = scale_sim_config(FLAGSHIP_NODES, **PACKETS)
+    widest = scale_sim_config(FLAGSHIP_NODES, **dict(QUEUES, pig_changes=128))
     wide = scale_sim_config(FLAGSHIP_NODES, narrow_dtypes=False)
     big = million_config(MILLION_NODES)
     full = full_view_config(FULL_NODES)
@@ -1231,6 +1339,26 @@ def phase_kernels(dev) -> dict:
          lambda n: _ingest_form(n, scale_sim_config(FLAGSHIP_NODES, bcast_queue=128,
                                                     buf_slots=256, narrow_q_int8=True),
                                 "receive", 75, dev)),
+        # the long form (past 128 messages or 32 picks): the wide packet's
+        # receive (m = 256) and emitting write (64 picks), the widest the
+        # 128-slot queue allows (m = 512, 128 picks), the full view's
+        # mailbox at recv_slots = 256 (int32) and int16/int8 at m = 256 with
+        # the register book
+        ("ingest_packets", "packets", ("ingest", "16/16/m256/o256/q128/w8"),
+         lambda n: _ingest_form(n, packets, "receive", 76, dev)),
+        ("ingest_emit_packets", "packets", ("ingest_emit", "16/16/o256/q128/w8/r64"),
+         lambda n: _ingest_form(n, packets, "write_emit", 77, dev)),
+        ("ingest_16_16_m512_o256_q128_n100000", None, None,
+         lambda n: _ingest_form(n, widest, "receive", 78, dev)),
+        ("ingest_emit_16_16_o256_q128_r128_n100000", None, None,
+         lambda n: _ingest_form(n, widest, "write_emit", 79, dev)),
+        ("ingest_full_m256", None, None,
+         lambda n: _ingest_form(n, full_view_config(FULL_NODES, recv_slots=256),
+                                "receive_full", 80, dev)),
+        ("ingest_16_8_m256_n100000", None, None,
+         lambda n: _ingest_form(n, scale_sim_config(FLAGSHIP_NODES, pig_changes=64,
+                                                    bcast_queue=64, narrow_q_int8=True),
+                                "receive", 81, dev)),
     ]
     for c, form, seed in ((wide, "receive", 36), (wide, "write", 37),
                           (wide, "write_emit", 38), (flag, "write", 39),
@@ -1332,7 +1460,7 @@ def phase_tx_trajectory(dev) -> dict:
 
     out = {}
     for label, over in TX_TRAJECTORIES:
-        rounds = 16
+        rounds = TRAJECTORY_ROUNDS
         forms, sums = phase_trajectory(
             dev, label, lambda n, **kw: scale_sim_config(n, **kw, **over),
             rounds, "tx-trajectory")
@@ -1785,7 +1913,7 @@ def phase_full_trajectory(dev) -> None:
     from corrosion_tpu_torch.sim.step import RoundInput, run_rounds_carry
 
     cfg = full_view_config(FULL_TRAJECTORY_NODES)
-    rounds = 16
+    rounds = FULL_TRAJECTORY_ROUNDS
     runs = {d: full_view_workload(cfg, rounds, d) for d in ("cpu", dev)}
     carry = {d: (runs[d][0], runs[d][2]) for d in runs}
     t0 = time.perf_counter()
@@ -1847,7 +1975,7 @@ def phase_full_tx_trajectory(dev) -> None:
     from corrosion_tpu_torch.sim.step import RoundInput, run_rounds_carry
 
     cfg = wan_config(FULL_TRAJECTORY_NODES, n_origins=16)
-    rounds = 16
+    rounds = FULL_TRAJECTORY_ROUNDS
     runs = {d: _tx_workload(cfg, rounds, d) for d in ("cpu", dev)}
     carry = {d: (runs[d][0], runs[d][2]) for d in runs}
     t0 = time.perf_counter()
@@ -1975,7 +2103,8 @@ def _kernel_point(dev, cfg, suffix: str, workload=None) -> tuple:
     ``flagship_workload``): ten timed batches of 2 rounds after 2 warm-up
     rounds; K1 once a round and K2 and K3 once a round each under
     the form keys ending in ``suffix`` (the receive's after ``/m{m}`` when
-    its batch is wider than 32); fresh, delivered and syncs above 0.
+    its batch is wider than 32, the emitting write's followed by ``/r{R}``
+    past 32 picks); fresh, delivered and syncs above 0.
     Returns (final state, its initial bytes, the batch rates, the info
     sums, the form launches, the peak device bytes)."""
     import torch
@@ -2005,8 +2134,9 @@ def _kernel_point(dev, cfg, suffix: str, workload=None) -> tuple:
     key = f"{_bits(cdt)}/{_bits(qdt)}{suffix}"
     m = 4 * cfg.pig_changes
     recv = f"{_bits(cdt)}/{_bits(qdt)}/m{m}{suffix}" if m > 32 else key
+    emit = f"{key}/r{cfg.pig_changes}" if cfg.pig_changes > ONE_PICK else key
     want = {("swim_tables", "aligned/16/16"): total, ("ingest", recv): total,
-            ("ingest_emit", key): total}
+            ("ingest_emit", emit): total}
     if forms != want:
         raise AssertionError(f"{suffix} launch counts {forms} != {want}")
     sums = {k: sum(int(i[k].sum()) for i in infos) for k in infos[0]}
@@ -2111,13 +2241,34 @@ def phase_queues(dev) -> dict:
     return {"rounds_per_s": med, "peak_bytes": peak, "forms": forms}
 
 
+def _check_deep_launches(label, over, n_nodes: int, forms, rounds: int) -> None:
+    """K1 once a round, and K2 and K3 once a round each under the deep
+    form's keys of ``scale_sim_config(n_nodes, **over)`` (the receive's
+    after ``/m{m}``, the emitting write's followed by ``/r{R}`` past
+    ONE_PICK picks)."""
+    from corrosion_tpu_torch.sim.broadcast import plane_dtypes
+    from corrosion_tpu_torch.sim.scale_step import scale_sim_config
+
+    cfg = scale_sim_config(n_nodes, **over)
+    cdt, qdt = plane_dtypes(cfg)
+    deep = f"/o{cfg.n_origins}/q{cfg.bcast_queue}/w{cfg.buf_slots // 32}"
+    bits = f"{_bits(cdt)}/{_bits(qdt)}"
+    picks = f"/r{cfg.pig_changes}" if cfg.pig_changes > ONE_PICK else ""
+    swim = sum(v for (k, _), v in forms.items() if k == "swim_tables")
+    ingest = {kf: v for kf, v in forms.items() if kf[0] != "swim_tables"}
+    want = {("ingest", f"{bits}/m{4 * cfg.pig_changes}{deep}"): rounds,
+            ("ingest_emit", f"{bits}{deep}{picks}"): rounds}
+    if swim != rounds or ingest != want:
+        raise AssertionError(f"{label}: swim launches {swim} != {rounds} or ingest "
+                             f"launches {ingest} != {want}")
+
+
 def phase_queues_trajectory(dev) -> None:
     """Phase 3's trajectory for the deep queue at QUEUES_TRAJECTORY_NODES
     (the CPU route's pace at these widths), a quarter of the nodes writing
     each round: card and CPU bitwise equal every round, K2 and K3 in the
     deep form's keys once a round each and K1 once a round, queue slots
     past 64 occupied on both sides at the end."""
-    from corrosion_tpu_torch.sim.broadcast import plane_dtypes
     from corrosion_tpu_torch.sim.scale_step import scale_sim_config
 
     rounds = QUEUES_TRAJECTORY_ROUNDS
@@ -2125,22 +2276,93 @@ def phase_queues_trajectory(dev) -> None:
         dev, "deep queue", lambda n, **kw: scale_sim_config(n, **QUEUES, **kw), rounds,
         n_nodes=QUEUES_TRAJECTORY_NODES, write_p=0.25,
         final=lambda a, b: (_deep_queue_rows(a), _deep_queue_rows(b)))
-    cfg = scale_sim_config(QUEUES_TRAJECTORY_NODES, **QUEUES)
-    cdt, qdt = plane_dtypes(cfg)
-    deep = f"/o{cfg.n_origins}/q{cfg.bcast_queue}/w{cfg.buf_slots // 32}"
-    bits = f"{_bits(cdt)}/{_bits(qdt)}"
-    swim = sum(v for (k, _), v in forms.items() if k == "swim_tables")
-    ingest = {kf: v for kf, v in forms.items() if kf[0] != "swim_tables"}
-    want = {("ingest", f"{bits}/m{4 * cfg.pig_changes}{deep}"): rounds,
-            ("ingest_emit", f"{bits}{deep}"): rounds}
-    if swim != rounds or ingest != want:
-        raise AssertionError(f"deep queue: swim launches {swim} != {rounds} or ingest "
-                             f"launches {ingest} != {want}")
+    _check_deep_launches("deep queue", QUEUES, QUEUES_TRAJECTORY_NODES, forms, rounds)
     print(f"[trajectory] deep queue: rows with a slot past {SHALLOW_QUEUE} occupied, and "
           f"holding more than {SHALLOW_QUEUE}: cpu {rows[0]}, card {rows[1]}", flush=True)
     if sums["fresh"] <= 0 or min(rows[0]) <= 0 or rows[0] != rows[1]:
         raise AssertionError(f"deep queue: fresh {sums['fresh']}, rows past "
                              f"{SHALLOW_QUEUE} cpu {rows[0]} card {rows[1]}")
+
+
+def _live_slots_past_pick(st) -> int:
+    """Rows whose queue holds more than ONE_PICK live slots (the next
+    round's emitting write picks more than ONE_PICK of them)."""
+    live = (st.crdt.q_origin != -1) & (st.crdt.q_tx > 0)
+    return int((live.sum(dim=1) > ONE_PICK).sum())
+
+
+def phase_packets(dev, flag: dict) -> dict:
+    """The wide packet, ``scale_sim_config(FLAGSHIP_NODES, **PACKETS)``,
+    under the deep queue's write burst (``queues_workload``):
+    ``_kernel_point`` with K2 (m = 256) and K3 (64 picks) in the long
+    form's keys; rows holding more than 32 live queue slots at the end; the
+    state's bytes equal to the static projection. Prints its rounds/s
+    beside the flagship's (``flag``, this call's phase 4)."""
+    from corrosion_tpu_torch.obs.memory import projected_bytes
+    from corrosion_tpu_torch.sim.scale_step import scale_sim_config
+
+    cfg = scale_sim_config(FLAGSHIP_NODES, **PACKETS)
+    n = cfg.n_nodes
+    suffix = f"/o{cfg.n_origins}/q{cfg.bcast_queue}/w{cfg.buf_slots // 32}"
+    st, state_bytes, rates, sums, forms, peak = _kernel_point(
+        dev, cfg, suffix, workload=queues_workload)
+    rows = _live_slots_past_pick(st)
+    projected = projected_bytes(cfg, n)
+    if rows <= 0:
+        raise AssertionError(f"packets: no row holds more than {ONE_PICK} live queue slots")
+    if projected != state_bytes:
+        raise AssertionError(f"packets: state {state_bytes} bytes != projected {projected}")
+    med, q1, q3 = _spread(rates)
+    print(f"[packets] N={n} {PACKETS}: {len(rates)} batches of 2 rounds at "
+          f"{[repr(x) for x in rates]} rounds/s, median {med!r} (quartiles {q1!r}-{q3!r}; "
+          f"the flagship's median {flag['rounds_per_s']!r} in this call); peak device memory "
+          f"{peak} bytes, state {state_bytes} bytes, projected {projected} bytes; {rows} rows "
+          f"holding more than {ONE_PICK} live queue slots; launches {forms}; info sums {sums}",
+          flush=True)
+    return {"rounds_per_s": med, "peak_bytes": peak, "forms": forms}
+
+
+@contextlib.contextmanager
+def _counting_picks(rows: dict):
+    """Add each emitting ingest call's rows with more than ONE_PICK live
+    picks to ``rows[device type]`` while inside."""
+    from corrosion_tpu_torch.ops import megakernel as mk
+
+    inner = mk.ingest
+
+    def counting(p, x):
+        out = inner(p, x)
+        if p.pig_r:
+            d = x.origin.device.type
+            rows[d] = rows.get(d, 0) + int((out.sel_ok.sum(dim=1) > ONE_PICK).sum())
+        return out
+
+    mk.ingest = counting
+    try:
+        yield rows
+    finally:
+        mk.ingest = inner
+
+
+def phase_packets_trajectory(dev) -> None:
+    """Phase 3's trajectory for the wide packet at PACKETS_TRAJECTORY_NODES,
+    a quarter of the nodes writing each round: card and CPU bitwise equal
+    every round, K2 (m = 256) and K3 (64 picks) in the long form's keys
+    once a round each and K1 once a round, rows with more than 32 live
+    picks on both sides."""
+    from corrosion_tpu_torch.sim.scale_step import scale_sim_config
+
+    rounds = PACKETS_TRAJECTORY_ROUNDS
+    with _counting_picks({}) as picks:
+        forms, sums = phase_trajectory(
+            dev, "wide packet", lambda n, **kw: scale_sim_config(n, **PACKETS, **kw), rounds,
+            n_nodes=PACKETS_TRAJECTORY_NODES, write_p=0.25)
+    _check_deep_launches("wide packet", PACKETS, PACKETS_TRAJECTORY_NODES, forms, rounds)
+    print(f"[trajectory] wide packet: rows with more than {ONE_PICK} live picks over the "
+          f"{rounds} rounds: {picks}", flush=True)
+    if sums["fresh"] <= 0 or min(picks.get(d, 0) for d in ("cpu", "cuda")) <= 0:
+        raise AssertionError(f"wide packet: fresh {sums['fresh']}, rows past {ONE_PICK} "
+                             f"picks {picks}")
 
 
 def phase_writers_trajectory(dev) -> None:
@@ -2174,8 +2396,9 @@ def phase_tables_trajectory(dev) -> None:
 
     rounds = TRAJECTORY_ROUNDS
     forms, sums = phase_trajectory(
-        dev, "large table", lambda n, **kw: scale_sim_config(n, **TABLES, **kw), rounds)
-    cfg = scale_sim_config(TRAJECTORY_NODES, **TABLES)
+        dev, "large table", lambda n, **kw: scale_sim_config(n, **TABLES, **kw), rounds,
+        n_nodes=TABLES_TRAJECTORY_NODES)
+    cfg = scale_sim_config(TABLES_TRAJECTORY_NODES, **TABLES)
     cdt, qdt = plane_dtypes(cfg)
     row = f"{_bits(cdt)}/{_bits(qdt)}/c{cfg.n_cells}"
     swim = sum(v for (k, _), v in forms.items() if k == "swim_tables")
@@ -2468,55 +2691,74 @@ def _same_run(a, b) -> bool:
             and all(np.array_equal(p, q) for p, q in zip(a[0], b[0], strict=True)))
 
 
-def phase_parity(dev) -> dict:
+def parity_references() -> dict:
+    """The CPU half of the parity phase, which needs no kernel (``main`` runs
+    it while nvcc builds them): for each of PARITY_SCRIPTS the script, the
+    pure-Python oracle cluster run on it, the C++ host oracle
+    (``native.NativeCluster``, built by the port's bindings) for the
+    bitwise scripts, and ``run_sim_script`` on the CPU route, each timed."""
+    from corrosion_tpu_torch.native import NativeCluster
+    from corrosion_tpu_torch.sim import parity
+
+    n, o = PARITY_NODES, PARITY_ORIGINS
+    refs = {}
+    for label, gen, args, gen_kw, kw, check in PARITY_SCRIPTS:
+        script = getattr(parity.WorkloadScript, gen)(n, o, *args, **gen_kw)
+        ref = {"script": script}
+        ref["oracle"] = parity.OracleCluster(n, o, script.n_cells, seed=1)
+        t0 = time.perf_counter()
+        ref["oracle_rounds"] = ref["oracle"].run(script, settle_rounds=512)
+        ref["oracle_s"] = time.perf_counter() - t0
+        if check == "bitwise":
+            ref["native"] = NativeCluster(n, o, script.n_cells, fanout=4, sync_peers=2, seed=4)
+            t0 = time.perf_counter()
+            ref["native_rounds"] = ref["native"].run(script, settle_rounds=512)
+            ref["native_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ref["cpu"] = parity.run_sim_script(script, settle_rounds=512, device="cpu", **kw)
+        ref["cpu_s"] = time.perf_counter() - t0
+        refs[label] = ref
+    return refs
+
+
+def phase_parity(dev, refs: dict) -> dict:
     """BASELINE's state-parity check at N = ``PARITY_NODES``: each script
-    through the pure-Python oracle cluster and through the port's
-    ``run_sim_script`` on the card, which must converge, equal the oracle
-    (bitwise for single writers, agreement and validity otherwise; the
-    single-writer scripts also run on ``native.NativeCluster``, the C++
-    host oracle, whose stores must equal the card's planes bitwise), equal
-    the same script on the CPU route bitwise, and launch each kernel once
-    a round on the kernel route (the swim kernel alone on the plain route
-    of multi-cell transactions). The single writer's script with
-    ``PARITY_QUIET_TAIL`` empty rounds appended gives the same result under
-    ``quiet="on"`` as under ``"off"`` with some rounds quiet (no swim
-    launch) and some dense."""
+    through the port's ``run_sim_script`` on the card, which must converge,
+    equal the oracle of ``parity_references`` (bitwise for single writers,
+    agreement and validity otherwise; the single-writer scripts also
+    against ``native.NativeCluster``, the C++ host oracle, whose stores
+    must equal the card's planes bitwise), equal the same script on the
+    CPU route bitwise, and launch each kernel once a round on the kernel
+    route (the swim kernel alone on the plain route of multi-cell
+    transactions). The single writer's script with ``PARITY_QUIET_TAIL``
+    empty rounds appended gives the same result under ``quiet="on"`` as
+    under ``"off"`` with some rounds quiet (no swim launch) and some
+    dense."""
     import torch
 
-    from corrosion_tpu_torch.native import NativeCluster
     from corrosion_tpu_torch.ops import megakernel as mk
     from corrosion_tpu_torch.sim import parity
 
     n, o = PARITY_NODES, PARITY_ORIGINS
     out = {}
     for label, gen, args, gen_kw, kw, check in PARITY_SCRIPTS:
-        script = getattr(parity.WorkloadScript, gen)(n, o, *args, **gen_kw)
-        oc = parity.OracleCluster(n, o, script.n_cells, seed=1)
-        t0 = time.perf_counter()
-        o_taken = oc.run(script, settle_rounds=512)
-        o_s = time.perf_counter() - t0
+        ref = refs[label]
+        script, o_taken, o_s = ref["script"], ref["oracle_rounds"], ref["oracle_s"]
         mk.reset_launches()
         t0 = time.perf_counter()
         card = parity.run_sim_script(script, settle_rounds=512, device=dev, **kw)
         torch.cuda.synchronize()
         card_s = time.perf_counter() - t0
         launches = dict(mk.LAUNCHES)
-        t0 = time.perf_counter()
-        cpu = parity.run_sim_script(script, settle_rounds=512, device="cpu", **kw)
-        cpu_s = time.perf_counter() - t0
+        cpu, cpu_s = ref["cpu"], ref["cpu_s"]
         planes, alive, taken = card
         if check == "bitwise":
-            problems = parity.check_bitwise_parity(oc, planes, alive)
-            # the C++ host oracle (native/corro_host.cpp, built by the port's
-            # bindings) under the same script
-            nat = NativeCluster(n, o, script.n_cells, fanout=4, sync_peers=2, seed=4)
-            t0 = time.perf_counter()
-            n_taken = nat.run(script, settle_rounds=512)
-            n_s = time.perf_counter() - t0
+            problems = parity.check_bitwise_parity(ref["oracle"], planes, alive)
+            n_taken, n_s = ref["native_rounds"], ref["native_s"]
             if n_taken <= 0:
                 problems.append(f"NativeCluster did not converge ({n_taken})")
             problems += [f"native: {p}" for p in
-                         parity.check_bitwise_parity(nat, planes, alive)]
+                         parity.check_bitwise_parity(ref["native"], planes, alive)]
         else:
             problems = parity.check_agreement_validity(script, planes, alive)
         # the round steps run: the script, the final revive-all, the settle
@@ -4217,8 +4459,9 @@ def _check_ingest_ptxas(log: str) -> None:
     (three plane-dtype pairs x the emitting, the narrow and the wide batch x
     one, two or four queue slots a lane (four: the deep form, up to 8 seen
     words) x the register book at 2 or 8 cells a lane and the wide book at
-    8, and both books with the row in global memory, CH = 0); each must have
-    no stack frame and no spills."""
+    8, and both books with the row in global memory, CH = 0; and the long
+    form, KM = 0, with EMIT and in the deep form alone); each must have no
+    stack frame and no spills."""
     import re
 
     seen, bad = set(), []
@@ -4238,8 +4481,9 @@ def _check_ingest_ptxas(log: str) -> None:
         seen.add(form)
     want = {(_PTX_TYPES[ct], _PTX_TYPES[xt], e, f"KM={km}", f"QH={qh}", f"CH={ch}", b)
             for ct, xt in (("s", "a"), ("s", "s"), ("i", "i"))
-            for e, km in (("EMIT", "1"), ("no EMIT", "1"), ("no EMIT", "4"))
-            for qh in ("1", "2", "4")
+            for e, km, qhs in (("EMIT", "1", "124"), ("no EMIT", "1", "124"),
+                               ("no EMIT", "4", "124"), ("EMIT", "0", "4"))
+            for qh in qhs
             for ch, b in (("2", "book a lane"), ("8", "book a lane"), ("8", "wide book"),
                           ("0", "book a lane"), ("0", "wide book"))}
     if bad:
@@ -4264,9 +4508,15 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    cuda_lib.build_all()
+    # the parity phase's CPU half (no kernel) runs while nvcc builds
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        built = pool.submit(cuda_lib.build_all)
+        refs = parity_references()
+        t_refs = time.perf_counter() - t0
+        built.result()
     print(f"[build] {len(cuda_lib.SOURCES)} kernels built in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+          f"{time.perf_counter() - t0:.1f} s (the parity references beside it, "
+          f"{t_refs:.1f} s)", flush=True)
     _check_ingest_ptxas(cuda_lib.build_log("ingest"))
     _check_swim_ptxas(cuda_lib.build_log("swim_tables"))
 
@@ -4284,6 +4534,7 @@ def main() -> int:
     phase_writers_trajectory(dev)
     phase_tables_trajectory(dev)
     phase_queues_trajectory(dev)
+    phase_packets_trajectory(dev)
     done("trajectory")
     flag = phase_flagship(dev)
     done("flagship")
@@ -4293,6 +4544,8 @@ def main() -> int:
     done("tables")
     queues = phase_queues(dev)
     done("queues")
+    packets = phase_packets(dev, flag)
+    done("packets")
     million = phase_million(dev)
     done("million")
     phase_cost(dev, million.pop("audit"))
@@ -4315,7 +4568,7 @@ def main() -> int:
     done("wirebudget")
     phase_full_tx(dev)
     done("full-tx")
-    phase_parity(dev)
+    phase_parity(dev, refs)
     done("parity")
     phase_soak(dev)
     done("soak")
@@ -4325,11 +4578,12 @@ def main() -> int:
     done("agent-trajectory")
     phase_agent(dev)
     done("agent")
-    phase_soak_cli(dev)
-    done("soak-cli")
     bench = _start_overload(dev)
-    san_load = _start_san_load(dev)
+    san_load = None
     try:
+        phase_soak_cli(dev)
+        done("soak-cli")
+        san_load = _start_san_load(dev)
         chaos = phase_chaos(dev)
         done("chaos")
         phase_devcluster(dev)
@@ -4344,7 +4598,8 @@ def main() -> int:
         done("san (the load process's rest)")
     finally:
         _stop_load(bench)
-        _stop_load(san_load)
+        if san_load is not None:
+            _stop_load(san_load)
 
     # each form's launches are read from the path that runs it (0: no path
     # here runs the form); the load forms count the load rig's rounds and
@@ -4353,6 +4608,7 @@ def main() -> int:
     for k, v in chaos["serve_overload_forms"].items():
         serve_forms[k] = serve_forms.get(k, 0) + v
     paths = {"flagship": flag, "writers": writers, "tables": tables, "queues": queues,
+             "packets": packets,
              "million": million, "full": full, "pig0": tx_paths["pig0"],
              "chaos": chaos, "load": {"forms": serve_forms},
              "overload": overload}

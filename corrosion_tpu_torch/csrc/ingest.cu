@@ -4,8 +4,9 @@
 // at megakernel.py:918), in each of its forms:
 //   EMIT = false  ingest_changes_fused (megakernel.py:795), the scale round's
 //                 piggyback receive batch (4 channels x pig_changes messages
-//                 per row) and the full view's recv_slots-wide mailbox (m=96);
-//                 also the local write without payload (m=1);
+//                 per row, up to 4 x 128) and the full view's recv_slots-wide
+//                 mailbox (m=96, up to 512); also the local write without
+//                 payload (m=1);
 //   EMIT = true   local_write_fused (megakernel.py:960), the local write as a
 //                 one-message batch that also selects and packs this round's
 //                 piggyback payload from the updated queue planes.
@@ -26,7 +27,17 @@
 // coalesced. Lanes hold
 //   - the row's messages: message lane + 32k in chunk k < KM (KM = 1 for
 //     m <= 32, 4 for the full view's m = 96), as registers and, for the
-//     per-message flags (live, fresh, recorded, enqueued), as warp ballots;
+//     per-message flags (live, fresh, recorded, enqueued), as warp ballots.
+//     Past 128 messages, or past 32 picks with EMIT (the long form, KM =
+//     0, up to 512 messages: the wide packet's receive of 4 x 64, the full
+//     view's mailbox at recv_slots = 256), no message stays in registers:
+//     each step reads its chunk's fields from the input planes by index (a
+//     row's planes are read again from L1/L2, not from device memory), and
+//     the flags live in shared memory, a ballot word per chunk (LongFlags,
+//     256 bytes a warp); the steps that pair messages (the dedupe, the LWW
+//     winner) load one chunk of each side at a time (holding every chunk's
+//     keys in registers, to broadcast each message once, took these forms
+//     to ~197 registers a thread and was slower at m = 256: PERF.md);
 //   - its origins: lane c < O holds book slot c (head, known_max, org_id,
 //     org_last and its W seen words) when O <= 32; past 32 origins (the
 //     wide book, WO, up to 256) the whole book row is copied to shared
@@ -65,7 +76,9 @@
 // 4. The deep form (QH = 4) sizes the seen words for 8 a slot and the
 // enqueue's ranks for 128: 3,072 bytes a warp at CH = 2, 6,912 at CH = 8,
 // 1,792 at CH = 0; the wide book 18,944 at CH = 8 (37,888 a block of 2
-// rows) and 13,824 at CH = 0. No array is indexed by data in registers:
+// rows) and 13,824 at CH = 0; the long form adds its 256 bytes of flags
+// (38,400 bytes a block at the wide book's CH = 8). No array is indexed by
+// data in registers:
 // every register array is indexed by an unrolled loop counter, so nothing
 // goes to the stack.
 //
@@ -76,20 +89,25 @@
 //   - Dedupe: a message is a duplicate when an earlier live message has the
 //     same (origin, dbv). Within a chunk, __match_any_sync on the 64-bit key
 //     masked to live lanes below this one; across chunks, each live message
-//     of an earlier chunk is broadcast once and compared (O(m) each).
+//     of an earlier chunk is broadcast once and compared (O(m) each; the
+//     long form loads the earlier chunk's keys for each later chunk).
 //   - Claim: each fresh candidate origin above its slot's owner goes into a
 //     shared atomicMax per slot; lane c takes it when the slot is evictable
 //     (owner < 0 || org_last + keep_rounds < now, wrapping add). org_last =
 //     now on a take or when the slot is active (a recorded message on it,
 //     an OR-reduced bitmask; in the wide book each recorded message stores
 //     now into its slot's org_last, the same value from every lane, after
-//     the takes and before the head advance reads it). Seen bits are set with shared atomicOr; known
-//     max takes live && owned; the head advance keeps the explicit branches
+//     the takes and before the head advance reads it). Seen bits are set
+//     with shared atomicOr; known max takes live && owned; the head advance
+//     keeps the explicit branches
 //     for shift counts of 0 and of 32 or more, which C leaves undefined.
 //   - LWW: a fresh message on a valid cell is its cell's batch winner under
 //     (clp, ver, val, site, dbv), the lower index winning a full tie; each
 //     lane checks its own messages against the row's fresh ones, broadcast
-//     one at a time (O(m) each). At most one winner per cell, so winners
+//     one at a time (O(m) each; the long form broadcasts a candidate's cell
+//     alone, a lane whose candidate is on that cell reads both messages'
+//     keys from the input planes, and a chunk's winners are applied once
+//     its comparisons are done). At most one winner per cell, so winners
 //     update the staged store (at CH = 0 the output row) without a race,
 //     unless the incumbent wins the four keys (it also wins an exact tie).
 //   - Enqueue: the pallas body places messages in order, each into the slot
@@ -112,7 +130,8 @@
 //     warp argmin (__reduce_min_sync of the key, then the lowest column
 //     holding it by ballot), which marks its slot taken: E rounds of a few
 //     instructions, not a rank count of O(Q) per slot. Each slot of rank
-//     r < E gathers its message's fields by shuffle.
+//     r < E gathers its message's fields by shuffle (the long form reads
+//     them from the input planes).
 //     At Q = 128 and m = 128 the same rule holds: a message of rank r >=
 //     128 is dropped, and the rounds stop at the first INT32_MAX key.
 //   - EMIT: keep = the first `allowed` live slots (q_origin != kNoQ and
@@ -124,8 +143,10 @@
 //     which compare equal as floats), the first index among equal draws, a
 //     taken slot dropped below every other (a pick past Q is slot 0, as the
 //     pallas body's argmax over all-taken slots gives); sel_ok is value >= 0.
-//     Lane i < R keeps pick i, so R is at most 32. The payload is [N, 11 R],
-//     field-major in each row, with q_seq = 0 and q_nseq = 1.
+//     Lane i < R keeps pick i, so R is at most 32; past 32 picks (the long
+//     form, up to 128) lane i % 32 keeps pick i as its (i / 32)-th of up to
+//     QH = 4. The payload is [N, 11 R], field-major in each row, with q_seq
+//     = 0 and q_nseq = 1, written in pick order.
 //
 // Wrapping int32 arithmetic goes through uint32. q_cell (CT) and q_tx (XT)
 // have types of their own, widened to int32 in registers and cast at the
@@ -134,12 +155,18 @@
 //
 // Instantiations: 3 type pairs x {EMIT with m <= 32, non-emitting m <= 32,
 // non-emitting m <= 128} x QH {1, 2, 4} x {the register book at CH 2, 8 and
-// 0, the wide book at CH 8 and 0} = 135. The shallow forms (QH 1 and 2) hold
+// 0, the wide book at CH 8 and 0} = 135, and the long form (KM = 0: the
+// emitting batches past 32 messages or 32 picks, the non-emitting ones past
+// 128 messages) in the deep form alone (QH = 4, whatever Q and W are) and
+// with EMIT alone (it emits when pig_r > 0: the launcher sets pig_r = 0
+// for a non-emitting batch, where a twin without EMIT would double the 15
+// and the build), 3 x 5 = 15 more, 150 in all. The shallow forms (QH 1 and
+// 2) hold
 // up to 4 seen words; the deep form (QH 4) up to 8, in registers for the
 // register book (the seen check's shuffles and the head advance's selects
 // run over 8 words) and in shared memory for the wide book. ptxas
 // (-Xptxas -v, printed and checked by chip_smoke.py's build phase) reports
-// 0 bytes of stack frame and 0 bytes of spill for all 135. The shallow
+// 0 bytes of stack frame and 0 bytes of spill for all 150. The shallow
 // forms: all 18 at CH = 2, 9,216 bytes of shared memory a block (4 rows),
 // and registers: m <= 32 non-emitting 56 (Q <= 32) / 70 (Q = 64), emitting
 // 61-62 / 72, m <= 128 109 / 113-122; at CH = 8, 24,576 bytes a
@@ -154,7 +181,10 @@
 // block) 115-119 / 101-102 / 136-138; at CH = 8 (27,648 bytes) 115-127 /
 // 96-102 / 128-143; at CH = 0 (7,168 bytes) 112-120 / 96 / 128-145; wide
 // book at CH = 8 (37,888 bytes, 2 rows) 126-127 / 121-122 / 152-154; at
-// CH = 0 (27,648 bytes) 126 / 113 / 128.
+// CH = 0 (27,648 bytes) 126 / 113 / 128. The long form, registers a
+// thread: the register book at CH = 2 (13,312 bytes a block), 8 (28,672)
+// and 0 (8,192) 92-96; the wide book at CH = 8 (38,400 bytes, 2 rows) and
+// 0 (28,160) 104-111.
 // Times on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit (kernel device
 // time from torch.profiler; chip_smoke.py, random inputs): the 1M point's
 // receive 2.11 ms and emitting write 2.02 ms against bounds of 1.68 and
@@ -173,11 +203,18 @@
 // queue slots, 8 seen words, int16/int16): the receive of 128 messages 2.95
 // ms against a bound of 1.38 ms by bytes, held back by its O(m) broadcast
 // loops (the dedupe across chunks and the LWW winner check); the emitting
-// write (32 picks) 1.78 ms against 1.35.
+// write (32 picks) 1.78 ms against 1.35. The long form at the wide packet
+// (the deep queue with 64 changes a packet): the receive of 256 messages
+// 13.06-14.60 ms against a bound of 1.49 ms by bytes, held back by its
+// pairwise loops (O(m^2 / 32) dependent shuffles a row, at 10 warps an SM
+// with the wide book); the emitting write (64 picks) 2.06-2.09 ms against
+// 1.39; a receive of 512 messages 48.13 ms against 1.69, 128 picks 2.23
+// ms against 1.49.
 
 #include <cstdint>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 namespace {
 
@@ -187,8 +224,14 @@ constexpr int kRowsPerBlock = 4;
 // the wide book's form: 2 rows a block keep its shared rows (14,592 bytes a
 // warp) under the 48 KB of static shared memory a block
 constexpr int kRowsPerBlockWide = 2;
-constexpr int kMaxMsgs = 32;  // scale batches, and every emitting form
+constexpr int kMaxMsgs = 32;  // scale batches, and the emitting forms of KM = 1
 constexpr int kMaxMsgsWide = 128;  // the full view's recv_slots mailboxes
+// the long form (KM = 0): the batch stays in global memory, its flags in
+// shared memory (a ballot word per 32 messages); it takes up to 4 picks a
+// lane (the deep form's 128 queue slots)
+constexpr int kMaxMsgsLong = 512;
+constexpr int kLongChunks = kMaxMsgsLong / 32;
+constexpr int kMaxPigLong = 128;
 constexpr int kMaxOrigins = 32;  // a book slot a lane, in registers
 constexpr int kMaxOriginsWide = 256;  // the book in shared memory
 // the shallow forms (QH 1 and 2) hold up to 4 seen words and 64 queue
@@ -336,6 +379,64 @@ struct WarpSmem<CH, true, QH> : StoreRow<CH> {
   int32_t org_last[kMaxOriginsWide];
 };
 
+// The long form's per-message flags, message lane + 32k at bit `lane` of
+// word k; set by lane 0, read after a __syncwarp().
+struct LongFlags {
+  unsigned live[kLongChunks];  // live and inside the drift horizon
+  unsigned fresh[kLongChunks];
+  unsigned owned[kLongChunks];  // on a slot that tracks its origin after the claim
+  unsigned rec[kLongChunks];  // fresh and owned: recorded
+};
+
+template <int CH, bool WO, int QH>
+struct LongSmem : WarpSmem<CH, WO, QH>, LongFlags {};
+
+template <int KM, int CH, bool WO, int QH>
+using SmemOf = std::conditional_t<KM == 0, LongSmem<CH, WO, QH>, WarpSmem<CH, WO, QH>>;
+
+// the owner and head of book slot `sl` (every lane calls: the register book
+// shuffles them from lane sl)
+template <bool WO, typename S>
+__device__ __forceinline__ void book_slot(const S& sm, int32_t org_id, int32_t head, int sl,
+                                          int32_t& owner, int32_t& h) {
+  if constexpr (WO) {
+    owner = sm.org_id[sl];
+    h = sm.head[sl];
+  } else {
+    owner = __shfl_sync(kFull, org_id, sl);
+    h = __shfl_sync(kFull, head, sl);
+  }
+}
+
+// the long form's LWW write of a batch winner (clp, ver, val, site, dbv) on
+// cell c: over the staged row (CH > 0) or the output row (CH = 0), unless
+// the incumbent wins the four keys (it also wins an exact tie)
+template <int CH, typename S, typename A>
+__device__ __forceinline__ void apply_winner(S& sm, const A& a, int64_t cb, int c, int32_t clp,
+                                             int32_t ver, int32_t val, int32_t site,
+                                             int32_t dbv) {
+  if constexpr (CH > 0) {
+    if (lex_cmp5(sm.store[4][c], sm.store[0][c], sm.store[1][c], sm.store[2][c], 0, clp, ver,
+                 val, site, 0) < 0) {
+      sm.store[0][c] = ver;
+      sm.store[1][c] = val;
+      sm.store[2][c] = site;
+      sm.store[3][c] = dbv;
+      sm.store[4][c] = clp;
+    }
+  } else {
+    const int64_t i = cb + c;
+    if (lex_cmp5(a.store[4][i], a.store[0][i], a.store[1][i], a.store[2][i], 0, clp, ver, val,
+                 site, 0) < 0) {
+      a.o_store[0][i] = ver;
+      a.o_store[1][i] = val;
+      a.o_store[2][i] = site;
+      a.o_store[3][i] = dbv;
+      a.o_store[4][i] = clp;
+    }
+  }
+}
+
 // the head advance of one slot: the trailing ones of its W seen words
 // (returned), and the words shifted down past them
 template <int WM>
@@ -441,12 +542,14 @@ __global__ void __launch_bounds__(32 * (WO ? kRowsPerBlockWide : kRowsPerBlock))
     ingest_kernel(const IngestArgs a) {
   constexpr int kRows = WO ? kRowsPerBlockWide : kRowsPerBlock;
   constexpr int WM = kWordsOf<QH>;  // seen words this form holds
-  __shared__ WarpSmem<CH, WO, QH> smem[kRows];
+  constexpr int KA = KM > 0 ? KM : 1;  // register chunks (the long form's unused)
+  using Smem = SmemOf<KM, CH, WO, QH>;
+  __shared__ Smem smem[kRows];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int64_t r = static_cast<int64_t>(blockIdx.x) * kRows + warp;
   if (r >= a.n) return;  // the whole warp: rows past n are masked
-  WarpSmem<CH, WO, QH>& sm = smem[warp];
+  Smem& sm = smem[warp];
   const int m = a.m, O = a.n_origins, W = a.seen_words, C = a.n_cells, Q = a.q_slots;
   const int kn = (m + 31) >> 5;  // chunks in use
   const unsigned below = (1u << lane) - 1u;  // lanes below this one
@@ -505,8 +608,8 @@ __global__ void __launch_bounds__(32 * (WO ? kRowsPerBlockWide : kRowsPerBlock))
 
   // --- loads: messages, book, queue -----------------------------------------
   const int64_t mb = r * m;
-  int32_t origin[KM], dbv[KM], ts[KM];
-  unsigned live_b[KM];
+  int32_t origin[KA], dbv[KA], ts[KA];
+  unsigned live_b[KA];
 #pragma unroll
   for (int k = 0; k < KM; ++k) {
     const int j = lane + 32 * k;
@@ -548,7 +651,7 @@ __global__ void __launch_bounds__(32 * (WO ? kRowsPerBlockWide : kRowsPerBlock))
   }
   float rand[QH];
   int32_t carried = 1;
-  if constexpr (EMIT) {
+  if constexpr (EMIT && KM > 0) {  // the long form reads them at the payload
 #pragma unroll
     for (int h = 0; h < QH; ++h) {
       const int q = lane + 32 * h;
@@ -569,6 +672,21 @@ __global__ void __launch_bounds__(32 * (WO ? kRowsPerBlockWide : kRowsPerBlock))
     drift += __popc(__ballot_sync(kFull, lv && !ok));
     live_b[k] = __ballot_sync(kFull, ok);
   }
+  if constexpr (KM == 0) {
+    // the long form: a chunk of 32 messages at a time, read where it is used
+    for (int k = 0; k < kn; ++k) {
+      const int j = lane + 32 * k;
+      const bool in = j < m;
+      const int32_t t = in ? a.ts[mb + j] : 0;
+      const bool lv = in && a.live[mb + j] != 0;
+      const bool ok = lv && (t >> a.hlc_round_bits) <= horizon;
+      if (in) folded = max(folded, ok ? t : 0);
+      drift += __popc(__ballot_sync(kFull, lv && !ok));
+      const unsigned ok_b = __ballot_sync(kFull, ok);
+      if (lane == 0) sm.live[k] = ok_b;
+    }
+    __syncwarp();
+  }
   folded = __reduce_max_sync(kFull, folded);
   if (lane == 0) {
     const int32_t hlc_in = a.hlc[r];
@@ -581,8 +699,8 @@ __global__ void __launch_bounds__(32 * (WO ? kRowsPerBlockWide : kRowsPerBlock))
     __pipeline_wait_prior(1);  // the book's copies, not the store row's
     __syncwarp();
   }
-  unsigned fresh_b[KM];
-  bool dup[KM];
+  unsigned fresh_b[KA];
+  bool dup[KA];
 #pragma unroll
   for (int k = 0; k < KM; ++k) {
     const unsigned long long key =
@@ -637,9 +755,60 @@ __global__ void __launch_bounds__(32 * (WO ? kRowsPerBlockWide : kRowsPerBlock))
     const bool seen_b = lv && owned_pre && (dbv[k] <= h || (in_win && hit));
     fresh_b[k] = __ballot_sync(kFull, lv && !seen_b && !dup[k]);
   }
+  if constexpr (KM == 0) {
+    for (int k = 0; k < kn; ++k) {
+      const int j = lane + 32 * k;
+      const bool in = j < m;
+      const int32_t o_j = in ? a.origin[mb + j] : -1;
+      const int32_t d_j = in ? a.dbv[mb + j] : 0;
+      const unsigned live_k = sm.live[k];
+      const unsigned long long key =
+          (static_cast<unsigned long long>(static_cast<uint32_t>(o_j)) << 32) |
+          static_cast<uint32_t>(d_j);
+      bool dup_j = (__match_any_sync(kFull, key) & live_k & below) != 0u;
+      for (int ks = 0; ks < k; ++ks) {  // each live message of an earlier chunk
+        unsigned bits = sm.live[ks];
+        if (bits == 0u) continue;
+        const int js = lane + 32 * ks;
+        const int32_t o_s = js < m ? a.origin[mb + js] : -1;
+        const int32_t d_s = js < m ? a.dbv[mb + js] : 0;
+        while (bits) {
+          const int t = __ffs(bits) - 1;
+          bits &= bits - 1u;
+          const int32_t ot = __shfl_sync(kFull, o_s, t);
+          const int32_t dt = __shfl_sync(kFull, d_s, t);
+          dup_j = dup_j || (ot == o_j && dt == d_j);
+        }
+      }
+      const int sl = o_j >= 0 ? o_j % O : 0;
+      int32_t owner, h;
+      book_slot<WO>(sm, org_id, head, sl, owner, h);
+      const int32_t off = wrap_sub(wrap_sub(d_j, h), 1);
+      const bool in_win = off >= 0 && off < 32 * W;
+      const int wi = in_win ? (off >> 5) : 0;
+      uint32_t word = 0u;
+      if constexpr (WO) {
+        word = sm.seen[sl * W + wi];
+      } else {
+#pragma unroll
+        for (int w = 0; w < WM; ++w) {
+          if (w < W) {
+            const uint32_t x = __shfl_sync(kFull, sw[w], sl);
+            if (w == wi) word = x;
+          }
+        }
+      }
+      const bool hit = ((word >> (off & 31)) & 1u) == 1u;
+      const bool lv = bit(live_k, lane);
+      const bool seen_b = lv && o_j >= 0 && owner == o_j && (d_j <= h || (in_win && hit));
+      const unsigned fr = __ballot_sync(kFull, lv && !seen_b && !dup_j);
+      if (lane == 0) sm.fresh[k] = fr;
+    }
+    __syncwarp();
+  }
 
   // --- the fresh messages' remaining fields (read now, used from the LWW on)
-  int32_t cell[KM], ver[KM], val[KM], site[KM], clp[KM], bud[KM];
+  int32_t cell[KA], ver[KA], val[KA], site[KA], clp[KA], bud[KA];
 #pragma unroll
   for (int k = 0; k < KM; ++k) {
     const int64_t j = mb + lane + 32 * k;
@@ -671,6 +840,16 @@ __global__ void __launch_bounds__(32 * (WO ? kRowsPerBlockWide : kRowsPerBlock))
     }
     if (bit(fresh_b[k], lane) && o_j >= 0 && o_j > owner) atomicMax(&sm.cand[sl], o_j);
   }
+  if constexpr (KM == 0) {
+    for (int k = 0; k < kn; ++k) {
+      const int j = lane + 32 * k;
+      const int32_t o_j = j < m ? a.origin[mb + j] : -1;
+      const int sl = o_j >= 0 ? o_j % O : 0;
+      int32_t owner, h;
+      book_slot<WO>(sm, org_id, head, sl, owner, h);
+      if (bit(sm.fresh[k], lane) && o_j >= 0 && o_j > owner) atomicMax(&sm.cand[sl], o_j);
+    }
+  }
   __syncwarp();
   bool take = false;
   if constexpr (WO) {
@@ -697,7 +876,7 @@ __global__ void __launch_bounds__(32 * (WO ? kRowsPerBlockWide : kRowsPerBlock))
   // recorded messages: fresh and owned after the claim; a slot is active
   // when one of them lies on it (with WO its recorded messages mark it now:
   // every lane stores the same value)
-  unsigned rec_b[KM], owned_b[KM];
+  unsigned rec_b[KA], owned_b[KA];
   unsigned active = 0u;
 #pragma unroll
   for (int k = 0; k < KM; ++k) {
@@ -717,6 +896,28 @@ __global__ void __launch_bounds__(32 * (WO ? kRowsPerBlockWide : kRowsPerBlock))
       if (rec) sm.org_last[sl] = now;
     } else {
       active |= rec ? (1u << sl) : 0u;
+    }
+  }
+  if constexpr (KM == 0) {
+    for (int k = 0; k < kn; ++k) {
+      const int j = lane + 32 * k;
+      const int32_t o_j = j < m ? a.origin[mb + j] : -1;
+      const int sl = o_j >= 0 ? o_j % O : 0;
+      int32_t owner, h;
+      book_slot<WO>(sm, org_id, head, sl, owner, h);
+      const bool owned = o_j >= 0 && owner == o_j;
+      const bool rec = bit(sm.fresh[k], lane) && owned;
+      const unsigned o_b = __ballot_sync(kFull, owned);
+      const unsigned r_b = __ballot_sync(kFull, rec);
+      if (lane == 0) {
+        sm.owned[k] = o_b;
+        sm.rec[k] = r_b;
+      }
+      if constexpr (WO) {
+        if (rec) sm.org_last[sl] = now;
+      } else {
+        active |= rec ? (1u << sl) : 0u;
+      }
     }
   }
   if constexpr (!WO) active = __reduce_or_sync(kFull, active);
@@ -751,6 +952,21 @@ __global__ void __launch_bounds__(32 * (WO ? kRowsPerBlockWide : kRowsPerBlock))
     const bool in_win = off >= 0 && off < 32 * W;
     if (bit(rec_b[k], lane) && in_win) atomicOr(&sm.seen[sl * W + (off >> 5)], 1u << (off & 31));
     if (bit(live_b[k], lane) && bit(owned_b[k], lane)) atomicMax(&sm.km[sl], dbv[k]);
+  }
+  if constexpr (KM == 0) {
+    for (int k = 0; k < kn; ++k) {
+      const int j = lane + 32 * k;
+      const bool in = j < m;
+      const int32_t o_j = in ? a.origin[mb + j] : -1;
+      const int32_t d_j = in ? a.dbv[mb + j] : 0;
+      const int sl = o_j >= 0 ? o_j % O : 0;
+      int32_t owner, h;
+      book_slot<WO>(sm, org_id, head, sl, owner, h);
+      const int32_t off = wrap_sub(wrap_sub(d_j, h), 1);
+      const bool in_win = off >= 0 && off < 32 * W;
+      if (bit(sm.rec[k], lane) && in_win) atomicOr(&sm.seen[sl * W + (off >> 5)], 1u << (off & 31));
+      if (bit(sm.live[k], lane) && bit(sm.owned[k], lane)) atomicMax(&sm.km[sl], d_j);
+    }
   }
   __syncwarp();
 
@@ -794,10 +1010,16 @@ __global__ void __launch_bounds__(32 * (WO ? kRowsPerBlockWide : kRowsPerBlock))
     const int j = lane + 32 * k;
     if (j < m) a.o_fresh[mb + j] = bit(fresh_b[k], lane) ? 1 : 0;
   }
+  if constexpr (KM == 0) {
+    for (int k = 0; k < kn; ++k) {
+      const int j = lane + 32 * k;
+      if (j < m) a.o_fresh[mb + j] = bit(sm.fresh[k], lane) ? 1 : 0;
+    }
+  }
 
   // --- LWW apply of fresh cells --------------------------------------------
-  unsigned cand_b[KM];
-  bool best[KM];
+  unsigned cand_b[KA];
+  bool best[KA];
 #pragma unroll
   for (int k = 0; k < KM; ++k) {
     best[k] = bit(fresh_b[k], lane) && cell[k] >= 0 && cell[k] < C;
@@ -858,6 +1080,41 @@ __global__ void __launch_bounds__(32 * (WO ? kRowsPerBlockWide : kRowsPerBlock))
       }
     }
   }
+  if constexpr (KM == 0) {
+    // each chunk's candidates against every chunk's, broadcast one at a
+    // time by cell (O(m) each); where a lane's candidate is on that cell,
+    // the lane reads both messages' keys where they lie; a chunk's winners
+    // are applied once its comparisons are done
+    for (int kd = 0; kd < kn; ++kd) {
+      const int j = lane + 32 * kd;
+      const bool fr = bit(sm.fresh[kd], lane);
+      const int32_t c = fr ? a.cell[mb + j] : -1;
+      bool win = fr && c >= 0 && c < C;
+      if (__ballot_sync(kFull, win) == 0u) continue;
+      for (int ks = 0; ks < kn; ++ks) {
+        const int js = lane + 32 * ks;
+        const bool fs = bit(sm.fresh[ks], lane);
+        const int32_t cs = fs ? a.cell[mb + js] : -1;
+        unsigned bits = __ballot_sync(kFull, fs && cs >= 0 && cs < C);
+        while (bits) {
+          const int t = __ffs(bits) - 1;
+          bits &= bits - 1u;
+          const int32_t ct = __shfl_sync(kFull, cs, t);
+          const int tj = t + 32 * ks;
+          if (win && ct == c && tj != j) {
+            const int64_t ti = mb + tj, ji = mb + j;
+            const int cmp = lex_cmp5(a.clp[ti], a.ver[ti], a.val[ti], a.site[ti], a.dbv[ti],
+                                     a.clp[ji], a.ver[ji], a.val[ji], a.site[ji], a.dbv[ji]);
+            if (cmp > 0 || (cmp == 0 && tj < j)) win = false;
+          }
+        }
+      }
+      if (win) {
+        const int64_t ji = mb + j;
+        apply_winner<CH>(sm, a, cb, c, a.clp[ji], a.ver[ji], a.val[ji], a.site[ji], a.dbv[ji]);
+      }
+    }
+  }
   __syncwarp();
   if constexpr (CH > 0) {
 #pragma unroll
@@ -878,6 +1135,14 @@ __global__ void __launch_bounds__(32 * (WO ? kRowsPerBlockWide : kRowsPerBlock))
     const int rk = n_enq + __popc(eb & below);
     if (bit(eb, lane) && rk < Q) sm.msg_of_rank[rk] = lane + 32 * k;
     n_enq += __popc(eb);
+  }
+  if constexpr (KM == 0) {
+    for (int k = 0; k < kn; ++k) {
+      const unsigned eb = a.enqueue_all ? sm.fresh[k] : sm.rec[k];
+      const int rk = n_enq + __popc(eb & below);
+      if (bit(eb, lane) && rk < Q) sm.msg_of_rank[rk] = lane + 32 * k;
+      n_enq += __popc(eb);
+    }
   }
   // the slot of rank r, r < min(E, Q): r + 1 rounds of a warp argmin of the
   // evict key (the lowest column among equal keys), each taking its slot
@@ -910,15 +1175,31 @@ __global__ void __launch_bounds__(32 * (WO ? kRowsPerBlockWide : kRowsPerBlock))
     const bool placed = my_rank[h] >= 0;
     const int j = placed ? sm.msg_of_rank[my_rank[h]] : 0;
     const int src = j & 31, ch = j >> 5;
-    const int32_t f_origin = shfl_chunk(origin, src, ch, kn);
-    const int32_t f_dbv = shfl_chunk(dbv, src, ch, kn);
-    const int32_t f_cell = shfl_chunk(cell, src, ch, kn);
-    const int32_t f_ver = shfl_chunk(ver, src, ch, kn);
-    const int32_t f_val = shfl_chunk(val, src, ch, kn);
-    const int32_t f_site = shfl_chunk(site, src, ch, kn);
-    const int32_t f_clp = shfl_chunk(clp, src, ch, kn);
-    const int32_t f_ts = shfl_chunk(ts, src, ch, kn);
-    const int32_t f_bud = shfl_chunk(bud, src, ch, kn);
+    int32_t f_origin = 0, f_dbv = 0, f_cell = 0, f_ver = 0, f_val = 0, f_site = 0, f_clp = 0,
+            f_ts = 0, f_bud = 0;
+    if constexpr (KM > 0) {
+      f_origin = shfl_chunk(origin, src, ch, kn);
+      f_dbv = shfl_chunk(dbv, src, ch, kn);
+      f_cell = shfl_chunk(cell, src, ch, kn);
+      f_ver = shfl_chunk(ver, src, ch, kn);
+      f_val = shfl_chunk(val, src, ch, kn);
+      f_site = shfl_chunk(site, src, ch, kn);
+      f_clp = shfl_chunk(clp, src, ch, kn);
+      f_ts = shfl_chunk(ts, src, ch, kn);
+      f_bud = shfl_chunk(bud, src, ch, kn);
+    } else if (placed) {
+      // the long form reads the placed (fresh) message where it lies
+      const int64_t i = mb + j;
+      f_origin = a.origin[i];
+      f_dbv = a.dbv[i];
+      f_cell = a.cell[i];
+      f_ver = a.ver[i];
+      f_val = a.val[i];
+      f_site = a.site[i];
+      f_clp = a.clp[i];
+      f_ts = a.ts[i];
+      f_bud = a.budget[i];
+    }
     if (placed) {
       qo[h] = f_origin;
       qd[h] = f_dbv;
@@ -944,6 +1225,17 @@ __global__ void __launch_bounds__(32 * (WO ? kRowsPerBlockWide : kRowsPerBlock))
   }
 
   if constexpr (EMIT) {
+    if constexpr (KM == 0) {
+      // the long form's one instantiation a book and cell width takes the
+      // non-emitting batches too, as pig_r = 0
+      if (a.pig_r == 0) return;
+#pragma unroll
+      for (int h = 0; h < QH; ++h) {
+        const int q = lane + 32 * h;
+        rand[h] = q < Q ? a.rand[qb + q] : 0.0f;
+      }
+      carried = max(a.carried[r], 1);
+    }
     // --- piggyback payload selection from the updated queue ---------------
     const int R = a.pig_r;
     const int32_t allowed = max(a.budget_bytes / (a.wire_bytes * carried), 1);
@@ -984,60 +1276,116 @@ __global__ void __launch_bounds__(32 * (WO ? kRowsPerBlockWide : kRowsPerBlock))
       const float v = keep[h] ? rand[h] : -1.0f;
       pkey[h] = lane + 32 * h < Q ? float_order(v) : kIntMin;
     }
-    int my_pick = 0;
-    int32_t my_ok = 0;
-    for (int i = 0; i < R; ++i) {
-      int32_t best_key = kIntMin;
-      const int slot = warp_arg_most<QH>(pkey, best_key);
+    if constexpr (KM > 0) {
+      int my_pick = 0;
+      int32_t my_ok = 0;
+      for (int i = 0; i < R; ++i) {
+        int32_t best_key = kIntMin;
+        const int slot = warp_arg_most<QH>(pkey, best_key);
 #pragma unroll
-      for (int h = 0; h < QH; ++h) {
-        if (lane + 32 * h == slot) pkey[h] = kIntMin;
+        for (int h = 0; h < QH; ++h) {
+          if (lane + 32 * h == slot) pkey[h] = kIntMin;
+        }
+        if (lane == i) {
+          my_pick = slot;
+          my_ok = best_key >= 0 ? 1 : 0;  // the draw is >= 0.0
+        }
       }
-      if (lane == i) {
-        my_pick = slot;
-        my_ok = best_key >= 0 ? 1 : 0;  // the draw is >= 0.0
+      // lane i < R packs pick i
+      const int src = my_pick & 31, hs = my_pick >> 5;
+      const int32_t p_origin = shfl_chunk(qo, src, hs, QH);
+      const int32_t p_dbv = shfl_chunk(qd, src, hs, QH);
+      const int32_t p_cell = shfl_chunk(qc, src, hs, QH);
+      const int32_t p_ver = shfl_chunk(qv, src, hs, QH);
+      const int32_t p_val = shfl_chunk(qval, src, hs, QH);
+      const int32_t p_site = shfl_chunk(qs, src, hs, QH);
+      const int32_t p_clp = shfl_chunk(qcl, src, hs, QH);
+      const int32_t p_ts = shfl_chunk(qt, src, hs, QH);
+      if (lane < R) {
+        int32_t* pay = a.o_payload + r * 11 * R;
+        pay[0 * R + lane] = p_origin;
+        pay[1 * R + lane] = p_dbv;
+        pay[2 * R + lane] = p_cell;
+        pay[3 * R + lane] = p_ver;
+        pay[4 * R + lane] = p_val;
+        pay[5 * R + lane] = p_site;
+        pay[6 * R + lane] = p_clp;
+        pay[7 * R + lane] = 0;  // q_seq: single-cell versions
+        pay[8 * R + lane] = 1;  // q_nseq
+        pay[9 * R + lane] = p_ts;
+        pay[10 * R + lane] = my_ok;
+        a.o_sel[r * R + lane] = my_pick;
+        a.o_selok[r * R + lane] = static_cast<uint8_t>(my_ok);
       }
-    }
-    // lane i < R packs pick i
-    const int src = my_pick & 31, hs = my_pick >> 5;
-    const int32_t p_origin = shfl_chunk(qo, src, hs, QH);
-    const int32_t p_dbv = shfl_chunk(qd, src, hs, QH);
-    const int32_t p_cell = shfl_chunk(qc, src, hs, QH);
-    const int32_t p_ver = shfl_chunk(qv, src, hs, QH);
-    const int32_t p_val = shfl_chunk(qval, src, hs, QH);
-    const int32_t p_site = shfl_chunk(qs, src, hs, QH);
-    const int32_t p_clp = shfl_chunk(qcl, src, hs, QH);
-    const int32_t p_ts = shfl_chunk(qt, src, hs, QH);
-    if (lane < R) {
+    } else {
+      // the long form: pick i at lane i % 32, the (i / 32)-th of its QH
+      int my_pick[QH], my_ok[QH];
+#pragma unroll
+      for (int p = 0; p < QH; ++p) {
+        my_pick[p] = 0;
+        my_ok[p] = 0;
+      }
+      for (int i = 0; i < R; ++i) {
+        int32_t best_key = kIntMin;
+        const int slot = warp_arg_most<QH>(pkey, best_key);
+#pragma unroll
+        for (int h = 0; h < QH; ++h) {
+          if (lane + 32 * h == slot) pkey[h] = kIntMin;
+        }
+#pragma unroll
+        for (int p = 0; p < QH; ++p) {
+          if (lane + 32 * p == i) {
+            my_pick[p] = slot;
+            my_ok[p] = best_key >= 0 ? 1 : 0;
+          }
+        }
+      }
       int32_t* pay = a.o_payload + r * 11 * R;
-      pay[0 * R + lane] = p_origin;
-      pay[1 * R + lane] = p_dbv;
-      pay[2 * R + lane] = p_cell;
-      pay[3 * R + lane] = p_ver;
-      pay[4 * R + lane] = p_val;
-      pay[5 * R + lane] = p_site;
-      pay[6 * R + lane] = p_clp;
-      pay[7 * R + lane] = 0;  // q_seq: single-cell versions
-      pay[8 * R + lane] = 1;  // q_nseq
-      pay[9 * R + lane] = p_ts;
-      pay[10 * R + lane] = my_ok;
-      a.o_sel[r * R + lane] = my_pick;
-      a.o_selok[r * R + lane] = static_cast<uint8_t>(my_ok);
+#pragma unroll
+      for (int p = 0; p < QH; ++p) {
+        if (32 * p >= R) break;  // the whole warp
+        const int src = my_pick[p] & 31, hs = my_pick[p] >> 5;
+        const int32_t p_origin = shfl_chunk(qo, src, hs, QH);
+        const int32_t p_dbv = shfl_chunk(qd, src, hs, QH);
+        const int32_t p_cell = shfl_chunk(qc, src, hs, QH);
+        const int32_t p_ver = shfl_chunk(qv, src, hs, QH);
+        const int32_t p_val = shfl_chunk(qval, src, hs, QH);
+        const int32_t p_site = shfl_chunk(qs, src, hs, QH);
+        const int32_t p_clp = shfl_chunk(qcl, src, hs, QH);
+        const int32_t p_ts = shfl_chunk(qt, src, hs, QH);
+        const int i = lane + 32 * p;
+        if (i < R) {
+          pay[0 * R + i] = p_origin;
+          pay[1 * R + i] = p_dbv;
+          pay[2 * R + i] = p_cell;
+          pay[3 * R + i] = p_ver;
+          pay[4 * R + i] = p_val;
+          pay[5 * R + i] = p_site;
+          pay[6 * R + i] = p_clp;
+          pay[7 * R + i] = 0;
+          pay[8 * R + i] = 1;
+          pay[9 * R + i] = p_ts;
+          pay[10 * R + i] = my_ok[p];
+          a.o_sel[r * R + i] = my_pick[p];
+          a.o_selok[r * R + i] = static_cast<uint8_t>(my_ok[p]);
+        }
+      }
     }
   }
 }
 
 // out: the widest batch (m) of any form, origins, seen words, queue slots,
-// payload entries, the widest batch of the narrow (and every emitting)
-// instantiation, cells (any form: past ingest_staged_cells() the row stays
-// in global memory), and the most origins of the register book (past them
-// the wide book's instantiation runs).
+// payload entries (picks), the widest batch of the narrow instantiation
+// (and of the emitting one of up to kMaxPig picks), cells (any form: past
+// ingest_staged_cells() the row stays in global memory), and the most
+// origins of the register book (past them the wide book's instantiation
+// runs).
 extern "C" int ingest_limits(int* out) {
-  out[0] = kMaxMsgsWide;
+  out[0] = kMaxMsgsLong;
   out[1] = kMaxOriginsWide;
   out[2] = kMaxWordsDeep;
   out[3] = kMaxQueueDeep;
-  out[4] = kMaxPig;
+  out[4] = kMaxPigLong;
   out[5] = kMaxMsgs;
   out[6] = kMaxCells;
   out[7] = kMaxOrigins;
@@ -1053,6 +1401,15 @@ extern "C" int ingest_staged_cells() { return kMaxStagedCells; }
 extern "C" int ingest_shallow_limits(int* out) {
   out[0] = kMaxWords;
   out[1] = kMaxQueue;
+  return 0;
+}
+
+// out: the widest batch held in registers (KM 1 and 4) and the most picks
+// of the emitting form with one pick a lane (KM = 1); past either the long
+// form (KM = 0) runs
+extern "C" int ingest_long_limits(int* out) {
+  out[0] = kMaxMsgsWide;
+  out[1] = kMaxPig;
   return 0;
 }
 
@@ -1073,7 +1430,10 @@ static void launch_rows(const IngestArgs* a, cudaStream_t s) {
 // the deep form (QH = 4, up to 8 words), whatever the other width is
 template <typename CT, typename XT, bool EMIT, int KM, int CH, bool WO>
 static void launch_queue(const IngestArgs* a, cudaStream_t s) {
-  if (a->seen_words > kMaxWords || a->q_slots > kMaxQueue) {
+  if constexpr (KM == 0) {
+    // the long form is instantiated in the deep form alone
+    launch_rows<CT, XT, EMIT, 0, kMaxQueueDeep / 32, CH, WO>(a, s);
+  } else if (a->seen_words > kMaxWords || a->q_slots > kMaxQueue) {
     launch_rows<CT, XT, EMIT, KM, kMaxQueueDeep / 32, CH, WO>(a, s);
   } else if (a->q_slots <= 32) {
     launch_rows<CT, XT, EMIT, KM, 1, CH, WO>(a, s);
@@ -1102,11 +1462,20 @@ static void launch_cells(const IngestArgs* a, cudaStream_t s) {
 template <typename CT, typename XT>
 static void launch_form(const IngestArgs* a, int emit, cudaStream_t s) {
   if (emit) {
-    launch_cells<CT, XT, true, kMaxMsgs / 32>(a, s);
+    if (a->m <= kMaxMsgs && a->pig_r <= kMaxPig) {
+      launch_cells<CT, XT, true, kMaxMsgs / 32>(a, s);
+    } else {
+      launch_cells<CT, XT, true, 0>(a, s);
+    }
   } else if (a->m <= kMaxMsgs) {
     launch_cells<CT, XT, false, kMaxMsgs / 32>(a, s);
-  } else {
+  } else if (a->m <= kMaxMsgsWide) {
     launch_cells<CT, XT, false, kMaxMsgsWide / 32>(a, s);
+  } else {
+    // the long form's instantiation emits when pig_r > 0
+    IngestArgs b = *a;
+    b.pig_r = 0;
+    launch_cells<CT, XT, true, 0>(&b, s);
   }
 }
 
@@ -1115,10 +1484,10 @@ static void launch_form(const IngestArgs* a, int emit, cudaStream_t s) {
 // or cudaErrorInvalidValue for any other pair or for widths past the limits.
 extern "C" int ingest_launch(const IngestArgs* a, int cell_bytes, int tx_bytes,
                              int emit, void* stream) {
-  if (a->m < 0 || a->m > (emit ? kMaxMsgs : kMaxMsgsWide) || a->n_origins < 1 ||
+  if (a->m < 0 || a->m > kMaxMsgsLong || a->n_origins < 1 ||
       a->n_origins > kMaxOriginsWide || a->seen_words > kMaxWordsDeep ||
       a->q_slots > kMaxQueueDeep ||
-      a->n_cells > kMaxCells || a->pig_r > kMaxPig) {
+      a->n_cells > kMaxCells || a->pig_r > kMaxPigLong) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (a->n == 0) return 0;

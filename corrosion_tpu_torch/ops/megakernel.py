@@ -55,8 +55,9 @@ LAUNCHES = {"swim_tables": 0, "ingest": 0, "ingest_emit": 0}
 #: "aligned" or "packed" with its timer and budget bits, e.g.
 #: "packed/16/8"; the ingest kernel's its q_cell and q_tx bits, e.g. "16/8",
 #: the batch width where it takes the wide instantiation, e.g.
-#: "32/32/m96", or where the batch is empty, e.g. "16/16/m0", and the
-#: origins where they take the wide book (more than 32), e.g. "16/16/o256"
+#: "32/32/m96", or where the batch is empty, e.g. "16/16/m0", the origins
+#: where they take the wide book (more than 32), e.g. "16/16/o256", and the
+#: payload picks past one a lane, e.g. "16/16/o256/q128/w8/r64"
 FORM_LAUNCHES: dict = {}
 
 
@@ -332,8 +333,6 @@ def ingest_plain(p: IngestParams, x: IngestInputs) -> IngestOutputs:
             for f in ("live",) + _MSG_FIELDS}))
         return out._replace(fresh=out.fresh[:, :0])
     o, w = p.n_origins, p.seen_words
-    m = x.origin.shape[1]
-    dev = x.origin.device
     origin, dbv, now = x.origin, x.dbv, x.now
 
     # HLC fold with max-drift rejection
@@ -357,10 +356,18 @@ def ingest_plain(p: IngestParams, x: IngestInputs) -> IngestOutputs:
     slot, owned_pre, h_at, in_win, word_idx, bit = window(x.head, x.org_id)
     hit = ((as_u32(lookup_cols(x.seen, word_idx)) >> bit) & 1) == 1
     seen_b = live & owned_pre & ((dbv <= h_at) | (in_win & hit))
-    same = ((origin[:, :, None] == origin[:, None, :])
-            & (dbv[:, :, None] == dbv[:, None, :]) & live[:, None, :])
-    earlier = torch.ones((m, m), dtype=torch.bool, device=dev).tril(-1)
-    dup = (same & earlier).any(dim=2)
+    # a live message repeats an earlier live one's (origin, dbv): ordered by
+    # (not live, key, index), it follows a live message of its key (two
+    # stable sorts, O(m log m) a row where an [N, m, m] compare would not fit
+    # the card at m = 512 and N = 100,000)
+    key = origin.to(torch.int64) * (1 << 32) + (dbv.to(torch.int64) & 0xFFFFFFFF)
+    by_key = torch.argsort(key, dim=1, stable=True)
+    order = by_key.gather(1, torch.argsort((~live).gather(1, by_key).to(torch.int32), dim=1,
+                                           stable=True))
+    k_s, l_s = key.gather(1, order), live.gather(1, order)
+    rep = torch.zeros_like(live)
+    rep[:, 1:] = l_s[:, 1:] & l_s[:, :-1] & (k_s[:, 1:] == k_s[:, :-1])
+    dup = torch.zeros_like(live).scatter_(1, order, rep)
     fresh = live & ~seen_b & ~dup
 
     # slot claim/evict, then record under the post-claim ownership
@@ -451,11 +458,11 @@ def _ingest_cuda(p: IngestParams, x: IngestInputs) -> IngestOutputs:
     lib.ingest_limits(limits)
     n, m = x.origin.shape
     c_cnt, o, w, q = p.n_cells, p.n_origins, p.seen_words, p.q_slots
-    # limits: widest m, O, W, Q, R, the widest m of the narrow (and every
-    # emitting) instantiation, C (any form: past the staged row's cells the
-    # row stays in global memory), the most O of the register book
-    max_m = limits[5] if p.pig_r else limits[0]
-    if (m > max_m or o > limits[1] or w > limits[2] or q > limits[3]
+    # limits: widest m, O, W, Q, R, the widest m of the narrow instantiation
+    # (and of the emitting one of one pick a lane), C (any form: past the
+    # staged row's cells the row stays in global memory), the most O of the
+    # register book
+    if (m > limits[0] or o > limits[1] or w > limits[2] or q > limits[3]
             or p.pig_r > limits[4] or c_cnt > limits[6]):
         raise ValueError(
             f"ingest widths m={m} O={o} W={w} Q={q} R={p.pig_r} C={c_cnt} "
@@ -531,8 +538,9 @@ def _ingest_cuda(p: IngestParams, x: IngestInputs) -> IngestOutputs:
     _raise_on(rc, lib, "ingest_error_string")
     form = f"{8 * x.q_cell.element_size()}/{8 * x.q_tx.element_size()}"
     if m > limits[5] or m == 0:
-        # the wide instantiation (the full view's mailboxes), or the empty
-        # batch (the scale round at pig_changes == 0)
+        # a batch wider than 32 (its messages in registers up to 128, in
+        # global memory past), or the empty batch (the scale round at
+        # pig_changes == 0)
         form += f"/m{m}"
     if o > limits[7]:
         form += f"/o{o}"  # the wide book's instantiation
@@ -545,6 +553,10 @@ def _ingest_cuda(p: IngestParams, x: IngestInputs) -> IngestOutputs:
         form += f"/q{q}"
     if w > shallow[0]:
         form += f"/w{w}"
+    long_limits = (ctypes.c_int * 2)()
+    lib.ingest_long_limits(long_limits)
+    if p.pig_r > long_limits[1]:
+        form += f"/r{p.pig_r}"  # more than one pick a lane (the long form)
     _count_launch("ingest_emit" if p.pig_r else "ingest", form)
     return out
 

@@ -81,16 +81,17 @@ def claim_slots_arrays(head, km, seen_flat, org_id, org_last, origin, fresh,
     free or idle for ``keep_rounds``; a claim resets head/known_max/window.
     Returns ``(head, km, seen_flat, org_id, org_last)``."""
     b, o = head.shape
+    # per-slot maxima by scatter (O(N m) memory, where an [N, m, O] compare
+    # would not fit the card at m = 512, O = 256 and N = 100,000)
     slot = torch.where(origin >= 0, origin % o, 0)
-    cols = torch.arange(o, dtype=slot.dtype, device=slot.device)
-    cand = (fresh & (origin >= 0))[:, :, None] & (slot[:, :, None] == cols)
-    orig3 = origin[:, :, None]
-    foreign = cand & (orig3 > org_id[:, None, :])
-    new_owner = torch.where(foreign, orig3, -1).amax(dim=1)
+    cand = fresh & (origin >= 0)
+    foreign = cand & (origin > lookup_cols(org_id, slot))
+    new_owner = scatter_cols_max(torch.full_like(org_id, -1), slot, origin, foreign)
     evictable = (org_id < 0) | (org_last + keep_rounds < now)
-    take = foreign.any(dim=1) & evictable
+    take = (new_owner >= 0) & evictable
     new_id = torch.where(take, new_owner, org_id)
-    active = (cand & (orig3 == new_id[:, None, :])).any(dim=1)
+    on_new = cand & (origin == lookup_cols(new_id, slot))
+    active = scatter_cols_max(torch.zeros_like(org_id), slot, torch.ones_like(origin), on_new) > 0
     new_last = torch.where(take | active, now, org_last)
     reset_w = take[:, :, None].expand(b, o, seen_words).reshape(b, o * seen_words)
     return (

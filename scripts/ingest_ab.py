@@ -10,7 +10,9 @@ where the baseline takes rows past 256 cells (it exports
 ``ingest_staged_cells``) the large table's receive and emitting write at
 4,096 cells a row and N = 100,000, and where it takes more than 64 queue
 slots (it exports ``ingest_shallow_limits``) the deep queue's receive and
-emitting write at N = 100,000, on ``chip_smoke.py``'s kernels-phase inputs, it holds both
+emitting write at N = 100,000, and where it takes more than 128 messages
+(it exports ``ingest_long_limits``) the wide packet's receive and emitting
+write at N = 100,000, on ``chip_smoke.py``'s kernels-phase inputs, it holds both
 builds bitwise to the plain version, then times each through the wrapper
 with CUDA events over 20 calls, ``--reps`` times in ABBA order, and prints
 the card's name and power limit, each time, and the medians. First it
@@ -29,9 +31,10 @@ import sys
 from pathlib import Path
 
 
-def _build_baseline(src: Path) -> tuple[ctypes.CDLL, str, bool, bool]:
+def _build_baseline(src: Path) -> tuple[ctypes.CDLL, str, bool, bool, bool]:
     """The baseline's library, nvcc's output for it, whether it takes rows
-    past 256 cells, and whether it takes more than 64 queue slots."""
+    past 256 cells, whether it takes more than 64 queue slots, and whether
+    it takes more than 128 messages."""
     from corrosion_tpu_torch.ops import cuda_lib
 
     digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
@@ -58,7 +61,16 @@ def _build_baseline(src: Path) -> tuple[ctypes.CDLL, str, bool, bool]:
             return 0
 
         lib.ingest_shallow_limits = shallow
-    return lib, out.with_suffix(".log").read_text(), tables, deep
+    long_form = hasattr(lib, "ingest_long_limits")
+    if not long_form:
+        # a source from before the long form holds at most 128 messages and
+        # 32 picks, the limits the wrapper's label reads past them
+        def register(out):
+            out[0], out[1] = 128, 32
+            return 0
+
+        lib.ingest_long_limits = register
+    return lib, out.with_suffix(".log").read_text(), tables, deep, long_form
 
 
 def _same_ptxas(cs, log_a: str, log_b: str) -> None:
@@ -95,7 +107,7 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
     dev = torch.device("cuda")
-    baseline, baseline_log, tables_too, deep_too = _build_baseline(args.baseline)
+    baseline, baseline_log, tables_too, deep_too, long_too = _build_baseline(args.baseline)
     libs = {"A": cuda_lib.library("ingest"), "B": baseline}
     _same_ptxas(cs, cuda_lib.build_log("ingest"), baseline_log)
     flag, big, full = (scale_sim_config(100_000), million_config(1_000_000),
@@ -112,6 +124,10 @@ def main(argv=None) -> int:
         queues = scale_sim_config(100_000, **cs.QUEUES)
         forms += (("ingest_queues", queues, "receive", 71),
                   ("ingest_emit_queues", queues, "write_emit", 72))
+    if long_too:
+        packets = scale_sim_config(100_000, **cs.PACKETS)
+        forms += (("ingest_packets", packets, "receive", 76),
+                  ("ingest_emit_packets", packets, "write_emit", 77))
     for name, cfg, form, seed in forms:
         p, x = cs._ingest_inputs(cfg, cfg.n_nodes, form, seed, dev)
         want = mk.ingest_plain(p, x)

@@ -21,6 +21,7 @@ from corrosion_tpu_torch import convert
 from corrosion_tpu_torch.agent import Agent
 from corrosion_tpu_torch.config import Config
 from corrosion_tpu_torch.db import Database
+from one_thread import one_torch_thread  # noqa: F401  (module fixture: one torch thread)
 
 ROOT = Path(__file__).resolve().parent.parent
 N = 32

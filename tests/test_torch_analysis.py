@@ -52,6 +52,7 @@ from corrosion_tpu_torch.analysis import dataflow
 from corrosion_tpu_torch.analysis.callgraph import ModuleInfo, Project, module_name_for
 from corrosion_tpu_torch.analysis.runner import _lint_sources
 from corrosion_tpu_torch.analysis.sanitizer import static_lock_graph
+from one_thread import one_torch_thread  # noqa: F401  (module fixture: one torch thread)
 
 ROOT = Path(__file__).resolve().parent.parent
 PORTABLE = ("lock-discipline", "strippable-assert", "lock-order")

@@ -32,6 +32,7 @@ from corrosion_tpu_torch.resilience.async_ckpt import write_segment_checkpoint
 from corrosion_tpu_torch.resilience.segments import _key_to_json
 from corrosion_tpu_torch.sim.scale_step import ScaleSimState
 from corrosion_tpu_torch.sim.scenario import FaultPhase
+from one_thread import one_torch_thread  # noqa: F401  (module fixture: one torch thread)
 
 ROOT = Path(__file__).resolve().parent.parent
 VERDICTS = ROOT / "tests" / "data" / "chaos_verdicts_jax.json"

@@ -22,6 +22,7 @@ from corrosion_tpu.sim import transport as jtransport
 from corrosion_tpu_torch import convert
 from corrosion_tpu_torch.ops import partials, versions
 from corrosion_tpu_torch.sim import broadcast, config, scale, scale_step, step, swim, transport
+from one_thread import one_torch_thread  # noqa: F401  (module fixture: one torch thread)
 
 
 def _randomized(st, seed):

@@ -43,6 +43,7 @@ from corrosion_tpu_torch.analysis.sanitizer import (
 from corrosion_tpu_torch.analysis.sanitizer import allowlist
 from corrosion_tpu_torch.analysis.sanitizer.attrs import TRACKED_CLASSES
 from corrosion_tpu_torch.config import Config
+from one_thread import one_torch_thread  # noqa: F401  (module fixture: one torch thread)
 
 ROOT = Path(__file__).resolve().parent.parent
 

@@ -17,6 +17,7 @@ from corrosion_tpu.analysis import cost as jcost
 from corrosion_tpu_torch import random as prng
 from corrosion_tpu_torch.analysis import cost, shapes
 from corrosion_tpu_torch.ops import megakernel as mk
+from one_thread import one_torch_thread  # noqa: F401  (module fixture: one torch thread)
 
 STEP_ENTRIES = ("scale_sim_step", "full_sim_step")
 _JFITS: dict = {}

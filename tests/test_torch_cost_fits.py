@@ -13,6 +13,7 @@ import pytest
 
 from corrosion_tpu.analysis import cost as jcost
 from corrosion_tpu_torch.analysis import cost
+from one_thread import one_torch_thread  # noqa: F401  (module fixture: one torch thread)
 
 SCAN_ENTRIES = ("segment_dispatch", "segmented_soak", "sharded_scale_run",
                 "fused_scale_run", "quiet_scale_run")

@@ -18,6 +18,7 @@ from corrosion_tpu.sim import scale_step as jstep
 from corrosion_tpu.sim.transport import NetModel as JNet
 from corrosion_tpu_torch import convert
 from corrosion_tpu_torch.sim import scale_step
+from one_thread import one_torch_thread  # noqa: F401  (module fixture: one torch thread)
 
 N, ROUNDS = 256, 10
 QUEUES = dict(n_origins=256, n_rows=64, buf_slots=256, bcast_queue=128, pig_changes=32)

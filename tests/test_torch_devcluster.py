@@ -37,6 +37,7 @@ from corrosion_tpu_torch.sim.parity import (
     check_bitwise_parity,
     run_sim_script,
 )
+from one_thread import one_torch_thread  # noqa: F401  (module fixture: one torch thread)
 
 ROOT = Path(__file__).resolve().parent.parent
 #: three components: a ring of 12, a star of 10, a chain of 8, with

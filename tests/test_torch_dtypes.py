@@ -38,6 +38,7 @@ from corrosion_tpu_torch.analysis.callgraph import ModuleInfo, Project
 from corrosion_tpu_torch.analysis.runner import check_source, run_paths
 from corrosion_tpu_torch.obs.memory import _walk_leaves
 from corrosion_tpu_torch.sim import scale_step as S
+from one_thread import one_torch_thread  # noqa: F401  (module fixture: one torch thread)
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "corrosion_tpu_torch"

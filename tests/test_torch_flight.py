@@ -51,6 +51,7 @@ from corrosion_tpu_torch.sim.scale_step import (
 from corrosion_tpu_torch.sim.transport import NetModel
 from corrosion_tpu_torch.utils import tracing
 from corrosion_tpu_torch.utils.metrics import Registry, start_prometheus_listener
+from one_thread import one_torch_thread  # noqa: F401  (module fixture: one torch thread)
 
 ROOT = Path(__file__).resolve().parent.parent
 N = 48

@@ -35,6 +35,7 @@ from corrosion_tpu_torch.parallel import (
     sharded_step,
 )
 from corrosion_tpu_torch.sim import config, scenario, step
+from one_thread import one_torch_thread  # noqa: F401  (module fixture: one torch thread)
 
 N, ROUNDS, SHARDS = 32, 6, 8
 BASE = dict(n_rows=4, n_cols=2, buf_slots=8, bcast_queue=8, recv_slots=16)

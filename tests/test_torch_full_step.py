@@ -34,6 +34,7 @@ from corrosion_tpu_torch.ops import megakernel as mk
 from corrosion_tpu_torch.ops import slots
 from corrosion_tpu_torch.sim import broadcast, config, scenario, step, swim
 from corrosion_tpu_torch.sim.transport import NetModel
+from one_thread import one_torch_thread  # noqa: F401  (module fixture: one torch thread)
 
 N, ROUNDS = 64, 24
 PARTITION = range(8, 16)  # rounds that run on the partitioned net

@@ -15,6 +15,7 @@ import pytest
 from corrosion_tpu.resilience import chaos as jchaos
 from corrosion_tpu.resilience import fuzz as jfuzz
 from corrosion_tpu_torch.resilience import chaos, fuzz
+from one_thread import one_torch_thread  # noqa: F401  (module fixture: one torch thread)
 
 SEEDS = range(64)
 #: one state replica at the chaos shapes, bytes (the JAX package's

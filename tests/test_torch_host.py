@@ -32,6 +32,7 @@ from corrosion_tpu_torch.config import Config, default_toml, load_config
 from corrosion_tpu_torch.db import Database
 from corrosion_tpu_torch.maintenance import MaintenanceLoop
 from corrosion_tpu_torch.utils.backoff import Backoff, retry_call
+from one_thread import one_torch_thread  # noqa: F401  (module fixture: one torch thread)
 
 ROOT = Path(__file__).resolve().parent.parent
 SCHEMA = "CREATE TABLE kv (k TEXT PRIMARY KEY, v INTEGER);"

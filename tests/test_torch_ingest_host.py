@@ -8,9 +8,10 @@ on the random and the tie-heavy inputs that ``chip_smoke.py`` holds the
 card to (fewer rows: N = 61, a partial last block of rows), in every
 other instantiation of the wide rows (8 cells a lane) on the tie-heavy
 inputs, in every instantiation of the row kept in global memory (more
-than 256 cells: 4,096, 4,100 and 32,767), and in every instantiation of
-the deep form (more than 64 queue slots or 4 seen words, up to 128 and 8,
-and up to 32 payload picks).
+than 256 cells: 4,096, 4,100 and 32,767), in every instantiation of the
+deep form (more than 64 queue slots or 4 seen words, up to 128 and 8,
+and up to 32 payload picks), and in a covering set of the long form's
+(more than 128 messages or 32 picks, up to 512 and 128).
 
 This checks the kernel's lane logic (ranks, ties, chunked batches, the
 per-warp shared memory) and that no collective diverges; it says nothing
@@ -30,6 +31,7 @@ from corrosion_tpu_torch.sim.config import full_view_config
 from corrosion_tpu_torch.sim.scale_step import million_config, scale_sim_config
 from corrosion_tpu_torch.testing import cluster_config
 from cuda_host import host_build
+from one_thread import one_torch_thread  # noqa: F401  (module fixture: one torch thread)
 
 N_ROWS = 61
 # the full view's 96-message mailbox past 256 cells, in every instantiation:
@@ -84,10 +86,28 @@ DEEP = [
         ("wide_c4096", 1024, 256, PART_DEEP))
 ]
 # fewer rows than N_ROWS (still a partial last block at 4 and at 2 rows a
-# block): the deep form's 128-message receive is the stand-in's slowest
+# block): the deep form's 128-message receive and the long form's up to
+# 512 are the stand-in's slowest
 N_ROWS_DEEP = 13
 # the deep cases held on the random inputs as well: one a dtype pair
 DEEP_RANDOM = ("deep16_c64", "deep8_wide_c4096", "deep32_c144")
+
+# the long form (the batch in global memory: past 128 messages, or past 32
+# picks), a covering set: each book and cell width (the register book at
+# 64, 144 and 4,096 cells, the wide book at 256 and 4,100) with its receive
+# and its emitting write, each plane-dtype pair, a receive past 128 by a
+# partial chunk (m = 132, the 33 picks that the register forms refuse), the
+# wide packet's (m = 256, 64 picks), the widest (m = 512, 128 picks) and
+# queues that the deep form pads (Q = 64, W = 1); (name, n_rows, n_origins,
+# q_slots, buf_slots, pig_changes, dtype overrides)
+LONG = [
+    ("long16_c64", 16, 16, 64, 32, 64, {}),
+    ("long8_c144", 36, 16, 33, 32, 33, dict(narrow_q_int8=True)),
+    ("long32_c4096", 1024, 16, 128, 256, 64, dict(narrow_dtypes=False)),
+    ("long16_wide_c256", 64, 256, 128, 256, 64, {}),
+    ("long32_wide_c256", 64, 256, 128, 256, 128, dict(narrow_dtypes=False)),
+    ("long8_wide_c4100", 1025, 256, 100, 200, 40, dict(narrow_q_int8=True)),
+]
 
 
 def _deep(n_rows, n_origins, q_slots, buf_slots, pig_changes, **over):
@@ -123,7 +143,9 @@ CONFIGS = {
     **{name: (lambda q=q, r=r, o=o, over=over: _wide(q, r, n_origins=o, **over))
        for name, q, r, o, over in TABLES},
     **{name: (lambda a=(r, o, q, b, pig), over=over: _deep(*a, **over))
-       for name, r, o, q, b, pig, over in DEEP},
+       for name, r, o, q, b, pig, over in DEEP + LONG},
+    # the full view's mailbox at recv_slots = 256 (int32/int32, Q = 64)
+    "long_full_m256": lambda: full_view_config(8192, recv_slots=256),
 }
 # (configuration, form): every form of chip_smoke.py's kernels phase
 FORMS = [("flagship", "receive"), ("flagship", "write_emit"), ("flagship", "write"),
@@ -151,7 +173,11 @@ TABLE_FORMS = [(name, f) for name in TABLE_RANDOM for f in ("receive", "write_em
 # the emitting and the non-emitting write in each of DEEP) on the tie-heavy
 # inputs, DEEP_RANDOM's on the random ones too
 DEEP_FORMS = [(name, f) for name, *_ in DEEP for f in ("receive", "write_emit", "write")]
-CASES = [(c, f, ties) for c, f in FORMS + WIDE_BOOK_FORMS + TABLE_FORMS
+# the long form: each of LONG's receive and emitting write, and the full
+# view's 256-message mailbox, on the random and the tie-heavy inputs
+LONG_FORMS = [(name, f) for name, *_ in LONG for f in ("receive", "write_emit")] + [
+    ("long_full_m256", "receive_full")]
+CASES = [(c, f, ties) for c, f in FORMS + WIDE_BOOK_FORMS + TABLE_FORMS + LONG_FORMS
          for ties in (False, True)] + [(c, f, True) for c, f in WIDE_FORMS] + [
     (name, f, True) for name, *_ in TABLES for f in ("receive", "write_emit", "receive_full")
     if (name, f) not in TABLE_FORMS] + [
@@ -165,25 +191,13 @@ def host_ingest(tmp_path_factory):
     return host_build.build("ingest", tmp_path_factory.mktemp("ingest_host"))
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """Draw and check the inputs on one thread: the wide rows' planes are
-    big enough for torch to split an op over every core, and beside other
-    busy processes those threads wait on each other (3.7 s against 0.34 s
-    a 4,096-cell input on one thread, with every core busy)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 @pytest.mark.parametrize("config,form,ties", CASES, ids=[
     f"{c}-{f}-{'tie_heavy' if t else 'random'}" for c, f, t in CASES])
 def test_ingest_source_on_host_matches_plain(host_ingest, monkeypatch, config, form, ties):
     host_build.route_launches(monkeypatch, host_ingest)
     cfg = CONFIGS[config]()
     n = (N_ROWS_TABLE_MAILBOX if form == "receive_full" and config.startswith("table")
-         else N_ROWS_DEEP if config.startswith("deep") else N_ROWS)
+         else N_ROWS_DEEP if config.startswith(("deep", "long")) else N_ROWS)
     p, x = chip_smoke._ingest_inputs(cfg, n, form, 3 + 7 * ties, "cpu", ties=ties)
     mk.reset_launches()
     got, want = mk._ingest_cuda(p, x), mk.ingest_plain(p, x)
@@ -198,6 +212,8 @@ def test_ingest_source_on_host_matches_plain(host_ingest, monkeypatch, config, f
         assert chip_smoke._past_staged_rows(x, want) > 0
     if config.startswith("deep"):
         _check_deep(p, x, want, form, ties)
+    if config.startswith("long"):
+        _check_long(p, x, want, form, ties)
 
 
 def _check_deep(p, x, want, form, ties):
@@ -217,6 +233,30 @@ def _check_deep(p, x, want, form, ties):
         assert rows["picks"] > 0, rows
 
 
+def _check_long(p, x, want, form, ties):
+    """The long form's launch under its form key, and its axes reached: a
+    receive has fresh messages past 128; duplicates across the 128
+    boundary on the tie-heavy inputs (messages repeat up to 8 back) and on
+    the random ones where the rows' keys repeat often enough (the register
+    book's 64 origins and 40 versions, 256 messages or more); cells won
+    past message 128 where 128 messages or more lie past it; the random
+    emitting write over 128 queue slots makes more than 32 live picks."""
+    (key, label), = mk.FORM_LAUNCHES
+    m = x.origin.shape[1]
+    assert key == ("ingest_emit" if p.pig_r else "ingest")
+    assert (f"/m{m}" in label) == (m > 32) and (f"/r{p.pig_r}" in label) == (p.pig_r > 32)
+    rows = chip_smoke._long_rows(p, x, want)
+    if form.startswith("receive"):
+        assert rows["fresh_past"] > 0, rows
+        full = m >= 2 * chip_smoke.REGISTER_MSGS
+        if ties or (full and p.n_origins <= chip_smoke.NARROW_BOOK):
+            assert rows["cross_dups"] > 0, rows
+        if full:
+            assert rows["late_winners"] > 0, rows
+    if form == "write_emit" and not ties and p.q_slots > chip_smoke.SHALLOW_QUEUE:
+        assert rows["picks"] > 0, rows
+
+
 def test_host_library_reports_256_origins(host_ingest):
     limits = (ctypes.c_int * 8)()
     assert host_ingest.ingest_limits(limits) == 0
@@ -229,7 +269,7 @@ def test_257_origins_raise_with_the_widths(host_ingest, monkeypatch):
     cfg = scale_sim_config(100_000, n_origins=257, n_rows=64)
     p, x = chip_smoke._ingest_inputs(cfg, N_ROWS, "receive", 5, "cpu")
     with pytest.raises(ValueError, match=r"ingest widths m=16 O=257 W=1 Q=32 R=0 C=256 "
-                                         r"exceed the kernel's limits \[128, 256,"):
+                                         r"exceed the kernel's limits \[512, 256,"):
         mk._ingest_cuda(p, x)
     # the launcher itself refuses the widths before it looks at the rows
     a = mk._IngestArgs(m=16, n_origins=257, n_cells=256, q_slots=32, seen_words=1)
@@ -240,42 +280,89 @@ def test_257_origins_raise_with_the_widths(host_ingest, monkeypatch):
 
 
 def test_host_library_reports_the_deep_limits(host_ingest):
-    """Seen words, queue slots and payload picks: up to 8, 128 and 32 in
+    """Seen words, queue slots and payload picks: up to 8, 128 and 128 in
     all; the shallow forms hold up to 4 words and 64 slots."""
     limits = (ctypes.c_int * 8)()
     assert host_ingest.ingest_limits(limits) == 0
-    assert (limits[2], limits[3], limits[4]) == (8, 128, 32)
+    assert (limits[2], limits[3], limits[4]) == (8, 128, 128)
     shallow = (ctypes.c_int * 2)()
     assert host_ingest.ingest_shallow_limits(shallow) == 0
     assert tuple(shallow) == (chip_smoke.SHALLOW_WORDS, chip_smoke.SHALLOW_QUEUE)
 
 
-# widths past the deep form: (overrides, form, the wrapper's message)
+def test_host_library_reports_the_long_limits(host_ingest):
+    """Messages and payload picks of any form: up to 512 and 128; the
+    register batch holds up to 128 messages and one pick a lane up to 32
+    (past either the long form runs)."""
+    limits = (ctypes.c_int * 8)()
+    assert host_ingest.ingest_limits(limits) == 0
+    assert (limits[0], limits[4], limits[5]) == (512, 128, 32)
+    long_limits = (ctypes.c_int * 2)()
+    assert host_ingest.ingest_long_limits(long_limits) == 0
+    assert tuple(long_limits) == (chip_smoke.REGISTER_MSGS, chip_smoke.ONE_PICK)
+
+
+# the widths the register forms refused (33 changes a packet: a receive of
+# 132 messages, a payload of 33 picks), now the long form's
+PAST_REGISTERS = [
+    (dict(pig_changes=33, bcast_queue=33), "receive", "16/16/m132"),
+    (dict(pig_changes=33, bcast_queue=33), "write_emit", "16/16/r33"),
+]
+
+
+@pytest.mark.parametrize("over,form,label", PAST_REGISTERS, ids=["m132", "r33"])
+def test_widths_past_the_register_forms_run_bitwise(host_ingest, monkeypatch, over, form,
+                                                    label):
+    """A receive of 132 messages and a payload of 33 picks (the register
+    forms' first widths refused, and the launcher's before the long form):
+    bitwise equal to the plain version under the long form's key."""
+    host_build.route_launches(monkeypatch, host_ingest)
+    cfg = scale_sim_config(100_000, **over)
+    p, x = chip_smoke._ingest_inputs(cfg, N_ROWS_DEEP, form, 19, "cpu")
+    mk.reset_launches()
+    got, want = mk._ingest_cuda(p, x), mk.ingest_plain(p, x)
+    for name, a, b in zip(want._fields, got, want):
+        for u, v in zip(chip_smoke._flat(a), chip_smoke._flat(b)):
+            assert u.dtype == v.dtype and torch.equal(u, v), name
+    assert mk.FORM_LAUNCHES == {("ingest_emit" if p.pig_r else "ingest", label): 1}
+
+
+# widths past the deep and the long forms: (overrides, form, the wrapper's message)
 PAST_DEEP = [
-    (dict(pig_changes=33, bcast_queue=33), "receive", "m=132 O=16 W=1 Q=33 R=0 C=64"),
-    (dict(pig_changes=33, bcast_queue=33), "write_emit", "m=1 O=16 W=1 Q=33 R=33 C=64"),
     (dict(bcast_queue=129), "receive", "m=16 O=16 W=1 Q=129 R=0 C=64"),
     (dict(buf_slots=288), "write_emit", "m=1 O=16 W=9 Q=32 R=4 C=64"),
 ]
 
 
-@pytest.mark.parametrize("over,form,widths", PAST_DEEP,
-                         ids=["m132", "r33", "q129", "w9"])
+@pytest.mark.parametrize("over,form,widths", PAST_DEEP, ids=["q129", "w9"])
 def test_widths_past_the_deep_form_raise(host_ingest, monkeypatch, over, form, widths):
-    """A receive of 132 messages (33 changes a packet), a payload of 33
-    picks, 129 queue slots or 9 seen words: the wrapper raises with the
-    widths named, and the launcher refuses them too."""
+    """129 queue slots or 9 seen words: the wrapper raises with the widths
+    named, and the launcher refuses them too."""
     host_build.route_launches(monkeypatch, host_ingest)
     cfg = scale_sim_config(100_000, **over)
     p, x = chip_smoke._ingest_inputs(cfg, N_ROWS_DEEP, form, 19, "cpu")
     with pytest.raises(ValueError, match=rf"ingest widths {widths} exceed the kernel's "
-                                         rf"limits \[128, 256, 8, 128, 32, 32,"):
+                                         rf"limits \[512, 256, 8, 128, 128, 32,"):
         mk._ingest_cuda(p, x)
     a = mk._IngestArgs(m=x.origin.shape[1], n_origins=p.n_origins, n_cells=p.n_cells,
                        q_slots=p.q_slots, seen_words=p.seen_words, pig_r=p.pig_r)
     invalid_value = 1
     assert host_ingest.ingest_launch(ctypes.byref(a), 2, 2, int(p.pig_r > 0), None) == \
         invalid_value
+
+
+def test_513_messages_raise_with_the_widths(host_ingest, monkeypatch):
+    """A mailbox of 513 messages, past the long form's 512: the wrapper
+    raises with the widths named, and the launcher refuses them too."""
+    host_build.route_launches(monkeypatch, host_ingest)
+    cfg = full_view_config(8192, recv_slots=513)
+    p, x = chip_smoke._ingest_inputs(cfg, 3, "receive_full", 23, "cpu")
+    with pytest.raises(ValueError, match=r"ingest widths m=513 O=16 W=2 Q=64 R=0 C=64 "
+                                         r"exceed the kernel's limits \[512, "):
+        mk._ingest_cuda(p, x)
+    a = mk._IngestArgs(m=513, n_origins=16, n_cells=64, q_slots=64, seen_words=2)
+    invalid_value = 1
+    assert host_ingest.ingest_launch(ctypes.byref(a), 4, 4, 0, None) == invalid_value
 
 
 def test_staged_cells_and_the_cell_limit(host_ingest):

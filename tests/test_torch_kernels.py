@@ -22,6 +22,7 @@ from corrosion_tpu_torch import convert
 from corrosion_tpu_torch.ops import megakernel as mk
 from corrosion_tpu_torch.sim import broadcast
 from corrosion_tpu_torch.sim import scale_step
+from one_thread import one_torch_thread  # noqa: F401  (module fixture: one torch thread)
 
 
 def T(a):

@@ -15,6 +15,7 @@ from corrosion_tpu.sim import scale_step as jstep
 from corrosion_tpu.sim.transport import NetModel as JNet
 from corrosion_tpu_torch import convert
 from corrosion_tpu_torch.sim import scale_step
+from one_thread import one_torch_thread  # noqa: F401  (module fixture: one torch thread)
 
 N, ROUNDS = 256, 4
 OVER = dict(n_rows=1025, n_cols=4, sync_interval=2, sync_sweep_every=2)

@@ -21,6 +21,7 @@ from corrosion_tpu_torch.analysis import shapes
 from corrosion_tpu_torch.obs import memory
 from corrosion_tpu_torch.sim.config import full_view_config, wan_config
 from corrosion_tpu_torch.sim.scale_step import million_config, scale_sim_config
+from one_thread import one_torch_thread  # noqa: F401  (module fixture: one torch thread)
 
 #: (port config, JAX config, mode, rebound N, rebound M, projected bytes)
 POINTS = {

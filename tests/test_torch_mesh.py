@@ -34,6 +34,7 @@ from corrosion_tpu_torch.parallel import (
 from corrosion_tpu_torch.parallel import exchange
 from corrosion_tpu_torch.parallel.exchange import shard_bounds
 from corrosion_tpu_torch.sim import scale_step
+from one_thread import one_torch_thread  # noqa: F401  (module fixture: one torch thread)
 
 N, ROUNDS, SHARDS = 64, 6, 8
 #: a sync round at now 3 and a sync-and-sweep round at now 6

@@ -27,6 +27,7 @@ from corrosion_tpu.sim import transport as jtransport
 from corrosion_tpu_torch import random as prng
 from corrosion_tpu_torch.ops import dense, lww, partials, select, slots, versions
 from corrosion_tpu_torch.sim import broadcast, config, scale, scale_step, transport
+from one_thread import one_torch_thread  # noqa: F401  (module fixture: one torch thread)
 
 
 def T(a):

@@ -14,6 +14,7 @@ import pytest
 
 from corrosion_tpu.sim import parity as jparity
 from corrosion_tpu_torch.sim import oracle, parity
+from one_thread import one_torch_thread  # noqa: F401  (module fixture: one torch thread)
 
 N_NODES, N_ORIGINS, N_CELLS, ROUNDS = 24, 4, 8, 12
 

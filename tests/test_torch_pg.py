@@ -31,6 +31,7 @@ from corrosion_tpu_torch.config import ServeConfig
 from corrosion_tpu_torch.db import Database
 from corrosion_tpu_torch.pg import PgServer, _sqlstate_for
 from corrosion_tpu_torch.testing import cluster_config
+from one_thread import one_torch_thread  # noqa: F401  (module fixture: one torch thread)
 
 SCHEMA = """
 CREATE TABLE users (id INTEGER PRIMARY KEY, name TEXT, score INTEGER,

@@ -14,6 +14,7 @@ from corrosion_tpu.sim import scale_step as jstep
 from corrosion_tpu.sim.transport import NetModel as JNet
 from corrosion_tpu_torch import convert
 from corrosion_tpu_torch.sim import scale_step
+from one_thread import one_torch_thread  # noqa: F401  (module fixture: one torch thread)
 
 N, ROUNDS = 48, 48
 SHAPE = dict(m_slots=8, n_origins=4, n_rows=4, n_cols=2, sync_interval=4)

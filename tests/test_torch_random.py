@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from corrosion_tpu_torch import random as prng
+from one_thread import one_torch_thread  # noqa: F401  (module fixture: one torch thread)
 
 SEEDS = list(range(50)) + [123456, 2**31 - 1, 987654321]
 SHAPES = [(7,), (5, 13), (3, 4, 6)]

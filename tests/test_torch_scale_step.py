@@ -23,6 +23,7 @@ from corrosion_tpu.sim.transport import NetModel as JNet
 from corrosion_tpu_torch import convert
 from corrosion_tpu_torch import random as prng
 from corrosion_tpu_torch.sim import scale_step
+from one_thread import one_torch_thread  # noqa: F401  (module fixture: one torch thread)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 N, ROUNDS = 256, 12

@@ -18,6 +18,7 @@ from corrosion_tpu_torch import random as prng
 from corrosion_tpu_torch.resilience import chaos
 from corrosion_tpu_torch.sim import scale_step, scenario
 from corrosion_tpu_torch.sim.broadcast import HLC_ROUND_BITS
+from one_thread import one_torch_thread  # noqa: F401  (module fixture: one torch thread)
 
 N = 24
 SHAPES = dict(m_slots=8, n_origins=4, n_rows=4, n_cols=2, sync_interval=4)

@@ -29,6 +29,7 @@ from corrosion_tpu_torch import cli
 from corrosion_tpu_torch.config import ServeConfig
 from corrosion_tpu_torch.obs import load
 from corrosion_tpu_torch.resilience import serve_overload as sovl
+from one_thread import one_torch_thread  # noqa: F401  (module fixture: one torch thread)
 
 ROOT = Path(__file__).resolve().parent.parent
 SERVE_VERDICT = ROOT / chip_smoke.SERVE_OVERLOAD_VERDICT

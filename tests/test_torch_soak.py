@@ -42,6 +42,7 @@ from corrosion_tpu_torch.resilience import segments
 from corrosion_tpu_torch.sim import config, scale_step, step
 from corrosion_tpu_torch.sim.transport import NetModel
 from corrosion_tpu_torch.utils.backoff import Backoff
+from one_thread import one_torch_thread  # noqa: F401  (module fixture: one torch thread)
 
 ROUNDS = 16
 SCALE = dict(m_slots=8, n_origins=4, n_rows=4, n_cols=2, sync_interval=4)

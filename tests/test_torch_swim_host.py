@@ -23,6 +23,7 @@ import chip_smoke
 from corrosion_tpu_torch.ops import megakernel as mk
 from corrosion_tpu_torch.sim.scale_step import scale_sim_config
 from cuda_host import host_build
+from one_thread import one_torch_thread  # noqa: F401  (module fixture: one torch thread)
 
 N_ROWS = 61
 I8, I16, I32 = torch.int8, torch.int16, torch.int32

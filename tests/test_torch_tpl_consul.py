@@ -26,6 +26,7 @@ from corrosion_tpu_torch.agent import Agent
 from corrosion_tpu_torch.db import Database
 from corrosion_tpu_torch.testing import cluster_config, launch_test_agent
 from corrosion_tpu_torch.tpl import render_template
+from one_thread import one_torch_thread  # noqa: F401  (module fixture: one torch thread)
 
 SCHEMA = "CREATE TABLE svc (name TEXT PRIMARY KEY, addr TEXT, port INTEGER);"
 ROWS = (("web", "10.0.0.1", 80), ("api", "10.0.0.2", 81),

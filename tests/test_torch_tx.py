@@ -40,6 +40,7 @@ from corrosion_tpu_torch import convert
 from corrosion_tpu_torch import random as prng
 from corrosion_tpu_torch.ops import partials, versions
 from corrosion_tpu_torch.sim import broadcast, config, scale_step, step
+from one_thread import one_torch_thread  # noqa: F401  (module fixture: one torch thread)
 
 SEEDS = (0, 1)
 

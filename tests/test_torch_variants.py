@@ -33,6 +33,7 @@ from test_torch_kernels import (
     random_state,
     swim_operands,
 )
+from one_thread import one_torch_thread  # noqa: F401  (module fixture: one torch thread)
 
 # --- K1: packed entries and the int8 budget tier -----------------------------
 
