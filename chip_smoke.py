@@ -8,10 +8,12 @@ Phases (any failure raises and the script exits non-zero):
 1. Build every kernel from ``corrosion_tpu_torch/csrc`` (one ``nvcc`` per
    source, started together, while the parity phase's CPU half runs:
    ``parity_references``) and print ptxas' register and stack report;
-   each of the swim kernel's 18 and the ingest kernel's 150 instantiations
-   is named, and any stack frame or spill in one of them fails the run.
+   each of the swim kernel's 24 (18 register forms, 6 wide) and the ingest
+   kernel's 150 instantiations is named, and any stack frame or spill in
+   one of them fails the run.
 2. Hold every kernel form against its plain PyTorch version on the card on
-   random valid inputs drawn from the port's PRNG, and again, untimed, on
+   random valid inputs (the ingest kernel's drawn from the port's PRNG,
+   the swim kernel's from torch's generator), and again, untimed, on
    tie-heavy inputs at N three past the configuration's (``_ingest_inputs``
    and ``_swim_inputs`` with ``ties=True``; the swim inputs must give rows
    where two row-addressed steps meet in one hash class), every output
@@ -54,7 +56,13 @@ Phases (any failure raises and the script exits non-zero):
    register book; each prints the rows with a fresh message past message
    128, a duplicate whose first occurrence lies in an earlier 128-message
    chunk and a cell won past message 128 and (emitting) more than 32 live
-   picks, and fails if a count the payload budget can reach is 0.
+   picks, and fails if a count the payload budget can reach is 0. The swim
+   kernel's wide form (more than 128 member slots): the wide member table
+   (m = 256) at N = 100,000 in every dtype pair, aligned (its int16/int16
+   form on the members path) and packed (16 entries a packet), an aligned
+   m = 200 (the general modulo), a packed m = 256 with 256 entries a packet
+   (1,024 a row) and m = 1,024 aligned and packed (64 entries a packet),
+   these three at N = 25,000.
 3. Run 11 rounds of ``scale_sim_config(4096, sync_interval=2,
    sync_sweep_every=2)`` with writes, churn and 5 % message loss once on
    the card (kernels) and once on the CPU (plain versions); every state leaf
@@ -68,7 +76,11 @@ Phases (any failure raises and the script exits non-zero):
    round at these widths), queue slots past 64 occupied on both sides at
    the end; and the wide packet (``PACKETS``: the long form) at 1024 nodes
    for 11 rounds likewise, with rows that made more than 32 live picks on
-   both sides. (The CPU route is held bitwise to the JAX package by
+   both sides; and the wide member table (``MEMBERS``: the swim kernel's
+   wide form, once a round under its ``/m256`` key) at 1024 nodes for 11
+   rounds, aligned and packed under the 1M point's tiers, rows with an
+   occupied member slot at or past 128 on both sides and a sync round
+   inside. (The CPU route is held bitwise to the JAX package by
    ``tests/test_torch_*.py``.)
 4. The flagship: ``scale_sim_config(100_000)`` with bench.py's workload
    (``sim.scale_step.flagship_workload``), 2 warm-up rounds, then three
@@ -99,6 +111,12 @@ Phases (any failure raises and the script exits non-zero):
    picks), under the same write burst, the same way: K2 and K3 under
    their long-form keys (``/m256/o256/q128/w8`` and ``/o256/q128/w8/r64``),
    rows holding more than 32 live queue slots at the end, the state's
+   bytes equal to the projection, its rounds/s printed beside the
+   flagship's of phase 4.
+4f. members: the wide member table, ``scale_sim_config(100_000,
+   m_slots=256)`` (the flagship's other knobs), with bench.py's workload,
+   the same way as 4b: K1 under its wide key (``aligned/16/16/m256``), rows
+   with an occupied member slot at or past 128 at the end, the state's
    bytes equal to the projection, its rounds/s printed beside the
    flagship's of phase 4.
 5. The 1M point: ``sim.scale_step.million_config()`` (bounded member
@@ -349,6 +367,18 @@ PACKETS = dict(QUEUES, pig_changes=64)
 # the wide packet, card vs CPU: the trajectory's kill (round 4) and revive
 # (round 10) inside
 PACKETS_TRAJECTORY_NODES, PACKETS_TRAJECTORY_ROUNDS = 1024, 11
+# the wide member table: 256 member slots a node (the full member list of a
+# 256-node cluster with no class collisions, four times the default 64),
+# past the swim kernel's register form, at the flagship's other knobs;
+# packed, under the 1M point's tiers (``million_config``)
+MEMBERS = dict(m_slots=256)
+REGISTER_SLOTS = 128  # the swim kernel's register form; past it the wide form
+# the wide member table, card vs CPU, aligned and packed: the trajectory's
+# kill (round 4) and revive (round 10) inside
+MEMBERS_TRAJECTORY_NODES, MEMBERS_TRAJECTORY_ROUNDS = 1024, 11
+# the swim kernel's widest forms (m = 1,024; 256 entries a packet) in the
+# kernels phase
+WIDEST_SWIM_NODES = 25_000
 # BASELINE's correctness size: a 256-node cluster, 16 origins, 64 cells
 PARITY_NODES, PARITY_ORIGINS, PARITY_CELLS, PARITY_ROUNDS = 256, 16, 64, 24
 # empty rounds after the single writer's script for the quiet check: the
@@ -468,10 +498,13 @@ def _bound(nbytes: int, ops: int) -> tuple:
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def _cuda_ms(fn, iters: int) -> float:
+def _cuda_ms(fn, iters: int, warm: bool = True) -> float:
+    """Mean ms of ``iters`` back-to-back calls of ``fn`` by CUDA events,
+    after one untimed call unless ``warm`` is False."""
     import torch
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -483,11 +516,15 @@ def _cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _device_ms(fn, iters: int, kernel: str) -> float:
-    """Device time of ``kernel`` (part of a kernel's name) per call of ``fn``,
-    from ``torch.profiler``: the kernel alone, without the wrapper's host
-    time, which CUDA events over back-to-back calls include when the kernel
-    is shorter than it."""
+def _device_ms(fn, iters: int, kernel: str) -> tuple:
+    """Device time of ``kernel`` (a wrapper's name: its device kernels are
+    ``{kernel}_kernel`` and ``{kernel}_wide_kernel``) per launch, over
+    ``iters`` calls of ``fn`` (one launch each), from ``torch.profiler``:
+    the kernel alone, without the wrapper's host time, which CUDA events
+    over back-to-back calls include when the kernel is shorter than it.
+    Returns (ms a launch, launches the profiler recorded): the mean is
+    over the launches it recorded, which in a long run have been fewer
+    than were made."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -499,8 +536,10 @@ def _device_ms(fn, iters: int, kernel: str) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(_device_us(e) for e in prof.key_averages() if kernel in e.key)
-    return us / iters / 1e3
+    names = (f"{kernel}_kernel", f"{kernel}_wide_kernel")
+    events = [e for e in prof.key_averages() if any(name in e.key for name in names)]
+    recorded = sum(e.count for e in events)
+    return sum(_device_us(e) for e in events) / max(recorded, 1) / 1e3, recorded
 
 
 def _nbytes(tensors) -> int:
@@ -541,6 +580,25 @@ def _max_abs_err(a_list, b_list) -> int:
     return worst
 
 
+def _draws(seed: int, dev):
+    """(ri, coin): int32 draws in [lo, hi) and bool coins of probability p,
+    from torch's generator on ``dev`` seeded with ``seed``. The swim
+    kernel's operands need only be random and reproducible; drawn with the
+    port's bit-exact threefry they took a third of the kernels phase's
+    time."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def ri(shape, lo, hi):
+        return torch.randint(lo, hi, shape, generator=gen, dtype=torch.int32, device=dev)
+
+    def coin(shape, p):
+        return torch.rand(shape, generator=gen, device=dev) < p
+
+    return ri, coin
+
+
 def _swim_inputs(n: int, m: int, plane_dtype, seed: int, dev, tx_dtype=None,
                  pig_k: int = 0, ties: bool = False):
     """Random valid operands of the swim kernel (the order of
@@ -552,16 +610,7 @@ def _swim_inputs(n: int, m: int, plane_dtype, seed: int, dev, tx_dtype=None,
     sequential one (``_swim_tie_heavy``)."""
     import torch
 
-    from corrosion_tpu_torch import random as prng
-
-    ks = iter(prng.split(prng.key(seed), 64))
-
-    def ri(shape, lo, hi):
-        return prng.randint(next(ks), shape, lo, hi, dev)
-
-    def coin(shape, p):
-        return prng.uniform(next(ks), shape, dev) < p
-
+    ri, coin = _draws(2 * seed, dev)
     iarr = torch.arange(n, dtype=torch.int32, device=dev)
     self_slot = iarr % m
     mem_id = torch.where(coin((n, m), 0.2), -1, ri((n, m), 0, n))
@@ -608,20 +657,12 @@ def _swim_tie_heavy(args, pig_k: int, seed: int):
     keys."""
     import torch
 
-    from corrosion_tpu_torch import random as prng
-
     (mem_id, mem_view, old_id, old_view, timer, tx, alive, inc, node_id,
      self_slot, sus_heard, sends, probe_slot, suspect_key, probe_failed,
      ch_id, ch_view, ch_send, ch_valid, ch_snd, ch_snd_inc) = args
     n, m = mem_id.shape
     dev = mem_id.device
-    ks = iter(prng.split(prng.fold_in(prng.key(seed), 1), 128))
-
-    def ri(shape, lo, hi):
-        return prng.randint(next(ks), shape, lo, hi, dev)
-
-    def coin(shape, p):
-        return prng.uniform(next(ks), shape, dev) < p
+    ri, coin = _draws(2 * seed + 1, dev)
 
     crowd = ri((n, 1), 0, m)
 
@@ -914,18 +955,21 @@ def _hold(name, got, want) -> int:
 
 def _time_form(name, kernel, run, plain, nbytes, ops) -> dict:
     """Hold one form of ``kernel`` against its plain version, then time both
-    (20 calls of the kernel, 3 of the plain version)."""
+    (20 calls of the kernel; one of the plain version, after the hold's
+    call: it has nothing to warm, and some take over a second)."""
     import torch
 
     got, want = run(), plain()
     torch.cuda.synchronize()
-    r = dict(kernel=kernel, max_abs_err=_hold(name, got, want), ms=_cuda_ms(run, 20),
-             device_ms=_device_ms(run, 20, f"{kernel.removesuffix('_emit')}_kernel"),
-             plain_ms=_cuda_ms(plain, 3), bytes=nbytes(got), ops=ops(got))
+    err, ms = _hold(name, got, want), _cuda_ms(run, 20)
+    device_ms, recorded = _device_ms(run, 20, kernel.removesuffix("_emit"))
+    r = dict(kernel=kernel, max_abs_err=err, ms=ms, device_ms=device_ms,
+             plain_ms=_cuda_ms(plain, 1, warm=False), bytes=nbytes(got), ops=ops(got))
     del got, want
     r["bound_ms"], r["bound_by"] = _bound(r["bytes"], r["ops"])
     print(f"[kernels] {name}: max_abs_err={r['max_abs_err']} "
-          f"kernel {r['ms']!r} ms (device {r['device_ms']!r} ms), plain "
+          f"kernel {r['ms']!r} ms (device {r['device_ms']!r} ms, {recorded} of 20 launches "
+          f"recorded), plain "
           f"{r['plain_ms']!r} ms, {r['bytes']} bytes, {r['ops']} int32 ops, bound "
           f"{r['bound_ms']!r} ms by {r['bound_by']}", flush=True)
     return r
@@ -1214,6 +1258,14 @@ def _bits(dtype) -> str:
     return str(dtype)[len("torch.int"):]
 
 
+def _swim_key(cfg) -> tuple:
+    """The swim kernel's launch-count key in ``cfg``'s round (the row's
+    width after ``/m`` past the register form)."""
+    form = "packed" if cfg.pig_members else "aligned"
+    wide = f"/m{cfg.m_slots}" if cfg.m_slots > REGISTER_SLOTS else ""
+    return ("swim_tables", f"{form}/{_bits(cfg.timer_dtype)}/{_bits(cfg.tx_dtype)}{wide}")
+
+
 def phase_kernels(dev) -> dict:
     """Each kernel form against its plain version, held bitwise and timed, at
     the shapes of the path that runs it. Each result names that path and its
@@ -1242,6 +1294,7 @@ def phase_kernels(dev) -> dict:
     queues = scale_sim_config(FLAGSHIP_NODES, **QUEUES)
     packets = scale_sim_config(FLAGSHIP_NODES, **PACKETS)
     widest = scale_sim_config(FLAGSHIP_NODES, **dict(QUEUES, pig_changes=128))
+    members = scale_sim_config(FLAGSHIP_NODES, **MEMBERS)
     wide = scale_sim_config(FLAGSHIP_NODES, narrow_dtypes=False)
     big = million_config(MILLION_NODES)
     full = full_view_config(FULL_NODES)
@@ -1359,6 +1412,10 @@ def phase_kernels(dev) -> dict:
          lambda n: _ingest_form(n, scale_sim_config(FLAGSHIP_NODES, pig_changes=64,
                                                     bcast_queue=64, narrow_q_int8=True),
                                 "receive", 81, dev)),
+        # the swim kernel's wide form (more than 128 member slots): the wide
+        # member table's round (m = 256, aligned int16/int16); the rest below
+        ("swim_tables_members", "members", _swim_key(members),
+         lambda n: _swim_form(n, members, 82, dev)),
     ]
     for c, form, seed in ((wide, "receive", 36), (wide, "write", 37),
                           (wide, "write_emit", 38), (flag, "write", 39),
@@ -1378,10 +1435,36 @@ def phase_kernels(dev) -> dict:
                 f"_n{c.n_nodes}")
         forms.append((name, None, None,
                       lambda n, c=c, kw=kw, seed=seed: _swim_form(n, c, seed, dev, **kw)))
+    # the wide member table's other dtype pairs, aligned and packed (16
+    # entries a packet, the 1M point's tiers), m = 200 (the general modulo)
+    # at N = 100,000; a packet of m entries (1,024 a row), and m = 1,024
+    # aligned and packed, at N = 25,000 (the wide member table's 25.6M
+    # cells: these widths are no configuration's, and at N = 100,000 their
+    # plain versions take over a second a call)
+    i8, i16 = torch.int8, torch.int16
+    for n, over, kw, seed in (
+            (FLAGSHIP_NODES, dict(MEMBERS), dict(tx_dtype=i8), 83),
+            (FLAGSHIP_NODES, dict(MEMBERS, narrow_dtypes=False), {}, 84),
+            (FLAGSHIP_NODES, dict(MEMBERS), dict(tx_dtype=i8, pig_k=16), 85),
+            (FLAGSHIP_NODES, dict(MEMBERS), dict(pig_k=16), 86),
+            (FLAGSHIP_NODES, dict(MEMBERS, narrow_dtypes=False), dict(pig_k=16), 87),
+            (FLAGSHIP_NODES, dict(m_slots=200), {}, 88),
+            (WIDEST_SWIM_NODES, dict(MEMBERS), dict(pig_k=256), 89),
+            (WIDEST_SWIM_NODES, dict(m_slots=1024, narrow_dtypes=False), {}, 90),
+            (WIDEST_SWIM_NODES, dict(m_slots=1024), dict(tx_dtype=i16, pig_k=64), 91)):
+        c = scale_sim_config(n, **over)
+        entries = kw.get("pig_k", 0)  # (not `k`: the 1M form's lambda reads it)
+        name = (f"swim_tables_{'packed' if entries else 'aligned'}_{_bits(c.timer_dtype)}_"
+                f"{_bits(kw.get('tx_dtype', c.timer_dtype))}_m{c.m_slots}"
+                f"{f'_k{entries}' if entries else ''}_n{c.n_nodes}")
+        forms.append((name, None, None,
+                      lambda n, c=c, kw=kw, seed=seed: _swim_form(n, c, seed, dev, **kw)))
     out = {}
     for name, path, key, measure in forms:
+        t0 = time.perf_counter()
         out[name] = measure(name)
         out[name].update(path=path, launch_key=key)
+        print(f"[time] kernels {name}: {time.perf_counter() - t0:.1f} s", flush=True)
     return out
 
 
@@ -2101,10 +2184,11 @@ def queues_workload(cfg, rounds: int, device="cuda"):
 def _kernel_point(dev, cfg, suffix: str, workload=None) -> tuple:
     """``cfg`` at the flagship's size with ``workload`` (default bench.py's,
     ``flagship_workload``): ten timed batches of 2 rounds after 2 warm-up
-    rounds; K1 once a round and K2 and K3 once a round each under
-    the form keys ending in ``suffix`` (the receive's after ``/m{m}`` when
-    its batch is wider than 32, the emitting write's followed by ``/r{R}``
-    past 32 picks); fresh, delivered and syncs above 0.
+    rounds; K1 once a round under its key (``_swim_key``) and K2 and K3
+    once a round each under the form keys ending in ``suffix`` (the
+    receive's after ``/m{m}`` when its batch is wider than 32, the emitting
+    write's followed by ``/r{R}`` past 32 picks); fresh, delivered and
+    syncs above 0.
     Returns (final state, its initial bytes, the batch rates, the info
     sums, the form launches, the peak device bytes)."""
     import torch
@@ -2135,8 +2219,7 @@ def _kernel_point(dev, cfg, suffix: str, workload=None) -> tuple:
     m = 4 * cfg.pig_changes
     recv = f"{_bits(cdt)}/{_bits(qdt)}/m{m}{suffix}" if m > 32 else key
     emit = f"{key}/r{cfg.pig_changes}" if cfg.pig_changes > ONE_PICK else key
-    want = {("swim_tables", "aligned/16/16"): total, ("ingest", recv): total,
-            ("ingest_emit", emit): total}
+    want = {_swim_key(cfg): total, ("ingest", recv): total, ("ingest_emit", emit): total}
     if forms != want:
         raise AssertionError(f"{suffix} launch counts {forms} != {want}")
     sums = {k: sum(int(i[k].sum()) for i in infos) for k in infos[0]}
@@ -2320,6 +2403,67 @@ def phase_packets(dev, flag: dict) -> dict:
           f"holding more than {ONE_PICK} live queue slots; launches {forms}; info sums {sums}",
           flush=True)
     return {"rounds_per_s": med, "peak_bytes": peak, "forms": forms}
+
+
+def _past_register(st) -> int:
+    """Rows with an occupied member slot at or past REGISTER_SLOTS."""
+    return int((st.swim.mem_id[:, REGISTER_SLOTS:] >= 0).any(dim=1).sum())
+
+
+def phase_members(dev, flag: dict) -> dict:
+    """The wide member table, ``scale_sim_config(FLAGSHIP_NODES,
+    **MEMBERS)``, with bench.py's workload: ``_kernel_point`` with K1 in
+    its wide form's key; rows with an occupied member slot at or past 128
+    at the end; the state's bytes equal to the static projection. Prints
+    its rounds/s beside the flagship's (``flag``, this call's phase 4)."""
+    from corrosion_tpu_torch.obs.memory import projected_bytes
+    from corrosion_tpu_torch.sim.scale_step import scale_sim_config
+
+    cfg = scale_sim_config(FLAGSHIP_NODES, **MEMBERS)
+    n = cfg.n_nodes
+    st, state_bytes, rates, sums, forms, peak = _kernel_point(dev, cfg, "")
+    rows = _past_register(st)
+    projected = projected_bytes(cfg, n)
+    if st.swim.mem_id.shape != (n, cfg.m_slots) or rows <= 0:
+        raise AssertionError(f"members state: table {tuple(st.swim.mem_id.shape)}, {rows} "
+                             f"rows with a slot past {REGISTER_SLOTS} occupied")
+    if projected != state_bytes:
+        raise AssertionError(f"members: state {state_bytes} bytes != projected {projected}")
+    med, q1, q3 = _spread(rates)
+    print(f"[members] N={n} {MEMBERS}: {len(rates)} batches of 2 rounds at "
+          f"{[repr(x) for x in rates]} rounds/s, median {med!r} (quartiles {q1!r}-{q3!r}; "
+          f"the flagship's median {flag['rounds_per_s']!r} in this call); peak device memory "
+          f"{peak} bytes, state {state_bytes} bytes, projected {projected} bytes; {rows} rows "
+          f"with a member slot past {REGISTER_SLOTS} occupied; launches {forms}; info sums "
+          f"{sums}", flush=True)
+    return {"rounds_per_s": med, "peak_bytes": peak, "forms": forms}
+
+
+def phase_members_trajectory(dev) -> None:
+    """Phase 3's trajectory for the wide member table at
+    MEMBERS_TRAJECTORY_NODES, aligned (``scale_sim_config``) and packed
+    under the 1M point's tiers (``million_config``): card and CPU bitwise
+    equal every round, K1 in its wide key once a round, rows with an
+    occupied member slot at or past 128 on both sides at the end, and a
+    sync round inside."""
+    from corrosion_tpu_torch.sim.scale_step import million_config, scale_sim_config
+
+    rounds = MEMBERS_TRAJECTORY_ROUNDS
+    for label, make in (("wide member table", scale_sim_config),
+                        ("wide member table, packed", million_config)):
+        forms, sums, rows = phase_trajectory(
+            dev, label, lambda n, make=make, **kw: make(n, **MEMBERS, **kw), rounds,
+            n_nodes=MEMBERS_TRAJECTORY_NODES,
+            final=lambda a, b: (_past_register(a), _past_register(b)))
+        swim = {kf: v for kf, v in forms.items() if kf[0] == "swim_tables"}
+        want = {_swim_key(make(MEMBERS_TRAJECTORY_NODES, **MEMBERS)): rounds}
+        print(f"[trajectory] {label}: rows with a member slot past {REGISTER_SLOTS} "
+              f"occupied: cpu {rows[0]}, card {rows[1]}; syncs {sums['syncs']}", flush=True)
+        if swim != want:
+            raise AssertionError(f"{label}: swim launches {swim} != {want}")
+        if rows[0] <= 0 or rows[0] != rows[1] or sums["syncs"] <= 0:
+            raise AssertionError(f"{label}: rows past {REGISTER_SLOTS} cpu {rows[0]} card "
+                                 f"{rows[1]}, syncs {sums['syncs']}")
 
 
 @contextlib.contextmanager
@@ -4428,26 +4572,29 @@ def _ptxas_functions(log: str) -> dict:
 
 def _check_swim_ptxas(log: str) -> None:
     """Print ptxas' report for every swim kernel instantiation (the six
-    timer/budget x form pairs, each at 1, 2 and 4 columns a lane) by name;
-    each must have no stack frame and no spills."""
+    timer/budget x form pairs, each at 1, 2 and 4 columns a lane, and each
+    in the wide form) by name; each must have no stack frame and no
+    spills."""
     import re
 
     seen, bad = set(), []
     for mangled, (frame, st, ld, regs) in sorted(_ptxas_functions(log).items()):
-        got = re.search(r"swim_tables_kernelI([asi])([asi])Lb([01])ELi(\d+)E", mangled)
+        got = re.search(r"swim_tables_(wide_)?kernelI([asi])([asi])Lb([01])E(?:Li(\d+)E)?",
+                        mangled)
         if not got:
             continue
-        tt, xt, packed, spl = got.groups()
+        wide, tt, xt, packed, spl = got.groups()
         form = (_PTX_TYPES[tt], _PTX_TYPES[xt], "packed" if packed == "1" else "aligned")
-        name = f"swim_tables_kernel<{', '.join(form)}, SPL={spl}>"
+        name = (f"swim_tables_wide_kernel<{', '.join(form)}>" if wide
+                else f"swim_tables_kernel<{', '.join(form)}, SPL={spl}>")
         print(f"[ptxas] {name}: {frame} bytes stack frame, {st} bytes spill stores, "
               f"{ld} bytes spill loads; {regs}", flush=True)
         if frame or st or ld:
             bad.append(name)
-        seen.add((form, spl))
+        seen.add((form, "wide" if wide else spl))
     want = {((t, x, f), spl) for t, x in (("int16", "int8"), ("int16", "int16"),
                                            ("int32", "int32"))
-            for f in ("aligned", "packed") for spl in ("1", "2", "4")}
+            for f in ("aligned", "packed") for spl in ("1", "2", "4", "wide")}
     if bad:
         raise AssertionError(f"stack frame or spills in ptxas' report: {bad}")
     if seen != want:
@@ -4535,6 +4682,7 @@ def main() -> int:
     phase_tables_trajectory(dev)
     phase_queues_trajectory(dev)
     phase_packets_trajectory(dev)
+    phase_members_trajectory(dev)
     done("trajectory")
     flag = phase_flagship(dev)
     done("flagship")
@@ -4546,6 +4694,8 @@ def main() -> int:
     done("queues")
     packets = phase_packets(dev, flag)
     done("packets")
+    members = phase_members(dev, flag)
+    done("members")
     million = phase_million(dev)
     done("million")
     phase_cost(dev, million.pop("audit"))
@@ -4608,7 +4758,7 @@ def main() -> int:
     for k, v in chaos["serve_overload_forms"].items():
         serve_forms[k] = serve_forms.get(k, 0) + v
     paths = {"flagship": flag, "writers": writers, "tables": tables, "queues": queues,
-             "packets": packets,
+             "packets": packets, "members": members,
              "million": million, "full": full, "pig0": tx_paths["pig0"],
              "chaos": chaos, "load": {"forms": serve_forms},
              "overload": overload}

@@ -18,7 +18,8 @@
 // card's integer rate, so the kernel can go no faster than those bytes over
 // 3.35 TB/s.
 //
-// Design: one warp per node row, kRowsPerBlock rows (warps) a block. Lane l
+// Design: one warp per node row, kRowsPerBlock rows (warps) a block. Up to
+// kRegSlots = 128 columns (the register form), lane l
 // holds the columns l + 32 i, i < SPL (SPL = 1, 2 or 4 for m <= 32, 64,
 // 128; columns at or above m are masked), so each access of a warp is one
 // contiguous span of a plane row at every dtype (128 bytes of an int32
@@ -47,7 +48,31 @@
 //     on the column: the compiler turns a branch on `column == slot` into
 //     an indexed access, which moves the row's arrays to the stack;
 //   - the packed form's merges (below), on the row's id/view staged in
-//     per-warp shared memory (2 x kMaxSlots int32) for this phase only.
+//     per-warp shared memory (2 x kRegSlots int32) for this phase only.
+//
+// The wide form (m > kRegSlots, any m): the row cannot stay in registers
+// (at 8 columns a lane the six row planes and the aligned channels would
+// take over 100 registers a lane, and no register form covers every m), so
+// the warp walks the row in chunks of 32 columns, one column a lane, each
+// chunk through every phase from its loads to its stores, in registers.
+// Every phase is local to a column but two:
+//   - the refutation reads (id, view) at self_slot after the purge, and
+//     decides inc, the self refresh and so the refill of that one column.
+//     Every other column's result depends on its own column alone, so the
+//     chunk that holds self_slot goes first (chunk 0 when self_slot is out
+//     of the row): its refutation, one __shfl_sync from the lane of
+//     self_slot, is done before any later chunk needs inc;
+//   - the packed merges apply entries at hash classes anywhere in the row.
+//     The row (after the suspect mark) is staged in the warp's own rows of
+//     the outputs o_id / o_view, which hold any m: shared memory sized from
+//     m would hold 2 x m int32 a warp only up to m ~ 7,000 at the card's
+//     227 KB a block and need a second path past that. The ranked merge
+//     below runs on the staged row as it does on shared memory (__syncwarp
+//     orders a warp's global writes as its shared ones), and the chunk
+//     pass reads each column back from there before it overwrites it.
+// The row-addressed steps (the suspect mark at probe_slot, the sender
+// assertions at snd % m, the self refresh) are selects on the column
+// index in whichever chunk holds it, as in the register form.
 //
 // The packed merge: the JAX body applies the entries one after another at
 // their hash class c = id % m, channels 0..3 and entries 0..k-1 in order;
@@ -75,7 +100,8 @@
 // store: (int16, int8) under narrow_int8, (int16, int16) under
 // narrow_dtypes, else (int32, int32).
 //
-// Instantiations: 3 type pairs x {aligned, packed} x SPL {1, 2, 4} = 18;
+// Instantiations: 3 type pairs x {aligned, packed} x SPL {1, 2, 4} = 18
+// register forms, and 3 type pairs x {aligned, packed} = 6 wide forms;
 // chip_smoke.py prints ptxas' report (-Xptxas -v) for each and requires 0
 // bytes of stack frame and spill in all of them.
 
@@ -84,7 +110,8 @@
 
 namespace {
 
-constexpr int kMaxSlots = 128;
+// the register form's widest row; past it the wide form
+constexpr int kRegSlots = 128;
 // warps (node rows) a block: 2 and 4 measured within 5 % of each other, 4
 // the faster on five of the six forms, 8 slower (PERF.md, Findings)
 constexpr int kRowsPerBlock = 4;
@@ -297,8 +324,8 @@ __global__ void __launch_bounds__(32 * kRowsPerBlock) swim_tables_kernel(const S
 
   // --- four packet merges ---------------------------------------------------
   if constexpr (PACKED) {
-    __shared__ int32_t s_id[kRowsPerBlock][kMaxSlots];
-    __shared__ int32_t s_view[kRowsPerBlock][kMaxSlots];
+    __shared__ int32_t s_id[kRowsPerBlock][kRegSlots];
+    __shared__ int32_t s_view[kRowsPerBlock][kRegSlots];
     int32_t* sid = s_id[warp];
     int32_t* sview = s_view[warp];
 #pragma unroll
@@ -442,18 +469,191 @@ __global__ void __launch_bounds__(32 * kRowsPerBlock) swim_tables_kernel(const S
   }
 }
 
-extern "C" int swim_tables_max_slots() { return kMaxSlots; }
+// The wide form, m > kRegSlots (any m): the row in chunks of 32 columns, one
+// column a lane, the chunk holding self_slot first; the packed form's row
+// staged in the warp's output rows for its merges (see the header).
+template <typename TT, typename XT, bool PACKED>
+__global__ void __launch_bounds__(32 * kRowsPerBlock) swim_tables_wide_kernel(const SwimArgs a) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + warp;
+  if (r >= a.n) return;  // the whole warp: rows past n are masked
+  const int m = a.m;
+  const int mask = (m & (m - 1)) == 0 ? m - 1 : -1;
+  const int64_t base = r * m;
+
+  // --- the per-row scalars; the channels' on lanes 0..3 --------------------
+  const bool alive = a.alive[r] != 0;
+  const bool failed = a.probe_failed[r] != 0;
+  const int32_t ps = failed ? a.probe_slot[r] : -1;
+  const int32_t sus_key = failed ? a.suspect_key[r] : 0;
+  const int32_t sends = a.sends[r];
+  const int32_t node = a.node_id[r];
+  const int32_t ss = a.self_slot[r];
+  const int32_t sus_heard = a.sus_heard[r];
+  int32_t inc = a.inc[r];
+  const uint8_t* p_valid = a.ch_valid[0];
+  const int32_t* p_snd = a.ch_snd[0];
+  const int32_t* p_snd_inc = a.ch_snd_inc[0];
+#pragma unroll
+  for (int ch = 1; ch < 4; ++ch) {
+    p_valid = lane == ch ? a.ch_valid[ch] : p_valid;
+    p_snd = lane == ch ? a.ch_snd[ch] : p_snd;
+    p_snd_inc = lane == ch ? a.ch_snd_inc[ch] : p_snd_inc;
+  }
+  const bool my_valid = lane < 4 && p_valid[r] != 0;
+  const int32_t my_snd = my_valid ? p_snd[r] : 0;
+  const int32_t my_snd_inc = my_valid ? p_snd_inc[r] : 0;
+  const unsigned vmask = __ballot_sync(kFull, my_valid);
+  bool valid[4];
+  // the sender assertions' ids, keys and slots (-1: channel not valid)
+  int32_t snd[4], s_key[4];
+  int slot[4];
+#pragma unroll
+  for (int ch = 0; ch < 4; ++ch) {
+    valid[ch] = (vmask >> ch) & 1u;
+    snd[ch] = __shfl_sync(kFull, my_snd, ch);
+    s_key[ch] = pack_inc_state(__shfl_sync(kFull, my_snd_inc, ch), kAlive);
+    slot[ch] = valid[ch] ? floor_mod(snd[ch], m, mask) : -1;
+  }
+
+  // --- packed: the suspect-marked row staged in the outputs, the merges ----
+  int32_t* const sid = a.o_id + base;
+  int32_t* const sview = a.o_view + base;
+  if constexpr (PACKED) {
+    for (int c = lane; c < m; c += 32) {
+      const int32_t v = a.mem_view[base + c];
+      sid[c] = a.mem_id[base + c];
+      sview[c] = c == ps ? max(v, sus_key) : v;
+    }
+    __syncwarp();
+    const int k = a.pig_k;
+    const int total = __popc(vmask) * k;  // positions of the valid channels' entries
+    const unsigned below = (1u << lane) - 1u;
+    for (int p0 = 0; p0 < total; p0 += 32) {
+      const int pos = p0 + lane;
+      const int32_t in_id = pos < total ? *entry_at(a, valid, r, k, pos).id : kFree;
+      const int32_t in_view = in_id >= 0 ? *entry_at(a, valid, r, k, pos).view : 0;
+      merge_pass(sid, sview, in_id, in_view, m, mask, below);
+    }
+  }
+
+  // --- the chunks, the one holding self_slot first -------------------------
+  const int chunks = (m + 31) >> 5;
+  const bool ss_in = ss >= 0 && ss < m;
+  bool refute = false;
+  int32_t self_key = 0;
+  for (int j = 0, ci = ss_in ? ss >> 5 : 0; j < chunks; ++j, ci = ci + 1 < chunks ? ci + 1 : 0) {
+    const int c = 32 * ci + lane;
+    const bool in = c < m;
+    const int64_t at = base + c;
+    int32_t id, view;
+    if constexpr (PACKED) {
+      id = in ? sid[c] : kFree;
+      view = in ? sview[c] : kFree;
+    } else {
+      id = in ? a.mem_id[at] : kFree;
+      view = in ? a.mem_view[at] : kFree;
+      view = c == ps ? max(view, sus_key) : view;  // the failed probe's suspect mark
+      // the aligned channels: ids and send flags, then views where live
+      // and sendable, then the merges in channel order
+      int32_t cid[4], cview[4];
+#pragma unroll
+      for (int ch = 0; ch < 4; ++ch) {
+        const bool rd = in && valid[ch];
+        const int32_t got = rd ? a.ch_id[ch][at] : kFree;
+        const bool send = rd && a.ch_send[ch][at] != 0;
+        cid[ch] = send ? got : kFree;
+      }
+#pragma unroll
+      for (int ch = 0; ch < 4; ++ch) cview[ch] = cid[ch] >= 0 ? a.ch_view[ch][at] : 0;
+#pragma unroll
+      for (int ch = 0; ch < 4; ++ch) {
+        if (cid[ch] >= 0) merge_entry(id, view, cid[ch], cview[ch]);
+      }
+    }
+    const int32_t old_id = in ? a.old_id[at] : kFree;
+    const int32_t old_view = in ? a.old_view[at] : kFree;
+    int32_t timer = in ? static_cast<int32_t>(static_cast<const TT*>(a.timer)[at]) : 0;
+    int32_t tx = in ? static_cast<int32_t>(static_cast<const XT*>(a.tx)[at]) : 0;
+
+    // sender-alive assertions at snd % m, in channel order
+#pragma unroll
+    for (int ch = 0; ch < 4; ++ch) {
+      const bool here = c == slot[ch];
+      const bool free1 = id < 0;
+      view = here && (free1 || id == snd[ch]) ? max(view, s_key[ch]) : view;
+      id = here && free1 ? snd[ch] : id;
+    }
+
+    // budget decrement, suspicion / down timers, purge
+    if (!PACKED && tx > 0) tx -= sends;  // sendable: the budget as read
+    tx = PACKED ? tx : max(tx, 0);
+    {
+      const bool occupied = id >= 0;
+      const bool changed = view != old_view || id != old_id;
+      const bool is_suspect = occupied && view >= 0 && (view & 3) == kSuspect;
+      const bool newly = changed && is_suspect;
+      int32_t tm = newly ? a.suspicion_rounds : timer;
+      if (is_suspect && !newly && alive) tm -= 1;
+      const bool expired = is_suspect && tm <= 0 && alive;
+      if (expired) view = pack_inc_state(view >> 2, kDown);
+      const bool is_down = occupied && view >= 0 && (view & 3) == kDown;
+      const bool newly_down = expired || (changed && is_down);
+      if (is_down && newly_down) tm = a.down_purge_rounds;
+      if (is_down && !newly_down && alive) tm -= 1;
+      if (is_down && tm <= 0 && alive) {
+        id = kFree;
+        view = kFree;
+      }
+      timer = tm;
+    }
+
+    // the first chunk holds self_slot: the refutation, before any chunk
+    // after it needs inc (the same for the whole warp: every lane shuffles)
+    if (j == 0) {
+      const int32_t x_id = __shfl_sync(kFull, id, ss & 31);
+      const int32_t x_view = __shfl_sync(kFull, view, ss & 31);
+      const int32_t self_gossip = ss_in && x_id == node ? x_view : -1;
+      const int32_t heard = max(sus_heard, self_gossip);
+      refute = alive && heard >= pack_inc_state(inc, kSuspect);
+      if (refute) inc = (heard >> 2) + 1;
+      self_key = pack_inc_state(inc, kAlive);
+    }
+    const bool own = alive && c == ss;
+    view = own ? self_key : view;
+    id = own ? node : id;
+
+    // fresh news refills the dissemination budget; stores
+    if (view != old_view || id != old_id) tx = a.max_transmissions;
+    if (in) {
+      a.o_id[at] = id;
+      a.o_view[at] = view;
+      static_cast<TT*>(a.o_timer)[at] = static_cast<TT>(timer);
+      static_cast<XT*>(a.o_tx)[at] = static_cast<XT>(tx);
+    }
+  }
+  if (lane == 0) {
+    a.o_inc[r] = inc;
+    a.o_refute[r] = refute ? 1 : 0;
+  }
+}
+
+// the register form's widest row: past it the wide form
+extern "C" int swim_tables_register_slots() { return kRegSlots; }
 
 // the columns a lane (SPL) are a template parameter, so that a narrow row
-// carries no unused registers
+// carries no unused registers; past kRegSlots the wide form
 template <typename TT, typename XT, bool PACKED>
 static void launch_cols(const SwimArgs* a, dim3 grid, int threads, cudaStream_t s) {
   if (a->m <= 32) {
     swim_tables_kernel<TT, XT, PACKED, 1><<<grid, threads, 0, s>>>(*a);
   } else if (a->m <= 64) {
     swim_tables_kernel<TT, XT, PACKED, 2><<<grid, threads, 0, s>>>(*a);
-  } else {
+  } else if (a->m <= kRegSlots) {
     swim_tables_kernel<TT, XT, PACKED, 4><<<grid, threads, 0, s>>>(*a);
+  } else {
+    swim_tables_wide_kernel<TT, XT, PACKED><<<grid, threads, 0, s>>>(*a);
   }
 }
 
@@ -469,11 +669,11 @@ static void launch_form(const SwimArgs* a, int packed, dim3 grid, int threads,
 
 // timer_bytes / tx_bytes: the element sizes of the timer and budget planes;
 // the valid pairs are (2, 1), (2, 2) and (4, 4). Returns a CUDA error code,
-// or cudaErrorInvalidValue for any other pair, for m outside 1..kMaxSlots
-// or for a packed form without entries.
+// or cudaErrorInvalidValue for any other pair, for m < 1 or for a packed
+// form without entries.
 extern "C" int swim_tables_launch(const SwimArgs* a, int timer_bytes,
                                   int tx_bytes, int packed, void* stream) {
-  if (a->m < 1 || a->m > kMaxSlots || (packed && a->pig_k < 1)) {
+  if (a->m < 1 || (packed && a->pig_k < 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (a->n == 0) return 0;

@@ -53,8 +53,9 @@ from corrosion_tpu_torch.sim.scale import swim_tables_update as swim_tables_plai
 LAUNCHES = {"swim_tables": 0, "ingest": 0, "ingest_emit": 0}
 #: the same launches per (wrapper, form): the swim kernel's form is
 #: "aligned" or "packed" with its timer and budget bits, e.g.
-#: "packed/16/8"; the ingest kernel's its q_cell and q_tx bits, e.g. "16/8",
-#: the batch width where it takes the wide instantiation, e.g.
+#: "packed/16/8", and the row's width where it takes the wide form (more
+#: than 128 slots), e.g. "aligned/16/16/m256"; the ingest kernel's its
+#: q_cell and q_tx bits, e.g. "16/8", the batch width where it takes the wide instantiation, e.g.
 #: "32/32/m96", or where the batch is empty, e.g. "16/16/m0", the origins
 #: where they take the wide book (more than 32), e.g. "16/16/o256", and the
 #: payload picks past one a lane, e.g. "16/16/o256/q128/w8/r64"
@@ -175,8 +176,6 @@ def _swim_cuda(consts, mem_id, mem_view, old_id, old_view, mem_timer, mem_tx,
             f"swim kernel takes timer/budget planes of dtypes "
             f"{_SWIM_DTYPES}, got {mem_timer.dtype}/{mem_tx.dtype}"
         )
-    if m > lib.swim_tables_max_slots():
-        raise ValueError(f"m_slots {m} exceeds the kernel's limit")
     i32, b8, tdt, xdt = torch.int32, torch.bool, mem_timer.dtype, mem_tx.dtype
     nm, nn = (n, m), (n,)
     nch = (n, pig_k) if pig_k else nm
@@ -233,8 +232,9 @@ def _swim_cuda(consts, mem_id, mem_view, old_id, old_view, mem_timer, mem_tx,
         rc = fn(ctypes.byref(a), mem_timer.element_size(), mem_tx.element_size(),
                 int(pig_k > 0), ctypes.c_void_p(stream))
     _raise_on(rc, lib, "swim_tables_error_string")
+    wide = f"/m{m}" if m > lib.swim_tables_register_slots() else ""
     _count_launch("swim_tables", f"{'packed' if pig_k else 'aligned'}/"
-                  f"{8 * mem_timer.element_size()}/{8 * mem_tx.element_size()}")
+                  f"{8 * mem_timer.element_size()}/{8 * mem_tx.element_size()}{wide}")
     return o_id, o_view, o_timer, o_tx, o_inc, o_refute
 
 

@@ -99,8 +99,10 @@ def _torch_args(ops):
 _swim_ref = jax.jit(jscale.swim_tables_update, static_argnums=0)
 
 
+# past 128 slots (the CUDA kernel's wide form): a power of two, and a width
+# that is not one with a row count off the kernel's blocks of 4 rows
 @pytest.mark.parametrize("n,m,seed", [(64, 16, 0), (128, 32, 1), (256, 64, 2),
-                                      (200, 64, 3)])
+                                      (200, 64, 3), (64, 256, 4), (61, 200, 5)])
 def test_swim_plain_matches_swim_tables_update(n, m, seed):
     ops = swim_operands(np.random.default_rng(seed), n, m)
     consts = (m, 6, 48, 10, 0)
@@ -114,8 +116,9 @@ def test_swim_plain_matches_swim_tables_update(n, m, seed):
         assert np.array_equal(np.asarray(a), b.numpy())
 
 
-def test_swim_plain_matches_pallas_kernel_interpret():
-    n, m = 64, 16
+@pytest.mark.parametrize("m", [16, 256])
+def test_swim_plain_matches_pallas_kernel_interpret(m):
+    n = 64
     ops = swim_operands(np.random.default_rng(7), n, m)
     consts = (m, 6, 48, 10, 0)
     want = jmk.swim_tables_fused(consts, *_jax_args(ops), interpret=True)
