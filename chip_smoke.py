@@ -9,11 +9,10 @@ Phases (any failure raises and the script exits non-zero):
    source, started together, while the parity phase's CPU half runs:
    ``parity_references``) and print ptxas' register and stack report;
    each of the swim kernel's 24 (18 register forms, 6 wide) and the ingest
-   kernel's 150 instantiations is named, and any stack frame or spill in
+   kernel's 210 instantiations is named, and any stack frame or spill in
    one of them fails the run.
 2. Hold every kernel form against its plain PyTorch version on the card on
-   random valid inputs (the ingest kernel's drawn from the port's PRNG,
-   the swim kernel's from torch's generator), and again, untimed, on
+   random valid inputs (drawn from torch's generator), and again, untimed, on
    tie-heavy inputs at N three past the configuration's (``_ingest_inputs``
    and ``_swim_inputs`` with ``ties=True``; the swim inputs must give rows
    where two row-addressed steps meet in one hash class), every output
@@ -62,7 +61,14 @@ Phases (any failure raises and the script exits non-zero):
    form on the members path) and packed (16 entries a packet), an aligned
    m = 200 (the general modulo), a packed m = 256 with 256 entries a packet
    (1,024 a row) and m = 1,024 aligned and packed (64 entries a packet),
-   these three at N = 25,000.
+   these three at N = 25,000. The ingest kernel's global book (more than
+   256 origins): more writers' receive, emitting and non-emitting write
+   (1,024 origins, 64x4 cells) at N = 100,000, and at N =
+   GLOBAL_BOOK_NODES the book at 4,096 cells, in the deep form (a receive
+   of 128), in the long form (a receive of 256, 64 picks) and 4,099
+   origins at int32/int32, on inputs with half the messages on the slots
+   past 256; each prints the rows that took, evicted and recorded on a
+   slot past 256, and fails if any count is 0.
 3. Run 11 rounds of ``scale_sim_config(4096, sync_interval=2,
    sync_sweep_every=2)`` with writes, churn and 5 % message loss once on
    the card (kernels) and once on the CPU (plain versions); every state leaf
@@ -80,7 +86,10 @@ Phases (any failure raises and the script exits non-zero):
    wide form, once a round under its ``/m256`` key) at 1024 nodes for 11
    rounds, aligned and packed under the 1M point's tiers, rows with an
    occupied member slot at or past 128 on both sides and a sync round
-   inside. (The CPU route is held bitwise to the JAX package by
+   inside; and more writers (``ORIGINS`` with every node an origin: the
+   global book, once a round in each of its two forms under ``/o1024``) at
+   1024 nodes for 11 rounds, with rows recording messages on book slots
+   past 256 on both sides. (The CPU route is held bitwise to the JAX package by
    ``tests/test_torch_*.py``.)
 4. The flagship: ``scale_sim_config(100_000)`` with bench.py's workload
    (``sim.scale_step.flagship_workload``), 2 warm-up rounds, then three
@@ -119,6 +128,12 @@ Phases (any failure raises and the script exits non-zero):
    with an occupied member slot at or past 128 at the end, the state's
    bytes equal to the projection, its rounds/s printed beside the
    flagship's of phase 4.
+4g. origins: more writers, ``scale_sim_config(100_000, n_origins=1024,
+   n_rows=64)`` (bench.py with BENCH_ORIGINS=1024 BENCH_ROWS=64), with
+   bench.py's workload, the same way as 4b: K2 and K3 under their
+   ``/o1024`` keys (the global book), book slots past 256 owned at the end,
+   the state's bytes equal to the projection, its rounds/s printed beside
+   the flagship's of phase 4.
 5. The 1M point: ``sim.scale_step.million_config()`` (bounded member
    piggyback, int8 budget and queue-counter planes) with the same workload,
    2 warm-up rounds, then three timed batches of 4 rounds. Each kernel must
@@ -379,6 +394,16 @@ MEMBERS_TRAJECTORY_NODES, MEMBERS_TRAJECTORY_ROUNDS = 1024, 11
 # the swim kernel's widest forms (m = 1,024; 256 entries a packet) in the
 # kernels phase
 WIDEST_SWIM_NODES = 25_000
+# more writers: the many-writer flagship with 1,024 tracked origins
+# (BENCH_ORIGINS=1024 BENCH_ROWS=64: a fleet of a thousand hosts that each
+# write their own service records), past the ingest kernel's shared book of
+# 256 slots: its global book
+ORIGINS = dict(n_origins=1024, n_rows=64)
+# more writers, card vs CPU: every node an origin; the global book's other
+# instantiations (the row in global memory, the deep and the long form, a
+# count of origins off the 32-slot grid) in the kernels phase
+ORIGINS_TRAJECTORY_NODES = 1024
+GLOBAL_BOOK_NODES = 8192
 # BASELINE's correctness size: a 256-node cluster, 16 origins, 64 cells
 PARITY_NODES, PARITY_ORIGINS, PARITY_CELLS, PARITY_ROUNDS = 256, 16, 64, 24
 # empty rounds after the single writer's script for the quiet check: the
@@ -581,11 +606,12 @@ def _max_abs_err(a_list, b_list) -> int:
 
 
 def _draws(seed: int, dev):
-    """(ri, coin): int32 draws in [lo, hi) and bool coins of probability p,
-    from torch's generator on ``dev`` seeded with ``seed``. The swim
-    kernel's operands need only be random and reproducible; drawn with the
-    port's bit-exact threefry they took a third of the kernels phase's
-    time."""
+    """(ri, coin, uniform): int32 draws in [lo, hi), bool coins of
+    probability p and float32 uniforms in [0, 1), from torch's generator on
+    ``dev`` seeded with ``seed``. The kernels' operands need only be random
+    and reproducible; drawn with the port's bit-exact threefry the swim
+    kernel's took a third of the kernels phase's time, and the ingest
+    kernel's most of the rest."""
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -593,10 +619,13 @@ def _draws(seed: int, dev):
     def ri(shape, lo, hi):
         return torch.randint(lo, hi, shape, generator=gen, dtype=torch.int32, device=dev)
 
-    def coin(shape, p):
-        return torch.rand(shape, generator=gen, device=dev) < p
+    def uniform(shape):
+        return torch.rand(shape, generator=gen, device=dev)
 
-    return ri, coin
+    def coin(shape, p):
+        return uniform(shape) < p
+
+    return ri, coin, uniform
 
 
 def _swim_inputs(n: int, m: int, plane_dtype, seed: int, dev, tx_dtype=None,
@@ -610,7 +639,7 @@ def _swim_inputs(n: int, m: int, plane_dtype, seed: int, dev, tx_dtype=None,
     sequential one (``_swim_tie_heavy``)."""
     import torch
 
-    ri, coin = _draws(2 * seed, dev)
+    ri, coin, _ = _draws(2 * seed, dev)
     iarr = torch.arange(n, dtype=torch.int32, device=dev)
     self_slot = iarr % m
     mem_id = torch.where(coin((n, m), 0.2), -1, ri((n, m), 0, n))
@@ -662,7 +691,7 @@ def _swim_tie_heavy(args, pig_k: int, seed: int):
      ch_id, ch_view, ch_send, ch_valid, ch_snd, ch_snd_inc) = args
     n, m = mem_id.shape
     dev = mem_id.device
-    ri, coin = _draws(2 * seed + 1, dev)
+    ri, coin, _ = _draws(2 * seed + 1, dev)
 
     crowd = ri((n, 1), 0, m)
 
@@ -765,8 +794,10 @@ def _swim_bytes(args, out, pig_k: int = 0) -> int:
 
 
 # book slots of the ingest kernel's register book (a slot a lane); past them
-# its wide-book instantiation keeps the book in shared memory
+# its shared-book instantiation keeps the book in shared memory, and past
+# STAGED_ORIGINS its global book keeps the book row in global memory
 NARROW_BOOK = 32
+STAGED_ORIGINS = 256
 # cells of the ingest kernel's staged store row (8 a lane in shared memory);
 # past them its row stays in global memory
 STAGED_CELLS = 256
@@ -806,7 +837,6 @@ def _ingest_inputs(cfg, n: int, form: str, seed: int, dev, ties: bool = False):
     budget of a few slots."""
     import torch
 
-    from corrosion_tpu_torch import random as prng
     from corrosion_tpu_torch.ops.megakernel import IngestInputs, IngestParams
     from corrosion_tpu_torch.sim.broadcast import (
         CHANGE_WIRE_BYTES,
@@ -817,20 +847,14 @@ def _ingest_inputs(cfg, n: int, form: str, seed: int, dev, ties: bool = False):
 
     msgs, emit, enqueue_all, no_drift, (o_hi, dbv_hi, p_live) = INGEST_FORMS[form]
     m = msgs(cfg)
-    ks = iter(prng.split(prng.key(seed), 64))
-
-    def ri(shape, lo, hi):
-        return prng.randint(next(ks), shape, lo, hi, dev)
-
-    def coin(shape, p):
-        return prng.uniform(next(ks), shape, dev) < p
+    ri, coin, uniform = _draws(seed, dev)
 
     def planes(shape, fields):
         """int32 planes in [0, hi) for each (bit shift, hi) of ``fields``,
-        all sliced from one draw of 32 bits an element: past the staged
+        all sliced from one draw of 31 bits an element: past the staged
         row's cells a draw a plane would dominate the phase's time."""
-        drawn = prng.bits(next(ks), shape, dev)
-        return tuple(((drawn >> sh) % hi).to(torch.int32) for sh, hi in fields)
+        drawn = ri(shape, 0, (1 << 31) - 1)
+        return tuple((drawn >> sh) % hi for sh, hi in fields)
 
     o, c, q = cfg.n_origins, cfg.n_cells, cfg.bcast_queue
     w = max(1, -(-cfg.buf_slots // 32))
@@ -861,8 +885,17 @@ def _ingest_inputs(cfg, n: int, form: str, seed: int, dev, ties: bool = False):
         budget_bytes=cfg.bcast_budget_bytes, wire_bytes=CHANGE_WIRE_BYTES,
         keep_rounds=cfg.org_keep_rounds, enqueue_all=enqueue_all,
     )
+    live, origin = coin((n, m), p_live), ri((n, m), -1, o_hi)
+    if o > NARROW_BOOK:
+        # half the messages on the slots past the staged book's (the
+        # register book's 32, or the shared book's 256 for the global book;
+        # ids s and s + O of such a slot s, the mailbox's s alone), so that
+        # rows take, evict and record there even when those slots are few
+        lo = STAGED_ORIGINS if o > STAGED_ORIGINS else NARROW_BOOK
+        past = ri((n, m), lo, o) + o * ri((n, m), 0, o_hi // o)
+        origin = torch.where(coin((n, m), 0.5), past, origin)
     x = IngestInputs(
-        live=coin((n, m), p_live), origin=ri((n, m), -1, o_hi), dbv=ri((n, m), 0, dbv_hi),
+        live=live, origin=origin, dbv=ri((n, m), 0, dbv_hi),
         cell=ri((n, m), -1, c + 1), ver=ri((n, m), 0, 8), val=ri((n, m), 0, 4),
         site=ri((n, m), 0, 4), clp=ri((n, m), 0, 2),
         ts=ri((n, m), (now - 3) << HLC_ROUND_BITS, (now + 4) << HLC_ROUND_BITS),
@@ -882,7 +915,7 @@ def _ingest_inputs(cfg, n: int, form: str, seed: int, dev, ties: bool = False):
         q_tx=ri((n, q), 0, 4).to(qdt),
         hlc=ri((n,), 0, now << HLC_ROUND_BITS),
         now=torch.tensor(now, dtype=torch.int32, device=dev),
-        rand=prng.uniform(next(ks), (n, q), dev) if emit else None,
+        rand=uniform((n, q)) if emit else None,
         carried=ri((n,), 0, 5) if emit else None,
     )
     if ties:
@@ -1027,31 +1060,38 @@ def _owned(p, x, out):
     return (x.origin >= 0) & (torch.gather(out.org_id, 1, slot) == x.origin)
 
 
-def _wide_slot_rows(p, x, out) -> dict:
-    """Rows that, on a book slot past the register book's 32, took the slot
-    (its owner changed), evicted an owner (took it from an origin >= 0) and
-    recorded a message (fresh and owned after the claim)."""
+def _wide_slot_rows(p, x, out, past: int = NARROW_BOOK) -> dict:
+    """Rows that, on a book slot at or past ``past`` (the register book's
+    32, or the staged book's 256), took the slot (its owner changed),
+    evicted an owner (took it from an origin >= 0) and recorded a message
+    (fresh and owned after the claim)."""
     import torch
 
-    wide = slice(NARROW_BOOK, None)
+    wide = slice(past, None)
     took = out.org_id[:, wide] != x.org_id[:, wide]
     slot = torch.clamp(x.origin, min=0) % p.n_origins
-    rec = out.fresh & _owned(p, x, out) & (slot >= NARROW_BOOK)
+    rec = out.fresh & _owned(p, x, out) & (slot >= past)
     return {"took": int(took.any(dim=1).sum()),
             "evicted": int((took & (x.org_id[:, wide] >= 0)).any(dim=1).sum()),
             "recorded": int(rec.any(dim=1).sum())}
 
 
-def _require_wide_slots(name, p, x, out) -> None:
-    """With more than 32 origins, rows must take, evict and record on the
-    wide book's slots past 32."""
-    if p.n_origins <= NARROW_BOOK:
+def _require_wide_slots(name, p, x, out, past: int = NARROW_BOOK) -> None:
+    """With more than ``past`` origins, rows must take, evict and record on
+    the book's slots at or past ``past``."""
+    if p.n_origins <= past:
         return
-    rows = _wide_slot_rows(p, x, out)
-    print(f"[kernels] {name}: rows on slots >= {NARROW_BOOK} of {p.n_origins}: "
+    rows = _wide_slot_rows(p, x, out, past)
+    print(f"[kernels] {name}: rows on slots >= {past} of {p.n_origins}: "
           f"{rows}", flush=True)
     if min(rows.values()) <= 0:
-        raise AssertionError(f"{name}: the inputs miss the wide book's slots: {rows}")
+        raise AssertionError(f"{name}: the inputs miss the book's slots past {past}: {rows}")
+
+
+def _require_global_book(name, p, x, out) -> None:
+    """With more than 256 origins (the global book), rows must take, evict
+    and record on the slots past the staged book's 256."""
+    _require_wide_slots(name, p, x, out, STAGED_ORIGINS)
 
 
 def _past_staged_rows(x, out) -> int:
@@ -1211,6 +1251,7 @@ def _ingest_form(name, cfg, form, seed, dev) -> dict:
         if form == "receive_full":
             _require_past_queue(name, p, x, want)
         _require_wide_slots(name, p, x, want)
+        _require_global_book(name, p, x, want)
         _require_past_staged(name, p, x, want)
         _require_deep(name, p, x, want)
         _require_long(name, p, x, want)
@@ -1247,6 +1288,7 @@ def _hold_ties(name, cfg, form, seed, dev) -> None:
     if form == "receive_full":
         _require_past_queue(f"{name} (tie-heavy)", p, x, want)
     _require_wide_slots(f"{name} (tie-heavy)", p, x, want)
+    _require_global_book(f"{name} (tie-heavy)", p, x, want)
     _require_past_staged(f"{name} (tie-heavy)", p, x, want)
     _require_deep(f"{name} (tie-heavy)", p, x, want)
     _require_long(f"{name} (tie-heavy)", p, x, want)
@@ -1295,6 +1337,7 @@ def phase_kernels(dev) -> dict:
     packets = scale_sim_config(FLAGSHIP_NODES, **PACKETS)
     widest = scale_sim_config(FLAGSHIP_NODES, **dict(QUEUES, pig_changes=128))
     members = scale_sim_config(FLAGSHIP_NODES, **MEMBERS)
+    origins = scale_sim_config(FLAGSHIP_NODES, **ORIGINS)
     wide = scale_sim_config(FLAGSHIP_NODES, narrow_dtypes=False)
     big = million_config(MILLION_NODES)
     full = full_view_config(FULL_NODES)
@@ -1412,6 +1455,36 @@ def phase_kernels(dev) -> dict:
          lambda n: _ingest_form(n, scale_sim_config(FLAGSHIP_NODES, pig_changes=64,
                                                     bcast_queue=64, narrow_q_int8=True),
                                 "receive", 81, dev)),
+        # the global book (more than 256 origins): more writers' two forms
+        # and its non-emitting write at N = 100,000; at GLOBAL_BOOK_NODES
+        # the book with the row in global memory (4,096 cells), in the deep
+        # form (Q = 128, W = 8, a receive of 128), in the long form (a
+        # receive of 256, 64 picks) and 4,099 origins (off the 32-slot
+        # grid) at int32/int32
+        ("ingest_origins", "origins", ("ingest", "16/16/o1024"),
+         lambda n: _ingest_form(n, origins, "receive", 92, dev)),
+        ("ingest_emit_origins", "origins", ("ingest_emit", "16/16/o1024"),
+         lambda n: _ingest_form(n, origins, "write_emit", 93, dev)),
+        ("ingest_write_16_16_o1024_n100000", None, None,
+         lambda n: _ingest_form(n, origins, "write", 94, dev)),
+        (f"ingest_16_16_o1024_c4096_n{GLOBAL_BOOK_NODES}", None, None,
+         lambda n: _ingest_form(n, scale_sim_config(GLOBAL_BOOK_NODES, **dict(ORIGINS, **TABLES)),
+                                "receive", 95, dev)),
+        (f"ingest_16_16_m128_o1024_q128_n{GLOBAL_BOOK_NODES}", None, None,
+         lambda n: _ingest_form(n, scale_sim_config(GLOBAL_BOOK_NODES, **dict(QUEUES, **ORIGINS)),
+                                "receive", 96, dev)),
+        (f"ingest_16_16_m256_o1024_q128_n{GLOBAL_BOOK_NODES}", None, None,
+         lambda n: _ingest_form(n, scale_sim_config(GLOBAL_BOOK_NODES,
+                                                    **dict(PACKETS, **ORIGINS)),
+                                "receive", 97, dev)),
+        (f"ingest_emit_16_16_o1024_q128_r64_n{GLOBAL_BOOK_NODES}", None, None,
+         lambda n: _ingest_form(n, scale_sim_config(GLOBAL_BOOK_NODES,
+                                                    **dict(PACKETS, **ORIGINS)),
+                                "write_emit", 98, dev)),
+        (f"ingest_32_32_o4099_n{GLOBAL_BOOK_NODES}", None, None,
+         lambda n: _ingest_form(n, scale_sim_config(GLOBAL_BOOK_NODES, n_origins=4099, n_rows=64,
+                                                    narrow_dtypes=False),
+                                "receive", 99, dev)),
         # the swim kernel's wide form (more than 128 member slots): the wide
         # member table's round (m = 256, aligned int16/int16); the rest below
         ("swim_tables_members", "members", _swim_key(members),
@@ -2405,6 +2478,37 @@ def phase_packets(dev, flag: dict) -> dict:
     return {"rounds_per_s": med, "peak_bytes": peak, "forms": forms}
 
 
+def phase_origins(dev, flag: dict) -> dict:
+    """More writers, ``scale_sim_config(FLAGSHIP_NODES, **ORIGINS)``, with
+    bench.py's workload (its 1,024 origin nodes write): ``_kernel_point``
+    with K2 and K3 in the global book's forms; book slots past 256 owned at
+    the end; the state's bytes equal to the static projection. Prints its
+    rounds/s beside the flagship's (``flag``, this call's phase 4)."""
+    from corrosion_tpu_torch.obs.memory import projected_bytes
+    from corrosion_tpu_torch.sim.scale_step import scale_sim_config
+
+    cfg = scale_sim_config(FLAGSHIP_NODES, **ORIGINS)
+    n = cfg.n_nodes
+    st, state_bytes, rates, sums, forms, peak = _kernel_point(
+        dev, cfg, f"/o{cfg.n_origins}")
+    org_id = st.crdt.book.org_id
+    owned = int((org_id[:, STAGED_ORIGINS:] >= 0).sum())
+    projected = projected_bytes(cfg, n)
+    if org_id.shape != (n, cfg.n_origins) or owned <= 0:
+        raise AssertionError(f"origins state: book {tuple(org_id.shape)}, {owned} slots "
+                             f"past {STAGED_ORIGINS} owned")
+    if projected != state_bytes:
+        raise AssertionError(f"origins: state {state_bytes} bytes != projected {projected}")
+    med, q1, q3 = _spread(rates)
+    print(f"[origins] N={n} {ORIGINS}: {len(rates)} batches of 2 rounds at "
+          f"{[repr(x) for x in rates]} rounds/s, median {med!r} (quartiles {q1!r}-{q3!r}; "
+          f"the flagship's median {flag['rounds_per_s']!r} in this call); peak device memory "
+          f"{peak} bytes, state {state_bytes} bytes, projected {projected} bytes; {owned} book "
+          f"slots past {STAGED_ORIGINS} owned ({int((org_id >= 0).sum())} of {org_id.numel()} "
+          f"in all); launches {forms}; info sums {sums}", flush=True)
+    return {"rounds_per_s": med, "peak_bytes": peak, "forms": forms}
+
+
 def _past_register(st) -> int:
     """Rows with an occupied member slot at or past REGISTER_SLOTS."""
     return int((st.swim.mem_id[:, REGISTER_SLOTS:] >= 0).any(dim=1).sum())
@@ -2467,18 +2571,17 @@ def phase_members_trajectory(dev) -> None:
 
 
 @contextlib.contextmanager
-def _counting_picks(rows: dict):
-    """Add each emitting ingest call's rows with more than ONE_PICK live
-    picks to ``rows[device type]`` while inside."""
+def _counting_ingest(rows: dict, count):
+    """Add ``count(p, x, out)`` of each ingest call to ``rows[device type]``
+    while inside."""
     from corrosion_tpu_torch.ops import megakernel as mk
 
     inner = mk.ingest
 
     def counting(p, x):
         out = inner(p, x)
-        if p.pig_r:
-            d = x.origin.device.type
-            rows[d] = rows.get(d, 0) + int((out.sel_ok.sum(dim=1) > ONE_PICK).sum())
+        d = x.origin.device.type
+        rows[d] = rows.get(d, 0) + count(p, x, out)
         return out
 
     mk.ingest = counting
@@ -2486,6 +2589,13 @@ def _counting_picks(rows: dict):
         yield rows
     finally:
         mk.ingest = inner
+
+
+def _counting_picks(rows: dict):
+    """Add each emitting ingest call's rows with more than ONE_PICK live
+    picks to ``rows[device type]`` while inside."""
+    return _counting_ingest(rows, lambda p, x, out: int((out.sel_ok.sum(dim=1) > ONE_PICK).sum())
+                            if p.pig_r else 0)
 
 
 def phase_packets_trajectory(dev) -> None:
@@ -2529,6 +2639,38 @@ def phase_writers_trajectory(dev) -> None:
                              f"launches {ingest} != {want}")
     if sums["fresh"] <= 0:
         raise AssertionError(f"many writers: nothing fresh ({sums})")
+
+
+def phase_origins_trajectory(dev) -> None:
+    """Phase 3's trajectory for more writers at ORIGINS_TRAJECTORY_NODES,
+    every node an origin (``n_origins`` = N, past the staged book's 256):
+    card and CPU bitwise equal every round, K2 and K3 in the global book's
+    forms once a round each and K1 once a round, rows recording messages on
+    book slots past 256 on both sides (counted by wrapping ``mk.ingest``)."""
+    from corrosion_tpu_torch.sim.broadcast import plane_dtypes
+    from corrosion_tpu_torch.sim.scale_step import scale_sim_config
+
+    rounds, n = TRAJECTORY_ROUNDS, ORIGINS_TRAJECTORY_NODES
+    over = dict(ORIGINS, n_origins=n)
+    recorded = _counting_ingest(
+        {}, lambda p, x, out: _wide_slot_rows(p, x, out, STAGED_ORIGINS)["recorded"])
+    with recorded as rows:
+        forms, sums = phase_trajectory(
+            dev, "more writers", lambda nn, **kw: scale_sim_config(nn, **over, **kw), rounds,
+            n_nodes=n)
+    cdt, qdt = plane_dtypes(scale_sim_config(n, **over))
+    book = f"{_bits(cdt)}/{_bits(qdt)}/o{n}"
+    swim = sum(v for (k, _), v in forms.items() if k == "swim_tables")
+    ingest = {kf: v for kf, v in forms.items() if kf[0] != "swim_tables"}
+    want = {("ingest", book): rounds, ("ingest_emit", book): rounds}
+    print(f"[trajectory] more writers: rows recording messages on book slots past "
+          f"{STAGED_ORIGINS} over the {rounds} rounds: {rows}", flush=True)
+    if swim != rounds or ingest != want:
+        raise AssertionError(f"more writers: swim launches {swim} != {rounds} or ingest "
+                             f"launches {ingest} != {want}")
+    if sums["fresh"] <= 0 or min(rows.get(d, 0) for d in ("cpu", "cuda")) <= 0:
+        raise AssertionError(f"more writers: fresh {sums['fresh']}, rows recording past "
+                             f"{STAGED_ORIGINS} {rows}")
 
 
 def phase_tables_trajectory(dev) -> None:
@@ -4601,25 +4743,38 @@ def _check_swim_ptxas(log: str) -> None:
         raise AssertionError(f"swim ptxas report lacks {sorted(want - seen)}")
 
 
+_BOOKS = {"0": "book a lane", "1": "shared book", "2": "global book"}
+
+
+def _ingest_instantiation(mangled: str):
+    """The form of an ingest kernel instantiation from its mangled name, as
+    (CT, XT, EMIT, KM, QH, CH, book), or None for any other function. The
+    book is the last template argument: ``bool WO`` in sources before the
+    global book (true: the shared book), ``int BK`` since."""
+    import re
+
+    got = re.search(r"ingest_kernelI([asi])([asi])Lb([01])ELi(\d+)ELi(\d+)ELi(\d+)EL[bi]([012])E",
+                    mangled)
+    if not got:
+        return None
+    ct, xt, emit, km, qh, ch, book = got.groups()
+    return (_PTX_TYPES[ct], _PTX_TYPES[xt], "EMIT" if emit == "1" else "no EMIT",
+            f"KM={km}", f"QH={qh}", f"CH={ch}", _BOOKS[book])
+
+
 def _check_ingest_ptxas(log: str) -> None:
     """Print ptxas' report for every ingest kernel instantiation by name
     (three plane-dtype pairs x the emitting, the narrow and the wide batch x
     one, two or four queue slots a lane (four: the deep form, up to 8 seen
-    words) x the register book at 2 or 8 cells a lane and the wide book at
-    8, and both books with the row in global memory, CH = 0; and the long
-    form, KM = 0, with EMIT and in the deep form alone); each must have no
-    stack frame and no spills."""
-    import re
-
+    words) x the register book at 2 or 8 cells a lane and the shared and
+    the global book at 8, and every book with the row in global memory, CH
+    = 0; and the long form, KM = 0, with EMIT and in the deep form alone);
+    each must have no stack frame and no spills."""
     seen, bad = set(), []
     for mangled, (frame, st, ld, regs) in sorted(_ptxas_functions(log).items()):
-        got = re.search(r"ingest_kernelI([asi])([asi])Lb([01])ELi(\d+)ELi(\d+)ELi(\d+)ELb([01])E",
-                        mangled)
-        if not got:
+        form = _ingest_instantiation(mangled)
+        if form is None:
             continue
-        ct, xt, emit, km, qh, ch, wo = got.groups()
-        form = (_PTX_TYPES[ct], _PTX_TYPES[xt], "EMIT" if emit == "1" else "no EMIT",
-                f"KM={km}", f"QH={qh}", f"CH={ch}", "wide book" if wo == "1" else "book a lane")
         name = f"ingest_kernel<{', '.join(form)}>"
         print(f"[ptxas] {name}: {frame} bytes stack frame, {st} bytes spill stores, "
               f"{ld} bytes spill loads; {regs}", flush=True)
@@ -4631,8 +4786,9 @@ def _check_ingest_ptxas(log: str) -> None:
             for e, km, qhs in (("EMIT", "1", "124"), ("no EMIT", "1", "124"),
                                ("no EMIT", "4", "124"), ("EMIT", "0", "4"))
             for qh in qhs
-            for ch, b in (("2", "book a lane"), ("8", "book a lane"), ("8", "wide book"),
-                          ("0", "book a lane"), ("0", "wide book"))}
+            for ch, b in (("2", "book a lane"), ("8", "book a lane"), ("8", "shared book"),
+                          ("0", "book a lane"), ("0", "shared book"), ("8", "global book"),
+                          ("0", "global book"))}
     if bad:
         raise AssertionError(f"stack frame or spills in ptxas' report: {bad}")
     if seen != want:
@@ -4683,6 +4839,7 @@ def main() -> int:
     phase_queues_trajectory(dev)
     phase_packets_trajectory(dev)
     phase_members_trajectory(dev)
+    phase_origins_trajectory(dev)
     done("trajectory")
     flag = phase_flagship(dev)
     done("flagship")
@@ -4696,6 +4853,8 @@ def main() -> int:
     done("packets")
     members = phase_members(dev, flag)
     done("members")
+    origins = phase_origins(dev, flag)
+    done("origins")
     million = phase_million(dev)
     done("million")
     phase_cost(dev, million.pop("audit"))
@@ -4758,7 +4917,7 @@ def main() -> int:
     for k, v in chaos["serve_overload_forms"].items():
         serve_forms[k] = serve_forms.get(k, 0) + v
     paths = {"flagship": flag, "writers": writers, "tables": tables, "queues": queues,
-             "packets": packets, "members": members,
+             "packets": packets, "members": members, "origins": origins,
              "million": million, "full": full, "pig0": tx_paths["pig0"],
              "chaos": chaos, "load": {"forms": serve_forms},
              "overload": overload}

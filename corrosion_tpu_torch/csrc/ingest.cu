@@ -45,7 +45,20 @@
 //     slots l + 32g (g < ceil(O / 32), a runtime loop) where a step is
 //     per slot (the claim's take or keep, the head advance and the
 //     write-out); a message reads its slot's fields there directly, since
-//     its slot is data;
+//     its slot is data. Past 256 origins (the global book, BK =
+//     kBookGlobal: any count the configuration allows) nothing of the book
+//     is staged: the warp first copies its input book row to the output
+//     row (kCopy slots a lane a step, every load before any store, then
+//     the seen words likewise) and every step works on the output row,
+//     the per-slot steps on lane l's slots l + 32g as above; the claim's
+//     per-slot candidate lives in the output's known-max plane, set to -1
+//     by the copy and replaced at the take by the slot's known max (0 on a
+//     take, the input's otherwise) before any message reads it, and the
+//     record's atomicOr/atomicMax act on global memory. Each step's writes
+//     are seen by the other lanes after a __syncwarp(), as the CH = 0
+//     store row's are. The wide book's forms (shared and global) are one
+//     body: a step reads a slot through BookRow, over the shared arrays or
+//     the output row;
 //   - its queue slots: slot lane + 32h, h < QH (1 for Q <= 32, 2 for Q <=
 //     64, and 4, the deep form, for Q <= 128 or a window of more than 4
 //     seen words), all nine planes in registers;
@@ -77,8 +90,9 @@
 // enqueue's ranks for 128: 3,072 bytes a warp at CH = 2, 6,912 at CH = 8,
 // 1,792 at CH = 0; the wide book 18,944 at CH = 8 (37,888 a block of 2
 // rows) and 13,824 at CH = 0; the long form adds its 256 bytes of flags
-// (38,400 bytes a block at the wide book's CH = 8). No array is indexed by
-// data in registers:
+// (38,400 bytes a block at the wide book's CH = 8). The global book keeps
+// only the store row and the enqueue's ranks there, 4 rows a block. No
+// array is indexed by data in registers:
 // every register array is indexed by an unrolled loop counter, so nothing
 // goes to the stack.
 //
@@ -155,18 +169,19 @@
 //
 // Instantiations: 3 type pairs x {EMIT with m <= 32, non-emitting m <= 32,
 // non-emitting m <= 128} x QH {1, 2, 4} x {the register book at CH 2, 8 and
-// 0, the wide book at CH 8 and 0} = 135, and the long form (KM = 0: the
-// emitting batches past 32 messages or 32 picks, the non-emitting ones past
-// 128 messages) in the deep form alone (QH = 4, whatever Q and W are) and
-// with EMIT alone (it emits when pig_r > 0: the launcher sets pig_r = 0
-// for a non-emitting batch, where a twin without EMIT would double the 15
-// and the build), 3 x 5 = 15 more, 150 in all. The shallow forms (QH 1 and
+// 0, the shared (wide) book at CH 8 and 0, the global book at CH 8 and 0}
+// = 189, and the long form (KM = 0: the emitting batches past 32 messages
+// or 32 picks, the non-emitting ones past 128 messages) in the deep form
+// alone (QH = 4, whatever Q and W are) and with EMIT alone (it emits when
+// pig_r > 0: the launcher sets pig_r = 0 for a non-emitting batch, where a
+// twin without EMIT would double the 21 and the build), 3 x 7 = 21 more,
+// 210 in all (60 of them the global book's). The shallow forms (QH 1 and
 // 2) hold
 // up to 4 seen words; the deep form (QH 4) up to 8, in registers for the
 // register book (the seen check's shuffles and the head advance's selects
 // run over 8 words) and in shared memory for the wide book. ptxas
 // (-Xptxas -v, printed and checked by chip_smoke.py's build phase) reports
-// 0 bytes of stack frame and 0 bytes of spill for all 150. The shallow
+// 0 bytes of stack frame and 0 bytes of spill for all 210. The shallow
 // forms: all 18 at CH = 2, 9,216 bytes of shared memory a block (4 rows),
 // and registers: m <= 32 non-emitting 56 (Q <= 32) / 70 (Q = 64), emitting
 // 61-62 / 72, m <= 128 109 / 113-122; at CH = 8, 24,576 bytes a
@@ -184,7 +199,13 @@
 // CH = 0 (27,648 bytes) 126 / 113 / 128. The long form, registers a
 // thread: the register book at CH = 2 (13,312 bytes a block), 8 (28,672)
 // and 0 (8,192) 92-96; the wide book at CH = 8 (38,400 bytes, 2 rows) and
-// 0 (28,160) 104-111.
+// 0 (28,160) 104-111. The global book (4 rows a block, one block a
+// multiprocessor asked of ptxas), registers a thread at QH 1 / 2 / 4: at
+// CH = 8 (21,504 bytes a block, 22,528 deep, 23,552 long) m <= 32
+// non-emitting 68 / 79 / 115, emitting 69 / 80-86 / 121-123, m <= 128 101
+// / 111-113 / 148-149, the long form 107-110; at CH = 0 (1,024 bytes, 2,048
+// deep, 3,072 long) 64 / 76 / 108, 72 / 79-84 / 121-123, 101 / 109-112 /
+// 141-143, the long form 96-108.
 // Times on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit (kernel device
 // time from torch.profiler; chip_smoke.py, random inputs): the 1M point's
 // receive 2.11 ms and emitting write 2.02 ms against bounds of 1.68 and
@@ -209,7 +230,12 @@
 // pairwise loops (O(m^2 / 32) dependent shuffles a row, at 10 warps an SM
 // with the wide book); the emitting write (64 picks) 2.06-2.09 ms against
 // 1.39; a receive of 512 messages 48.13 ms against 1.69, 128 picks 2.23
-// ms against 1.49.
+// ms against 1.49. The global book at more writers (N = 100,000, 1,024
+// origins, W = 1, 64x4 cells, int16/int16): receive 4.33 ms and emitting
+// write 4.13 ms against bounds of 1.60 ms by bytes (the book's input and
+// output rows, 4.1 GB of the 5.4, are most of them; the copy, the take and
+// the head advance each walk the output row; not profiled); 4,099 origins
+// at N = 8192 (int32/int32) 1.70 ms against 0.43.
 
 #include <cstdint>
 #include <cuda_pipeline.h>
@@ -247,6 +273,15 @@ constexpr int kMaxStagedCells = 256;  // CH = 8 cells a lane in shared memory
 // kCopy) stays in int32
 constexpr int kCopy = 4;
 constexpr int kMaxCells = INT32_MAX - 32 * kCopy + 1;
+// past kMaxOriginsWide the book row stays in global memory (the global
+// book): any count of origins whose O * W seen words the same copy loop
+// walks in int32
+constexpr int kMaxOriginsGlobal = kMaxCells / kMaxWordsDeep;
+// where a form keeps its book: a slot a lane in registers (O <= 32), the
+// whole row in shared memory (O <= 256), or the output row in global memory
+constexpr int kBookLanes = 0;
+constexpr int kBookShared = 1;
+constexpr int kBookGlobal = 2;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int32_t kNoQ = -1;
 constexpr int32_t kIntMin = INT32_MIN;
@@ -358,9 +393,10 @@ template <>
 struct StoreRow<0> {};
 
 // One warp's slice of the block's shared memory (CH cells a lane, QH queue
-// slots a lane). With WO (more than 32 origins) the whole book lives here,
-// slot s at index s.
-template <int CH, bool WO, int QH>
+// slots a lane). With the shared book (BK = kBookShared, more than 32
+// origins) the whole book lives here, slot s at index s; the global book
+// keeps none of it here.
+template <int CH, int BK, int QH>
 struct WarpSmem : StoreRow<CH> {
   int32_t cand[kMaxOrigins];  // claim: largest fresh candidate origin a slot
   int32_t km[kMaxOrigins];
@@ -369,7 +405,7 @@ struct WarpSmem : StoreRow<CH> {
 };
 
 template <int CH, int QH>
-struct WarpSmem<CH, true, QH> : StoreRow<CH> {
+struct WarpSmem<CH, kBookShared, QH> : StoreRow<CH> {
   int32_t cand[kMaxOriginsWide];
   int32_t km[kMaxOriginsWide];
   uint32_t seen[kMaxOriginsWide * kWordsOf<QH>];
@@ -377,6 +413,46 @@ struct WarpSmem<CH, true, QH> : StoreRow<CH> {
   int32_t head[kMaxOriginsWide];
   int32_t org_id[kMaxOriginsWide];
   int32_t org_last[kMaxOriginsWide];
+};
+
+template <int CH, int QH>
+struct WarpSmem<CH, kBookGlobal, QH> : StoreRow<CH> {
+  int32_t msg_of_rank[kRanksOf<QH>];
+};
+
+// A warp's book row where a step reads a slot by its index (the slot of a
+// message is data): the shared book's arrays, or the global book's output
+// row, whose known-max plane holds the claim's candidates (cand) from the
+// copy to the take. Every lane sees the other lanes' stores after a
+// __syncwarp() in both.
+template <int BK, typename S>
+struct BookRow {
+  S& sm;
+  __device__ __forceinline__ int32_t& head(int s) const { return sm.head[s]; }
+  __device__ __forceinline__ int32_t& km(int s) const { return sm.km[s]; }
+  __device__ __forceinline__ int32_t& org_id(int s) const { return sm.org_id[s]; }
+  __device__ __forceinline__ int32_t& org_last(int s) const { return sm.org_last[s]; }
+  __device__ __forceinline__ uint32_t& seen(int i) const { return sm.seen[i]; }
+  __device__ __forceinline__ int32_t& cand(int s) const { return sm.cand[s]; }
+};
+
+// (the output planes' bases, which the kernel's arguments hold, and the
+// row's offsets: no pointer into the row stays live in registers)
+template <typename S>
+struct BookRow<kBookGlobal, S> {
+  int32_t* head_;
+  int32_t* km_;
+  int32_t* org_id_;
+  int32_t* org_last_;
+  uint32_t* seen_;
+  int64_t ob;  // the row's first slot
+  int64_t sb;  // the row's first seen word
+  __device__ __forceinline__ int32_t& head(int s) const { return head_[ob + s]; }
+  __device__ __forceinline__ int32_t& km(int s) const { return km_[ob + s]; }
+  __device__ __forceinline__ int32_t& org_id(int s) const { return org_id_[ob + s]; }
+  __device__ __forceinline__ int32_t& org_last(int s) const { return org_last_[ob + s]; }
+  __device__ __forceinline__ uint32_t& seen(int i) const { return seen_[sb + i]; }
+  __device__ __forceinline__ int32_t& cand(int s) const { return km_[ob + s]; }
 };
 
 // The long form's per-message flags, message lane + 32k at bit `lane` of
@@ -388,20 +464,20 @@ struct LongFlags {
   unsigned rec[kLongChunks];  // fresh and owned: recorded
 };
 
-template <int CH, bool WO, int QH>
-struct LongSmem : WarpSmem<CH, WO, QH>, LongFlags {};
+template <int CH, int BK, int QH>
+struct LongSmem : WarpSmem<CH, BK, QH>, LongFlags {};
 
-template <int KM, int CH, bool WO, int QH>
-using SmemOf = std::conditional_t<KM == 0, LongSmem<CH, WO, QH>, WarpSmem<CH, WO, QH>>;
+template <int KM, int CH, int BK, int QH>
+using SmemOf = std::conditional_t<KM == 0, LongSmem<CH, BK, QH>, WarpSmem<CH, BK, QH>>;
 
 // the owner and head of book slot `sl` (every lane calls: the register book
 // shuffles them from lane sl)
-template <bool WO, typename S>
-__device__ __forceinline__ void book_slot(const S& sm, int32_t org_id, int32_t head, int sl,
+template <int BK, typename B>
+__device__ __forceinline__ void book_slot(const B& bk, int32_t org_id, int32_t head, int sl,
                                           int32_t& owner, int32_t& h) {
-  if constexpr (WO) {
-    owner = sm.org_id[sl];
-    h = sm.head[sl];
+  if constexpr (BK != kBookLanes) {
+    owner = bk.org_id(sl);
+    h = bk.head(sl);
   } else {
     owner = __shfl_sync(kFull, org_id, sl);
     h = __shfl_sync(kFull, head, sl);
@@ -537,13 +613,25 @@ struct IngestArgs {
   int32_t enqueue_all;
 };
 
-template <typename CT, typename XT, bool EMIT, int KM, int QH, int CH, bool WO>
-__global__ void __launch_bounds__(32 * (WO ? kRowsPerBlockWide : kRowsPerBlock))
+// node rows (warps) a block: the shared book's rows fill more of it
+template <int BK>
+constexpr int kRowsOf = BK == kBookShared ? kRowsPerBlockWide : kRowsPerBlock;
+
+// blocks a multiprocessor that ptxas must allow for (0: no bound). The global
+// book asks for one: left to its own occupancy target, ptxas spilled 8 bytes
+// in one of the 60 forms (int32/int32, KM = 4, QH = 2, CH = 0) to reach a
+// fifth block; with the bound none spills. The other books keep their code.
+template <int BK>
+constexpr int kMinBlocksOf = BK == kBookGlobal ? 1 : 0;
+
+template <typename CT, typename XT, bool EMIT, int KM, int QH, int CH, int BK>
+__global__ void __launch_bounds__(32 * kRowsOf<BK>, kMinBlocksOf<BK>)
     ingest_kernel(const IngestArgs a) {
-  constexpr int kRows = WO ? kRowsPerBlockWide : kRowsPerBlock;
+  constexpr int kRows = kRowsOf<BK>;
+  constexpr bool WO = BK != kBookLanes;  // a book row of its own (shared or global)
   constexpr int WM = kWordsOf<QH>;  // seen words this form holds
   constexpr int KA = KM > 0 ? KM : 1;  // register chunks (the long form's unused)
-  using Smem = SmemOf<KM, CH, WO, QH>;
+  using Smem = SmemOf<KM, CH, BK, QH>;
   __shared__ Smem smem[kRows];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -555,9 +643,21 @@ __global__ void __launch_bounds__(32 * (WO ? kRowsPerBlockWide : kRowsPerBlock))
   const unsigned below = (1u << lane) - 1u;  // lanes below this one
   const int32_t now = *a.now;
   const int64_t ob = r * O;
+  const auto bk = [&] {
+    if constexpr (BK == kBookGlobal) {
+      return BookRow<BK, Smem>{a.o_head, a.o_km, a.o_org_id, a.o_org_last,
+                               reinterpret_cast<uint32_t*>(a.o_seen), ob, ob * W};
+    } else {
+      return BookRow<BK, Smem>{sm};
+    }
+  }();
 
-  // --- WO: stage the book in shared memory (waited for at the seen check) --
-  if constexpr (WO) {
+  // --- the wide book: stage it in shared memory (waited for at the seen
+  // check), or copy the global book's input row to the output row, lane l
+  // taking slots l + 32i, kCopy of them a step with every load before any
+  // store; the known-max plane starts the claim's candidates at -1 and takes
+  // the input's known max back at the take ---------------------------------
+  if constexpr (BK == kBookShared) {
     for (int s = lane; s < O; s += 32) {
       __pipeline_memcpy_async(&sm.head[s], a.head + ob + s, 4);
       __pipeline_memcpy_async(&sm.km[s], a.km + ob + s, 4);
@@ -568,6 +668,41 @@ __global__ void __launch_bounds__(32 * (WO ? kRowsPerBlockWide : kRowsPerBlock))
       __pipeline_memcpy_async(&sm.seen[i], a.seen + ob * W + i, 4);
     }
     __pipeline_commit();
+  } else if constexpr (BK == kBookGlobal) {
+    for (int s0 = lane; s0 < O; s0 += 32 * kCopy) {
+      int32_t v[kCopy][3];
+#pragma unroll
+      for (int u = 0; u < kCopy; ++u) {
+        const int s = s0 + 32 * u;
+        v[u][0] = s < O ? a.head[ob + s] : 0;
+        v[u][1] = s < O ? a.org_id[ob + s] : 0;
+        v[u][2] = s < O ? a.org_last[ob + s] : 0;
+      }
+#pragma unroll
+      for (int u = 0; u < kCopy; ++u) {
+        const int s = s0 + 32 * u;
+        if (s < O) {
+          bk.head(s) = v[u][0];
+          bk.org_id(s) = v[u][1];
+          bk.org_last(s) = v[u][2];
+          bk.cand(s) = -1;
+        }
+      }
+    }
+    const int ow = O * W;
+    for (int i0 = lane; i0 < ow; i0 += 32 * kCopy) {
+      uint32_t v[kCopy];
+#pragma unroll
+      for (int u = 0; u < kCopy; ++u) {
+        const int i = i0 + 32 * u;
+        v[u] = i < ow ? static_cast<uint32_t>(a.seen[ob * W + i]) : 0u;
+      }
+#pragma unroll
+      for (int u = 0; u < kCopy; ++u) {
+        const int i = i0 + 32 * u;
+        if (i < ow) bk.seen(i) = v[u];
+      }
+    }
   }
 
   // --- stage the store row in shared memory (waited for at the LWW step);
@@ -604,7 +739,7 @@ __global__ void __launch_bounds__(32 * (WO ? kRowsPerBlockWide : kRowsPerBlock))
       }
     }
   }
-  __pipeline_commit();  // an empty group at CH = 0: the WO wait counts groups
+  __pipeline_commit();  // an empty group at CH = 0: the shared book's wait counts groups
 
   // --- loads: messages, book, queue -----------------------------------------
   const int64_t mb = r * m;
@@ -619,7 +754,7 @@ __global__ void __launch_bounds__(32 * (WO ? kRowsPerBlockWide : kRowsPerBlock))
     ts[k] = in ? a.ts[mb + j] : 0;
     live_b[k] = __ballot_sync(kFull, in && a.live[mb + j] != 0);
   }
-  // a book slot a lane (O <= 32); with WO the book is in shared memory
+  // a book slot a lane (O <= 32); with WO the book has a row of its own
   const bool has_o = !WO && lane < O;
   int32_t head = has_o ? a.head[ob + lane] : 0;
   int32_t km = has_o ? a.km[ob + lane] : 0;
@@ -696,7 +831,8 @@ __global__ void __launch_bounds__(32 * (WO ? kRowsPerBlockWide : kRowsPerBlock))
 
   // --- seen check + in-batch dedupe ---------------------------------------
   if constexpr (WO) {
-    __pipeline_wait_prior(1);  // the book's copies, not the store row's
+    // the book's copies (the shared book's, not the store row's)
+    if constexpr (BK == kBookShared) __pipeline_wait_prior(1);
     __syncwarp();
   }
   unsigned fresh_b[KA];
@@ -728,8 +864,8 @@ __global__ void __launch_bounds__(32 * (WO ? kRowsPerBlockWide : kRowsPerBlock))
     const int sl = o_j >= 0 ? o_j % O : 0;
     int32_t owner, h;
     if constexpr (WO) {
-      owner = sm.org_id[sl];
-      h = sm.head[sl];
+      owner = bk.org_id(sl);
+      h = bk.head(sl);
     } else {
       owner = __shfl_sync(kFull, org_id, sl);
       h = __shfl_sync(kFull, head, sl);
@@ -739,7 +875,7 @@ __global__ void __launch_bounds__(32 * (WO ? kRowsPerBlockWide : kRowsPerBlock))
     const int wi = in_win ? (off >> 5) : 0;
     uint32_t word = 0u;
     if constexpr (WO) {
-      word = sm.seen[sl * W + wi];
+      word = bk.seen(sl * W + wi);
     } else {
 #pragma unroll
       for (int w = 0; w < WM; ++w) {
@@ -782,13 +918,13 @@ __global__ void __launch_bounds__(32 * (WO ? kRowsPerBlockWide : kRowsPerBlock))
       }
       const int sl = o_j >= 0 ? o_j % O : 0;
       int32_t owner, h;
-      book_slot<WO>(sm, org_id, head, sl, owner, h);
+      book_slot<BK>(bk, org_id, head, sl, owner, h);
       const int32_t off = wrap_sub(wrap_sub(d_j, h), 1);
       const bool in_win = off >= 0 && off < 32 * W;
       const int wi = in_win ? (off >> 5) : 0;
       uint32_t word = 0u;
       if constexpr (WO) {
-        word = sm.seen[sl * W + wi];
+        word = bk.seen(sl * W + wi);
       } else {
 #pragma unroll
         for (int w = 0; w < WM; ++w) {
@@ -822,9 +958,10 @@ __global__ void __launch_bounds__(32 * (WO ? kRowsPerBlockWide : kRowsPerBlock))
   }
 
   // --- slot claim/evict (monotone in the actor id) -------------------------
-  if constexpr (WO) {
+  // (the global book's candidates were set at its copy)
+  if constexpr (BK == kBookShared) {
     for (int s = lane; s < O; s += 32) sm.cand[s] = -1;
-  } else {
+  } else if constexpr (BK == kBookLanes) {
     if (has_o) sm.cand[lane] = -1;
   }
   __syncwarp();
@@ -834,11 +971,11 @@ __global__ void __launch_bounds__(32 * (WO ? kRowsPerBlockWide : kRowsPerBlock))
     const int sl = o_j >= 0 ? o_j % O : 0;
     int32_t owner;
     if constexpr (WO) {
-      owner = sm.org_id[sl];
+      owner = bk.org_id(sl);
     } else {
       owner = __shfl_sync(kFull, org_id, sl);
     }
-    if (bit(fresh_b[k], lane) && o_j >= 0 && o_j > owner) atomicMax(&sm.cand[sl], o_j);
+    if (bit(fresh_b[k], lane) && o_j >= 0 && o_j > owner) atomicMax(&bk.cand(sl), o_j);
   }
   if constexpr (KM == 0) {
     for (int k = 0; k < kn; ++k) {
@@ -846,24 +983,27 @@ __global__ void __launch_bounds__(32 * (WO ? kRowsPerBlockWide : kRowsPerBlock))
       const int32_t o_j = j < m ? a.origin[mb + j] : -1;
       const int sl = o_j >= 0 ? o_j % O : 0;
       int32_t owner, h;
-      book_slot<WO>(sm, org_id, head, sl, owner, h);
-      if (bit(sm.fresh[k], lane) && o_j >= 0 && o_j > owner) atomicMax(&sm.cand[sl], o_j);
+      book_slot<BK>(bk, org_id, head, sl, owner, h);
+      if (bit(sm.fresh[k], lane) && o_j >= 0 && o_j > owner) atomicMax(&bk.cand(sl), o_j);
     }
   }
   __syncwarp();
   bool take = false;
   if constexpr (WO) {
     // each lane takes or keeps its slots s = lane + 32g; a take starts the
-    // slot anew (head, known max and seen words 0) and marks it now
+    // slot anew (head, known max and seen words 0) and marks it now; the
+    // global book's kept slot takes its known max back from the input row
     for (int s = lane; s < O; s += 32) {
-      const int32_t cand = sm.cand[s];
-      const bool evictable = sm.org_id[s] < 0 || wrap_add(sm.org_last[s], a.keep_rounds) < now;
+      const int32_t cand = bk.cand(s);
+      const bool evictable = bk.org_id(s) < 0 || wrap_add(bk.org_last(s), a.keep_rounds) < now;
       if (cand >= 0 && evictable) {
-        sm.org_id[s] = cand;
-        sm.org_last[s] = now;
-        sm.head[s] = 0;
-        sm.km[s] = 0;
-        for (int w = 0; w < W; ++w) sm.seen[s * W + w] = 0u;
+        bk.org_id(s) = cand;
+        bk.org_last(s) = now;
+        bk.head(s) = 0;
+        bk.km(s) = 0;
+        for (int w = 0; w < W; ++w) bk.seen(s * W + w) = 0u;
+      } else if constexpr (BK == kBookGlobal) {
+        bk.km(s) = a.km[ob + s];
       }
     }
     __syncwarp();
@@ -884,7 +1024,7 @@ __global__ void __launch_bounds__(32 * (WO ? kRowsPerBlockWide : kRowsPerBlock))
     const int sl = o_j >= 0 ? o_j % O : 0;
     int32_t owner;
     if constexpr (WO) {
-      owner = sm.org_id[sl];
+      owner = bk.org_id(sl);
     } else {
       owner = __shfl_sync(kFull, org_id, sl);  // every lane shuffles
     }
@@ -893,7 +1033,7 @@ __global__ void __launch_bounds__(32 * (WO ? kRowsPerBlockWide : kRowsPerBlock))
     owned_b[k] = __ballot_sync(kFull, owned);
     rec_b[k] = __ballot_sync(kFull, rec);
     if constexpr (WO) {
-      if (rec) sm.org_last[sl] = now;
+      if (rec) bk.org_last(sl) = now;
     } else {
       active |= rec ? (1u << sl) : 0u;
     }
@@ -904,7 +1044,7 @@ __global__ void __launch_bounds__(32 * (WO ? kRowsPerBlockWide : kRowsPerBlock))
       const int32_t o_j = j < m ? a.origin[mb + j] : -1;
       const int sl = o_j >= 0 ? o_j % O : 0;
       int32_t owner, h;
-      book_slot<WO>(sm, org_id, head, sl, owner, h);
+      book_slot<BK>(bk, org_id, head, sl, owner, h);
       const bool owned = o_j >= 0 && owner == o_j;
       const bool rec = bit(sm.fresh[k], lane) && owned;
       const unsigned o_b = __ballot_sync(kFull, owned);
@@ -914,7 +1054,7 @@ __global__ void __launch_bounds__(32 * (WO ? kRowsPerBlockWide : kRowsPerBlock))
         sm.rec[k] = r_b;
       }
       if constexpr (WO) {
-        if (rec) sm.org_last[sl] = now;
+        if (rec) bk.org_last(sl) = now;
       } else {
         active |= rec ? (1u << sl) : 0u;
       }
@@ -929,10 +1069,10 @@ __global__ void __launch_bounds__(32 * (WO ? kRowsPerBlockWide : kRowsPerBlock))
 #pragma unroll
       for (int w = 0; w < WM; ++w) sw[w] = 0u;
     }
-    sm.km[lane] = km;
+    bk.km(lane) = km;
 #pragma unroll
     for (int w = 0; w < WM; ++w) {
-      if (w < W) sm.seen[lane * W + w] = sw[w];
+      if (w < W) bk.seen(lane * W + w) = sw[w];
     }
   }
   __syncwarp();
@@ -944,14 +1084,14 @@ __global__ void __launch_bounds__(32 * (WO ? kRowsPerBlockWide : kRowsPerBlock))
     const int sl = o_j >= 0 ? o_j % O : 0;
     int32_t h;
     if constexpr (WO) {
-      h = sm.head[sl];
+      h = bk.head(sl);
     } else {
       h = __shfl_sync(kFull, head, sl);
     }
     const int32_t off = wrap_sub(wrap_sub(dbv[k], h), 1);
     const bool in_win = off >= 0 && off < 32 * W;
-    if (bit(rec_b[k], lane) && in_win) atomicOr(&sm.seen[sl * W + (off >> 5)], 1u << (off & 31));
-    if (bit(live_b[k], lane) && bit(owned_b[k], lane)) atomicMax(&sm.km[sl], dbv[k]);
+    if (bit(rec_b[k], lane) && in_win) atomicOr(&bk.seen(sl * W + (off >> 5)), 1u << (off & 31));
+    if (bit(live_b[k], lane) && bit(owned_b[k], lane)) atomicMax(&bk.km(sl), dbv[k]);
   }
   if constexpr (KM == 0) {
     for (int k = 0; k < kn; ++k) {
@@ -961,26 +1101,30 @@ __global__ void __launch_bounds__(32 * (WO ? kRowsPerBlockWide : kRowsPerBlock))
       const int32_t d_j = in ? a.dbv[mb + j] : 0;
       const int sl = o_j >= 0 ? o_j % O : 0;
       int32_t owner, h;
-      book_slot<WO>(sm, org_id, head, sl, owner, h);
+      book_slot<BK>(bk, org_id, head, sl, owner, h);
       const int32_t off = wrap_sub(wrap_sub(d_j, h), 1);
       const bool in_win = off >= 0 && off < 32 * W;
-      if (bit(sm.rec[k], lane) && in_win) atomicOr(&sm.seen[sl * W + (off >> 5)], 1u << (off & 31));
-      if (bit(sm.live[k], lane) && bit(sm.owned[k], lane)) atomicMax(&sm.km[sl], d_j);
+      if (bit(sm.rec[k], lane) && in_win) atomicOr(&bk.seen(sl * W + (off >> 5)), 1u << (off & 31));
+      if (bit(sm.live[k], lane) && bit(sm.owned[k], lane)) atomicMax(&bk.km(sl), d_j);
     }
   }
   __syncwarp();
 
   // --- head advance: trailing ones, then shift the window down ------------
   if constexpr (WO) {
+    // each lane its slots (the global book's in place: its owner and last
+    // round are in the output row already)
     for (int s = lane; s < O; s += 32) {
       uint32_t ws[WM], shifted[WM];
 #pragma unroll
-      for (int w = 0; w < WM; ++w) ws[w] = w < W ? sm.seen[s * W + w] : 0u;
-      const int32_t hd = wrap_add(sm.head[s], advance_window(ws, W, shifted));
+      for (int w = 0; w < WM; ++w) ws[w] = w < W ? bk.seen(s * W + w) : 0u;
+      const int32_t hd = wrap_add(bk.head(s), advance_window(ws, W, shifted));
       a.o_head[ob + s] = hd;
-      a.o_km[ob + s] = max(sm.km[s], hd);
-      a.o_org_id[ob + s] = sm.org_id[s];
-      a.o_org_last[ob + s] = sm.org_last[s];
+      a.o_km[ob + s] = max(bk.km(s), hd);
+      if constexpr (BK == kBookShared) {
+        a.o_org_id[ob + s] = sm.org_id[s];
+        a.o_org_last[ob + s] = sm.org_last[s];
+      }
 #pragma unroll
       for (int w = 0; w < WM; ++w) {
         if (w < W) a.o_seen[ob * W + s * W + w] = static_cast<int32_t>(shifted[w]);
@@ -988,10 +1132,10 @@ __global__ void __launch_bounds__(32 * (WO ? kRowsPerBlockWide : kRowsPerBlock))
     }
   }
   if (has_o) {
-    km = sm.km[lane];
+    km = bk.km(lane);
 #pragma unroll
     for (int w = 0; w < WM; ++w) {
-      if (w < W) sw[w] = sm.seen[lane * W + w];
+      if (w < W) sw[w] = bk.seen(lane * W + w);
     }
     uint32_t shifted[WM];
     head = wrap_add(head, advance_window(sw, W, shifted));
@@ -1374,15 +1518,16 @@ __global__ void __launch_bounds__(32 * (WO ? kRowsPerBlockWide : kRowsPerBlock))
   }
 }
 
-// out: the widest batch (m) of any form, origins, seen words, queue slots,
-// payload entries (picks), the widest batch of the narrow instantiation
-// (and of the emitting one of up to kMaxPig picks), cells (any form: past
-// ingest_staged_cells() the row stays in global memory), and the most
-// origins of the register book (past them the wide book's instantiation
-// runs).
+// out: the widest batch (m) of any form, origins (any form: past
+// ingest_staged_origins() the book row stays in global memory), seen words,
+// queue slots, payload entries (picks), the widest batch of the narrow
+// instantiation (and of the emitting one of up to kMaxPig picks), cells
+// (any form: past ingest_staged_cells() the row stays in global memory),
+// and the most origins of the register book (past them the shared book's
+// instantiation runs).
 extern "C" int ingest_limits(int* out) {
   out[0] = kMaxMsgsLong;
-  out[1] = kMaxOriginsWide;
+  out[1] = kMaxOriginsGlobal;
   out[2] = kMaxWordsDeep;
   out[3] = kMaxQueueDeep;
   out[4] = kMaxPigLong;
@@ -1395,6 +1540,10 @@ extern "C" int ingest_limits(int* out) {
 // the most cells of a row staged in shared memory (CH = 2 or 8); wider rows
 // run the form that keeps the row in global memory (CH = 0)
 extern "C" int ingest_staged_cells() { return kMaxStagedCells; }
+
+// the most origins of a book staged in shared memory (the register book's
+// 32 and past them the shared book's); more run the global book
+extern "C" int ingest_staged_origins() { return kMaxOriginsWide; }
 
 // out: the most seen words and queue slots of the shallow forms (QH 1 and
 // 2); past either the deep form (QH 4) runs
@@ -1413,49 +1562,56 @@ extern "C" int ingest_long_limits(int* out) {
   return 0;
 }
 
-template <typename CT, typename XT, bool EMIT, int KM, int QH, int CH, bool WO>
+template <typename CT, typename XT, bool EMIT, int KM, int QH, int CH, int BK>
 static void launch_rows(const IngestArgs* a, cudaStream_t s) {
-  constexpr int rows = WO ? kRowsPerBlockWide : kRowsPerBlock;
+  constexpr int rows = kRowsOf<BK>;
   const int threads = 32 * rows;
   const dim3 grid((a->n + rows - 1) / rows);
-  ingest_kernel<CT, XT, EMIT, KM, QH, CH, WO><<<grid, threads, 0, s>>>(*a);
+  ingest_kernel<CT, XT, EMIT, KM, QH, CH, BK><<<grid, threads, 0, s>>>(*a);
 }
 
 // the queue's slots a lane (QH) and the cells a lane (CH) are template
 // parameters, so that a queue of 32 slots carries no second half and a row
-// of up to 64 cells keeps the smaller shared-memory row; the wide book (WO)
-// is instantiated at 8 cells a lane, which holds any row up to 256, and
-// both books at CH = 0 (the row in global memory) for any wider row. A
-// window of more than 4 seen words or a queue of more than 64 slots runs
-// the deep form (QH = 4, up to 8 words), whatever the other width is
-template <typename CT, typename XT, bool EMIT, int KM, int CH, bool WO>
+// of up to 64 cells keeps the smaller shared-memory row; the shared and the
+// global book are instantiated at 8 cells a lane, which holds any row up to
+// 256, and every book at CH = 0 (the row in global memory) for any wider
+// row. A window of more than 4 seen words or a queue of more than 64 slots
+// runs the deep form (QH = 4, up to 8 words), whatever the other width is
+template <typename CT, typename XT, bool EMIT, int KM, int CH, int BK>
 static void launch_queue(const IngestArgs* a, cudaStream_t s) {
   if constexpr (KM == 0) {
     // the long form is instantiated in the deep form alone
-    launch_rows<CT, XT, EMIT, 0, kMaxQueueDeep / 32, CH, WO>(a, s);
+    launch_rows<CT, XT, EMIT, 0, kMaxQueueDeep / 32, CH, BK>(a, s);
   } else if (a->seen_words > kMaxWords || a->q_slots > kMaxQueue) {
-    launch_rows<CT, XT, EMIT, KM, kMaxQueueDeep / 32, CH, WO>(a, s);
+    launch_rows<CT, XT, EMIT, KM, kMaxQueueDeep / 32, CH, BK>(a, s);
   } else if (a->q_slots <= 32) {
-    launch_rows<CT, XT, EMIT, KM, 1, CH, WO>(a, s);
+    launch_rows<CT, XT, EMIT, KM, 1, CH, BK>(a, s);
   } else {
-    launch_rows<CT, XT, EMIT, KM, kMaxQueue / 32, CH, WO>(a, s);
+    launch_rows<CT, XT, EMIT, KM, kMaxQueue / 32, CH, BK>(a, s);
+  }
+}
+
+template <typename CT, typename XT, bool EMIT, int KM, int BK>
+static void launch_book(const IngestArgs* a, cudaStream_t s) {
+  if (a->n_cells > kMaxStagedCells) {
+    launch_queue<CT, XT, EMIT, KM, 0, BK>(a, s);
+  } else if constexpr (BK != kBookLanes) {
+    launch_queue<CT, XT, EMIT, KM, kMaxStagedCells / 32, BK>(a, s);
+  } else if (a->n_cells > 64) {
+    launch_queue<CT, XT, EMIT, KM, kMaxStagedCells / 32, BK>(a, s);
+  } else {
+    launch_queue<CT, XT, EMIT, KM, 2, BK>(a, s);
   }
 }
 
 template <typename CT, typename XT, bool EMIT, int KM>
 static void launch_cells(const IngestArgs* a, cudaStream_t s) {
-  if (a->n_cells > kMaxStagedCells) {
-    if (a->n_origins > kMaxOrigins) {
-      launch_queue<CT, XT, EMIT, KM, 0, true>(a, s);
-    } else {
-      launch_queue<CT, XT, EMIT, KM, 0, false>(a, s);
-    }
+  if (a->n_origins > kMaxOriginsWide) {
+    launch_book<CT, XT, EMIT, KM, kBookGlobal>(a, s);
   } else if (a->n_origins > kMaxOrigins) {
-    launch_queue<CT, XT, EMIT, KM, kMaxStagedCells / 32, true>(a, s);
-  } else if (a->n_cells <= 64) {
-    launch_queue<CT, XT, EMIT, KM, 2, false>(a, s);
+    launch_book<CT, XT, EMIT, KM, kBookShared>(a, s);
   } else {
-    launch_queue<CT, XT, EMIT, KM, kMaxStagedCells / 32, false>(a, s);
+    launch_book<CT, XT, EMIT, KM, kBookLanes>(a, s);
   }
 }
 
@@ -1485,7 +1641,7 @@ static void launch_form(const IngestArgs* a, int emit, cudaStream_t s) {
 extern "C" int ingest_launch(const IngestArgs* a, int cell_bytes, int tx_bytes,
                              int emit, void* stream) {
   if (a->m < 0 || a->m > kMaxMsgsLong || a->n_origins < 1 ||
-      a->n_origins > kMaxOriginsWide || a->seen_words > kMaxWordsDeep ||
+      a->n_origins > kMaxOriginsGlobal || a->seen_words > kMaxWordsDeep ||
       a->q_slots > kMaxQueueDeep ||
       a->n_cells > kMaxCells || a->pig_r > kMaxPigLong) {
     return static_cast<int>(cudaErrorInvalidValue);

@@ -458,11 +458,12 @@ def _ingest_cuda(p: IngestParams, x: IngestInputs) -> IngestOutputs:
     lib.ingest_limits(limits)
     n, m = x.origin.shape
     c_cnt, o, w, q = p.n_cells, p.n_origins, p.seen_words, p.q_slots
-    # limits: widest m, O, W, Q, R, the widest m of the narrow instantiation
-    # (and of the emitting one of one pick a lane), C (any form: past the
-    # staged row's cells the row stays in global memory), the most O of the
-    # register book
-    if (m > limits[0] or o > limits[1] or w > limits[2] or q > limits[3]
+    # limits: widest m, O (any form: past the staged book's origins the book
+    # row stays in global memory), W, Q, R, the widest m of the narrow
+    # instantiation (and of the emitting one of one pick a lane), C (any
+    # form: past the staged row's cells the row stays in global memory), the
+    # most O of the register book
+    if (m > limits[0] or not 1 <= o <= limits[1] or w > limits[2] or q > limits[3]
             or p.pig_r > limits[4] or c_cnt > limits[6]):
         raise ValueError(
             f"ingest widths m={m} O={o} W={w} Q={q} R={p.pig_r} C={c_cnt} "
@@ -543,7 +544,8 @@ def _ingest_cuda(p: IngestParams, x: IngestInputs) -> IngestOutputs:
         # pig_changes == 0)
         form += f"/m{m}"
     if o > limits[7]:
-        form += f"/o{o}"  # the wide book's instantiation
+        # the shared book's instantiation, past its origins the global book's
+        form += f"/o{o}"
     if c_cnt > lib.ingest_staged_cells():
         form += f"/c{c_cnt}"  # the row in global memory
     shallow = (ctypes.c_int * 2)()

@@ -10,9 +10,11 @@ where the baseline takes rows past 256 cells (it exports
 ``ingest_staged_cells``) the large table's receive and emitting write at
 4,096 cells a row and N = 100,000, and where it takes more than 64 queue
 slots (it exports ``ingest_shallow_limits``) the deep queue's receive and
-emitting write at N = 100,000, and where it takes more than 128 messages
+emitting write at N = 100,000, where it takes more than 128 messages
 (it exports ``ingest_long_limits``) the wide packet's receive and emitting
-write at N = 100,000, on ``chip_smoke.py``'s kernels-phase inputs, it holds both
+write at N = 100,000, and where it takes more than 256 origins (it exports
+``ingest_staged_origins``) more writers' receive and emitting write at N =
+100,000, on ``chip_smoke.py``'s kernels-phase inputs, it holds both
 builds bitwise to the plain version, then times each through the wrapper
 with CUDA events over 20 calls, ``--reps`` times in ABBA order, and prints
 the card's name and power limit, each time, and the medians. First it
@@ -31,10 +33,11 @@ import sys
 from pathlib import Path
 
 
-def _build_baseline(src: Path) -> tuple[ctypes.CDLL, str, bool, bool, bool]:
+def _build_baseline(src: Path) -> tuple[ctypes.CDLL, str, bool, bool, bool, bool]:
     """The baseline's library, nvcc's output for it, whether it takes rows
-    past 256 cells, whether it takes more than 64 queue slots, and whether
-    it takes more than 128 messages."""
+    past 256 cells, whether it takes more than 64 queue slots, whether it
+    takes more than 128 messages, and whether it takes more than 256
+    origins."""
     from corrosion_tpu_torch.ops import cuda_lib
 
     digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
@@ -70,14 +73,23 @@ def _build_baseline(src: Path) -> tuple[ctypes.CDLL, str, bool, bool, bool]:
             return 0
 
         lib.ingest_long_limits = register
-    return lib, out.with_suffix(".log").read_text(), tables, deep, long_form
+    book = hasattr(lib, "ingest_staged_origins")
+    return lib, out.with_suffix(".log").read_text(), tables, deep, long_form, book
 
 
 def _same_ptxas(cs, log_a: str, log_b: str) -> None:
     """Print whether ptxas' report of each instantiation in both builds is
-    identical (stack frame, spills, registers and shared memory)."""
-    a, b = cs._ptxas_functions(log_a), cs._ptxas_functions(log_b)
-    both = sorted(set(a) & set(b))
+    identical (stack frame, spills, registers and shared memory). An
+    instantiation is matched by its form (``chip_smoke._ingest_instantiation``),
+    so that a source whose book argument is ``bool WO`` meets one whose is
+    ``int BK``."""
+
+    def by_form(log):
+        return {cs._ingest_instantiation(k) or k: v
+                for k, v in cs._ptxas_functions(log).items()}
+
+    a, b = by_form(log_a), by_form(log_b)
+    both = sorted(set(a) & set(b), key=str)
     differ = [k for k in both if a[k] != b[k]]
     print(f"[ingest_ab] ptxas: {len(both)} instantiations in both builds ({len(a)} in "
           f"A, {len(b)} in B), {len(differ)} with another report", flush=True)
@@ -107,7 +119,8 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
     dev = torch.device("cuda")
-    baseline, baseline_log, tables_too, deep_too, long_too = _build_baseline(args.baseline)
+    baseline, baseline_log, tables_too, deep_too, long_too, book_too = _build_baseline(
+        args.baseline)
     libs = {"A": cuda_lib.library("ingest"), "B": baseline}
     _same_ptxas(cs, cuda_lib.build_log("ingest"), baseline_log)
     flag, big, full = (scale_sim_config(100_000), million_config(1_000_000),
@@ -128,6 +141,10 @@ def main(argv=None) -> int:
         packets = scale_sim_config(100_000, **cs.PACKETS)
         forms += (("ingest_packets", packets, "receive", 76),
                   ("ingest_emit_packets", packets, "write_emit", 77))
+    if book_too:
+        origins = scale_sim_config(100_000, **cs.ORIGINS)
+        forms += (("ingest_origins", origins, "receive", 92),
+                  ("ingest_emit_origins", origins, "write_emit", 93))
     for name, cfg, form, seed in forms:
         p, x = cs._ingest_inputs(cfg, cfg.n_nodes, form, seed, dev)
         want = mk.ingest_plain(p, x)

@@ -10,8 +10,9 @@ other instantiation of the wide rows (8 cells a lane) on the tie-heavy
 inputs, in every instantiation of the row kept in global memory (more
 than 256 cells: 4,096, 4,100 and 32,767), in every instantiation of the
 deep form (more than 64 queue slots or 4 seen words, up to 128 and 8,
-and up to 32 payload picks), and in a covering set of the long form's
-(more than 128 messages or 32 picks, up to 512 and 128).
+and up to 32 payload picks), in a covering set of the long form's
+(more than 128 messages or 32 picks, up to 512 and 128), and in a covering
+set of the global book's (more than 256 origins: 257, 1,024 and 4,099).
 
 This checks the kernel's lane logic (ranks, ties, chunked batches, the
 per-warp shared memory) and that no collective diverges; it says nothing
@@ -22,6 +23,7 @@ import ctypes
 import dataclasses
 from types import SimpleNamespace
 
+import numpy as np
 import pytest
 import torch
 
@@ -110,6 +112,22 @@ LONG = [
 ]
 
 
+# the global book (more than 256 origins, the book row in global memory), a
+# covering set: each cell width (8 cells a lane, the row in global memory),
+# queue form (QH 1, 2 and 4), batch form (m <= 32 with and without EMIT,
+# m <= 128, the long form) and plane-dtype pair, at 257 (one slot past the
+# staged 256), 1,024 and 4,099 (off the 32-slot grid) origins; (name,
+# n_rows, n_origins, q_slots, buf_slots, pig_changes, dtype overrides)
+GLOBAL = [
+    ("global16_o1024", 64, 1024, 32, 32, 4, {}),
+    ("global8_o257_c4096", 1024, 257, 64, 32, 4, dict(narrow_q_int8=True)),
+    ("global32_o4099_deep", 64, 4099, 128, 256, 32, dict(narrow_dtypes=False)),
+    ("global16_o1024_long_c4096", 1024, 1024, 128, 256, 64, {}),
+    ("global8_o1024_m64", 64, 1024, 32, 32, 16, dict(narrow_q_int8=True)),
+    ("global32_o257_m64_c4096", 1024, 257, 64, 32, 16, dict(narrow_dtypes=False)),
+]
+
+
 def _deep(n_rows, n_origins, q_slots, buf_slots, pig_changes, **over):
     return scale_sim_config(100_000, n_rows=n_rows, n_cols=4, n_origins=n_origins,
                             bcast_queue=q_slots, buf_slots=buf_slots,
@@ -143,7 +161,7 @@ CONFIGS = {
     **{name: (lambda q=q, r=r, o=o, over=over: _wide(q, r, n_origins=o, **over))
        for name, q, r, o, over in TABLES},
     **{name: (lambda a=(r, o, q, b, pig), over=over: _deep(*a, **over))
-       for name, r, o, q, b, pig, over in DEEP + LONG},
+       for name, r, o, q, b, pig, over in DEEP + LONG + GLOBAL},
     # the full view's mailbox at recv_slots = 256 (int32/int32, Q = 64)
     "long_full_m256": lambda: full_view_config(8192, recv_slots=256),
 }
@@ -177,12 +195,31 @@ DEEP_FORMS = [(name, f) for name, *_ in DEEP for f in ("receive", "write_emit", 
 # view's 256-message mailbox, on the random and the tie-heavy inputs
 LONG_FORMS = [(name, f) for name, *_ in LONG for f in ("receive", "write_emit")] + [
     ("long_full_m256", "receive_full")]
+# the global book: each of GLOBAL's receive, emitting write and
+# non-emitting write, on the random and the tie-heavy inputs
+GLOBAL_FORMS = [(name, f) for name, *_ in GLOBAL for f in ("receive", "write_emit", "write")]
 CASES = [(c, f, ties) for c, f in FORMS + WIDE_BOOK_FORMS + TABLE_FORMS + LONG_FORMS
-         for ties in (False, True)] + [(c, f, True) for c, f in WIDE_FORMS] + [
+         + GLOBAL_FORMS for ties in (False, True)] + [(c, f, True) for c, f in WIDE_FORMS] + [
     (name, f, True) for name, *_ in TABLES for f in ("receive", "write_emit", "receive_full")
     if (name, f) not in TABLE_FORMS] + [
     (c, f, ties) for c, f in DEEP_FORMS for ties in (False, True)
     if ties or c in DEEP_RANDOM]
+
+
+def _rows(config, form, cfg) -> int:
+    """The rows a case runs at: fewer for the stand-in's slowest forms (the
+    full view's mailbox past 256 cells; the long form's batches, the deep
+    form's receive of up to 128 messages and the global book's receives of
+    more than 32), N_ROWS for the rest (the deep form's one-message writes
+    too, whose few messages need the rows to reach the book's slots past
+    32)."""
+    if form == "receive_full" and config.startswith("table"):
+        return N_ROWS_TABLE_MAILBOX
+    if config.startswith("long") or (form.startswith("receive") and (
+            config.startswith("deep")
+            or (config.startswith("global") and 4 * cfg.pig_changes > 32))):
+        return N_ROWS_DEEP
+    return N_ROWS
 
 
 @pytest.fixture(scope="module")
@@ -196,9 +233,8 @@ def host_ingest(tmp_path_factory):
 def test_ingest_source_on_host_matches_plain(host_ingest, monkeypatch, config, form, ties):
     host_build.route_launches(monkeypatch, host_ingest)
     cfg = CONFIGS[config]()
-    n = (N_ROWS_TABLE_MAILBOX if form == "receive_full" and config.startswith("table")
-         else N_ROWS_DEEP if config.startswith(("deep", "long")) else N_ROWS)
-    p, x = chip_smoke._ingest_inputs(cfg, n, form, 3 + 7 * ties, "cpu", ties=ties)
+    p, x = chip_smoke._ingest_inputs(cfg, _rows(config, form, cfg), form, 3 + 7 * ties, "cpu",
+                                     ties=ties)
     mk.reset_launches()
     got, want = mk._ingest_cuda(p, x), mk.ingest_plain(p, x)
     for name, a, b in zip(want._fields, got, want):
@@ -210,10 +246,22 @@ def test_ingest_source_on_host_matches_plain(host_ingest, monkeypatch, config, f
         assert min(rows.values()) > 0, rows
     if p.n_cells > chip_smoke.STAGED_CELLS:
         assert chip_smoke._past_staged_rows(x, want) > 0
-    if config.startswith("deep"):
+    if config.startswith("deep") or config.endswith("_deep"):
         _check_deep(p, x, want, form, ties)
-    if config.startswith("long"):
+    if config.startswith("long") or "_long" in config:
         _check_long(p, x, want, form, ties)
+    if config.startswith("global"):
+        _check_global(p, x, want)
+
+
+def _check_global(p, x, want):
+    """The global book's launch under its form key (``/o{O}``), and rows
+    that take, evict and record on the book's slots past the staged 256."""
+    (key, label), = mk.FORM_LAUNCHES
+    assert key == ("ingest_emit" if p.pig_r else "ingest")
+    assert f"/o{p.n_origins}" in label
+    rows = chip_smoke._wide_slot_rows(p, x, want, chip_smoke.STAGED_ORIGINS)
+    assert min(rows.values()) > 0, rows
 
 
 def _check_deep(p, x, want, form, ties):
@@ -258,24 +306,48 @@ def _check_long(p, x, want, form, ties):
 
 
 def test_host_library_reports_256_origins(host_ingest):
+    """The shared book's 256 origins, past which the global book runs;
+    origins of any form: any count whose seen words the global book's copy
+    walks in int32; the register book's one slot a lane up to 32."""
     limits = (ctypes.c_int * 8)()
     assert host_ingest.ingest_limits(limits) == 0
-    # origins of any form, and of the register book (one slot a lane)
-    assert (limits[1], limits[7]) == (256, 32)
+    assert (limits[1], limits[7]) == ((2**31 - 128) // 8, 32)
+    assert host_ingest.ingest_staged_origins() == chip_smoke.STAGED_ORIGINS == 256
 
 
-def test_257_origins_raise_with_the_widths(host_ingest, monkeypatch):
+def test_257_origins_run_bitwise(host_ingest, monkeypatch):
+    """257 origins (the shared book's first count refused, and the
+    launcher's before the global book): bitwise equal to the plain version
+    under the global book's key, with rows taking, evicting and recording
+    on slot 256."""
     host_build.route_launches(monkeypatch, host_ingest)
     cfg = scale_sim_config(100_000, n_origins=257, n_rows=64)
     p, x = chip_smoke._ingest_inputs(cfg, N_ROWS, "receive", 5, "cpu")
-    with pytest.raises(ValueError, match=r"ingest widths m=16 O=257 W=1 Q=32 R=0 C=256 "
-                                         r"exceed the kernel's limits \[512, 256,"):
-        mk._ingest_cuda(p, x)
-    # the launcher itself refuses the widths before it looks at the rows
-    a = mk._IngestArgs(m=16, n_origins=257, n_cells=256, q_slots=32, seen_words=1)
+    mk.reset_launches()
+    got, want = mk._ingest_cuda(p, x), mk.ingest_plain(p, x)
+    for name, a, b in zip(want._fields, got, want):
+        for u, v in zip(chip_smoke._flat(a), chip_smoke._flat(b)):
+            assert u.dtype == v.dtype and torch.equal(u, v), name
+    assert mk.FORM_LAUNCHES == {("ingest", "16/16/o257"): 1}
+    rows = chip_smoke._wide_slot_rows(p, x, want, chip_smoke.STAGED_ORIGINS)
+    assert min(rows.values()) > 0, rows
+
+
+@pytest.mark.parametrize("o", [0, (2**31 - 128) // 8 + 1], ids=["o0", "past_int32_copy"])
+def test_invalid_origins_raise_with_the_widths(host_ingest, monkeypatch, o):
+    """No origins, or more than the global book's copy walks in int32: the
+    wrapper raises with the widths named, and the launcher refuses them
+    too (the count is refused before the rows are looked at)."""
+    host_build.route_launches(monkeypatch, host_ingest)
+    cfg = scale_sim_config(100_000, n_rows=64)
+    p, x = chip_smoke._ingest_inputs(cfg, N_ROWS, "receive", 5, "cpu")
+    with pytest.raises(ValueError, match=rf"ingest widths m=16 O={o} W=1 Q=32 R=0 C=256 "
+                                         r"exceed the kernel's limits \[512, "):
+        mk._ingest_cuda(p._replace(n_origins=o), x)
+    a = mk._IngestArgs(m=16, n_origins=o, n_cells=256, q_slots=32, seen_words=1)
     invalid_value = 1
     assert host_ingest.ingest_launch(ctypes.byref(a), 2, 2, 0, None) == invalid_value
-    a.n_origins = 256
+    a.n_origins = 257
     assert host_ingest.ingest_launch(ctypes.byref(a), 2, 2, 0, None) == 0
 
 
@@ -342,7 +414,7 @@ def test_widths_past_the_deep_form_raise(host_ingest, monkeypatch, over, form, w
     cfg = scale_sim_config(100_000, **over)
     p, x = chip_smoke._ingest_inputs(cfg, N_ROWS_DEEP, form, 19, "cpu")
     with pytest.raises(ValueError, match=rf"ingest widths {widths} exceed the kernel's "
-                                         rf"limits \[512, 256, 8, 128, 128, 32,"):
+                                         rf"limits \[512, 268435440, 8, 128, 128, 32,"):
         mk._ingest_cuda(p, x)
     a = mk._IngestArgs(m=x.origin.shape[1], n_origins=p.n_origins, n_cells=p.n_cells,
                        q_slots=p.q_slots, seen_words=p.seen_words, pig_r=p.pig_r)
@@ -389,3 +461,27 @@ def test_int16_cell_ceiling_runs_bitwise(host_ingest, monkeypatch):
             assert u.dtype == v.dtype and torch.equal(u, v), name
     assert chip_smoke._past_staged_rows(x, want) > 0
     assert mk.FORM_LAUNCHES == {("ingest", "16/16/c32767"): 1}
+
+
+@pytest.mark.parametrize("seed", (101, 102))
+def test_four_key_ties_past_256_cells_take_the_column_form(host_ingest, monkeypatch, seed):
+    """The row in global memory (CH = 0, 4,096 cells) on messages that tie
+    on ``(clp, ver, val, site)`` with other versions past cell 256: bitwise
+    equal to the plain version, and its store equal to the JAX package's
+    column form (``apply_changes_cols``: the largest version among the
+    tied) on the batch's fresh messages."""
+    from lww_cols import cols_reference, four_key_ties
+
+    host_build.route_launches(monkeypatch, host_ingest)
+    cfg = scale_sim_config(100_000, n_rows=1024, n_cols=4)
+    p, x = chip_smoke._ingest_inputs(cfg, 16, "receive", seed, "cpu", ties=True)
+    mk.reset_launches()
+    got, want = mk._ingest_cuda(p, x), mk.ingest_plain(p, x)
+    for name, a, b in zip(want._fields, got, want):
+        for u, v in zip(chip_smoke._flat(a), chip_smoke._flat(b)):
+            assert u.dtype == v.dtype and torch.equal(u, v), name
+    assert mk.FORM_LAUNCHES == {("ingest", "16/16/c4096"): 1}
+    msgs = (x.cell, x.ver, x.val, x.site, x.dbv, x.clp, got.fresh)
+    assert four_key_ties(*msgs, past=chip_smoke.STAGED_CELLS) > 0
+    for i, (a, b) in enumerate(zip(got.store, cols_reference(x.store, *msgs))):
+        assert np.array_equal(a.numpy(), b), i
